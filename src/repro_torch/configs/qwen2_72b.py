@@ -1,0 +1,15 @@
+"""qwen2-72b [dense]: 80L d_model=8192 64H (GQA kv=8) d_ff=29568
+vocab=152064 — GQA, QKV bias. [arXiv:2407.10671; hf]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-72b", family="dense",
+    n_layers=80, d_model=8192, n_heads=64, n_kv_heads=8, head_dim=128,
+    d_ff=29568, vocab_size=152064,
+    activation="swiglu", qkv_bias=True, rope_theta=1e6,
+)
+
+SMOKE = CONFIG.scaled(
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+    d_ff=160, vocab_size=512, max_seq_len=128,
+)
