@@ -24,6 +24,19 @@ Phases (each prints its seconds; any failure exits non-zero):
                 counts are zeroed just before and read just after. Then
                 teacher-forced logits of the fused form against the
                 dequant_tree (gather) form.
+  6. serve    — main's packed model served by the paged engine (max_batch
+                4, max_len 256, page_size 16, f32 KV pages, fused paged
+                attention and fused VQ matmuls): 8 greedy requests of 40-72
+                prompt tokens, 64 new tokens each. Launch counts zeroed just
+                before ``run`` and read just after: paged_attention must
+                equal decode ticks x layers, vq_dequant_matmul must run at
+                M = 4. Then teacher-forced logits of request 0 through the
+                paged path (gather prefill + kernel decode) against the
+                cache-free forward and against the gather decode, and three
+                shorter engines (4 requests, 32 new tokens) with int8, int4
+                and vq2 pages, their drift against the f32-page run printed
+                and the vq2 engine's codebook fit counted (vq_assign
+                launches zeroed just before the engine is built).
 Then it prints the kernel JSON line, the card line and, last,
 {"ok": true, "device": {...}}. Per-shape results go to
 chiprun_out/chip_smoke.json. The profiler pass over the quantize path is
@@ -37,6 +50,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -204,16 +219,118 @@ def check_matmul(torch, dev, layer: str, M: int, scale_block: int) -> dict:
     return row
 
 
+# paged decode attention at the serve phase's shape (Llama-2-7B heads) and
+# a GQA shape (Qwen2-72B heads, G = 8); B, n_pages, page_size as the engine
+PAGED_SHAPES = {
+    "serve": dict(B=4, H=32, KV=32, hd=128, pos=[0, 57, 111, 135]),
+    "gqa": dict(B=4, H=64, KV=8, hd=128, pos=[200, 0, 255, 33]),
+}
+PAGE_SIZE, N_PAGES = 16, 16
+
+
+def check_paged(torch, dev, shape: str, fmt, q_dtype) -> dict:
+    """paged_attention against its plain version on random pools in
+    ``fmt`` (quantized by kernels/kv_quant), ragged positions and an idle
+    slot (pos 0, all-scratch table row)."""
+    from repro_torch.kernels import kv_quant as kvq
+    from repro_torch.kernels.paged_attention import (
+        _decoded_view, paged_attention, paged_attention_plain)
+
+    sh = PAGED_SHAPES[shape]
+    B, H, KV, hd, pos = sh["B"], sh["H"], sh["KV"], sh["hd"], sh["pos"]
+    nb = B * N_PAGES + 1
+    g = torch.Generator(device=dev).manual_seed(H + KV + len(str(fmt)))
+    q = torch.randn((B, H, hd), generator=g, device=dev).to(q_dtype)
+    kp = torch.randn((nb, PAGE_SIZE, KV, hd), generator=g, device=dev)
+    vp = torch.randn((nb, PAGE_SIZE, KV, hd), generator=g, device=dev)
+    kw = {}
+    if fmt == "bf16":
+        kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    elif fmt == "vq2":
+        cbs = [torch.randn((KV, 16, 2), generator=g, device=dev)
+               for _ in range(2)]
+        (kp, ks), (vp, vs) = (kvq.vq_quantize_rows(kp, cbs[0]),
+                              kvq.vq_quantize_rows(vp, cbs[1]))
+        kw = dict(k_scale=ks, v_scale=vs, k_codebook=cbs[0],
+                  v_codebook=cbs[1])
+    elif fmt in (8, 4):
+        (kp, ks), (vp, vs) = kvq.quantize_kv(kp, fmt), kvq.quantize_kv(vp, fmt)
+        kw = dict(k_scale=ks, v_scale=vs)
+    kp, vp = kp.contiguous(), vp.contiguous()
+    table = torch.zeros((B, N_PAGES), dtype=torch.int32)
+    blocks = iter(torch.randperm(nb - 1, generator=torch.Generator()
+                                 .manual_seed(B)).add(1).tolist())
+    for b in range(B):
+        if pos[b]:
+            for p in range(pos[b] // PAGE_SIZE + 1):
+                table[b, p] = next(blocks)
+    table = table.to(dev)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+    out = paged_attention(q, kp, vp, table, pos_t, **kw)
+    ref = paged_attention_plain(q, kp, vp, table, pos_t, **kw)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    # f32: online softmax and FMA dot products sum in another order; bf16
+    # output: both round the same f32 result, one bf16 ulp apart at most
+    tol = 2e-5 if q_dtype == torch.float32 else 8e-3
+    ok = bool(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol))
+    ms = time_ms(torch, lambda: paged_attention(q, kp, vp, table, pos_t,
+                                                **kw))
+    plain_ms = time_ms(torch, lambda: paged_attention_plain(
+        q, kp, vp, table, pos_t, **kw))
+    # library yardstick: SDPA over the K/V view gathered and decoded
+    # beforehand, the same kpos <= pos mask
+    kd = _decoded_view(kp, kw.get("k_scale"), kw.get("k_codebook"), table,
+                       hd).transpose(1, 2).contiguous()
+    vd = _decoded_view(vp, kw.get("v_scale"), kw.get("v_codebook"), table,
+                       hd).transpose(1, 2).contiguous()
+    mask = (torch.arange(kd.shape[2], device=dev)[None, :]
+            <= pos_t.long()[:, None])[:, None, None, :]
+    qf = q.float()[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(torch, lambda: sdpa(qf, kd, vd, attn_mask=mask,
+                                         enable_gqa=True))
+    rows = sum(min(p + 1, N_PAGES * PAGE_SIZE) for p in pos)
+    row_bytes = kp.shape[-1] * kp.element_size() + (4 if kw else 0)
+    nbytes = (2 * rows * KV * row_bytes + 2 * q.numel() * q.element_size()
+              + table.numel() * 4 + B * 4
+              + (2 * KV * 32 * 4 if fmt == "vq2" else 0))
+    b_ms, b_by = bound_ms(nbytes, 4.0 * rows * H * hd)
+    row = {"name": "paged_attention", "shape": shape, "fmt": str(fmt),
+           "q_dtype": str(q_dtype).replace("torch.", ""), "B": B, "H": H,
+           "KV": KV, "hd": hd, "pos": pos, "max_abs_err": err, "tol": tol,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": b_ms, "bound_by": b_by}
+    log(f"[kernels] paged_attention {shape} fmt={fmt} q={row['q_dtype']} "
+        f"B={B} H={H} KV={KV} hd={hd} pos={pos}: max abs err {err:.2e} "
+        f"(tol {tol:.0e}) | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa(decoded view) {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    if not ok:
+        raise Failed(f"paged_attention {shape} fmt={fmt}: error {err} > "
+                     f"{tol}")
+    return row
+
+
 def phase_kernels(torch, dev) -> list[dict]:
     t0 = time.perf_counter()
     rows = []
+    # the quantizer's EM and span sweep, then the serve engine's vq2 KV
+    # codebook fit (32 kv heads x 64 tokens x 64 pairs of head dims)
     for label, B, n in (("em", 1024, 512), ("em", 2752, 512),
-                        ("sweep", 1024, 4), ("sweep", 2752, 4)):
+                        ("sweep", 1024, 4), ("sweep", 2752, 4),
+                        ("kv vq2 fit", 32, 4096)):
         rows.append(check_assign(torch, dev, B, n, label))
     for layer in MATMUL_SHAPES:
         for M in (1, 4, 512):
             for sb in (0, 32):
                 rows.append(check_matmul(torch, dev, layer, M, sb))
+    for shape in PAGED_SHAPES:
+        for fmt in ("f32", "bf16", 8, 4, "vq2"):
+            rows.append(check_paged(torch, dev, shape, fmt, torch.float32))
+    # the serve path's own dtypes: the bf16 model's queries over the
+    # engine's f32 pages and over each quantized page format
+    for fmt in ("f32", 8, 4, "vq2"):
+        rows.append(check_paged(torch, dev, "serve", fmt, torch.bfloat16))
     log(f"[kernels] {len(rows)} checks passed in "
         f"{time.perf_counter() - t0:.1f}s")
     return rows
@@ -370,19 +487,226 @@ def phase_main(torch, dev) -> dict:
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise Failed(f"main path checks failed: {bad}")
-    return {"launches": launches, "ppl_fp": ppl_fp, "ppl_vq": ppl_vq,
-            "recon_error": rep.total_error(),
-            "achieved_bpv": rep.achieved_bpv,
-            "per_target": rep.per_target, "stage_seconds": rep.stage_seconds,
-            "seconds": t, "logit_max_diff": max_d, "logit_rms_diff": rms_d,
-            "packed_bytes": packed, "dense_bytes": dense,
-            "max_memory_allocated": peak}
+    res = {"launches": launches, "ppl_fp": ppl_fp, "ppl_vq": ppl_vq,
+           "recon_error": rep.total_error(),
+           "achieved_bpv": rep.achieved_bpv,
+           "per_target": rep.per_target, "stage_seconds": rep.stage_seconds,
+           "seconds": t, "logit_max_diff": max_d, "logit_rms_diff": rms_d,
+           "packed_bytes": packed, "dense_bytes": dense,
+           "max_memory_allocated": peak}
+    return res, model, qparams
+
+
+# the serve phase: 8 greedy requests of 40-72 prompt tokens, 64 new tokens
+SERVE_REQUESTS, SERVE_NEW, SERVE_MAX_BATCH = 8, 64, 4
+SERVE_MAX_LEN, SERVE_PAGE = 256, 16
+# serve/engine.calibrate_vq_codebooks's em_iters default
+KV_FIT_EM_ITERS = 25
+
+
+def serve_prompts(vocab: int, n: int) -> list:
+    rng = np.random.RandomState(0)
+    sizes = rng.randint(40, 73, size=n)
+    return [rng.randint(0, vocab, size=int(s)) for s in sizes]
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def serve_run(torch, dev, model, qparams, kv_bits, n_req, n_new) -> dict:
+    """One engine over ``n_req`` requests; kernel launch counts are zeroed
+    just before ``run`` and read just after."""
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.vq_assign import vq_assign
+    from repro_torch.kernels.vq_dequant_matmul import vq_dequant_matmul
+    from repro_torch.serve.engine import Engine, Request
+
+    # engine load: a vq2 engine fits its KV codebooks here (vq_assign)
+    vq_assign.launches = 0
+    t0 = time.perf_counter()
+    eng = Engine(model, qparams, max_batch=SERVE_MAX_BATCH,
+                 max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
+                 paged_attn_impl="fused", vq_matmul_impl="fused",
+                 kv_cache_bits=kv_bits, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_assign = vq_assign.launches
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=n_new)
+            for i, p in enumerate(serve_prompts(model.cfg.vocab_size, n_req))]
+    paged_attention.launches = 0
+    vq_dequant_matmul.launches = 0
+    vq_dequant_matmul.launches_by_m = {}
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_attention": paged_attention.launches,
+                "vq_dequant_matmul": vq_dequant_matmul.launches}
+    ms_seen = dict(vq_dequant_matmul.launches_by_m)
+    st = eng.stats
+    recs = eng.drain_request_records()
+    ttft = [r.ttft_s for r in recs if r.ttft_s is not None]
+    itl = [r.itl_mean_s for r in recs if r.itl_mean_s is not None]
+    res = {"kv_bits": str(kv_bits), "requests": n_req, "new": n_new,
+           "tokens": st["tokens"], "ticks": st["ticks"],
+           "decode_ticks": st["decode_ticks"],
+           "prefill_chunks": st["prefill_chunks"],
+           "preemptions": st["preemptions"], "wall_s": wall,
+           "engine_wall_s": st["wall_s"], "load_s": load_s,
+           "tok_per_s": st["tokens"] / wall,
+           "ttft_median_s": _median(ttft), "ttft_worst_s": max(ttft),
+           "itl_median_s": _median(itl), "itl_worst_s": max(itl),
+           "launches": launches, "vq_m_counts": ms_seen,
+           "load_vq_assign_launches": load_assign,
+           "out": [r.out_tokens for r in reqs],
+           "prompts": [r.prompt for r in reqs]}
+    log(f"[serve] kv={kv_bits}: {n_req} requests, {st['tokens']} tokens, "
+        f"{st['ticks']} ticks ({st['decode_ticks']} decode, "
+        f"{st['prefill_chunks']} prefill chunks, {st['preemptions']} "
+        f"preemptions) in {wall:.3f} s = {res['tok_per_s']:.1f} tok/s "
+        f"(engine load {load_s:.2f} s) | TTFT median "
+        f"{res['ttft_median_s'] * 1e3:.1f} ms worst "
+        f"{res['ttft_worst_s'] * 1e3:.1f} ms | ITL median "
+        f"{res['itl_median_s'] * 1e3:.2f} ms worst "
+        f"{res['itl_worst_s'] * 1e3:.2f} ms | launches {launches}, "
+        f"vq_dequant_matmul launches by M {ms_seen}, vq_assign launches at "
+        f"engine load {load_assign}")
+    res["engine"] = eng
+    return res
+
+
+def forced_logits(torch, dev, model, eng, prompt, forced, impl):
+    """Teacher-forced per-step logits through a fresh paged cache in the
+    engine's page format (and, for vq2, its frozen codebooks)."""
+    from repro_torch.serve import paged_cache as pc
+    from repro_torch.serve.serve_step import teacher_forced_logits
+
+    cache = model.init_cache(1, SERVE_MAX_LEN, dtype=torch.float32,
+                             paged=eng.layout, device=dev)
+    n_pages = SERVE_MAX_LEN // SERVE_PAGE
+    cache = pc.push_page_table(
+        cache, np.arange(1, n_pages + 1, dtype=np.int32)[None])
+    if eng.cache[0].k_codebook is not None:
+        cache = [c._replace(k_codebook=e.k_codebook, v_codebook=e.v_codebook)
+                 for c, e in zip(cache, eng.cache)]
+    return teacher_forced_logits(model, eng.params, prompt, forced,
+                                 cache=cache, paged_impl=impl)
+
+
+def phase_serve(torch, dev, model, qparams) -> dict:
+    cfg = model.cfg
+    t_phase = time.perf_counter()
+    main = serve_run(torch, dev, model, qparams, 16, SERVE_REQUESTS,
+                     SERVE_NEW)
+    eng = main.pop("engine")
+    n_layers = cfg.n_layers
+    want_pa = main["decode_ticks"] * n_layers
+    # 7 quantized matmuls per layer in every forward (decode tick or
+    # prefill chunk); the decode ticks run at M = max_batch
+    want_vq = 7 * n_layers * (main["decode_ticks"] + main["prefill_chunks"])
+    log(f"[serve] predicted launches: paged_attention = decode ticks x "
+        f"layers = {want_pa}; vq_dequant_matmul = 7 x layers x (decode "
+        f"ticks + prefill chunks) = {want_vq}, of them "
+        f"{7 * n_layers * main['decode_ticks']} at M = {SERVE_MAX_BATCH}")
+
+    # teacher-forced: request 0's prompt + outputs through the paged path
+    prompt, out = main["prompts"][0], main["out"][0]
+    forced = out[:-1]
+    with torch.no_grad():
+        fused = forced_logits(torch, dev, model, eng, prompt, forced, "fused")
+        gather = forced_logits(torch, dev, model, eng, prompt, forced,
+                               "gather")
+        seq = torch.as_tensor(np.concatenate([prompt, forced]),
+                              device=dev)[None]
+        free = model.forward(eng.params, {"tokens": seq})[0][0]
+        free = free[len(prompt) - 1:].float()
+    diffs = {}
+    for name, other in (("cache-free forward", free),
+                        ("gather decode", gather)):
+        d = (fused - other).float()
+        diffs[name] = (float(d.abs().max()), float(d.pow(2).mean().sqrt()))
+    # bars set from the readings on the H100: sound decodes read up to
+    # 5.2e-2 max / 1.0e-2 RMS (vs the cache-free forward, which rounds
+    # probabilities to bf16) and 3.1e-2 / 5.2e-3 (vs the gather decode);
+    # a decode that read K/V at int8 precision drifts 9.4e-2 / 1.77e-2
+    # and fails the RMS bar, a wrong page, mask or scale moves logits O(1)
+    max_tol, rms_tol = 0.1, 0.015
+    for name, (mx, rms) in diffs.items():
+        log(f"[serve] teacher-forced kernel decode vs {name}, "
+            f"{tuple(fused.shape)} logits: max |diff| {mx:.4e} (tol "
+            f"{max_tol}), RMS {rms:.4e} (tol {rms_tol})")
+    greedy_agree = float((fused.argmax(-1).cpu()
+                          == torch.tensor(out)).float().mean())
+    log(f"[serve] teacher-forced argmax reproduces the served tokens on "
+        f"{greedy_agree:.4f} of steps")
+
+    # the vq2 engine's codebook fit: EM_ITERS E-steps per pool (K and V)
+    # and layer, each one vq_assign launch over the 32 kv heads
+    want_assign = {"8": 0, "4": 0, "vq2": KV_FIT_EM_ITERS * 2 * n_layers}
+    quant = {}
+    for bits in (8, 4, "vq2"):
+        r = serve_run(torch, dev, model, qparams, bits, 4, 32)
+        e = r.pop("engine")
+        with torch.no_grad():
+            ref = forced_logits(torch, dev, model, eng, prompt, out[:31],
+                                "fused")
+            got = forced_logits(torch, dev, model, e, prompt, out[:31],
+                                "fused")
+        d = got - ref
+        r["drift_max"] = float(d.abs().max())
+        r["drift_rms"] = float(d.pow(2).mean().sqrt())
+        r["finite"] = bool(torch.isfinite(got).all())
+        log(f"[serve] kv={bits}: vq_assign launches at engine load "
+            f"{r['load_vq_assign_launches']} (predicted "
+            f"{want_assign[str(bits)]})")
+        log(f"[serve] kv={bits}: teacher-forced drift vs f32 pages on "
+            f"request 0 (32 steps): max {r['drift_max']:.4e}, RMS "
+            f"{r['drift_rms']:.4e}, finite {r['finite']}")
+        quant[str(bits)] = r
+    log(f"[serve] phase {time.perf_counter() - t_phase:.1f}s")
+
+    checks = {
+        "all requests finished": all(len(o) == SERVE_NEW for o in main["out"]),
+        "paged_attention launches == decode ticks x layers":
+            main["launches"]["paged_attention"] == want_pa > 0,
+        "vq_dequant_matmul launches == 7 x layers x forwards":
+            main["launches"]["vq_dequant_matmul"] == want_vq > 0,
+        "vq_dequant_matmul at M = 4": main["vq_m_counts"].get(
+            SERVE_MAX_BATCH, 0) == 7 * n_layers * main["decode_ticks"],
+        "teacher-forced vs cache-free": diffs["cache-free forward"][0]
+            <= max_tol and diffs["cache-free forward"][1] <= rms_tol,
+        "teacher-forced vs gather decode": diffs["gather decode"][0]
+            <= max_tol and diffs["gather decode"][1] <= rms_tol,
+    }
+    for bits, r in quant.items():
+        checks[f"kv={bits} finished"] = all(len(o) == 32 for o in r["out"])
+        checks[f"kv={bits} paged_attention launches"] = (
+            r["launches"]["paged_attention"] == r["decode_ticks"] * n_layers
+            > 0)
+        checks[f"kv={bits} logits finite"] = r["finite"]
+        checks[f"kv={bits} vq_assign launches at engine load"] = (
+            r["load_vq_assign_launches"] == want_assign[bits])
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise Failed(f"serve phase checks failed: {bad}")
+    for r in [main, *quant.values()]:
+        r.pop("prompts")
+        r["out"] = r["out"][:2]
+    return {"kv16": main, "quantized": quant, "teacher_forced": diffs,
+            "greedy_agree": greedy_agree, "predicted": {
+                "paged_attention": want_pa, "vq_dequant_matmul": want_vq,
+                "vq_assign_at_load": want_assign}}
 
 
 def kernel_line(rows: list[dict], launches: dict) -> dict:
-    """One entry per kernel, at the shape the main path launches most:
+    """One entry per kernel, at the shape its path launches most:
     vq_dequant_matmul at the eval's M=512 on a 4096x4096 projection,
-    vq_assign at the span sweep's B=1024, n=4."""
+    vq_assign at the span sweep's B=1024, n=4, paged_attention at the serve
+    phase's B=4, 32 heads of 128, bf16 queries over f32 pages. Launches:
+    the main phase's for the first two, the serve phase's (f32 pages) for
+    paged_attention."""
     pick = {
         "vq_dequant_matmul": (
             lambda r: r["shape"] == "wq" and r["M"] == 512
@@ -393,6 +717,11 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
             lambda r: r["shape"] == "sweep" and r["B"] == 1024,
             "src/repro_torch/kernels/csrc/vq_assign.cu",
             "src/repro/kernels/vq_assign.py:37"),
+        "paged_attention": (
+            lambda r: r["shape"] == "serve" and r["fmt"] == "f32"
+            and r["q_dtype"] == "bfloat16",
+            "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "src/repro/kernels/paged_attention.py:128"),
     }
     out = []
     for name, (sel, source, replaces) in pick.items():
@@ -420,15 +749,18 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(torch, dev)
     small_res = phase_small(torch, dev)
-    main_res = phase_main(torch, dev)
+    main_res, model, qparams = phase_main(torch, dev)
+    serve_res = phase_serve(torch, dev, model, qparams)
     os.makedirs(out_dir, exist_ok=True)
     out = os.path.join(out_dir, "chip_smoke.json")
     with open(out, "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "kernels": rows,
-                   "small": small_res, "main": main_res}, f, indent=1,
-                  default=str)
+                   "small": small_res, "main": main_res,
+                   "serve": serve_res}, f, indent=1, default=str)
     log(f"[done] {time.perf_counter() - t_all:.1f}s; details in {out}")
-    print(json.dumps(kernel_line(rows, main_res["launches"])))
+    launches = dict(main_res["launches"], paged_attention=serve_res[
+        "kv16"]["launches"]["paged_attention"])
+    print(json.dumps(kernel_line(rows, launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

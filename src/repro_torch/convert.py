@@ -4,8 +4,10 @@
 ``init_params`` tree into the port's parameter dict, unstacking the
 ``layers`` leading axis into a list of per-layer dicts. ``vqlinear_from_jax``
 does the same for one packed ``VQLinear`` (any object with the reference's
-field names; uint32 words are reinterpreted as int32). Nothing here imports
-jax: callers pass numpy arrays (or objects ``np.asarray`` accepts).
+field names; uint32 words are reinterpreted as int32), and
+``paged_cache_from_jax`` for a reference ``PagedKVCache`` (pools, scales,
+codebooks, page table). Nothing here imports jax: callers pass numpy arrays
+(or objects ``np.asarray`` accepts).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.vq_linear import VQLinear
 from repro_torch.device import resolve_device
+from repro_torch.models.attention import PagedKVCache
 from repro_torch.models.common import DTYPES
 
 
@@ -61,3 +64,33 @@ def vqlinear_from_jax(vql, device=None) -> VQLinear:
         r=int(vql.r), c=int(vql.c), d=int(vql.d), k=int(vql.k),
         group_cols=int(vql.group_cols), rows_per_band=int(vql.rows_per_band),
         scale_block=int(vql.scale_block), rule=str(vql.rule))
+
+
+def _exact(a, device) -> torch.Tensor:
+    """numpy -> tensor with the same bits: f32/int8/int32 as they are,
+    bf16 (no numpy dtype torch reads) through f32, which is exact."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device,
+                                                          torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+
+def paged_cache_from_jax(cache, device=None) -> list[PagedKVCache]:
+    """A reference ``PagedKVCache`` (fields as arrays; pools with a leading
+    layer axis, as the reference's scanned stacks hold them, or a single
+    layer's) -> the port's per-layer list, bit for bit."""
+    dev = resolve_device(device)
+    k = np.asarray(cache.k)
+    stacked = k.ndim == 5
+    n_layers = k.shape[0] if stacked else 1
+
+    def field(name, i):
+        a = getattr(cache, name)
+        if a is None:
+            return None
+        a = np.asarray(a)
+        return _exact(a[i] if stacked else a, dev)
+
+    return [PagedKVCache(*(field(name, i) for name in PagedKVCache._fields))
+            for i in range(n_layers)]

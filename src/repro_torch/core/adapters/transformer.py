@@ -54,7 +54,7 @@ class _DenseBlock(base.BlockAdapter):
             taps = base.acc_tap(taps, "attn_out_in", o)
             a = cm.matmul(o, lp["attn"]["wo"]).to(x.dtype)
         else:
-            a = attention.apply(lp["attn"], cfg, x1, pos=0)
+            a = attention.apply(lp["attn"], cfg, x1, pos=0)[0]
         xa = x + a
         x2 = cm.rmsnorm(xa, lp["norm2"], cfg.norm_eps)
         if "mlp" in groups:
@@ -69,7 +69,7 @@ class _DenseBlock(base.BlockAdapter):
 
     def advance(self, x):
         dense_lp = vql_mod.dequant_tree(self._new, torch.float32)
-        return transformer._block_apply(dense_lp, self.cfg, x, pos=0)
+        return transformer._block_apply(dense_lp, self.cfg, x, pos=0)[0]
 
 
 class TransformerAdapter(base.ModelAdapter):

@@ -24,8 +24,9 @@ Two execution forms:
     kernel's plain version runs instead, and ``dequantize`` shares its
     decode (``kernels/vq_dequant_matmul.reconstruct``).
 
-``COUNTS`` is a plain counter dict: "gather" counts leaves densified by
-``dequant_tree``, "fused" counts ``fused_matmul`` calls.
+``COUNTS`` is the "vq" dispatch counter (registered with ``obs.dispatch``):
+"gather" counts leaves densified by ``dequant_tree``, "fused" counts
+``fused_matmul`` calls. ``retag`` picks the form for a whole tree.
 """
 from __future__ import annotations
 
@@ -37,8 +38,10 @@ from repro_torch.core import packing
 from repro_torch.core.bpv import VQConfig
 from repro_torch.core.gptvq import VQResult
 from repro_torch.kernels import vq_dequant_matmul as vqdm
+from repro_torch.obs.dispatch import register_dispatch
 
-COUNTS = {"gather": 0, "fused": 0}
+VQ_IMPLS = ("gather", "fused")
+COUNTS = register_dispatch("vq", VQ_IMPLS)
 
 
 def _code_bits(k: int) -> int:
@@ -205,6 +208,30 @@ def prepare_fused_tree(tree):
     """VQLinear leaves -> FusedVQLinear (dense leaves untouched)."""
     return _map_leaves(
         tree, lambda x: prepare_fused(x) if isinstance(x, VQLinear) else x)
+
+
+def retag(tree, impl: str | None):
+    """The tree in the execution form ``impl``: "fused" preps VQLinear
+    leaves into FusedVQLinear (leaves already fused pass through), "gather"
+    keeps VQLinear leaves for ``dequant_tree`` and refuses FusedVQLinear
+    ones (their int8 codebooks are folded away), None leaves the tree as it
+    is. The reference's "xla" and "pallas" are both "fused" here."""
+    if impl is None:
+        return tree
+    if impl not in VQ_IMPLS:
+        raise ValueError(f"vq matmul impl {impl!r} not in {VQ_IMPLS} (the "
+                         "reference's 'xla' and 'pallas' are both 'fused' "
+                         "here)")
+    if impl == "fused":
+        return prepare_fused_tree(tree)
+
+    def check(x):
+        if isinstance(x, FusedVQLinear):
+            raise ValueError("the gather form needs VQLinear leaves; this "
+                             "tree was prepped for the fused form")
+        return x
+
+    return _map_leaves(tree, check)
 
 
 def fused_matmul(x: torch.Tensor, fvl: FusedVQLinear) -> torch.Tensor:

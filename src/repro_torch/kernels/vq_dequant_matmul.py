@@ -4,7 +4,8 @@ Port of ``repro/kernels/vq_dequant_matmul.py``. ``vq_dequant_matmul``
 launches the CUDA kernel ``csrc/vq_dequant_matmul.cu`` for CUDA tensors
 (every M: the reference's M-shaped XLA regimes are not used on the card)
 and takes the plain PyTorch version ``vq_dequant_matmul_plain`` only for
-CPU tensors. ``vq_dequant_matmul.launches`` counts kernel launches.
+CPU tensors. ``vq_dequant_matmul.launches`` counts kernel launches, and
+``vq_dequant_matmul.launches_by_m`` the same launches by M.
 
 Layout (core/vq_linear.FusedVQLinear): x (M, K) f32 or bf16; words: the
 N * K/d codes packed row-major into int32 words holding uint32 bit
@@ -107,7 +108,10 @@ def vq_dequant_matmul(x, words, codebooks, scales=None, *, d: int, k_c: int,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "vq_dequant_matmul")
     vq_dequant_matmul.launches += 1
+    by_m = vq_dequant_matmul.launches_by_m
+    by_m[M] = by_m.get(M, 0) + 1
     return y
 
 
 vq_dequant_matmul.launches = 0
+vq_dequant_matmul.launches_by_m = {}  # M (rows of x) -> launches

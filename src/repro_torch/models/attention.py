@@ -1,27 +1,52 @@
-"""GQA attention, the cache-free half (port of ``repro/models/attention.py``).
+"""GQA attention with dense and paged KV caches (port of
+``repro/models/attention.py``).
 
-Layout convention: activations (B, S, D); q/k/v (B, S, H, hd). The KV caches
-(dense and paged) and cross-attention are not ported yet (ROADMAP.md queue
-1, "Paged serving engine", "The other five families"), nor is the chunked
-flash path for S > 2048 (ROADMAP.md queue 1, "Kernel 4").
+Layout convention: activations (B, S, D); q/k/v (B, S, H, hd). Cross-
+attention is not ported yet (ROADMAP.md queue 1, "The other five
+families"), nor is the chunked flash path for S > 2048 (ROADMAP.md queue 1,
+"Kernel 4").
+
+Cache updates are in place: the reference's caches are functional
+(``.at[...].set`` under a donated ``jit``), while here a write goes straight
+into the pool (``pool[blk, off] = rows``) and ``apply`` returns the same
+cache object, so a decode tick never copies a pool.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import kv_quant as kvq
 from repro_torch.models import common as cm
-from repro_torch.pending import not_ported
+from repro_torch.obs import dispatch as obs_dispatch
 
 NEG_INF = -1e30
 # sequences longer than this take the reference's chunked flash path
 FLASH_THRESHOLD = 2048
 
-init_cache = not_ported("attention.init_cache", "Paged serving engine")
-init_paged_cache = not_ported("attention.init_paged_cache",
-                              "Paged serving engine")
+# Paged decode-attention read path of _paged_apply's S == 1 case:
+#   "gather" — attend over the page-table-gathered logical view (the
+#              reference default; also every prefill chunk)
+#   "fused"  — kernels/paged_attention.paged_attention: the CUDA kernel on
+#              CUDA tensors, its plain version on CPU tensors. The
+#              reference's "xla" (oracle) and "pallas" (TPU kernel) pair
+#              collapses into this one name.
+# Callers thread their choice through apply(paged_impl=...). The live
+# dispatch counter is registered with obs.dispatch.
+PAGED_IMPLS = ("gather", "fused")
+_PAGED_COUNTS = obs_dispatch.register_dispatch("paged", PAGED_IMPLS)
+
+
+def check_paged_impl(impl: str) -> str:
+    if impl not in PAGED_IMPLS:
+        raise ValueError(
+            f"paged attention impl {impl!r} not in {PAGED_IMPLS} (the "
+            "reference's 'xla' and 'pallas' are both 'fused' here)")
+    return impl
 
 
 def init(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
@@ -43,6 +68,119 @@ def init(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
         p["k_norm"] = torch.ones((hd,), dtype=dtype, device=device)
     return p
 
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, S_max, KV, hd)
+    v: torch.Tensor
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> KVCache:
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+@dataclasses.dataclass(frozen=True)
+class KVQuantSpec:
+    """Storage format of the paged KV pool: ``bits=16`` passthrough (the
+    cache dtype verbatim), 8/4 int8 or packed-int4 code pages with per-row
+    per-kv-head f32 scales, or ``mode="vq"`` (``KVQuantSpec.of("vq2")``,
+    bits 2) packed 4-bit codebook indices over d=2 head-dim vectors against
+    per-(pool, kv-head) codebooks carried as cache leaves, with scales."""
+    bits: int = 16
+    mode: str = "scalar"
+
+    def __post_init__(self):
+        if self.mode not in ("scalar", "vq"):
+            raise ValueError(f"KV quant mode {self.mode!r}")
+        if (self.mode == "vq") != (self.bits == 2) or self.bits not in (
+                16, 8, 4, 2):
+            raise ValueError(f"KV quant bits {self.bits} with mode "
+                             f"{self.mode!r}")
+
+    @classmethod
+    def of(cls, bits) -> "KVQuantSpec":
+        """Parse an engine/CLI ``kv_cache_bits``: 16/8/4 or "vq2"."""
+        if isinstance(bits, KVQuantSpec):
+            return bits
+        if bits == kvq.VQ_BITS:
+            return cls(bits=2, mode="vq")
+        return cls(bits=int(bits))
+
+    @property
+    def quantized(self) -> bool:
+        return self.bits < 16
+
+    @property
+    def vq(self) -> bool:
+        return self.mode == "vq"
+
+    @property
+    def fmt(self):
+        """kv_quant's format token: int bits or "vq2"."""
+        return kvq.VQ_BITS if self.vq else self.bits
+
+    def storage_cols(self, hd: int) -> int:
+        return kvq.storage_cols(hd, self.fmt) if self.quantized else hd
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedLayout:
+    """``num_blocks`` blocks of ``page_size`` tokens shared by every slot;
+    block 0 is the scratch block that idle slots' table entries point at
+    (the allocator hands out 1..num_blocks-1). ``kv`` is the page format."""
+    num_blocks: int
+    page_size: int
+    kv: KVQuantSpec = KVQuantSpec()
+
+    def n_pages(self, max_len: int) -> int:
+        return -(-max_len // self.page_size)
+
+
+class PagedKVCache(NamedTuple):
+    """KV pool + per-slot page table. ``k``/``v`` have no batch axis: logical
+    page p of slot b lives in block ``page_table[b, p]``. Quantized pools
+    hold int8 codes (``k``/``v`` last axis hd, hd//2 for int4, hd//4 for
+    vq2) and f32 scales; vq2 pools also carry their frozen codebooks. The
+    read and write paths key on which leaves are present, never on a spec.
+    """
+    k: torch.Tensor            # (num_blocks, page_size, KV, storage_cols)
+    v: torch.Tensor
+    page_table: torch.Tensor   # (B, n_pages) int32; 0 = scratch block
+    k_scale: torch.Tensor | None = None     # (num_blocks, page_size, KV) f32
+    v_scale: torch.Tensor | None = None
+    k_codebook: torch.Tensor | None = None  # (KV, 16, 2) f32
+    v_codebook: torch.Tensor | None = None
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
+                     layout: PagedLayout, dtype=torch.bfloat16,
+                     device=None) -> PagedKVCache:
+    table = torch.zeros((batch, layout.n_pages(max_len)), dtype=torch.int32,
+                        device=device)
+    if layout.kv.quantized:
+        shape = (layout.num_blocks, layout.page_size, cfg.n_kv_heads,
+                 layout.kv.storage_cols(cfg.hd))
+        codes = [torch.zeros(shape, dtype=torch.int8, device=device)
+                 for _ in range(2)]
+        scales = [torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+                  for _ in range(2)]
+        cbs = ([kvq.default_codebook(cfg.n_kv_heads, device=device)
+                for _ in range(2)] if layout.kv.vq else [None, None])
+        return PagedKVCache(codes[0], codes[1], table, *scales, *cbs)
+    shape = (layout.num_blocks, layout.page_size, cfg.n_kv_heads, cfg.hd)
+    return PagedKVCache(torch.zeros(shape, dtype=dtype, device=device),
+                        torch.zeros(shape, dtype=dtype, device=device), table)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
 
 def _plain_attention(q, k, v, mask):
     """q (B,Sq,H,hd), k/v (B,Sk,KV,hd), mask broadcastable (B,1,1,Sq,Sk).
@@ -80,6 +218,11 @@ def _project_qkv(p, cfg: ModelConfig, x):
     return q, k, v
 
 
+def _causal(Sq: int, Sk: int, device) -> torch.Tensor:
+    return (torch.arange(Sk, device=device)[None, :]
+            <= torch.arange(Sq, device=device)[:, None])[None, None, None]
+
+
 def pre_out(p, cfg: ModelConfig, x, *, pos=0):
     """Causal self-attention with RoPE up to (but not including) ``wo``;
     returns (B, S, H*hd). The Hessian tap for the output projection."""
@@ -93,11 +236,129 @@ def pre_out(p, cfg: ModelConfig, x, *, pos=0):
     pos_arr = cm.position_ids(pos, B, S, device=x.device)
     q = cm.apply_rope(q, pos_arr, cfg.rope_theta)
     k = cm.apply_rope(k, pos_arr, cfg.rope_theta)
-    ar = torch.arange(S, device=x.device)
-    causal = (ar[None, :] <= ar[:, None])[None, None, None]
-    return _plain_attention(q, k, v, causal).reshape(B, S, -1)
+    return _plain_attention(q, k, v, _causal(S, S, x.device)).reshape(B, S, -1)
 
 
-def apply(p, cfg: ModelConfig, x: torch.Tensor, *, pos=0) -> torch.Tensor:
-    """Cache-free causal self-attention, (B, S, D) -> (B, S, D)."""
-    return cm.matmul(pre_out(p, cfg, x, pos=pos), p["wo"]).to(x.dtype)
+def apply(p, cfg: ModelConfig, x: torch.Tensor, *, pos=0, cache=None,
+          paged_impl: str = "gather"):
+    """Self-attention; returns (y, cache).
+
+    * no cache: causal attention over x (B, S, D).
+    * ``KVCache``: K/V written at [pos, pos+S) (scalar pos); S == 1 decodes
+      over cache[:pos+1], S > 1 is a prefill from position 0.
+    * ``PagedKVCache``: ``pos`` may be a per-slot (B,) vector; K/V go into
+      each slot's blocks through the page table (``_paged_apply``).
+    """
+    B, S, _ = x.shape
+    if cache is None:
+        o = pre_out(p, cfg, x, pos=pos)
+        return cm.matmul(o, p["wo"]).to(x.dtype), None
+    if S > FLASH_THRESHOLD:
+        raise NotImplementedError(
+            f"cached attention over {S} > {FLASH_THRESHOLD} new tokens needs "
+            "the chunked flash-attention path (ROADMAP.md queue 1, "
+            "'Kernel 4')")
+    q, k, v = _project_qkv(p, cfg, x)
+    pos_arr = cm.position_ids(pos, B, S, device=x.device)  # (B, S)
+    q = cm.apply_rope(q, pos_arr, cfg.rope_theta)
+    k = cm.apply_rope(k, pos_arr, cfg.rope_theta)
+
+    if isinstance(cache, PagedKVCache):
+        return _paged_apply(p, cache, q, k, v, pos_arr, x.dtype,
+                            impl=paged_impl)
+
+    start = int(pos)
+    cache.k[:, start:start + S] = k.to(cache.k.dtype)
+    cache.v[:, start:start + S] = v.to(cache.v.dtype)
+    if S == 1:
+        # decode: attend over the whole cache with a length mask
+        Sk = cache.k.shape[1]
+        valid = (torch.arange(Sk, device=x.device) <= start)[
+            None, None, None, None, :]
+        o = _plain_attention(q, cache.k, cache.v, valid)
+    else:
+        # prefill from position 0
+        o = _plain_attention(q, cache.k[:, :S], cache.v[:, :S],
+                             _causal(S, S, x.device))
+    y = cm.matmul(o.reshape(B, S, -1), p["wo"])
+    return y.to(x.dtype), cache
+
+
+def _page_slots(cache: PagedKVCache, pos_arr: torch.Tensor):
+    """(block, row) of every new token: positions past the table (a padded
+    prefill chunk can overhang max_len) go to the scratch block 0, never
+    clipped into the slot's last live page."""
+    page_size = cache.k.shape[1]
+    n_pages = cache.page_table.shape[-1]
+    page = pos_arr // page_size
+    blk = torch.gather(cache.page_table, 1,
+                       torch.clamp(page, max=n_pages - 1).long())
+    blk = torch.where(page < n_pages, blk, torch.zeros_like(blk))
+    return blk.long(), (pos_arr % page_size).long()
+
+
+def _paged_apply(p, cache: PagedKVCache, q, k, v, pos_arr, out_dtype,
+                 impl: str = "gather"):
+    """Write the new K/V through the page table (in place), then attend.
+    ``pos_arr`` (B, S) holds every new token's absolute position per slot
+    (S > 1 in chunked prefill, 1 at decode).
+
+    Quantized pools: the fresh rows are quantized here (per-row per-kv-head
+    amax scales; int8 codes, int4 packed, or vq2 indices against the
+    frozen codebooks) and every read path decodes through kernels/kv_quant.
+    Decode (S == 1) with impl "fused" runs kernels/paged_attention; "gather"
+    and every prefill chunk attend over the materialized logical view. The
+    mask kpos <= pos hides scratch and stale rows on both paths.
+    """
+    B, S = pos_arr.shape
+    page_size = cache.k.shape[1]
+    n_pages = cache.page_table.shape[-1]
+    blk, off = _page_slots(cache, pos_arr)
+    if cache.k_codebook is not None:
+        kc, ks = kvq.vq_quantize_rows(k, cache.k_codebook)
+        vc, vs = kvq.vq_quantize_rows(v, cache.v_codebook)
+    elif cache.k_scale is not None:
+        bits = kvq.infer_bits(cache.k.shape[-1], q.shape[-1])
+        kc, ks = kvq.quantize_kv(k, bits)
+        vc, vs = kvq.quantize_kv(v, bits)
+    else:
+        kc, vc = k.to(cache.k.dtype), v.to(cache.v.dtype)
+    cache.k[blk, off] = kc
+    cache.v[blk, off] = vc
+    if cache.k_scale is not None:
+        cache.k_scale[blk, off] = ks
+        cache.v_scale[blk, off] = vs
+
+    check_paged_impl(impl)
+    if S == 1 and impl == "fused":
+        from repro_torch.kernels.paged_attention import paged_attention
+
+        _PAGED_COUNTS["fused"] += 1
+        o = paged_attention(
+            q[:, 0].contiguous(), cache.k, cache.v, cache.page_table,
+            pos_arr[:, 0].to(torch.int32).contiguous(),
+            k_scale=cache.k_scale, v_scale=cache.v_scale,
+            k_codebook=cache.k_codebook, v_codebook=cache.v_codebook)
+        y = cm.matmul(o.reshape(B, 1, -1), p["wo"])
+        return y.to(out_dtype), cache
+    _PAGED_COUNTS["gather"] += 1
+
+    from repro_torch.kernels.paged_attention import _decoded_view
+
+    hd = q.shape[-1]
+    if cache.k_scale is None:
+        Sk = n_pages * page_size
+        tbl = cache.page_table.long()
+        kg = cache.k[tbl].reshape(B, Sk, *cache.k.shape[2:])
+        vg = cache.v[tbl].reshape(B, Sk, *cache.v.shape[2:])
+    else:
+        kg = _decoded_view(cache.k, cache.k_scale, cache.k_codebook,
+                           cache.page_table, hd)
+        vg = _decoded_view(cache.v, cache.v_scale, cache.v_codebook,
+                           cache.page_table, hd)
+    # per-slot causal + length mask over logical positions
+    msk = (torch.arange(kg.shape[1], device=q.device)[None, None, :]
+           <= pos_arr[:, :, None])  # (B, S, Sk)
+    o = _plain_attention(q, kg, vg, msk[:, None, None])
+    y = cm.matmul(o.reshape(B, S, -1), p["wo"])
+    return y.to(out_dtype), cache

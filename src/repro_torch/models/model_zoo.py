@@ -1,9 +1,11 @@
 """Unified model API (port of ``repro/models/model_zoo.py``), dense family.
 
 ``build(cfg)`` returns a ``Model`` whose ``init_params(seed, device)`` makes
-random weights from a seed (on ``cuda`` unless ``device="cpu"``) and whose
-``forward(params, batch)`` takes a dict with ``tokens`` (B, S) and returns
-(logits, new_cache, aux_loss).
+random weights from a seed (on ``cuda`` unless ``device="cpu"``), whose
+``init_cache(batch, max_len, dtype, paged, device)`` makes a per-layer
+cache list (dense, or paged with a ``PagedLayout``), and whose
+``forward(params, batch, cache=None, pos=0, **kw)`` takes a dict with
+``tokens`` (B, S) and returns (logits, new_cache, aux_loss).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ class Model:
     cfg: ModelConfig
     init_params: Callable[..., Any]
     forward: Callable[..., tuple]
+    init_cache: Callable[..., Any]
 
 
 def build(cfg: ModelConfig) -> Model:
@@ -35,10 +38,16 @@ def build(cfg: ModelConfig) -> Model:
         gen = torch.Generator(device=dev).manual_seed(seed)
         return transformer.init_params(cfg, gen, device=dev)
 
-    def fwd(params, batch, pos=0):
-        return transformer.forward(params, cfg, batch["tokens"], pos=pos)
+    def fwd(params, batch, cache=None, pos=0, **kw):
+        return transformer.forward(params, cfg, batch["tokens"], pos=pos,
+                                   cache=cache, **kw)
 
-    return Model(cfg, init_params, fwd)
+    def init_cache(batch, max_len, dtype=torch.bfloat16, paged=None,
+                   device=None):
+        return transformer.init_cache(cfg, batch, max_len, dtype, paged,
+                                      device=resolve_device(device))
+
+    return Model(cfg, init_params, fwd, init_cache)
 
 
 def _leaves(tree):

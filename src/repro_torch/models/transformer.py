@@ -2,10 +2,12 @@
 
 The reference stores homogeneous stacks with a leading layer axis and scans
 them; here ``params["layers"]`` is a list of per-layer dicts run by a Python
-loop. ``_block_apply`` densifies ``VQLinear`` leaves through
-``vq_linear.dequant_tree`` (the gather form), while ``FusedVQLinear`` leaves
-reach ``common.matmul`` (the fused kernel). MoE and xLSTM blocks are not
-ported yet (ROADMAP.md queue 1, "The other five families").
+loop, and a cache is a list with one ``KVCache`` or ``PagedKVCache`` per
+layer (not a slice of a stacked leaf). ``_block_apply`` densifies
+``VQLinear`` leaves through ``vq_linear.dequant_tree`` (the gather form),
+while ``FusedVQLinear`` leaves reach ``common.matmul`` (the fused kernel).
+MoE and xLSTM blocks are not ported yet (ROADMAP.md queue 1, "The other
+five families").
 """
 from __future__ import annotations
 
@@ -15,10 +17,6 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common as cm, mlp
-from repro_torch.pending import not_ported
-
-
-init_cache = not_ported("transformer.init_cache", "Paged serving engine")
 
 
 def _block_init(gen, cfg: ModelConfig, dtype, device):
@@ -30,23 +28,31 @@ def _block_init(gen, cfg: ModelConfig, dtype, device):
     }
 
 
-def _block_apply(p, cfg: ModelConfig, x, *, pos=0):
-    """One pre-norm residual block; VQLinear leaves are densified first."""
+def _block_apply(p, cfg: ModelConfig, x, *, pos=0, cache=None,
+                 paged_impl="gather"):
+    """One pre-norm residual block; VQLinear leaves are densified first.
+    Returns (x, new_cache)."""
     from repro_torch.core import vq_linear as vql_mod
 
     p = vql_mod.dequant_tree(p, cm.DTYPES[cfg.dtype])  # no-op if not VQ
-    x = x + attention.apply(p["attn"], cfg,
-                            cm.rmsnorm(x, p["norm1"], cfg.norm_eps), pos=pos)
+    h, new_kv = attention.apply(
+        p["attn"], cfg, cm.rmsnorm(x, p["norm1"], cfg.norm_eps), pos=pos,
+        cache=cache, paged_impl=paged_impl)
+    x = x + h
     h2 = cm.rmsnorm(x, p["norm2"], cfg.norm_eps)
-    return x + mlp.apply(p["ffn"], cfg, h2)
+    return x + mlp.apply(p["ffn"], cfg, h2), new_kv
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator | None,
-                device=None) -> dict:
+def _check_family(cfg: ModelConfig):
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md queue 1, "
             "'The other five families')")
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator | None,
+                device=None) -> dict:
+    _check_family(cfg)
     dtype = cm.DTYPES[cfg.dtype]
     params: dict[str, Any] = {
         "embed": cm.embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype,
@@ -61,6 +67,20 @@ def init_params(cfg: ModelConfig, gen: torch.Generator | None,
     return params
 
 
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, paged=None, device=None) -> list:
+    """One cache per layer. ``paged``: an attention.PagedLayout — each layer
+    gets its own block pools and page table (serving); None keeps the dense
+    (B, max_len) layout."""
+    _check_family(cfg)
+    if paged is not None:
+        return [attention.init_paged_cache(cfg, batch, max_len, paged, dtype,
+                                           device=device)
+                for _ in range(cfg.n_layers)]
+    return [attention.init_cache(cfg, batch, max_len, dtype, device=device)
+            for _ in range(cfg.n_layers)]
+
+
 def embed_tokens(params, cfg: ModelConfig, tokens):
     return params["embed"][tokens]  # gather
 
@@ -70,16 +90,30 @@ def unembed(params, cfg: ModelConfig, x):
     return cm.matmul(x, w).to(torch.float32)
 
 
-def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, pos=0):
-    """Returns (logits, new_cache, aux_loss) as the reference does; logits
-    are f32, there is no cache yet and the dense kind has no aux loss."""
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, pos=0,
+            cache=None, paged_impl: str = "gather",
+            last_only: bool = False):
+    """Returns (logits, new_cache, aux_loss); logits are f32 and the dense
+    kind has no aux loss. ``pos`` is a scalar start position or, over paged
+    caches, a per-slot (B,) vector. ``paged_impl`` picks the paged decode
+    read ("gather" | "fused", see attention._paged_apply). VQ leaves run in
+    the form they arrive in (VQLinear: gather, FusedVQLinear: fused; see
+    vq_linear.retag, which callers such as the engine apply once).
+    ``last_only`` keeps only the last position's logits."""
     from repro_torch.core import vq_linear as vql_mod
 
     top = {k: v for k, v in params.items() if k != "layers"}
     params = {**params, **vql_mod.dequant_tree(top, cm.DTYPES[cfg.dtype])}
     x = embed_tokens(params, cfg, tokens)
-    for layer_p in params["layers"]:
-        x = _block_apply(layer_p, cfg, x, pos=pos)
+    new_cache = None if cache is None else []
+    for i, layer_p in enumerate(params["layers"]):
+        x, new_c = _block_apply(layer_p, cfg, x, pos=pos,
+                                cache=None if cache is None else cache[i],
+                                paged_impl=paged_impl)
+        if cache is not None:
+            new_cache.append(new_c)
+    if last_only:
+        x = x[:, -1:]
     x = cm.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return unembed(params, cfg, x), None, aux
+    return unembed(params, cfg, x), new_cache, aux

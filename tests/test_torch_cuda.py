@@ -130,3 +130,187 @@ def test_quantize_on_cuda_matches_cpu(dev):
     assert vq_dequant_matmul.launches - before == 7
     lg = model.forward(q, {"tokens": tokens.to(dev)})[0]
     torch.testing.assert_close(lf, lg, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention
+# ---------------------------------------------------------------------------
+
+PAGE_FORMATS = ["f32", "bf16", 8, 4, "vq2"]
+
+
+def paged_case(dev, seed, *, B, H, KV, hd, page_size, n_pages, num_blocks,
+               fmt, pos=None, q_dtype=torch.float32):
+    """Random pools in ``fmt`` (quantized through kernels/kv_quant), a page
+    table mapping each slot's live pages to distinct blocks (scratch block 0
+    past them), ragged positions; slots with pos 0 get an all-scratch row."""
+    from repro_torch.kernels import kv_quant as kvq
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, H, hd), generator=g, device=dev).to(q_dtype)
+    shape = (num_blocks, page_size, KV, hd)
+    kp = torch.randn(shape, generator=g, device=dev)
+    vp = torch.randn(shape, generator=g, device=dev)
+    kw = {}
+    if fmt == "bf16":
+        kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    elif fmt == "vq2":
+        kcb = torch.randn((KV, kvq.VQ_K, kvq.VQ_D), generator=g, device=dev)
+        vcb = torch.randn((KV, kvq.VQ_K, kvq.VQ_D), generator=g, device=dev)
+        kp, ks = kvq.vq_quantize_rows(kp, kcb)
+        vp, vs = kvq.vq_quantize_rows(vp, vcb)
+        kw = dict(k_scale=ks, v_scale=vs, k_codebook=kcb, v_codebook=vcb)
+    elif fmt in (8, 4):
+        kp, ks = kvq.quantize_kv(kp, fmt)
+        vp, vs = kvq.quantize_kv(vp, fmt)
+        kw = dict(k_scale=ks, v_scale=vs)
+    if pos is None:
+        pos = torch.randint(0, n_pages * page_size, (B,), generator=g,
+                            device=dev).tolist()
+    table = torch.zeros((B, n_pages), dtype=torch.int32)
+    free = (torch.randperm(num_blocks - 1, generator=torch.Generator()
+                           .manual_seed(seed)) + 1).tolist()
+    for b in range(B):
+        if pos[b] == 0:
+            continue  # idle slot: all-scratch table row
+        for p in range(min(pos[b] // page_size + 1, n_pages)):
+            table[b, p] = free.pop() if free else 0
+    return (q, kp.contiguous(), vp.contiguous(), table.to(dev),
+            torch.tensor(pos, dtype=torch.int32, device=dev), kw)
+
+
+@pytest.mark.parametrize("fmt", PAGE_FORMATS)
+@pytest.mark.parametrize("B,H,KV,hd,page_size,n_pages,num_blocks,pos", [
+    (4, 32, 32, 128, 16, 16, 65, [0, 37, 255, 16]),   # the serve shape
+    (2, 64, 8, 128, 16, 16, 33, [100, 0]),            # G = 8 (qwen2-72b)
+    (3, 8, 2, 64, 8, 6, 32, None),                    # G = 4, ragged
+    (5, 4, 2, 32, 1, 16, 90, None),                   # page_size 1
+    (2, 16, 4, 8, 32, 2, 6, [63, 5]),                 # narrow hd, 2 pages
+    (1, 4, 1, 256, 64, 3, 4, [191])])                 # > 48 KB of smem
+def test_paged_attention_matches_plain(dev, fmt, B, H, KV, hd, page_size,
+                                       n_pages, num_blocks, pos):
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_attention_plain)
+
+    q, kp, vp, table, pos_t, kw = paged_case(
+        dev, B + H + hd, B=B, H=H, KV=KV, hd=hd, page_size=page_size,
+        n_pages=n_pages, num_blocks=num_blocks, fmt=fmt, pos=pos)
+    before = paged_attention.launches
+    got = paged_attention(q, kp, vp, table, pos_t, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    want = paged_attention_plain(q, kp, vp, table, pos_t, **kw)
+    assert got.dtype == q.dtype and bool(torch.isfinite(got).all())
+    # online softmax and FMA dot products: f32 sums in another order
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("fmt", PAGE_FORMATS)
+def test_paged_attention_bf16_query(dev, fmt):
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_attention_plain)
+
+    q, kp, vp, table, pos_t, kw = paged_case(
+        dev, 7, B=3, H=16, KV=4, hd=128, page_size=16, n_pages=8,
+        num_blocks=30, fmt=fmt, pos=[0, 50, 127], q_dtype=torch.bfloat16)
+    got = paged_attention(q, kp, vp, table, pos_t, **kw)
+    want = paged_attention_plain(q, kp, vp, table, pos_t, **kw)
+    assert got.dtype == torch.bfloat16
+    # both round the same f32 result to bf16: at most one bf16 ulp apart
+    torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
+                               atol=8e-3)
+
+
+def test_paged_attention_rejects_what_the_kernel_does_not_take(dev):
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    q, kp, vp, table, pos_t, kw = paged_case(
+        dev, 1, B=2, H=4, KV=2, hd=16, page_size=4, n_pages=4,
+        num_blocks=10, fmt="vq2")
+    before = paged_attention.launches
+    with pytest.raises(ValueError, match="head_dim % 4"):
+        paged_attention(torch.zeros((2, 4, 18), device=dev), kp, vp, table,
+                        pos_t, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_attention(q.transpose(0, 1).contiguous().transpose(0, 1), kp,
+                        vp, table, pos_t, **kw)
+    with pytest.raises(ValueError, match="int32"):
+        paged_attention(q, kp, vp, table.long(), pos_t, **kw)
+    assert paged_attention.launches == before
+
+
+def _to(tree, dev):
+    """A param tree (dicts, lists, tensors, VQLinear leaves) on ``dev``."""
+    import dataclasses
+
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    if isinstance(tree, vql.VQLinear):
+        return dataclasses.replace(tree, **{
+            f.name: getattr(tree, f.name).to(dev)
+            for f in dataclasses.fields(tree)
+            if torch.is_tensor(getattr(tree, f.name))})
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8, 4, "vq2"])
+def test_engine_on_cuda_matches_cpu(dev, kv_bits):
+    """The smoke config, GPTVQ-packed on the CPU, served by the same engine
+    on the card (fused paged attention and fused VQ matmul: both kernels)
+    and on the CPU (their plain versions). Greedy tokens must agree; where
+    a near-tie flips one, the teacher-forced logits of the CUDA run on the
+    CPU run's tokens must stay within 1e-3 RMS (f32 sums in another
+    order)."""
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.serve import paged_cache as pc
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.serve.serve_step import teacher_forced_logits
+
+    cfg = SMOKE["llama2-7b"].scaled(dtype="float32", n_layers=2, d_model=64,
+                                    vocab_size=256, max_seq_len=64)
+    model = model_zoo.build(cfg)
+    params = model.init_params(seed=0, device="cpu")
+    calib = torch.randint(0, cfg.vocab_size, (8, 32),
+                          generator=torch.Generator().manual_seed(0))
+    recipe = QuantRecipe.uniform(VQConfig(d=2, bits_per_dim=2,
+                                          group_size=1024, em_iters=4,
+                                          codebook_update_iters=2))
+    q, _ = quantize_model(model, params, calib, recipe=recipe, pack=True)
+    rng = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, 255, (s,), generator=rng).numpy()
+               for s in (5, 9, 3, 12)]
+    out = {}
+    for where in ("cpu", dev):
+        eng = Engine(model, _to(q, where), max_batch=2, max_len=64,
+                     page_size=8, paged_attn_impl="fused",
+                     vq_matmul_impl="fused", kv_cache_bits=kv_bits,
+                     device=where)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        before = paged_attention.launches
+        eng.run(reqs)
+        launched = paged_attention.launches - before
+        assert launched == (eng.stats["decode_ticks"] * cfg.n_layers
+                            if where == dev else 0)
+        out[str(where)] = (eng, [r.out_tokens for r in reqs])
+    (eng_c, toks_c), (eng_g, toks_g) = out["cpu"], out[str(dev)]
+    if toks_c == toks_g:
+        return
+    for p, tc in zip(prompts, toks_c):
+        traces = []
+        for eng in (eng_c, eng_g):
+            cache = model.init_cache(1, 64, dtype=torch.float32,
+                                     paged=eng.layout, device=eng.device)
+            cache = pc.push_page_table(
+                cache, torch.arange(1, 9, dtype=torch.int32)[None])
+            if kv_bits == "vq2":  # the CPU engine's codebooks for both
+                cache = [c._replace(k_codebook=e.k_codebook.to(eng.device),
+                                    v_codebook=e.v_codebook.to(eng.device))
+                         for c, e in zip(cache, eng_c.cache)]
+            traces.append(teacher_forced_logits(
+                model, eng.params, p, tc[:-1], cache=cache,
+                paged_impl="fused").cpu())
+        rms = float((traces[0] - traces[1]).pow(2).mean().sqrt())
+        assert rms <= 1e-3, rms

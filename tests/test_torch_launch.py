@@ -134,7 +134,8 @@ def test_every_kernel_source_has_a_wrapper():
     ("core.codebook", "kmeanspp_init"),
     ("core.codebook_compress", "svd_compress"),
     ("core.recipe", "IntQuant"), ("core.recipe", "allocate_budget"),
-    ("models.attention", "init_cache"), ("models.transformer", "init_cache")])
+    ("core.hessian", "init_diag_hessian"),
+    ("core.recipe", "closed_form_proxy_error")])
 def test_left_out_functions_name_their_roadmap_entry(module, name):
     import importlib
 
