@@ -10,7 +10,7 @@ Phases (each prints its seconds; any failure exits non-zero):
   2. build    — compile every kernel of the path (one nvcc per source, in
                 parallel) into build/repro_torch/.
   3. kernels  — each kernel against its plain PyTorch version on the card at
-                the main path's shapes, with its tolerance, its time, the
+                its path's shapes, with its tolerance, its time, the
                 plain version's time, one PyTorch library call's time and
                 the least time the card could take (bound).
   4. small    — the whole path on the SKILL smoke config, on the card and
@@ -37,6 +37,18 @@ Phases (each prints its seconds; any failure exits non-zero):
                 and vq2 pages, their drift against the f32-page run printed
                 and the vq2 engine's codebook fit counted (vq_assign
                 launches zeroed just before the engine is built).
+  7. long     — the quantize path at Llama-2-7B's 4096-token context, same
+                full-width 2-layer model and recipe: calibration 4 x 4096
+                tokens, heldout 8 x 4096; fp perplexity, quantize_model
+                with a Telemetry, vq perplexity, the packed checkpoint
+                saved (build/repro_torch/long_ckpt, removed after),
+                restored and evaluated again. Every attention runs the
+                flash_attention kernel; launch and dispatch counts are
+                zeroed just before the fp perplexity and read just after
+                the restored one, and held to the prediction (10 flash
+                launches), with the restored leaves bit for bit, the
+                restored perplexity equal to the vq one and the quant
+                event counts.
 Then it prints the kernel JSON line, the card line and, last,
 {"ok": true, "device": {...}}. Per-shape results go to
 chiprun_out/chip_smoke.json. The profiler pass over the quantize path is
@@ -56,10 +68,13 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and
-# FP32 (non-tensor-core) FLOP/s — the kernels do their arithmetic in FP32
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, FP32
+# (non-tensor-core) FLOP/s and bf16 tensor-core FLOP/s. A product of f32
+# operands is bound at the FP32 peak; one of bf16 operands with an f32 sum
+# at the bf16 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12
 
 # 2.25bpv_2d on the Llama-2-7B projections: d=2, k=16, 256-column groups of
 # 4 rows; (N, K) per layer shape
@@ -193,13 +208,14 @@ def check_matmul(torch, dev, layer: str, M: int, scale_block: int) -> dict:
     torch.cuda.synchronize()
     err = float((y - ref).abs().max())
     tol = 1e-4 * float(ref.abs().max())
+    it = (5, 1) if M * N * K > 2**38 else (20, 3)
     ms = time_ms(torch, lambda: vq_dequant_matmul(x, words, cb, scales,
-                                                  k_c=k, **kw))
+                                                  k_c=k, **kw), *it)
     plain_ms = time_ms(torch, lambda: vq_dequant_matmul_plain(
-        x, words, cb, scales, **kw))
+        x, words, cb, scales, **kw), *it)
     W = reconstruct(words, cb, scales, **kw)
     xf = x.float()
-    lib_ms = time_ms(torch, lambda: torch.matmul(xf, W.T))
+    lib_ms = time_ms(torch, lambda: torch.matmul(xf, W.T), *it)
     nbytes = (x.numel() * x.element_size() + words.numel() * 4
               + cb.numel() * 4 + (scales.numel() * 4 if scale_block else 0)
               + M * N * 4)
@@ -311,6 +327,103 @@ def check_paged(torch, dev, shape: str, fmt, q_dtype) -> dict:
     return row
 
 
+# the long phase: Llama-2-7B's published 4096-token context
+LONG_SEQ, LONG_CALIB, LONG_HELDOUT = 4096, 4, 8
+
+# flash attention at the long phase's shapes (Llama-2-7B heads, 4096-token
+# context: heldout B = 8, calibration B = 4), a GQA shape with Qwen2-72B's
+# heads, and two small exactness cases (q_offset > 0; non-causal, Sk != Sq)
+FLASH_SHAPES = {
+    "llama B=8": dict(B=8, Sq=4096, Sk=4096, H=32, KV=32, hd=128,
+                      causal=True, q_offset=0),
+    "llama B=4": dict(B=4, Sq=4096, Sk=4096, H=32, KV=32, hd=128,
+                      causal=True, q_offset=0),
+    "gqa": dict(B=1, Sq=4096, Sk=4096, H=64, KV=8, hd=128, causal=True,
+                q_offset=0),
+    "q_offset": dict(B=2, Sq=512, Sk=2048, H=8, KV=2, hd=128, causal=True,
+                     q_offset=1536),
+    "non-causal": dict(B=2, Sq=512, Sk=2048, H=8, KV=8, hd=64,
+                       causal=False, q_offset=0),
+}
+
+
+def check_flash(torch, dev, shape: str, dtype) -> dict:
+    """flash_attention against its plain version (the reference's two-level
+    scan), timed beside SDPA on the same q/k/v."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+
+    sh = FLASH_SHAPES[shape]
+    B, Sq, Sk, H, KV, hd = (sh[n] for n in ("B", "Sq", "Sk", "H", "KV", "hd"))
+    causal, off = sh["causal"], sh["q_offset"]
+    g = torch.Generator(device=dev).manual_seed(Sq + Sk + H + hd)
+    q = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, Sk, KV, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Sk, KV, hd), generator=g, device=dev).to(dtype)
+    kw = dict(causal=causal, q_offset=off)
+    out = flash_attention(q, k, v, **kw)
+    ref = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    # f32: online softmax over 64-column tiles and FMA dot products sum in
+    # another order; bf16 output: both round f32 results ~1e-6 apart, so
+    # they differ by at most one bf16 ulp, 2^-7 of the value
+    rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (2.0**-7, 1e-5)
+    ok = bool(torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol))
+    big = B * H * Sq * Sk > 2**30
+    iters, warm = (5, 1) if big else (20, 3)
+    ms = time_ms(torch, lambda: flash_attention(q, k, v, **kw), iters, warm)
+    plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v, **kw),
+                       iters, warm)
+    # library yardstick: SDPA on the same q/k/v in (B, H, S, hd) order; a
+    # q_offset needs an explicit mask (is_causal aligns rows at 0)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = None
+    if causal and off:
+        mask = (torch.arange(Sk, device=dev)[None, :]
+                <= off + torch.arange(Sq, device=dev)[:, None])
+    lib_ms = time_ms(torch, lambda: sdpa(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and not off,
+        enable_gqa=KV != H), iters, warm)
+    # the work these inputs need: every unmasked (row, column) pair costs
+    # 2 * hd FLOPs of q.k and 2 * hd of p.v per head; each input read once,
+    # the output written once. With bf16 q/k, q.k is exact on bf16 tensor
+    # cores with f32 accumulation; p.v stays on the FP32 cores, because p is
+    # kept in f32 (rounding it to bf16 would compute another function)
+    if causal:
+        pairs = sum(min(Sk, off + i + 1) for i in range(Sq))
+    else:
+        pairs = Sq * Sk
+    flops = 4.0 * hd * pairs * B * H
+    nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    if dtype == torch.bfloat16:
+        t_ops = flops / 2 / BF16_TC_FLOP_PER_S + flops / 2 / FP32_FLOP_PER_S
+    else:
+        t_ops = flops / FP32_FLOP_PER_S
+    b_ms, b_by = ((t_bytes * 1e3, "bytes") if t_bytes >= t_ops
+                  else (t_ops * 1e3, "operations"))
+    # what a redesign with p rounded to bf16 would aim at: all of it on
+    # the bf16 tensor cores
+    tc_ms = max(t_bytes, flops / BF16_TC_FLOP_PER_S) * 1e3
+    row = {"name": "flash_attention", "shape": shape, **sh,
+           "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+           "rtol": rtol, "atol": atol, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "bound_bf16_tc_ms": tc_ms, "flops": flops}
+    log(f"[kernels] flash_attention {shape} {row['dtype']} B={B} Sq={Sq} "
+        f"Sk={Sk} H={H} KV={KV} hd={hd} causal={causal} q_offset={off}: max "
+        f"abs err {err:.2e} (rtol {rtol:.1e}, atol {atol:.0e}) | kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), {tc_ms:.4f} ms with p.v on bf16 tensor "
+        f"cores too")
+    if not ok:
+        raise Failed(f"flash_attention {shape} {dtype}: error {err} outside "
+                     f"rtol {rtol}, atol {atol}")
+    return row
+
+
 def phase_kernels(torch, dev) -> list[dict]:
     t0 = time.perf_counter()
     rows = []
@@ -324,6 +437,9 @@ def phase_kernels(torch, dev) -> list[dict]:
         for M in (1, 4, 512):
             for sb in (0, 32):
                 rows.append(check_matmul(torch, dev, layer, M, sb))
+        # the long phase's heldout evaluation: 8 x 4096 rows
+        rows.append(check_matmul(torch, dev, layer, LONG_HELDOUT * LONG_SEQ,
+                                 0))
     for shape in PAGED_SHAPES:
         for fmt in ("f32", "bf16", 8, 4, "vq2"):
             rows.append(check_paged(torch, dev, shape, fmt, torch.float32))
@@ -331,6 +447,9 @@ def phase_kernels(torch, dev) -> list[dict]:
     # engine's f32 pages and over each quantized page format
     for fmt in ("f32", 8, 4, "vq2"):
         rows.append(check_paged(torch, dev, "serve", fmt, torch.bfloat16))
+    for shape in FLASH_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            rows.append(check_flash(torch, dev, shape, dt))
     log(f"[kernels] {len(rows)} checks passed in "
         f"{time.perf_counter() - t0:.1f}s")
     return rows
@@ -700,13 +819,165 @@ def phase_serve(torch, dev, model, qparams) -> dict:
                 "vq_assign_at_load": want_assign}}
 
 
+def phase_long(torch, dev) -> dict:
+    """Quantize and evaluate at 4096 tokens (flash_attention in every
+    attention), save the packed checkpoint, restore it and evaluate the
+    restored tree. Launch and dispatch counts are zeroed just before the
+    fp perplexity and read just after the restored one."""
+    import shutil
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import vq_linear as vql_mod
+    from repro_torch.core.bpv import PAPER_SETTINGS
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.data.calibration import calibration_tokens
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.vq_assign import vq_assign
+    from repro_torch.kernels.vq_dequant_matmul import vq_dequant_matmul
+    from repro_torch.models import model_zoo
+    from repro_torch.obs import Telemetry, dispatch
+    from repro_torch.train.loss import perplexity
+
+    cfg = ARCHS["llama2-7b"].scaled(n_layers=2)
+    log(f"[long] {cfg.name}: d_model {cfg.d_model}, heads {cfg.n_heads} x "
+        f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, layers "
+        f"{cfg.n_layers}, dtype {cfg.dtype}; calibration {LONG_CALIB} x "
+        f"{LONG_SEQ}, heldout {LONG_HELDOUT} x {LONG_SEQ} tokens")
+    torch.cuda.reset_peak_memory_stats()
+    t = {}
+    t0 = time.perf_counter()
+    model = model_zoo.build(cfg)
+    params = model.init_params(seed=0, device=dev)
+    calib = calibration_tokens(cfg.vocab_size, n_sequences=LONG_CALIB,
+                               seq_len=LONG_SEQ, device=dev)
+    heldout = calibration_tokens(cfg.vocab_size, n_sequences=LONG_HELDOUT,
+                                 seq_len=LONG_SEQ, seed=777, device=dev)
+    torch.cuda.synchronize()
+    t["init"] = time.perf_counter() - t0
+    recipe = QuantRecipe.uniform(
+        PAPER_SETTINGS["2.25bpv_2d"], name="2.25bpv_2d"
+    ).with_quantize_overrides(em_iters=25, codebook_update_iters=10)
+    tel = Telemetry()
+    ck_dir = os.path.join(ROOT, "build", "repro_torch", "long_ckpt")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    # one calibration chunk (4 sequences <= quantize_model's chunk of 8):
+    # per layer one capture and one advance forward, and one forward in
+    # each of the fp, vq and restored-vq evaluations, each with one
+    # attention over 4096 tokens
+    want_flash = cfg.n_layers * (2 + 3)
+    want_vq = 7 * cfg.n_layers * 2  # the vq and restored-vq evaluations
+
+    flash_attention.launches = 0
+    vq_dequant_matmul.launches = 0
+    vq_assign.launches = 0
+    dispatch.reset_dispatch_counters()
+    t0 = time.perf_counter()
+    ppl_fp = perplexity(model, params, heldout)
+    t["ppl_fp"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qparams, rep = quantize_model(
+        model, params, calib, recipe=recipe, pack=True, telemetry=tel,
+        progress=lambda m: log(f"[long]   {m} "
+                               f"({time.perf_counter() - t0:.1f}s)"))
+    torch.cuda.synchronize()
+    t["quantize"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ppl_vq = perplexity(model, vql_mod.prepare_fused_tree(qparams), heldout)
+    t["ppl_vq"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Checkpointer(ck_dir, keep=1).save(0, qparams, metadata={
+        "arch": cfg.name, "recipe": recipe.to_json(),
+        "achieved_bpv": rep.achieved_bpv, "per_target": rep.per_target,
+        "ppl_fp": ppl_fp, "ppl_vq": ppl_vq})
+    t["save"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored, meta = Checkpointer(ck_dir).restore(qparams)
+    torch.cuda.synchronize()
+    t["restore"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ppl_rs = perplexity(model, vql_mod.prepare_fused_tree(restored), heldout)
+    t["ppl_restored"] = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.launches,
+                "vq_dequant_matmul": vq_dequant_matmul.launches,
+                "vq_assign": vq_assign.launches}
+    flash_dispatch = dispatch.snapshot_dispatch_counters()["flash"]["fused"]
+    peak = torch.cuda.max_memory_allocated()
+
+    from repro_torch.checkpoint.checkpointer import _flatten
+
+    pairs = list(zip(_flatten(qparams), _flatten(restored)))
+    bitwise = all(p == r and a.dtype == b.dtype and a.device == b.device
+                  and torch.equal(a, b) for (p, a), (r, b) in pairs)
+    n_bf16 = sum(a.dtype == torch.bfloat16 for (_, a), _ in pairs)
+    ck_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                   for dp, _, fs in os.walk(ck_dir) for f in fs)
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    evs = tel.events.events
+    n_stage = sum(e["event"] == "quant_stage" for e in evs)
+    n_target = sum(e["event"] == "quant_target" for e in evs)
+    # per block: capture, advance, and per target one codebook_update and
+    # one em_init and one column_sweep for each of its column groups
+    n_groups = sum(leaf.n_cg for lp in qparams["layers"]
+                   for sub in (lp["attn"], lp["ffn"]) for leaf in sub.values())
+    want_stage = cfg.n_layers * (2 + 7) + 2 * n_groups
+
+    log(f"[long] ppl fp={ppl_fp:.3f} vq={ppl_vq:.3f} restored={ppl_rs:.3f} | "
+        f"recon err={rep.total_error():.4f} | achieved "
+        f"{rep.achieved_bpv:.4f} bpv")
+    log("[long] stages: " + "  ".join(
+        f"{k}={v:.2f}s" for k, v in sorted(rep.stage_seconds.items(),
+                                          key=lambda kv: -kv[1])))
+    log("[long] seconds: " + "  ".join(f"{k}={v:.2f}" for k, v in t.items()))
+    log(f"[long] launches: {launches}; predicted flash_attention "
+        f"{want_flash}, vq_dequant_matmul {want_vq}; \"flash\" dispatch "
+        f"{flash_dispatch}")
+    log(f"[long] checkpoint: {len(pairs)} leaves ({n_bf16} bf16), "
+        f"{ck_bytes / 2**20:.1f} MiB, restored bit for bit: {bitwise}")
+    log(f"[long] events: quant_stage {n_stage} (predicted {want_stage}), "
+        f"quant_target {n_target} (predicted {7 * cfg.n_layers})")
+    log(f"[long] max_memory_allocated {peak / 2**30:.2f} GiB")
+
+    checks = {
+        "ppl finite": all(math.isfinite(x) for x in (ppl_fp, ppl_vq, ppl_rs)),
+        "restored ppl == vq ppl": ppl_rs == ppl_vq,
+        "bpv": rep.achieved_bpv == 2.25,
+        "checkpoint bitwise": bitwise and n_bf16 > 0,
+        "metadata": meta["achieved_bpv"] == 2.25,
+        "flash_attention launches": launches["flash_attention"] == want_flash,
+        "flash dispatch": flash_dispatch == want_flash,
+        "vq_dequant_matmul launches": launches["vq_dequant_matmul"] == want_vq,
+        "vq_assign launched": launches["vq_assign"] > 0,
+        "quant_stage events": n_stage == want_stage,
+        "quant_target events": n_target == 7 * cfg.n_layers,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise Failed(f"long phase checks failed: {bad}")
+    return {"launches": launches, "predicted": {
+                "flash_attention": want_flash, "vq_dequant_matmul": want_vq,
+                "quant_stage": want_stage},
+            "flash_dispatch": flash_dispatch, "ppl_fp": ppl_fp,
+            "ppl_vq": ppl_vq, "ppl_restored": ppl_rs,
+            "recon_error": rep.total_error(),
+            "achieved_bpv": rep.achieved_bpv,
+            "stage_seconds": rep.stage_seconds, "seconds": t,
+            "checkpoint_leaves": len(pairs), "checkpoint_bf16_leaves": n_bf16,
+            "checkpoint_bytes": ck_bytes, "events": {
+                "quant_stage": n_stage, "quant_target": n_target},
+            "max_memory_allocated": peak}
+
+
 def kernel_line(rows: list[dict], launches: dict) -> dict:
     """One entry per kernel, at the shape its path launches most:
     vq_dequant_matmul at the eval's M=512 on a 4096x4096 projection,
     vq_assign at the span sweep's B=1024, n=4, paged_attention at the serve
-    phase's B=4, 32 heads of 128, bf16 queries over f32 pages. Launches:
-    the main phase's for the first two, the serve phase's (f32 pages) for
-    paged_attention."""
+    phase's B=4, 32 heads of 128, bf16 queries over f32 pages,
+    flash_attention at the long phase's heldout B=8, 32 heads of 128, 4096
+    tokens, bf16. Launches: the main phase's for the first two, the serve
+    phase's (f32 pages) for paged_attention, the long phase's for
+    flash_attention."""
     pick = {
         "vq_dequant_matmul": (
             lambda r: r["shape"] == "wq" and r["M"] == 512
@@ -722,6 +993,10 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
             and r["q_dtype"] == "bfloat16",
             "src/repro_torch/kernels/csrc/paged_attention.cu",
             "src/repro/kernels/paged_attention.py:128"),
+        "flash_attention": (
+            lambda r: r["shape"] == "llama B=8" and r["dtype"] == "bfloat16",
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:68"),
     }
     out = []
     for name, (sel, source, replaces) in pick.items():
@@ -751,15 +1026,19 @@ def main() -> int:
     small_res = phase_small(torch, dev)
     main_res, model, qparams = phase_main(torch, dev)
     serve_res = phase_serve(torch, dev, model, qparams)
+    del model, qparams
+    long_res = phase_long(torch, dev)
     os.makedirs(out_dir, exist_ok=True)
     out = os.path.join(out_dir, "chip_smoke.json")
     with open(out, "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "kernels": rows,
                    "small": small_res, "main": main_res,
-                   "serve": serve_res}, f, indent=1, default=str)
+                   "serve": serve_res, "long": long_res}, f, indent=1,
+                  default=str)
     log(f"[done] {time.perf_counter() - t_all:.1f}s; details in {out}")
     launches = dict(main_res["launches"], paged_attention=serve_res[
-        "kv16"]["launches"]["paged_attention"])
+        "kv16"]["launches"]["paged_attention"],
+        flash_attention=long_res["launches"]["flash_attention"])
     print(json.dumps(kernel_line(rows, launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,10 +12,14 @@ Weight convention: model kernels are (in, out); GPTVQ operates on (out, in)
 so every matrix is transposed on entry and the packed VQLinear stores
 (r=out, c=in).
 
+With ``telemetry`` (an ``obs.Telemetry``) each stage also records a
+``span.quant/<stage>`` histogram, and the event log gains one
+``quant_stage`` row per (block, stage) call and one ``quant_target`` row
+per quantized target, with the reference's schemas.
+
 Not ported yet: budgeted mixed precision and the int/kmeans actions
-(ROADMAP.md queue 1, "Budgets and solvers"), mesh-sharded Hessian capture
-("Multi-device and training") and telemetry ("obs/"); those arguments raise
-when set.
+(ROADMAP.md queue 1, "Budgets and solvers") and mesh-sharded Hessian
+capture ("Multi-device and training"); those arguments raise when set.
 """
 from __future__ import annotations
 
@@ -145,15 +149,14 @@ def quantize_model(
     adapter: (1) Hessian capture from the current calibration activations,
     (2) per-target application of the resolved action, (3) advancing the
     activations through the quantized block. Runs on the device of
-    ``params``."""
+    ``params``. ``telemetry`` (an ``obs.Telemetry``) adds the stage spans
+    and the ``quant_stage`` / ``quant_target`` events."""
     for name, val in (("budget_bpv", budget_bpv),
-                      ("hessian_mesh", hessian_mesh),
-                      ("telemetry", telemetry)):
+                      ("hessian_mesh", hessian_mesh)):
         if val is not None:
             raise NotImplementedError(
                 f"{name}= is not ported yet (ROADMAP.md queue 1: "
-                "'Budgets and solvers', 'Multi-device and training', "
-                "'obs/')")
+                "'Budgets and solvers', 'Multi-device and training')")
     recipe = recipe if recipe is not None else QuantRecipe()
     full_fp32_matmuls()  # params may come from anywhere: enforce it here too
     t0 = time.time()
@@ -162,12 +165,20 @@ def quantize_model(
             else lambda: None)
 
     @contextlib.contextmanager
-    def _stage(name: str):
+    def _stage(name: str, block: str | None = None):
         ts = time.perf_counter()
-        yield
-        sync()
-        stage_seconds[name] = (stage_seconds.get(name, 0.0)
-                               + time.perf_counter() - ts)
+        with contextlib.ExitStack() as spans:
+            if telemetry is not None:
+                # nested spans -> "span.quant/<stage>" flame-graph paths
+                spans.enter_context(telemetry.spans.span("quant"))
+                spans.enter_context(telemetry.spans.span(name))
+            yield
+            sync()  # inside the spans: they time the device work too
+        dt = time.perf_counter() - ts
+        stage_seconds[name] = stage_seconds.get(name, 0.0) + dt
+        if telemetry is not None and block is not None:
+            telemetry.events.emit("quant_stage", stage=name, block=block,
+                                  seconds=dt)
 
     adapter = adapters.get_adapter(model, params)
     gen = torch.Generator(device=tokens.device).manual_seed(seed)
@@ -186,6 +197,7 @@ def quantize_model(
         specs = blk.targets()
         resolved = {spec.name: plan[f"{prefix}.{spec.name}"]
                     for spec in specs}
+        blk_stage = lambda name: _stage(name, blk.name)  # noqa: B023
 
         # ---- pass 1: Hessian taps the plan needs --------------------------
         needed = frozenset(
@@ -193,7 +205,7 @@ def quantize_model(
             if resolved[spec.name].needs_hessian and spec.tap is not None)
         taps: dict = {}
         if needed:
-            with _stage("hessian_capture"):
+            with _stage("hessian_capture", blk.name):
                 for st in states:
                     taps = blk.capture(st, taps, needed)
 
@@ -215,11 +227,16 @@ def quantize_model(
                 raise KeyError(
                     f"block {blk.name!r}: Hessian tap {spec.tap!r} for "
                     f"target {spec.name!r} was never captured")
+            t_tgt = time.perf_counter()
             H = hes.finalize(tap)
-            q, packed = _apply_action(W, H, res.action, gen, _stage)
+            q, packed = _apply_action(W, H, res.action, gen, blk_stage)
             packed = dataclasses.replace(packed, rule=res.rule)
             leaf = packed if pack else q
             err = _recon_error(W, q, H)
+            if telemetry is not None:
+                telemetry.events.emit(
+                    "quant_target", name=name, action=entry["action"],
+                    seconds=time.perf_counter() - t_tgt)
             new_block = adapters.tree_set(new_block, spec.path, leaf)
             row[spec.name] = err
             entry["error"] = err
@@ -227,7 +244,7 @@ def quantize_model(
         blk.install(new_block)
 
         # ---- pass 3: advance activations through the quantized block ------
-        with _stage("advance"):
+        with _stage("advance", blk.name):
             states = [blk.advance(st) for st in states]
         if progress:
             progress(f"block {bi + 1}/{len(blocks)} [{blk.name}] done")

@@ -10,9 +10,10 @@ then the recipe's ``default``; in ``strict`` mode an unmatched target
 without an adapter default is an error. Adapter-declared exclusions yield
 only to exact-name rules.
 
-Actions ported here: ``Quantize(cfg)`` and ``KeepDense(reason)``.
-``IntQuant``, JSON recipes and the budget allocator are not ported yet
-(ROADMAP.md queue 1, "Budgets and solvers").
+Actions ported here: ``Quantize(cfg)`` and ``KeepDense(reason)``, and
+``QuantRecipe.to_json`` (the checkpoint's metadata). ``IntQuant``, loading
+JSON recipes and the budget allocator are not ported yet (ROADMAP.md
+queue 1, "Budgets and solvers").
 """
 from __future__ import annotations
 
@@ -169,6 +170,36 @@ class QuantRecipe:
     def uniform(cfg: VQConfig, method: str = "gptvq",
                 name: str = "") -> "QuantRecipe":
         return QuantRecipe(rules=(), default=Quantize(cfg, method), name=name)
+
+    def to_json(self) -> dict:
+        """The reference's JSON form (checkpoint metadata)."""
+        out: dict = {"name": self.name, "strict": self.strict,
+                     "rules": [{"pattern": r.pattern,
+                                **_action_to_json(r.action)}
+                               for r in self.rules]}
+        if self.default is not None:
+            out["default"] = _action_to_json(self.default)
+        return out
+
+
+def _action_to_json(action: RuleAction) -> dict:
+    if isinstance(action, Quantize):
+        out: dict = {"action": "quantize"}
+        if action.method != "gptvq":
+            out["method"] = action.method
+        if action.solver != "gptq":
+            out["solver"] = action.solver
+        # the matching paper setting when one exists, else the raw fields
+        for name, cfg in PAPER_SETTINGS.items():
+            if action.cfg == cfg:
+                out["setting"] = name
+                return out
+        out["overrides"] = {
+            f.name: getattr(action.cfg, f.name)
+            for f in dataclasses.fields(VQConfig)
+            if getattr(action.cfg, f.name) != f.default}
+        return out
+    return {"action": "keep_dense", "reason": action.reason}
 
 
 PRESET_RECIPES: dict[str, QuantRecipe] = {

@@ -18,7 +18,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("vq_assign", "vq_dequant_matmul", "paged_attention")
+SOURCES = ("vq_assign", "vq_dequant_matmul", "paged_attention",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -31,6 +32,8 @@ _ENTRY = {
                           [_P, _I, _P, _P, _P, _P] + [_I] * 10 + [_P]),
     "paged_attention": ("paged_attention_launch",
                         [_P, _I] + [_P] * 9 + [_I] * 9 + [_P]),
+    "flash_attention": ("flash_attention_launch",
+                        [_P, _I, _P, _P, _I, _P] + [_I] * 8 + [_P]),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

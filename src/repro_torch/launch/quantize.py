@@ -1,23 +1,31 @@
 """Quantization launcher (port of ``repro/launch/quantize.py``): run the GPTVQ
-pipeline over a model, then evaluate the packed model through the fused
-VQ-dequant matmul.
+pipeline over a model, evaluate the packed model through the fused
+VQ-dequant matmul, and save the packed checkpoint.
 
 Runs on ``cuda`` unless ``--device cpu``. The fp perplexity is taken on the
 dense model; the vq perplexity on the packed model after
 ``prepare_fused_tree``, so every quantized matmul goes through the
-``vq_dequant_matmul`` kernel on the card.
+``vq_dequant_matmul`` kernel on the card (and, past 2048 tokens, attention
+through the ``flash_attention`` kernel). ``--out`` receives the packed
+params (``VQLinear`` leaves) in the reference's checkpoint layout with the
+reference's metadata keys; ``--events-out`` the ``quant_stage`` /
+``quant_target`` JSONL events; ``--metrics-out`` the ``span.quant/*``
+metrics snapshot.
 
   PYTHONPATH=src python -m repro_torch.launch.quantize --arch llama2-7b \
-      --smoke --device cpu
+      --smoke --device cpu --seq-len 4096 --sequences 2 --out /tmp/ck \
+      --events-out /tmp/ck_events.jsonl
 
-Not ported yet: ``--out`` (checkpoint writing; ROADMAP.md queue 1,
-"checkpoint/checkpointer.py"), the budget, solver, mesh and telemetry flags.
+Not ported yet: the budget, solver and mesh flags.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 import time
 
+from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import ARCHS, SMOKE
 from repro_torch.core import vq_linear as vql_mod
 from repro_torch.core.bpv import PAPER_SETTINGS
@@ -26,6 +34,7 @@ from repro_torch.core.recipe import PRESET_RECIPES, QuantRecipe, get_recipe
 from repro_torch.data.calibration import calibration_tokens, shard_for_worker
 from repro_torch.device import resolve_device
 from repro_torch.models import model_zoo
+from repro_torch.obs import Telemetry
 from repro_torch.train.loss import perplexity
 
 
@@ -48,15 +57,18 @@ def main(argv=None):
     ap.add_argument("--update-iters", type=int, default=None,
                     help="override codebook_update_iters likewise "
                          "(default: 10 for --setting)")
-    ap.add_argument("--out", default=None,
-                    help="checkpoint directory (not ported yet)")
+    ap.add_argument("--out", default=os.path.join(tempfile.gettempdir(),
+                                                  "repro_vq_ckpt"),
+                    help="packed checkpoint directory")
     ap.add_argument("--worker", type=int, default=0)
     ap.add_argument("--n-workers", type=int, default=1)
+    ap.add_argument("--events-out", default=None,
+                    help="write per-stage/per-target quant_* telemetry "
+                         "events as JSONL here")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the span.quant/* metrics snapshot as JSON "
+                         "here")
     args = ap.parse_args(argv)
-    if args.out is not None:
-        raise NotImplementedError(
-            "--out: checkpoint writing is not ported yet (ROADMAP.md queue 1, "
-            "'checkpoint/checkpointer.py')")
     device = resolve_device(args.device)
 
     cfg = (SMOKE if args.smoke else ARCHS)[args.arch]
@@ -89,10 +101,12 @@ def main(argv=None):
           f"calib={tuple(calib.shape)} device={device}")
 
     ppl_fp = perplexity(model, params, heldout)
+    telemetry = Telemetry(events_out=args.events_out)
     t0 = time.time()
     qparams, rep = quantize_model(
         model, params, calib, recipe=recipe, pack=True,
-        progress=lambda msg: print(f"  {msg}", flush=True))
+        progress=lambda msg: print(f"  {msg}", flush=True),
+        telemetry=telemetry)
     dt = time.time() - t0
     ppl_vq = perplexity(model, vql_mod.prepare_fused_tree(qparams), heldout)
     print(f"quantized in {dt:.1f}s | ppl fp={ppl_fp:.3f} vq={ppl_vq:.3f} "
@@ -105,11 +119,27 @@ def main(argv=None):
             for k, v in sorted(rep.stage_seconds.items(),
                                key=lambda kv: -kv[1]))
         print(f"  stages: {parts}")
+    if args.metrics_out:
+        telemetry.write_metrics(args.metrics_out)
+        print(f"  metrics snapshot -> {args.metrics_out}")
+    telemetry.close()
     dense = [k for k, v in rep.per_target.items()
              if v["action"] == "keep_dense"]
     if dense:
         print(f"  kept dense ({len(dense)}): {', '.join(dense[:6])}"
               + (" ..." if len(dense) > 6 else ""))
+
+    ck = Checkpointer(args.out, keep=1)
+    # the reference's keys; "warnings" come only from its budget pre-pass,
+    # which is not ported, so the list is empty
+    ck.save(0, qparams, metadata={
+        "arch": cfg.name, "recipe": recipe.to_json(),
+        "achieved_bpv": rep.achieved_bpv, "per_target": rep.per_target,
+        "budget_bpv": None, "ppl_fp": float(ppl_fp),
+        "ppl_vq": float(ppl_vq), "seconds": dt,
+        "stage_seconds": rep.stage_seconds, "warnings": [],
+    })
+    print(f"packed checkpoint written to {args.out}")
     return rep, ppl_fp, ppl_vq
 
 

@@ -1,10 +1,13 @@
 """GQA attention with dense and paged KV caches (port of
 ``repro/models/attention.py``).
 
-Layout convention: activations (B, S, D); q/k/v (B, S, H, hd). Cross-
-attention is not ported yet (ROADMAP.md queue 1, "The other five
-families"), nor is the chunked flash path for S > 2048 (ROADMAP.md queue 1,
-"Kernel 4").
+Layout convention: activations (B, S, D); q/k/v (B, S, H, hd). Sequences
+longer than ``FLASH_THRESHOLD`` (2048) tokens, in ``pre_out`` and in a
+dense-``KVCache`` prefill, attend through ``flash_attention``
+(kernels/flash_attention: the CUDA kernel on CUDA tensors, its plain
+version, the reference's two-level scan, on CPU tensors); shorter ones
+through ``_plain_attention``. Cross-attention is not ported yet
+(ROADMAP.md queue 1, "The other five families").
 
 Cache updates are in place: the reference's caches are functional
 (``.at[...].set`` under a donated ``jit``), while here a write goes straight
@@ -20,13 +23,21 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import kv_quant as kvq
 from repro_torch.models import common as cm
 from repro_torch.obs import dispatch as obs_dispatch
 
 NEG_INF = -1e30
-# sequences longer than this take the reference's chunked flash path
+# sequences longer than this take the chunked flash path
 FLASH_THRESHOLD = 2048
+
+# The "flash" dispatch counter: one impl, "fused" (the kernel on CUDA
+# tensors, its plain version on CPU tensors). Unlike the reference's
+# set_flash_impl there is no settable default: on the card the S > 2048
+# path always takes the kernel. The reference's "xla" and "pallas" are
+# both "fused" here.
+_FLASH_COUNTS = obs_dispatch.register_dispatch("flash", ("fused",))
 
 # Paged decode-attention read path of _paged_apply's S == 1 case:
 #   "gather" — attend over the page-table-gathered logical view (the
@@ -201,6 +212,16 @@ def _plain_attention(q, k, v, mask):
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0):
+    """Chunked online-softmax attention (kernels/flash_attention) over
+    q (B, Sq, H, hd), k/v (B, Sk, KV, hd); ``q_offset`` is q's first
+    row's absolute position in the kv range (a Python int, always static
+    here)."""
+    _FLASH_COUNTS["fused"] += 1
+    return fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=causal, q_offset=q_offset)
+
+
 def _project_qkv(p, cfg: ModelConfig, x):
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -227,16 +248,20 @@ def pre_out(p, cfg: ModelConfig, x, *, pos=0):
     """Causal self-attention with RoPE up to (but not including) ``wo``;
     returns (B, S, H*hd). The Hessian tap for the output projection."""
     B, S, _ = x.shape
-    if S > FLASH_THRESHOLD:
-        raise NotImplementedError(
-            f"sequence length {S} > {FLASH_THRESHOLD} needs the chunked "
-            "flash-attention path, not ported yet (ROADMAP.md queue 1, "
-            "'Kernel 4')")
     q, k, v = _project_qkv(p, cfg, x)
     pos_arr = cm.position_ids(pos, B, S, device=x.device)
     q = cm.apply_rope(q, pos_arr, cfg.rope_theta)
     k = cm.apply_rope(k, pos_arr, cfg.rope_theta)
-    return _plain_attention(q, k, v, _causal(S, S, x.device)).reshape(B, S, -1)
+    return _self_attention(q, k, v).reshape(B, S, -1)
+
+
+def _self_attention(q, k, v):
+    """Causal attention of q over the same S positions of k/v: the flash
+    path for S > FLASH_THRESHOLD, else the dense masked softmax."""
+    S = q.shape[1]
+    if S > FLASH_THRESHOLD:
+        return flash_attention(q, k, v, causal=True)
+    return _plain_attention(q, k, v, _causal(S, S, q.device))
 
 
 def apply(p, cfg: ModelConfig, x: torch.Tensor, *, pos=0, cache=None,
@@ -253,11 +278,6 @@ def apply(p, cfg: ModelConfig, x: torch.Tensor, *, pos=0, cache=None,
     if cache is None:
         o = pre_out(p, cfg, x, pos=pos)
         return cm.matmul(o, p["wo"]).to(x.dtype), None
-    if S > FLASH_THRESHOLD:
-        raise NotImplementedError(
-            f"cached attention over {S} > {FLASH_THRESHOLD} new tokens needs "
-            "the chunked flash-attention path (ROADMAP.md queue 1, "
-            "'Kernel 4')")
     q, k, v = _project_qkv(p, cfg, x)
     pos_arr = cm.position_ids(pos, B, S, device=x.device)  # (B, S)
     q = cm.apply_rope(q, pos_arr, cfg.rope_theta)
@@ -278,8 +298,7 @@ def apply(p, cfg: ModelConfig, x: torch.Tensor, *, pos=0, cache=None,
         o = _plain_attention(q, cache.k, cache.v, valid)
     else:
         # prefill from position 0
-        o = _plain_attention(q, cache.k[:, :S], cache.v[:, :S],
-                             _causal(S, S, x.device))
+        o = _self_attention(q, cache.k[:, :S], cache.v[:, :S])
     y = cm.matmul(o.reshape(B, S, -1), p["wo"])
     return y.to(x.dtype), cache
 

@@ -314,3 +314,119 @@ def test_engine_on_cuda_matches_cpu(dev, kv_bits):
                 paged_impl="fused").cpu())
         rms = float((traces[0] - traces[1]).pow(2).mean().sqrt())
         assert rms <= 1e-3, rms
+
+
+# ---------------------------------------------------------------------------
+# flash attention (sequences past 2048 tokens)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,q_offset,dt", [
+    (2, 256, 256, 8, 4, 64, True, 0, torch.float32),
+    (2, 256, 256, 8, 4, 64, False, 0, torch.float32),
+    (1, 128, 128, 4, 4, 32, True, 0, torch.bfloat16),
+    (2, 128, 128, 8, 2, 128, True, 0, torch.float32),   # hd 128, G = 4
+    (1, 512, 512, 4, 4, 128, True, 0, torch.bfloat16),  # hd 128
+    (2, 64, 192, 4, 2, 32, True, 128, torch.float32),   # q_offset
+    (1, 1, 64, 4, 2, 16, True, 63, torch.float32),      # one row
+    (1, 100, 900, 2, 1, 112, False, 0, torch.float32),  # ragged tiles
+    (1, 3072, 3072, 2, 2, 96, True, 0, torch.bfloat16),  # past 2048
+    (1, 512, 2048, 8, 1, 128, False, 0, torch.float32),  # G = 8, Sk != Sq
+])
+def test_flash_attention_matches_plain(dev, B, Sq, Sk, H, KV, hd, causal,
+                                       q_offset, dt):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(Sq + Sk + hd)
+    q = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dt)
+    k = torch.randn((B, Sk, KV, hd), generator=g, device=dev).to(dt)
+    v = torch.randn((B, Sk, KV, hd), generator=g, device=dev).to(dt)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
+    assert got.dtype == dt and bool(torch.isfinite(got).all())
+    # f32: online softmax over 64-column tiles and FMA dot products sum in
+    # another order; bf16 output: both round f32 results ~1e-6 apart, so
+    # they differ by at most one bf16 ulp, 2^-7 of the value
+    rtol = 1e-5 if dt == torch.float32 else 2.0**-7
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("q_dt,kv_dt", [
+    (torch.float32, torch.bfloat16),   # f32 queries over a bf16 cache
+    (torch.bfloat16, torch.float32),   # a bf16 model over an f32 cache
+])
+def test_flash_attention_mixed_dtypes(dev, q_dt, kv_dt):
+    """Queries and the dense cache's k/v in different dtypes (the prefill
+    through ``apply``); the output takes q's dtype."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((1, 256, 4, 64), generator=g, device=dev).to(q_dt)
+    k = torch.randn((1, 256, 2, 64), generator=g, device=dev).to(kv_dt)
+    v = torch.randn((1, 256, 2, 64), generator=g, device=dev).to(kv_dt)
+    got = flash_attention(q, k, v, causal=True)
+    assert got.dtype == q_dt
+    rtol = 1e-5 if q_dt == torch.float32 else 2.0**-7
+    torch.testing.assert_close(got.float(), flash_attention_plain(
+        q, k, v, causal=True).float(), rtol=rtol, atol=1e-5)
+
+
+def test_flash_attention_rejects_what_the_kernel_does_not_take(dev):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q = torch.randn((1, 64, 4, 32), device=dev)
+    k = torch.randn((1, 64, 2, 32), device=dev)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(torch.randn((1, 64, 2, 256), device=dev),
+                        torch.randn((1, 64, 2, 256), device=dev),
+                        torch.randn((1, 64, 2, 256), device=dev),
+                        causal=True)
+    with pytest.raises(ValueError, match="dtypes"):
+        flash_attention(q.half(), k, k, causal=True)
+    with pytest.raises(ValueError, match="one device|contiguous"):
+        flash_attention(q, k.cpu(), k, causal=True)
+    with pytest.raises(ValueError, match="reference's chunks"):
+        flash_attention(torch.randn((1, 600, 4, 32), device=dev), k, k,
+                        causal=False)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention(q, k, k, causal=True, q_offset=-1)
+    assert flash_attention.launches == before
+
+
+def test_pre_out_past_2048_launches_the_kernel(dev):
+    """On the card, pre_out and the dense-cache prefill take the kernel for
+    S > 2048 (one launch each), and agree with the CPU (plain version)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import attention
+    from repro_torch.obs import dispatch
+
+    cfg = SMOKE["llama2-7b"].scaled(dtype="float32", max_seq_len=4096)
+    params = model_zoo.build(cfg).init_params(seed=0, device="cpu")
+    p_cpu = params["layers"][0]["attn"]
+    p_gpu = {k: v.to(dev) for k, v in p_cpu.items()}
+    x = torch.randn((1, 4096, cfg.d_model),
+                    generator=torch.Generator().manual_seed(0))
+    dispatch.reset_dispatch_counters()
+    before = flash_attention.launches
+    got = attention.pre_out(p_gpu, cfg, x.to(dev))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert dispatch.snapshot_dispatch_counters()["flash"]["fused"] == 1
+    want = attention.pre_out(p_cpu, cfg, x)
+    assert flash_attention.launches == before + 1  # the CPU runs no kernel
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    cache = attention.init_cache(cfg, 1, 4096, dtype=torch.float32,
+                                 device=dev)
+    y, _ = attention.apply(p_gpu, cfg, x.to(dev), pos=0, cache=cache)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert bool(torch.isfinite(y).all())
+    # short sequences stay on the dense softmax: no launch
+    attention.pre_out(p_gpu, cfg, x[:, :2048].to(dev))
+    assert flash_attention.launches == before + 2

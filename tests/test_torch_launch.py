@@ -42,8 +42,9 @@ def _torch_threads():
     torch.set_num_threads(prev)
 
 
-def test_launcher_smoke_on_cpu(capsys):
-    rep, ppl_fp, ppl_vq = launch_quantize.main(SMOKE_ARGS)
+def test_launcher_smoke_on_cpu(capsys, tmp_path):
+    rep, ppl_fp, ppl_vq = launch_quantize.main(
+        SMOKE_ARGS + ["--out", str(tmp_path)])
     out = capsys.readouterr().out
     assert "device=cpu" in out and "block 2/2 [layer1] done" in out
     assert "| ppl fp=" in out and "achieved 2.250 bpv" in out
@@ -54,11 +55,6 @@ def test_launcher_smoke_on_cpu(capsys):
     assert set(rep.stage_seconds) == {"hessian_capture", "em_init",
                                       "column_sweep", "codebook_update",
                                       "advance"}
-
-
-def test_launcher_out_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="checkpointer"):
-        launch_quantize.main(SMOKE_ARGS + ["--out", "ckpt"])
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
