@@ -12,7 +12,17 @@ Phases (each prints its seconds; any failure exits non-zero):
   3. kernels  — each kernel against its plain PyTorch version on the card at
                 its path's shapes, with its tolerance, its time, the
                 plain version's time, one PyTorch library call's time and
-                the least time the card could take (bound).
+                the least time the card could take (bound), and the
+                variant that ran (vq_dequant_matmul: split-K at M <= 16,
+                int8 or 3-term tensor cores for bf16 x above; flash:
+                tensor cores for bf16). vq_dequant_matmul's codebooks are
+                in the path's form (int8 times a per-(group, band) scale),
+                plus one row per regime with arbitrary f32 ones; its rows
+                are held bitwise independent of the other rows of x and
+                bitwise the same from call to call at M = 4 and M = 64.
+                Each bf16 flash row also counts the outputs that differ
+                from bf16(plain) for the tensor-core kernel, the FP32 one
+                and p1-only and p1 + p2 controls (every term of p shows).
   4. small    — the whole path on the SKILL smoke config, on the card and
                 on the CPU (plain versions), held against each other.
   5. main     — the port's main path at Llama-2-7B full width with depth cut
@@ -21,7 +31,9 @@ Phases (each prints its seconds; any failure exits non-zero):
                 (em_iters 25, update_iters 10, pack=True), then the packed
                 model's perplexity through prepare_fused_tree (every
                 quantized matmul in the vq_dequant_matmul kernel). Launch
-                counts are zeroed just before and read just after. Then
+                counts are zeroed just before and read just after; all 14
+                vq_dequant_matmul launches must be int8 tensor-core ones.
+                Then
                 teacher-forced logits of the fused form against the
                 dequant_tree (gather) form.
   6. serve    — main's packed model served by the paged engine (max_batch
@@ -30,9 +42,12 @@ Phases (each prints its seconds; any failure exits non-zero):
                 prompt tokens, 64 new tokens each. Launch counts zeroed just
                 before ``run`` and read just after: paged_attention must
                 equal decode ticks x layers, vq_dequant_matmul must run at
-                M = 4. Then teacher-forced logits of request 0 through the
-                paged path (gather prefill + kernel decode) against the
-                cache-free forward and against the gather decode, and three
+                M = 4 and, by variant, as the host plan predicts (split-K
+                for decode ticks and chunks of <= 16 rows, int8 tensor
+                cores for wider prefill chunks). Then teacher-forced
+                logits of request 0 through the paged path (gather
+                prefill + kernel decode) against the cache-free forward
+                and against the gather decode, and three
                 shorter engines (4 requests, 32 new tokens) with int8, int4
                 and vq2 pages, their drift against the f32-page run printed
                 and the vq2 engine's codebook fit counted (vq_assign
@@ -46,6 +61,8 @@ Phases (each prints its seconds; any failure exits non-zero):
                 flash_attention kernel; launch and dispatch counts are
                 zeroed just before the fp perplexity and read just after
                 the restored one, and held to the prediction (10 flash
+                launches: 8 on tensor cores, 2 on the FP32 kernel in the
+                f32 advance pass; 28 int8 tensor-core vq_dequant_matmul
                 launches), with the restored leaves bit for bit, the
                 restored perplexity equal to the vq one and the quant
                 event counts.
@@ -86,12 +103,21 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             flop_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+    """The least time: bytes over the HBM rate or operations over the peak
+    of the units that can do them exactly, whichever is longer."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / FP32_FLOP_PER_S
+    t_ops = flops / flop_per_s
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
+
+
+def impl_delta(before: dict, after: dict) -> dict:
+    """Launches by variant between two snapshots of a launches_by_impl."""
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
 
 
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -106,6 +132,41 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int = 20):
+    """Device time of one call: ``iters`` calls captured in a CUDA graph
+    and replayed, so no host dispatch is timed (what ``time_ms`` reads for
+    a call whose host work outlasts its kernels). None, with the reason
+    logged, if the call cannot be captured."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (3 * iters)
+    except RuntimeError as e:  # a measurement, not a check of the port
+        log(f"[kernels] graph timing unavailable: {e}")
+        return None
+
+
+def _fmt_ms(t) -> str:
+    return "n/a" if t is None else f"{t:.4f} ms"
 
 
 class Failed(Exception):
@@ -185,10 +246,12 @@ def check_assign(torch, dev, B: int, n: int, label: str) -> dict:
     return row
 
 
-def check_matmul(torch, dev, layer: str, M: int, scale_block: int) -> dict:
-    from repro_torch.kernels.vq_dequant_matmul import (
-        reconstruct, vq_dequant_matmul, vq_dequant_matmul_plain)
-
+def matmul_inputs(torch, dev, layer: str, M: int, scale_block: int,
+                  cb_form: str):
+    """Random codes, codebooks and x at a Llama-2-7B projection's layout.
+    cb_form "int8": the path's form, int8 values times a per-(group, band)
+    f32 scale as quantize_codebooks leaves them (the kernel also gets the
+    int8 codebooks and the scales); "f32": arbitrary f32 codebooks."""
     N, K = MATMUL_SHAPES[layer]
     d, k = VQ_D, VQ_K
     n_cg, n_bands = K // VQ_GROUP_COLS, N // VQ_ROWS_PER_BAND
@@ -196,6 +259,13 @@ def check_matmul(torch, dev, layer: str, M: int, scale_block: int) -> dict:
     words = torch.randint(-2**31, 2**31 - 1, (N, K // d // 8),
                           generator=g, device=dev, dtype=torch.int32)
     cb = torch.randn((n_cg, n_bands, k, d), generator=g, device=dev) * 0.05
+    extra = {}
+    if cb_form == "int8":
+        s = cb.abs().amax(dim=(2, 3)) / 127
+        cb_i8 = torch.clamp(torch.round(cb / s[..., None, None]), -128,
+                            127).to(torch.int8)
+        cb = cb_i8.to(torch.float32) * s[..., None, None]
+        extra = dict(codebooks_i8=cb_i8, cb_scale=s)
     scales = None
     if scale_block:
         scales = torch.rand((N, K // scale_block), generator=g,
@@ -203,36 +273,100 @@ def check_matmul(torch, dev, layer: str, M: int, scale_block: int) -> dict:
     x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
     kw = dict(d=d, code_bits=4, rows_per_band=VQ_ROWS_PER_BAND,
               group_cols=VQ_GROUP_COLS, scale_block=scale_block)
-    y = vq_dequant_matmul(x, words, cb, scales, k_c=k, **kw)
+    return x, words, cb, scales, extra, kw
+
+
+def check_matmul(torch, dev, layer: str, M: int, scale_block: int,
+                 cb_form: str = "int8") -> dict:
+    from repro_torch.kernels.vq_dequant_matmul import (
+        Prepared, reconstruct, vq_dequant_matmul, vq_dequant_matmul_plain)
+
+    N, K = MATMUL_SHAPES[layer]
+    x, words, cb, scales, extra, kw = matmul_inputs(torch, dev, layer, M,
+                                                    scale_block, cb_form)
+    # timed as the path calls it: a fused leaf checks its codes and
+    # codebooks once (core/vq_linear.fused_matmul), each call checks x
+    prep = Prepared(words, cb, scales, k_c=VQ_K, **kw, **extra)
+    run = lambda: prep(x)
+    before = dict(vq_dequant_matmul.launches_by_impl)
+    y = run()
+    impl = impl_delta(before, vq_dequant_matmul.launches_by_impl)
+    (impl,) = impl
     ref = vq_dequant_matmul_plain(x, words, cb, scales, **kw)
     torch.cuda.synchronize()
     err = float((y - ref).abs().max())
     tol = 1e-4 * float(ref.abs().max())
     it = (5, 1) if M * N * K > 2**38 else (20, 3)
-    ms = time_ms(torch, lambda: vq_dequant_matmul(x, words, cb, scales,
-                                                  k_c=k, **kw), *it)
+    ms = time_ms(torch, run, *it)
+    dev_ms = graph_ms(torch, run, it[0])
     plain_ms = time_ms(torch, lambda: vq_dequant_matmul_plain(
         x, words, cb, scales, **kw), *it)
     W = reconstruct(words, cb, scales, **kw)
     xf = x.float()
     lib_ms = time_ms(torch, lambda: torch.matmul(xf, W.T), *it)
-    nbytes = (x.numel() * x.element_size() + words.numel() * 4
-              + cb.numel() * 4 + (scales.numel() * 4 if scale_block else 0)
-              + M * N * 4)
-    b_ms, b_by = bound_ms(nbytes, 2.0 * M * N * K)
+    lib_dev_ms = graph_ms(torch, lambda: torch.matmul(xf, W.T), it[0])
+    # the bytes the kernel must move: x, the words, the codebooks it reads
+    # (int8 and their scales, or f32), the plane, y
+    cb_bytes = (extra["codebooks_i8"].numel() + extra["cb_scale"].numel() * 4
+                if extra else cb.numel() * 4)
+    nbytes = (x.numel() * x.element_size() + words.numel() * 4 + cb_bytes
+              + (scales.numel() * 4 if scale_block else 0) + M * N * 4)
+    # whatever variant runs, bf16 x times a bf16-exact W is exact on bf16
+    # tensor cores with an f32 sum: the int8 values as they are, an
+    # arbitrary f32 value as three bf16 terms (three times the operations)
+    flops = 2.0 * M * N * K * (1 if extra else 3)
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
     row = {"name": "vq_dequant_matmul", "shape": layer, "M": M, "N": N,
-           "K": K, "scale_block": scale_block, "max_abs_err": err,
-           "tol": tol, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-           "bound_ms": b_ms, "bound_by": b_by}
+           "K": K, "scale_block": scale_block, "cb_form": cb_form,
+           "impl": impl, "max_abs_err": err, "tol": tol, "ms": ms,
+           "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library_device_ms": lib_dev_ms, "bound_ms": b_ms,
+           "bound_by": b_by}
     log(f"[kernels] vq_dequant_matmul {layer} M={M} N={N} K={K} "
-        f"sb={scale_block}: max abs err {err:.2e} (tol {tol:.2e}), max rel "
+        f"sb={scale_block} cb={cb_form} ({impl}): max abs err {err:.2e} "
+        f"(tol {tol:.2e}), max rel "
         f"{err / max(float(ref.abs().max()), 1e-30):.2e} | kernel {ms:.4f} "
-        f"ms, plain {plain_ms:.4f} ms, torch.matmul(x, W.T) {lib_ms:.4f} "
-        f"ms, bound {b_ms:.4f} ms ({b_by})")
+        f"ms ({_fmt_ms(dev_ms)} replayed from a CUDA graph), plain "
+        f"{plain_ms:.4f} ms, torch.matmul(x, W.T) {lib_ms:.4f} ms "
+        f"({_fmt_ms(lib_dev_ms)} from a graph), bound {b_ms:.4f} ms "
+        f"({b_by})")
     if not err <= tol:
-        raise Failed(f"vq_dequant_matmul {layer} M={M} sb={scale_block}: "
-                     f"error {err} > {tol}")
+        raise Failed(f"vq_dequant_matmul {layer} M={M} sb={scale_block} "
+                     f"cb={cb_form}: error {err} > {tol}")
     return row
+
+
+def check_matmul_rows(torch, dev) -> dict:
+    """Row m of y is the same bit for bit whatever the other rows of x
+    hold (the engine's solo-vs-interleaved token identity rests on it),
+    and two calls give the same bits. At M = 4 (split-K) y of x[:1] is
+    held to row 0; at M = 64 (tensor cores) y of x[:17], the fewest rows
+    that stay on the tensor cores, to rows 0-16: x[:1] would run split-K,
+    whose sums go in another order."""
+    from repro_torch.kernels.vq_dequant_matmul import vq_dequant_matmul
+
+    out = {}
+    for M, sub in ((4, 1), (64, 17)):
+        x, words, cb, _, extra, kw = matmul_inputs(torch, dev, "wq", M, 0,
+                                                   "int8")
+        run = lambda xx: vq_dequant_matmul(xx, words, cb, k_c=VQ_K, **kw,
+                                           **extra)
+        y = run(x)
+        same_run = bool(torch.equal(run(x), y))
+        same_rows = bool(torch.equal(run(x[:sub].contiguous()), y[:sub]))
+        other = x.clone()
+        other[sub:] = -other[sub:]
+        same_other = bool(torch.equal(run(other)[:sub], y[:sub]))
+        out[M] = {"rows_checked": sub, "two_calls_equal": same_run,
+                  "rows_alone_equal": same_rows,
+                  "other_rows_changed_equal": same_other}
+        log(f"[kernels] vq_dequant_matmul bitwise at M={M}: two calls "
+            f"{same_run}, y(x[:{sub}]) == y(x)[:{sub}] {same_rows}, with "
+            f"the other rows changed {same_other}")
+        if not (same_run and same_rows and same_other):
+            raise Failed(f"vq_dequant_matmul rows at M={M} are not "
+                         "bitwise independent and deterministic")
+    return out
 
 
 # paged decode attention at the serve phase's shape (Llama-2-7B heads) and
@@ -347,6 +481,69 @@ FLASH_SHAPES = {
 }
 
 
+def attention_p_terms(torch, q, k, v, *, causal: bool, q_offset: int,
+                      terms: int):
+    """f32 attention in one softmax pass with p = exp(s - max) cut to the
+    sum of its first ``terms`` bf16 terms (1: bf16(p)); (batch, 8 heads)
+    blocks at a time. A control for what the tensor-core flash kernel
+    would give with fewer terms of p."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+    dev = q.device
+    live = None
+    if causal:
+        live = (torch.arange(Sk, device=dev)[None, :]
+                <= q_offset + torch.arange(Sq, device=dev)[:, None])
+    out = torch.empty((B, Sq, H, hd), dtype=torch.float32, device=dev)
+    for b in range(B):
+        for h0 in range(0, H, 8):
+            heads = torch.arange(h0, min(H, h0 + 8), device=dev)
+            kv = heads // (H // KV)
+            qb = q[b][:, heads].float().transpose(0, 1)
+            kb = k[b][:, kv].float().transpose(0, 1)
+            vb = v[b][:, kv].float().transpose(0, 1)
+            s = qb @ kb.transpose(1, 2) * scale
+            if live is not None:
+                s = s.masked_fill(~live, -1e30)
+            p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+            l = p.sum(dim=-1, keepdim=True)
+            cut, rest = torch.zeros_like(p), p
+            for _ in range(terms):
+                t = rest.to(torch.bfloat16).float()
+                cut, rest = cut + t, rest - t
+            out[b][:, heads] = ((cut @ vb) / l.clamp(min=1e-30)).transpose(
+                0, 1)
+    return out
+
+
+def flash_term_counts(torch, q, k, v, out, ref, **kw) -> dict:
+    """How many bf16 outputs differ from the plain version's: the
+    tensor-core kernel's (all three terms of p), the FP32 kernel's on the
+    same values (q upcast: that variant, output rounded to bf16 here), and
+    the p1-only and p1 + p2 controls."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    def off(x):
+        return int((x.to(torch.bfloat16) != ref).sum())
+
+    counts = {"elements": ref.numel(), "tc": off(out),
+              "fp32": off(flash_attention(q.float(), k, v, **kw))}
+    for n in (1, 2):
+        counts[f"p{n}_only" if n == 1 else "p1_p2"] = off(
+            attention_p_terms(torch, q, k, v, terms=n, **kw))
+    return counts
+
+
+def terms_match(c: dict) -> bool:
+    """The tensor-core kernel's count is the FP32 kernel's, within a
+    factor of 1.5 (both sum in another order than the plain version), at
+    most a tenth of the p1-only control's and half the p1 + p2 one's: each
+    term of p shows in the outputs."""
+    return (c["tc"] <= 1.5 * c["fp32"] + 16 and 10 * c["tc"] <= c["p1_only"]
+            and 2 * c["tc"] <= c["p1_p2"])
+
+
 def check_flash(torch, dev, shape: str, dtype) -> dict:
     """flash_attention against its plain version (the reference's two-level
     scan), timed beside SDPA on the same q/k/v."""
@@ -361,7 +558,9 @@ def check_flash(torch, dev, shape: str, dtype) -> dict:
     k = torch.randn((B, Sk, KV, hd), generator=g, device=dev).to(dtype)
     v = torch.randn((B, Sk, KV, hd), generator=g, device=dev).to(dtype)
     kw = dict(causal=causal, q_offset=off)
+    before = dict(flash_attention.launches_by_impl)
     out = flash_attention(q, k, v, **kw)
+    (impl,) = impl_delta(before, flash_attention.launches_by_impl)
     ref = flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
@@ -370,6 +569,12 @@ def check_flash(torch, dev, shape: str, dtype) -> dict:
     # they differ by at most one bf16 ulp, 2^-7 of the value
     rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (2.0**-7, 1e-5)
     ok = bool(torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol))
+    terms = None
+    if impl == "tc":
+        terms = flash_term_counts(torch, q, k, v, out, ref, **kw)
+        log(f"[kernels] flash_attention {shape}: outputs off bf16(plain) "
+            f"{terms}")
+        ok = ok and terms_match(terms)
     big = B * H * Sq * Sk > 2**30
     iters, warm = (5, 1) if big else (20, 3)
     ms = time_ms(torch, lambda: flash_attention(q, k, v, **kw), iters, warm)
@@ -388,9 +593,11 @@ def check_flash(torch, dev, shape: str, dtype) -> dict:
         enable_gqa=KV != H), iters, warm)
     # the work these inputs need: every unmasked (row, column) pair costs
     # 2 * hd FLOPs of q.k and 2 * hd of p.v per head; each input read once,
-    # the output written once. With bf16 q/k, q.k is exact on bf16 tensor
-    # cores with f32 accumulation; p.v stays on the FP32 cores, because p is
-    # kept in f32 (rounding it to bf16 would compute another function)
+    # the output written once. With bf16 q, k, v, q.k is exact on bf16
+    # tensor cores with an f32 sum, and so is p.v with the f32 p split
+    # into three bf16 terms (p = p1 + p2 + p3 exactly): the ops take
+    # (flops/2 + 3 flops/2) at the bf16 tensor-core peak. f32 inputs run
+    # at the FP32 peak
     if causal:
         pairs = sum(min(Sk, off + i + 1) for i in range(Sq))
     else:
@@ -399,25 +606,19 @@ def check_flash(torch, dev, shape: str, dtype) -> dict:
     nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size()
     t_bytes = nbytes / HBM_BYTES_PER_S
     if dtype == torch.bfloat16:
-        t_ops = flops / 2 / BF16_TC_FLOP_PER_S + flops / 2 / FP32_FLOP_PER_S
+        b_ms, b_by = bound_ms(nbytes, 2 * flops, BF16_TC_FLOP_PER_S)
     else:
-        t_ops = flops / FP32_FLOP_PER_S
-    b_ms, b_by = ((t_bytes * 1e3, "bytes") if t_bytes >= t_ops
-                  else (t_ops * 1e3, "operations"))
-    # what a redesign with p rounded to bf16 would aim at: all of it on
-    # the bf16 tensor cores
-    tc_ms = max(t_bytes, flops / BF16_TC_FLOP_PER_S) * 1e3
+        b_ms, b_by = bound_ms(nbytes, flops)
     row = {"name": "flash_attention", "shape": shape, **sh,
-           "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
-           "rtol": rtol, "atol": atol, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-           "bound_bf16_tc_ms": tc_ms, "flops": flops}
-    log(f"[kernels] flash_attention {shape} {row['dtype']} B={B} Sq={Sq} "
-        f"Sk={Sk} H={H} KV={KV} hd={hd} causal={causal} q_offset={off}: max "
-        f"abs err {err:.2e} (rtol {rtol:.1e}, atol {atol:.0e}) | kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}), {tc_ms:.4f} ms with p.v on bf16 tensor "
-        f"cores too")
+           "dtype": str(dtype).replace("torch.", ""), "impl": impl,
+           "max_abs_err": err, "rtol": rtol, "atol": atol, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "flops": flops, "off_plain": terms}
+    log(f"[kernels] flash_attention {shape} {row['dtype']} ({impl}) B={B} "
+        f"Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} causal={causal} "
+        f"q_offset={off}: max abs err {err:.2e} (rtol {rtol:.1e}, atol "
+        f"{atol:.0e}) | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     if not ok:
         raise Failed(f"flash_attention {shape} {dtype}: error {err} outside "
                      f"rtol {rtol}, atol {atol}")
@@ -433,13 +634,19 @@ def phase_kernels(torch, dev) -> list[dict]:
                         ("sweep", 1024, 4), ("sweep", 2752, 4),
                         ("kv vq2 fit", 32, 4096)):
         rows.append(check_assign(torch, dev, B, n, label))
+    # decode M = 1 (timed only), the serve engine's decode ticks (M = 4)
+    # and prefill chunks (M = 64), the main phase's evaluation (M = 512),
+    # the long phase's (8 x 4096 rows); then one row per regime with
+    # arbitrary f32 codebooks
     for layer in MATMUL_SHAPES:
-        for M in (1, 4, 512):
-            for sb in (0, 32):
+        for M in (1, SERVE_MAX_BATCH, SERVE_PREFILL_CHUNK, 512):
+            for sb in (0, 64):
                 rows.append(check_matmul(torch, dev, layer, M, sb))
-        # the long phase's heldout evaluation: 8 x 4096 rows
         rows.append(check_matmul(torch, dev, layer, LONG_HELDOUT * LONG_SEQ,
                                  0))
+    for M in (SERVE_MAX_BATCH, 512):
+        rows.append(check_matmul(torch, dev, "wq", M, 0, "f32"))
+    invariance = check_matmul_rows(torch, dev)
     for shape in PAGED_SHAPES:
         for fmt in ("f32", "bf16", 8, 4, "vq2"):
             rows.append(check_paged(torch, dev, shape, fmt, torch.float32))
@@ -452,7 +659,7 @@ def phase_kernels(torch, dev) -> list[dict]:
             rows.append(check_flash(torch, dev, shape, dt))
     log(f"[kernels] {len(rows)} checks passed in "
         f"{time.perf_counter() - t0:.1f}s")
-    return rows
+    return rows, invariance
 
 
 def _to(tree, dev):
@@ -546,6 +753,7 @@ def phase_main(torch, dev) -> dict:
 
     vq_assign.launches = 0
     vq_dequant_matmul.launches = 0
+    vq_dequant_matmul.launches_by_impl = {}
     t0 = time.perf_counter()
     ppl_fp = perplexity(model, params, heldout)
     t["ppl_fp"] = time.perf_counter() - t0
@@ -562,6 +770,10 @@ def phase_main(torch, dev) -> dict:
     t["ppl_vq"] = time.perf_counter() - t0
     launches = {"vq_assign": vq_assign.launches,
                 "vq_dequant_matmul": vq_dequant_matmul.launches}
+    impls = dict(vq_dequant_matmul.launches_by_impl)
+    # one evaluation forward of 8 x 64 rows: 7 matmuls a layer, all on the
+    # int8 tensor cores (bf16 x, int8 leaves)
+    want_impl = {"tc_int8": 7 * cfg.n_layers}
     packed = sum(leaf.payload_bytes() for lp in fused["layers"]
                  for sub in (lp["attn"], lp["ffn"]) for leaf in sub.values())
     dense = sum(w.numel() * w.element_size() for lp in params["layers"]
@@ -575,7 +787,8 @@ def phase_main(torch, dev) -> dict:
         f"{k}={v:.2f}s" for k, v in sorted(rep.stage_seconds.items(),
                                           key=lambda kv: -kv[1])))
     log("[main] seconds: " + "  ".join(f"{k}={v:.2f}" for k, v in t.items()))
-    log(f"[main] launches in the main path: {launches}")
+    log(f"[main] launches in the main path: {launches}; vq_dequant_matmul "
+        f"by variant {impls} (predicted {want_impl})")
     log(f"[main] quantized weights streamed per forward: {packed / 2**20:.1f}"
         f" MiB packed (words + f32 codebooks) vs {dense / 2**20:.1f} MiB "
         f"dense {cfg.dtype}")
@@ -602,11 +815,14 @@ def phase_main(torch, dev) -> dict:
         "bpv": abs(rep.achieved_bpv - 2.25) < 1e-9,
         "vq_assign launched": launches["vq_assign"] > 0,
         "vq_dequant_matmul launched": launches["vq_dequant_matmul"] > 0,
+        "vq_dequant_matmul by variant as planned": impls == want_impl,
     }
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise Failed(f"main path checks failed: {bad}")
-    res = {"launches": launches, "ppl_fp": ppl_fp, "ppl_vq": ppl_vq,
+    res = {"launches": launches, "vq_impl_counts": impls,
+           "predicted_vq_impl_counts": want_impl,
+           "ppl_fp": ppl_fp, "ppl_vq": ppl_vq,
            "recon_error": rep.total_error(),
            "achieved_bpv": rep.achieved_bpv,
            "per_target": rep.per_target, "stage_seconds": rep.stage_seconds,
@@ -618,6 +834,7 @@ def phase_main(torch, dev) -> dict:
 
 # the serve phase: 8 greedy requests of 40-72 prompt tokens, 64 new tokens
 SERVE_REQUESTS, SERVE_NEW, SERVE_MAX_BATCH = 8, 64, 4
+SERVE_PREFILL_CHUNK = 64  # the engine's default prefill chunk
 SERVE_MAX_LEN, SERVE_PAGE = 256, 16
 # serve/engine.calibrate_vq_codebooks's em_iters default
 KV_FIT_EM_ITERS = 25
@@ -627,6 +844,20 @@ def serve_prompts(vocab: int, n: int) -> list:
     rng = np.random.RandomState(0)
     sizes = rng.randint(40, 73, size=n)
     return [rng.randint(0, vocab, size=int(s)) for s in sizes]
+
+
+def prefill_chunk_ms(prompts) -> list:
+    """The rows (M) of each prefill forward the engine plans for these
+    prompts (scheduler.prefill_chunk_len: full chunks, then the rest
+    padded to its power-of-two bucket)."""
+    out = []
+    for p in prompts:
+        rest = len(p)
+        while rest > 0:
+            out.append(SERVE_PREFILL_CHUNK if rest >= SERVE_PREFILL_CHUNK
+                       else 1 << (rest - 1).bit_length())
+            rest -= min(rest, SERVE_PREFILL_CHUNK)
+    return out
 
 
 def _median(xs):
@@ -657,6 +888,7 @@ def serve_run(torch, dev, model, qparams, kv_bits, n_req, n_new) -> dict:
     paged_attention.launches = 0
     vq_dequant_matmul.launches = 0
     vq_dequant_matmul.launches_by_m = {}
+    vq_dequant_matmul.launches_by_impl = {}
     t0 = time.perf_counter()
     eng.run(reqs)
     torch.cuda.synchronize()
@@ -664,6 +896,7 @@ def serve_run(torch, dev, model, qparams, kv_bits, n_req, n_new) -> dict:
     launches = {"paged_attention": paged_attention.launches,
                 "vq_dequant_matmul": vq_dequant_matmul.launches}
     ms_seen = dict(vq_dequant_matmul.launches_by_m)
+    impls_seen = dict(vq_dequant_matmul.launches_by_impl)
     st = eng.stats
     recs = eng.drain_request_records()
     ttft = [r.ttft_s for r in recs if r.ttft_s is not None]
@@ -678,6 +911,7 @@ def serve_run(torch, dev, model, qparams, kv_bits, n_req, n_new) -> dict:
            "ttft_median_s": _median(ttft), "ttft_worst_s": max(ttft),
            "itl_median_s": _median(itl), "itl_worst_s": max(itl),
            "launches": launches, "vq_m_counts": ms_seen,
+           "vq_impl_counts": impls_seen,
            "load_vq_assign_launches": load_assign,
            "out": [r.out_tokens for r in reqs],
            "prompts": [r.prompt for r in reqs]}
@@ -690,8 +924,8 @@ def serve_run(torch, dev, model, qparams, kv_bits, n_req, n_new) -> dict:
         f"{res['ttft_worst_s'] * 1e3:.1f} ms | ITL median "
         f"{res['itl_median_s'] * 1e3:.2f} ms worst "
         f"{res['itl_worst_s'] * 1e3:.2f} ms | launches {launches}, "
-        f"vq_dequant_matmul launches by M {ms_seen}, vq_assign launches at "
-        f"engine load {load_assign}")
+        f"vq_dequant_matmul launches by M {ms_seen}, by variant "
+        f"{impls_seen}, vq_assign launches at engine load {load_assign}")
     res["engine"] = eng
     return res
 
@@ -725,10 +959,20 @@ def phase_serve(torch, dev, model, qparams) -> dict:
     # 7 quantized matmuls per layer in every forward (decode tick or
     # prefill chunk); the decode ticks run at M = max_batch
     want_vq = 7 * n_layers * (main["decode_ticks"] + main["prefill_chunks"])
+    # by variant, from the host plan: decode ticks and prefill chunks of
+    # <= 16 rows on split-K, wider chunks on the int8 tensor cores, none on
+    # the 3-term or FP32 variants (the model is bf16, its leaves int8)
+    chunks = prefill_chunk_ms(main["prompts"])
+    want_impl = {
+        "splitk": 7 * n_layers * (main["decode_ticks"]
+                                  + sum(m <= 16 for m in chunks)),
+        "tc_int8": 7 * n_layers * sum(m > 16 for m in chunks)}
+    want_impl = {k: v for k, v in want_impl.items() if v}
     log(f"[serve] predicted launches: paged_attention = decode ticks x "
         f"layers = {want_pa}; vq_dequant_matmul = 7 x layers x (decode "
         f"ticks + prefill chunks) = {want_vq}, of them "
-        f"{7 * n_layers * main['decode_ticks']} at M = {SERVE_MAX_BATCH}")
+        f"{7 * n_layers * main['decode_ticks']} at M = {SERVE_MAX_BATCH}; "
+        f"prefill chunks of {chunks} rows; by variant {want_impl}")
 
     # teacher-forced: request 0's prompt + outputs through the paged path
     prompt, out = main["prompts"][0], main["out"][0]
@@ -794,6 +1038,9 @@ def phase_serve(torch, dev, model, qparams) -> dict:
             main["launches"]["vq_dequant_matmul"] == want_vq > 0,
         "vq_dequant_matmul at M = 4": main["vq_m_counts"].get(
             SERVE_MAX_BATCH, 0) == 7 * n_layers * main["decode_ticks"],
+        "prefill chunks as planned": main["prefill_chunks"] == len(chunks),
+        "vq_dequant_matmul launches by variant as planned":
+            main["vq_impl_counts"] == want_impl,
         "teacher-forced vs cache-free": diffs["cache-free forward"][0]
             <= max_tol and diffs["cache-free forward"][1] <= rms_tol,
         "teacher-forced vs gather decode": diffs["gather decode"][0]
@@ -805,6 +1052,9 @@ def phase_serve(torch, dev, model, qparams) -> dict:
             r["launches"]["paged_attention"] == r["decode_ticks"] * n_layers
             > 0)
         checks[f"kv={bits} logits finite"] = r["finite"]
+        checks[f"kv={bits} vq_dequant_matmul on split-K and int8 tensor "
+               "cores only"] = set(r["vq_impl_counts"]) <= {"splitk",
+                                                            "tc_int8"}
         checks[f"kv={bits} vq_assign launches at engine load"] = (
             r["load_vq_assign_launches"] == want_assign[bits])
     bad = [k for k, ok in checks.items() if not ok]
@@ -816,6 +1066,7 @@ def phase_serve(torch, dev, model, qparams) -> dict:
     return {"kv16": main, "quantized": quant, "teacher_forced": diffs,
             "greedy_agree": greedy_agree, "predicted": {
                 "paged_attention": want_pa, "vq_dequant_matmul": want_vq,
+                "vq_dequant_matmul_by_impl": want_impl,
                 "vq_assign_at_load": want_assign}}
 
 
@@ -869,8 +1120,19 @@ def phase_long(torch, dev) -> dict:
     want_flash = cfg.n_layers * (2 + 3)
     want_vq = 7 * cfg.n_layers * 2  # the vq and restored-vq evaluations
 
+    # by variant: the bf16 forwards (capture, the three evaluations) on
+    # tensor cores, the advance forward on the FP32 kernel (it runs the
+    # quantized block on f32-dequantized weights, as the reference's
+    # adapters/transformer.advance does, so q, k and v are f32); every
+    # vq_dequant_matmul on the int8 tensor cores (bf16 x, int8 leaves)
+    want_impl = {"flash_attention": {"tc": cfg.n_layers * (1 + 3),
+                                     "fp32": cfg.n_layers},
+                 "vq_dequant_matmul": {"tc_int8": want_vq}}
+
     flash_attention.launches = 0
+    flash_attention.launches_by_impl = {}
     vq_dequant_matmul.launches = 0
+    vq_dequant_matmul.launches_by_impl = {}
     vq_assign.launches = 0
     dispatch.reset_dispatch_counters()
     t0 = time.perf_counter()
@@ -902,6 +1164,8 @@ def phase_long(torch, dev) -> dict:
     launches = {"flash_attention": flash_attention.launches,
                 "vq_dequant_matmul": vq_dequant_matmul.launches,
                 "vq_assign": vq_assign.launches}
+    impls = {"flash_attention": dict(flash_attention.launches_by_impl),
+             "vq_dequant_matmul": dict(vq_dequant_matmul.launches_by_impl)}
     flash_dispatch = dispatch.snapshot_dispatch_counters()["flash"]["fused"]
     peak = torch.cuda.max_memory_allocated()
 
@@ -932,7 +1196,7 @@ def phase_long(torch, dev) -> dict:
     log("[long] seconds: " + "  ".join(f"{k}={v:.2f}" for k, v in t.items()))
     log(f"[long] launches: {launches}; predicted flash_attention "
         f"{want_flash}, vq_dequant_matmul {want_vq}; \"flash\" dispatch "
-        f"{flash_dispatch}")
+        f"{flash_dispatch}; by variant {impls} (predicted {want_impl})")
     log(f"[long] checkpoint: {len(pairs)} leaves ({n_bf16} bf16), "
         f"{ck_bytes / 2**20:.1f} MiB, restored bit for bit: {bitwise}")
     log(f"[long] events: quant_stage {n_stage} (predicted {want_stage}), "
@@ -948,6 +1212,7 @@ def phase_long(torch, dev) -> dict:
         "flash_attention launches": launches["flash_attention"] == want_flash,
         "flash dispatch": flash_dispatch == want_flash,
         "vq_dequant_matmul launches": launches["vq_dequant_matmul"] == want_vq,
+        "launches by variant as planned": impls == want_impl,
         "vq_assign launched": launches["vq_assign"] > 0,
         "quant_stage events": n_stage == want_stage,
         "quant_target events": n_target == 7 * cfg.n_layers,
@@ -955,9 +1220,9 @@ def phase_long(torch, dev) -> dict:
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise Failed(f"long phase checks failed: {bad}")
-    return {"launches": launches, "predicted": {
+    return {"launches": launches, "launches_by_impl": impls, "predicted": {
                 "flash_attention": want_flash, "vq_dequant_matmul": want_vq,
-                "quant_stage": want_stage},
+                "quant_stage": want_stage, "by_impl": want_impl},
             "flash_dispatch": flash_dispatch, "ppl_fp": ppl_fp,
             "ppl_vq": ppl_vq, "ppl_restored": ppl_rs,
             "recon_error": rep.total_error(),
@@ -981,7 +1246,7 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
     pick = {
         "vq_dequant_matmul": (
             lambda r: r["shape"] == "wq" and r["M"] == 512
-            and r["scale_block"] == 0,
+            and r["scale_block"] == 0 and r["cb_form"] == "int8",
             "src/repro_torch/kernels/csrc/vq_dequant_matmul.cu",
             "src/repro/kernels/vq_dequant_matmul.py:137"),
         "vq_assign": (
@@ -1022,7 +1287,7 @@ def main() -> int:
     t_all = time.perf_counter()
     dev, name, smi = phase_device(torch)
     phase_build()
-    rows = phase_kernels(torch, dev)
+    rows, invariance = phase_kernels(torch, dev)
     small_res = phase_small(torch, dev)
     main_res, model, qparams = phase_main(torch, dev)
     serve_res = phase_serve(torch, dev, model, qparams)
@@ -1032,6 +1297,7 @@ def main() -> int:
     out = os.path.join(out_dir, "chip_smoke.json")
     with open(out, "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "kernels": rows,
+                   "vq_dequant_matmul_bitwise": invariance,
                    "small": small_res, "main": main_res,
                    "serve": serve_res, "long": long_res}, f, indent=1,
                   default=str)

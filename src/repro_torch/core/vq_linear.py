@@ -16,8 +16,11 @@ Two execution forms:
   * gather — ``dequant_tree`` densifies ``VQLinear`` leaves per layer inside
     the model forward (``models/transformer._block_apply``).
   * fused  — ``prepare_fused_tree`` turns ``VQLinear`` leaves into
-    ``FusedVQLinear`` once (cb_scale folded into f32 codebooks, the
-    normalization plane pre-expanded to (r, c / scale_block)); every model
+    ``FusedVQLinear`` once (cb_scale folded into f32 codebooks, which the
+    plain version and the reference's contract read; the int8 codebooks
+    and cb_scale kept beside them for the kernel's split-K and int8
+    tensor-core variants; the normalization plane pre-expanded to
+    (r, c / scale_block)); every model
     matmul site (``models/common.matmul``) then calls ``fused_matmul``, which
     is the ``vq_dequant_matmul`` kernel on CUDA for every packing layout:
     the dense weight is never materialized in device memory. On the CPU the
@@ -174,6 +177,8 @@ class FusedVQLinear:
     words: torch.Tensor        # int32 packed codes as in VQLinear — the payload
     codebooks_f: torch.Tensor  # (n_cg, n_bands, k, d) f32, cb_scale folded
     scales: torch.Tensor | None  # (r, c/Ns) f32 plane, or None
+    codebooks: torch.Tensor | None = None  # VQLinear's int8 codebooks
+    cb_scale: torch.Tensor | None = None   # VQLinear's (n_cg, n_bands) f32
     r: int = 0
     c: int = 0
     d: int = 1
@@ -182,6 +187,16 @@ class FusedVQLinear:
     rows_per_band: int = 1
     scale_block: int = 0
     rule: str = ""
+    # the kernel's inputs checked once, as the leaf is made
+    prepared: vqdm.Prepared = dataclasses.field(init=False, repr=False,
+                                                compare=False)
+
+    def __post_init__(self):
+        self.prepared = vqdm.Prepared(
+            self.words, self.codebooks_f, self.scales, d=self.d, k_c=self.k,
+            code_bits=self.code_bits, rows_per_band=self.rows_per_band,
+            group_cols=self.group_cols, scale_block=self.scale_block,
+            codebooks_i8=self.codebooks, cb_scale=self.cb_scale)
 
     @property
     def code_bits(self) -> int:
@@ -199,6 +214,8 @@ def prepare_fused(vql: VQLinear) -> FusedVQLinear:
     return FusedVQLinear(
         words=vql.words.contiguous(), codebooks_f=codebooks_f.contiguous(),
         scales=None if scales is None else scales.contiguous(),
+        codebooks=vql.codebooks.contiguous(),
+        cb_scale=vql.cb_scale.to(torch.float32).contiguous(),
         r=vql.r, c=vql.c, d=vql.d, k=vql.k, group_cols=vql.group_cols,
         rows_per_band=vql.rows_per_band, scale_block=vql.scale_block,
         rule=vql.rule)
@@ -236,13 +253,12 @@ def retag(tree, impl: str | None):
 
 def fused_matmul(x: torch.Tensor, fvl: FusedVQLinear) -> torch.Tensor:
     """y = x @ W_io (f32) where W_io is the (in, out) dense view of ``fvl``;
-    x may carry leading dims. The ``vq_dequant_matmul`` kernel on CUDA."""
+    x may carry leading dims. The ``vq_dequant_matmul`` kernel on CUDA,
+    its inputs other than x checked once, when the leaf was made
+    (``fvl.prepared``)."""
     COUNTS["fused"] += 1
     lead, K = x.shape[:-1], x.shape[-1]
-    y = vqdm.vq_dequant_matmul(
-        x.reshape(-1, K).contiguous(), fvl.words, fvl.codebooks_f, fvl.scales, d=fvl.d,
-        k_c=fvl.k, code_bits=fvl.code_bits, rows_per_band=fvl.rows_per_band,
-        group_cols=fvl.group_cols, scale_block=fvl.scale_block)
+    y = fvl.prepared(x.reshape(-1, K).contiguous())
     return y.reshape(*lead, fvl.r)
 
 

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
-with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
-``build/repro_torch/lib<name>.so`` at the root of the checkout (``build/`` is
-git-ignored) and loaded with ``ctypes``. ``build_all`` starts one ``nvcc``
+Each ``csrc/<name>.cu`` has a plain C interface (``csrc/*.cuh`` are the
+headers they share). At first use it is compiled with ``nvcc -gencode
+arch=compute_90a,code=sm_90a`` into ``build/repro_torch/lib<name>.so`` at
+the root of the checkout (``build/`` is git-ignored) and loaded with
+``ctypes``. ``build_all`` starts one ``nvcc``
 per source, all at once, so the build takes as long as the slowest file.
 Nothing here runs at import time.
 """
@@ -15,6 +16,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -28,12 +31,12 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRY = {
     "vq_assign": ("vq_assign_launch",
                   [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _I, _I, _P]),
-    "vq_dequant_matmul": ("vq_dequant_matmul_launch",
-                          [_P, _I, _P, _P, _P, _P] + [_I] * 10 + [_P]),
+    # one int64 array of every argument (csrc/vq_dequant_matmul.cu)
+    "vq_dequant_matmul": ("vq_dequant_matmul_launch", [_P]),
     "paged_attention": ("paged_attention_launch",
                         [_P, _I] + [_P] * 9 + [_I] * 9 + [_P]),
     "flash_attention": ("flash_attention_launch",
-                        [_P, _I, _P, _P, _I, _P] + [_I] * 8 + [_P]),
+                        [_P, _I, _P, _P, _I, _P] + [_I] * 9 + [_P]),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -56,9 +59,11 @@ def lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or a shared header."""
     lib = lib_path(name)
+    srcs = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
     return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+            or lib.stat().st_mtime < max(p.stat().st_mtime for p in srcs))
 
 
 def build_all(names=SOURCES, force: bool = False) -> dict[str, dict]:
@@ -104,6 +109,16 @@ def load(name: str) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib
+
+
+def current_stream(device) -> int:
+    """The address of ``device``'s current CUDA stream, for a launch, from
+    PyTorch's raw accessor (as Triton's launcher reads it):
+    ``torch.cuda.current_stream`` builds a Stream object, several
+    microseconds of host time on every call."""
+    return torch._C._cuda_getCurrentRawStream(
+        device.index if device.index is not None
+        else torch.cuda.current_device())
 
 
 def check(rc: int, what: str) -> None:

@@ -4,8 +4,14 @@ Port of ``repro/kernels/flash_attention.py`` (the Pallas kernel) and of its
 oracle, the two-level scan of ``repro/models/attention.py::flash_attention``.
 For CUDA tensors ``flash_attention`` launches the CUDA kernel
 ``csrc/flash_attention.cu``; for CPU tensors it runs the plain PyTorch
-version ``flash_attention_plain``. ``flash_attention.launches`` counts
-kernel launches.
+version ``flash_attention_plain``. The kernel has two variants, picked by
+``select_impl`` from the dtypes and the head dim (never by a failure):
+``tc`` (q, k and v bf16, head_dim a multiple of 16 up to 128, 16-byte
+aligned: both products on bf16 tensor cores, p split exactly into three
+bf16 terms) and ``fp32`` (everything else: both products on the FP32 CUDA
+cores). ``flash_attention.launches`` counts kernel launches and
+``flash_attention.launches_by_impl`` the same by variant; CPU tensors
+touch neither.
 
 q (B, Sq, H, hd) and k/v (B, Sk, KV, hd), f32 or bf16, give (B, Sq, H, hd)
 in q's dtype: query head h reads kv head h // (H // KV), and under
@@ -28,6 +34,17 @@ NEG_INF = -1e30
 Q_CHUNK, KV_CHUNK = 512, 1024
 HD_MAX = 128  # the kernel's largest head dim (csrc/flash_attention.cu)
 _DTYPES = (torch.float32, torch.bfloat16)
+IMPLS = ("tc", "fp32")
+_IMPL_CODE = {"fp32": 0, "tc": 1}
+
+
+def select_impl(q, k, v) -> str:
+    """The kernel variant for these (checked) inputs."""
+    hd = q.shape[-1]
+    if (all(t.dtype == torch.bfloat16 and t.data_ptr() % 16 == 0
+            for t in (q, k, v)) and hd % 16 == 0):
+        return "tc"
+    return "fp32"
 
 
 def _scale(hd: int) -> float:
@@ -127,14 +144,19 @@ def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0):
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    impl = select_impl(q, k, v)
     fn = build.load("flash_attention").flash_attention_launch
     rc = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
             v.data_ptr(), int(k.dtype == torch.bfloat16), out.data_ptr(), B,
             Sq, Sk, H, KV, hd, int(bool(causal)), q_offset,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(rc, "flash_attention")
+            _IMPL_CODE[impl],
+            build.current_stream(q.device))
+    build.check(rc, f"flash_attention ({impl})")
     flash_attention.launches += 1
+    by_impl = flash_attention.launches_by_impl
+    by_impl[impl] = by_impl.get(impl, 0) + 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_impl = {}  # variant (IMPLS) -> launches

@@ -93,6 +93,98 @@ def test_vq_dequant_matmul_matches_plain(dev, M, N, K, d, bits, rg, cg, sb,
     torch.testing.assert_close(y, ref, rtol=1e-4, atol=1e-4)
 
 
+def _vq_case(dev, M, N, K, d, bits, rg, cg, sb, xdt, int8_form, seed=0):
+    """Random packed words (per-row layout when rows fill whole words,
+    else one flat run), codebooks either in the path's form (int8 values
+    times a per-(group, band) f32 scale, as ``quantize_codebooks`` leaves
+    them) or arbitrary f32, an optional scale plane and x."""
+    from repro_torch.core import packing
+
+    g = torch.Generator(device=dev).manual_seed(seed + M + N + K + d)
+    k_c = 2 ** (d * bits)
+    code_bits = max(1, (k_c - 1).bit_length())
+    codes = torch.randint(0, k_c, (N * K // d,), generator=g, device=dev)
+    words = packing.pack(codes, code_bits)
+    cbits = packing.container_bits(code_bits)
+    words = words.reshape(N if (K // d * cbits) % 32 == 0 else 1, -1)
+    shape = (K // cg, N // rg, k_c, d)
+    cb_i8 = cb_scale = None
+    if int8_form:
+        cb_i8 = torch.randint(-127, 128, shape, generator=g, device=dev,
+                              dtype=torch.int32).to(torch.int8)
+        cb_scale = torch.rand(shape[:2], generator=g, device=dev) * 0.02 + 1e-3
+        cb = cb_i8.to(torch.float32) * cb_scale[..., None, None]
+    else:
+        cb = torch.randn(shape, generator=g, device=dev)
+    scales = (torch.rand((N, K // sb), generator=g, device=dev) + 0.5
+              if sb else None)
+    x = torch.randn((M, K), generator=g, device=dev).to(xdt)
+    kw = dict(d=d, k_c=k_c, code_bits=code_bits, rows_per_band=rg,
+              group_cols=cg, scale_block=sb)
+    return x, words, cb, scales, cb_i8, cb_scale, kw
+
+
+@pytest.mark.parametrize("int8_form", [True, False])
+@pytest.mark.parametrize("M,N,K,d,bits,rg,cg,sb,xdt,impl", [
+    # split-K (M <= 16), both x dtypes
+    (1, 72, 512, 2, 2, 4, 256, 0, torch.float32, "splitk"),
+    (4, 130, 1024, 2, 2, 2, 256, 0, torch.bfloat16, "splitk"),
+    (16, 64, 768, 1, 2, 4, 128, 32, torch.bfloat16, "splitk"),
+    (7, 96, 512, 4, 2, 8, 256, 0, torch.float32, "splitk"),
+    (3, 68, 36, 2, 2, 4, 12, 6, torch.float32, "splitk"),  # flat words
+    (16, 40, 2048, 2, 2, 4, 2048, 0, torch.bfloat16, "splitk"),  # cg > 1024
+    # bf16 tensor cores (M > 16); ragged N, d in {1, 2, 4}, scale plane
+    (17, 130, 512, 2, 2, 2, 256, 0, torch.bfloat16, "tc"),
+    (64, 256, 1024, 2, 2, 4, 256, 0, torch.bfloat16, "tc"),
+    (128, 192, 768, 1, 2, 4, 128, 64, torch.bfloat16, "tc"),
+    (512, 128, 512, 4, 2, 8, 256, 0, torch.bfloat16, "tc"),
+    (64, 100, 384, 2, 2, 4, 96, 32, torch.bfloat16, "tc"),
+    (20, 68, 36, 2, 2, 4, 12, 6, torch.bfloat16, "tc"),  # flat words
+])
+def test_vq_dequant_matmul_variants(dev, M, N, K, d, bits, rg, cg, sb, xdt,
+                                    impl, int8_form):
+    """Every variant against the plain version, on codebooks in the path's
+    int8 form and on arbitrary f32 ones; launches_by_impl names the
+    variant that ran (tensor cores: the int8 form where column groups and
+    plane blocks are multiples of 64, else the exact 3-term split)."""
+    x, words, cb, scales, cb_i8, cb_scale, kw = _vq_case(
+        dev, M, N, K, d, bits, rg, cg, sb, xdt, int8_form)
+    if impl == "tc":
+        impl = ("tc_int8" if int8_form and cg % 64 == 0 and sb % 64 == 0
+                else "tc_split3")
+    by_impl = dict(vq_dequant_matmul.launches_by_impl)
+    y = vq_dequant_matmul(x, words, cb, scales, codebooks_i8=cb_i8,
+                          cb_scale=cb_scale, **kw)
+    torch.cuda.synchronize()
+    got = {k: v - by_impl.get(k, 0)
+           for k, v in vq_dequant_matmul.launches_by_impl.items()
+           if v != by_impl.get(k, 0)}
+    assert got == {impl: 1}
+    kw.pop("k_c")
+    ref = vq_dequant_matmul_plain(x, words, cb, scales, **kw)
+    # f32 sums in another order than cuBLAS (and, int8 form, the scale
+    # applied to each column group's sum rather than to each W value)
+    torch.testing.assert_close(y, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("M,sub", [(4, 1), (4, 3), (64, 17), (64, 40)])
+def test_vq_dequant_matmul_rows_are_independent(dev, M, sub):
+    """Row m of y is the same bit for bit whatever else x holds, within a
+    variant (split-K at M = 4, tensor cores at M = 64), and from run to
+    run: the engine's solo and interleaved runs give the same tokens only
+    if a slot's row does not depend on the other slots."""
+    x, words, cb, _, cb_i8, cb_scale, kw = _vq_case(
+        dev, M, 192, 1024, 2, 2, 4, 256, 0, torch.bfloat16, True)
+    run = lambda xx: vq_dequant_matmul(xx, words, cb, codebooks_i8=cb_i8,
+                                       cb_scale=cb_scale, **kw)
+    y = run(x)
+    assert torch.equal(run(x), y)
+    assert torch.equal(run(x[:sub].contiguous()), y[:sub])
+    other = x.clone()
+    other[sub:] = torch.randn_like(other[sub:].float()).to(other.dtype)
+    assert torch.equal(run(other)[:sub], y[:sub])
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     x = torch.randn((4, 8, 2), device=dev)
     cb = torch.randn((4, 16, 2), device=dev)
@@ -371,6 +463,107 @@ def test_flash_attention_mixed_dtypes(dev, q_dt, kv_dt):
     v = torch.randn((1, 256, 2, 64), generator=g, device=dev).to(kv_dt)
     got = flash_attention(q, k, v, causal=True)
     assert got.dtype == q_dt
+    rtol = 1e-5 if q_dt == torch.float32 else 2.0**-7
+    torch.testing.assert_close(got.float(), flash_attention_plain(
+        q, k, v, causal=True).float(), rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,q_offset", [
+    (1, 100, 900, 4, 2, 32, False, 0),   # ragged tiles, GQA
+    (2, 256, 256, 8, 4, 64, True, 0),    # GQA
+    (1, 96, 352, 4, 4, 96, True, 256),   # q_offset, ragged
+    (1, 200, 200, 2, 1, 112, True, 0),   # ragged causal, G = 2
+    (2, 512, 512, 4, 4, 128, True, 0),
+    (1, 64, 1024, 8, 1, 128, False, 0),  # G = 8, Sk != Sq
+    (1, 1, 64, 4, 2, 16, True, 63),      # one row
+    (1, 2048, 2048, 2, 2, 128, True, 0),
+])
+def test_flash_attention_tensor_cores(dev, B, Sq, Sk, H, KV, hd, causal,
+                                      q_offset):
+    """bf16 q, k, v with head_dim a multiple of 16 take the tensor-core
+    variant, within one bf16 ulp of the plain version (p kept exact as
+    three bf16 terms)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(Sq + Sk + hd + H)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+               for shape in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd)))
+    before = dict(flash_attention.launches_by_impl)
+    got = flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_impl.get("tc", 0) == before.get(
+        "tc", 0) + 1
+    assert flash_attention.launches_by_impl.get("fp32", 0) == before.get(
+        "fp32", 0)
+    want = flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    # both round f32 results ~1e-6 apart to bf16: one bf16 ulp at most
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0**-7,
+                               atol=1e-5)
+
+
+def test_flash_attention_tensor_cores_keep_every_term_of_p(dev):
+    """The tensor-core variant's p.v carries all three bf16 terms of the
+    f32 p: as few of its bf16 outputs differ from bf16(plain) as of the
+    FP32 variant's on the same values, and far fewer than of controls
+    that keep only p1 = bf16(p), or p1 + p2 (f32 attention in one softmax
+    pass)."""
+    from repro_torch.kernels.flash_attention import (
+        _scale, flash_attention, flash_attention_plain)
+
+    S, H, hd = 4096, 4, 128
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn((1, S, H, hd), generator=g,
+                           device=dev).to(torch.bfloat16) for _ in range(3))
+    ref = flash_attention_plain(q, k, v, causal=True)
+    before = dict(flash_attention.launches_by_impl)
+    tc = flash_attention(q, k, v, causal=True)
+    fp32 = flash_attention(q.float(), k, v, causal=True).to(torch.bfloat16)
+    assert {n: c - before.get(n, 0) for n, c in
+            flash_attention.launches_by_impl.items()} == {"tc": 1, "fp32": 1}
+    qh, kh, vh = (t[0].float().transpose(0, 1) for t in (q, k, v))
+    s = (qh @ kh.transpose(1, 2)) * _scale(hd)
+    s = s.masked_fill(torch.ones((S, S), dtype=torch.bool,
+                                 device=dev).triu(1), -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p1 = p.to(torch.bfloat16).float()
+    p2 = (p - p1).to(torch.bfloat16).float()
+    l = p.sum(dim=-1, keepdim=True)
+
+    def out(pp):  # (H, S, S) probabilities -> (1, S, H, hd) in bf16
+        return (pp @ vh / l).transpose(0, 1)[None].to(torch.bfloat16)
+
+    n_tc, n_fp32, n_p1, n_p12 = (int((o != ref).sum()) for o in (
+        tc, fp32, out(p1), out(p1 + p2)))
+    assert n_tc <= 1.5 * n_fp32 + 16, (n_tc, n_fp32)
+    # p2 and p3 both show: without them many more outputs move
+    assert 10 * n_tc <= n_p1 and 2 * n_tc <= n_p12, (n_tc, n_p1, n_p12)
+
+
+@pytest.mark.parametrize("q_dt,kv_dt,hd,impl", [
+    (torch.bfloat16, torch.bfloat16, 64, "tc"),
+    (torch.bfloat16, torch.bfloat16, 36, "fp32"),  # hd not a multiple of 16
+    (torch.float32, torch.float32, 64, "fp32"),
+    (torch.bfloat16, torch.float32, 64, "fp32"),
+    (torch.float32, torch.bfloat16, 64, "fp32"),
+])
+def test_flash_attention_variant_by_dtype_and_head_dim(dev, q_dt, kv_dt, hd,
+                                                       impl):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(hd)
+    q = torch.randn((1, 128, 4, hd), generator=g, device=dev).to(q_dt)
+    k = torch.randn((1, 128, 2, hd), generator=g, device=dev).to(kv_dt)
+    v = torch.randn((1, 128, 2, hd), generator=g, device=dev).to(kv_dt)
+    before = dict(flash_attention.launches_by_impl)
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    got_impl = {k_: n - before.get(k_, 0)
+                for k_, n in flash_attention.launches_by_impl.items()
+                if n != before.get(k_, 0)}
+    assert got_impl == {impl: 1}
     rtol = 1e-5 if q_dt == torch.float32 else 2.0**-7
     torch.testing.assert_close(got.float(), flash_attention_plain(
         q, k, v, causal=True).float(), rtol=rtol, atol=1e-5)
