@@ -15,11 +15,22 @@ Phases (each prints its seconds; any failure exits non-zero):
                 the least time the card could take (bound), and the
                 variant that ran (vq_dequant_matmul: split-K at M <= 16,
                 int8 or 3-term tensor cores for bf16 x above; flash:
-                tensor cores for bf16). vq_dequant_matmul's codebooks are
+                tensor cores for bf16). The card is kept busy for a second
+                first, so the first timed row meets ramped clocks.
+                vq_assign, vq_dequant_matmul and paged_attention rows also
+                carry their device time, the call replayed from a CUDA
+                graph. vq_dequant_matmul's codebooks are
                 in the path's form (int8 times a per-(group, band) scale),
                 plus one row per regime with arbitrary f32 ones; its rows
                 are held bitwise independent of the other rows of x and
                 bitwise the same from call to call at M = 4 and M = 64.
+                paged_attention runs at the 256-token engine's shapes
+                (serve: Llama-2-7B heads; gqa: Qwen2-72B heads) and at the
+                4096-token context (long, gqa long: 256 pages a slot),
+                every page format with f32 queries and the serve dtypes
+                with bf16 ones; at long and gqa long each slot's output
+                is held bitwise equal alone and in the batch, and from
+                call to call.
                 Each bf16 flash row also counts the outputs that differ
                 from bf16(plain) for the tensor-core kernel, the FP32 one
                 and p1-only and p1 + p2 controls (every term of p shows).
@@ -51,7 +62,13 @@ Phases (each prints its seconds; any failure exits non-zero):
                 shorter engines (4 requests, 32 new tokens) with int8, int4
                 and vq2 pages, their drift against the f32-page run printed
                 and the vq2 engine's codebook fit counted (vq_assign
-                launches zeroed just before the engine is built).
+                launches zeroed just before the engine is built). Last,
+                the long run: an engine of Llama-2-7B's 4096-token context
+                (max_len 4096, f32 pages), 4 greedy requests of 3,000-4,000
+                prompt tokens, 32 new tokens each, so every decode tick's
+                paged_attention walks 190-256 pages a slot; its launches
+                held to the host plan as above and request 0's
+                teacher-forced kernel decode to the gather decode.
   7. long     — the quantize path at Llama-2-7B's 4096-token context, same
                 full-width 2-layer model and recipe: calibration 4 x 4096
                 tokens, heldout 8 x 4096; fp perplexity, quantize_model
@@ -226,6 +243,7 @@ def check_assign(torch, dev, B: int, n: int, label: str) -> dict:
     err = float(((dk - dp).abs() / (1 + dp.abs())).max())
     tol = 1e-5
     ms = time_ms(torch, lambda: vq_assign(x, hw, cb))
+    dev_ms = graph_ms(torch, lambda: vq_assign(x, hw, cb))
     plain_ms = time_ms(torch, lambda: vq_assign_plain(x, hw, cb))
     lib_ms = time_ms(torch, lambda: torch.argmin(
         weighted_distances(x, hw, cb), dim=-1))
@@ -234,11 +252,12 @@ def check_assign(torch, dev, B: int, n: int, label: str) -> dict:
     row = {"name": "vq_assign", "shape": label, "B": B, "n": n, "d": d,
            "k": k, "max_abs_err": abs_err, "max_rel_err": err, "tol": tol,
            "index_agreement": float((idx_k == idx_p).float().mean()),
-           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-           "bound_ms": b_ms, "bound_by": b_by}
+           "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
     log(f"[kernels] vq_assign {label} B={B} n={n}: chosen-distance max abs "
         f"err {abs_err:.2e}, rel err {err:.2e} (tol {tol:.0e}), index agreement "
-        f"{row['index_agreement']:.6f} | kernel {ms:.4f} ms, plain "
+        f"{row['index_agreement']:.6f} | kernel {ms:.4f} ms "
+        f"({_fmt_ms(dev_ms)} replayed from a CUDA graph), plain "
         f"{plain_ms:.4f} ms, argmin(expanded) {lib_ms:.4f} ms, bound "
         f"{b_ms:.6f} ms ({b_by})")
     if not err <= tol:
@@ -370,25 +389,32 @@ def check_matmul_rows(torch, dev) -> dict:
 
 
 # paged decode attention at the serve phase's shape (Llama-2-7B heads) and
-# a GQA shape (Qwen2-72B heads, G = 8); B, n_pages, page_size as the engine
+# a GQA shape (Qwen2-72B heads, G = 8), 16 pages of 16 rows a slot as the
+# 256-token engine; then both at Llama-2-7B's 4096-token context (256 pages
+# a slot, as the long serve run's engine), one slot full, one idle
 PAGED_SHAPES = {
-    "serve": dict(B=4, H=32, KV=32, hd=128, pos=[0, 57, 111, 135]),
-    "gqa": dict(B=4, H=64, KV=8, hd=128, pos=[200, 0, 255, 33]),
+    "serve": dict(B=4, H=32, KV=32, hd=128, pos=[0, 57, 111, 135],
+                  n_pages=16),
+    "gqa": dict(B=4, H=64, KV=8, hd=128, pos=[200, 0, 255, 33], n_pages=16),
+    "long": dict(B=4, H=32, KV=32, hd=128, pos=[4095, 3071, 1500, 0],
+                 n_pages=256),
+    "gqa long": dict(B=4, H=64, KV=8, hd=128, pos=[4095, 3071, 1500, 0],
+                     n_pages=256),
 }
-PAGE_SIZE, N_PAGES = 16, 16
+PAGE_SIZE = 16
 
 
-def check_paged(torch, dev, shape: str, fmt, q_dtype) -> dict:
-    """paged_attention against its plain version on random pools in
-    ``fmt`` (quantized by kernels/kv_quant), ragged positions and an idle
-    slot (pos 0, all-scratch table row)."""
+def paged_inputs(torch, dev, shape: str, fmt, q_dtype):
+    """Random pools in ``fmt`` (quantized by kernels/kv_quant) at a
+    PAGED_SHAPES shape, a page table mapping each slot's live pages to
+    distinct blocks, the idle slot (pos 0) on an all-scratch row: (q, k
+    pool, v pool, table, pos, scale and codebook kwargs)."""
     from repro_torch.kernels import kv_quant as kvq
-    from repro_torch.kernels.paged_attention import (
-        _decoded_view, paged_attention, paged_attention_plain)
 
     sh = PAGED_SHAPES[shape]
     B, H, KV, hd, pos = sh["B"], sh["H"], sh["KV"], sh["hd"], sh["pos"]
-    nb = B * N_PAGES + 1
+    n_pages = sh["n_pages"]
+    nb = B * n_pages + 1
     g = torch.Generator(device=dev).manual_seed(H + KV + len(str(fmt)))
     q = torch.randn((B, H, hd), generator=g, device=dev).to(q_dtype)
     kp = torch.randn((nb, PAGE_SIZE, KV, hd), generator=g, device=dev)
@@ -407,25 +433,43 @@ def check_paged(torch, dev, shape: str, fmt, q_dtype) -> dict:
         (kp, ks), (vp, vs) = kvq.quantize_kv(kp, fmt), kvq.quantize_kv(vp, fmt)
         kw = dict(k_scale=ks, v_scale=vs)
     kp, vp = kp.contiguous(), vp.contiguous()
-    table = torch.zeros((B, N_PAGES), dtype=torch.int32)
+    table = torch.zeros((B, n_pages), dtype=torch.int32)
     blocks = iter(torch.randperm(nb - 1, generator=torch.Generator()
                                  .manual_seed(B)).add(1).tolist())
     for b in range(B):
         if pos[b]:
-            for p in range(pos[b] // PAGE_SIZE + 1):
+            for p in range(min(pos[b] // PAGE_SIZE + 1, n_pages)):
                 table[b, p] = next(blocks)
     table = table.to(dev)
     pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
-    out = paged_attention(q, kp, vp, table, pos_t, **kw)
+    return q, kp, vp, table, pos_t, kw
+
+
+def check_paged(torch, dev, shape: str, fmt, q_dtype) -> dict:
+    """paged_attention against its plain version on random pools in
+    ``fmt``, ragged positions and an idle slot (pos 0, all-scratch table
+    row); timed eager, replayed from a CUDA graph, beside the plain version
+    and SDPA on the decoded view."""
+    from repro_torch.kernels.paged_attention import (
+        _decoded_view, paged_attention, paged_attention_plain)
+
+    sh = PAGED_SHAPES[shape]
+    B, H, KV, hd, pos = sh["B"], sh["H"], sh["KV"], sh["hd"], sh["pos"]
+    n_pages = sh["n_pages"]
+    q, kp, vp, table, pos_t, kw = paged_inputs(torch, dev, shape, fmt,
+                                               q_dtype)
+    run = lambda: paged_attention(q, kp, vp, table, pos_t, **kw)
+    out = run()
     ref = paged_attention_plain(q, kp, vp, table, pos_t, **kw)
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
-    # f32: online softmax and FMA dot products sum in another order; bf16
-    # output: both round the same f32 result, one bf16 ulp apart at most
-    tol = 2e-5 if q_dtype == torch.float32 else 8e-3
-    ok = bool(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol))
-    ms = time_ms(torch, lambda: paged_attention(q, kp, vp, table, pos_t,
-                                                **kw))
+    # f32: online softmax, split merges and FMA dot products sum in another
+    # order; bf16 output: both round f32 results ~1e-6 apart, so they
+    # differ by at most one bf16 ulp, 2^-7 of the value
+    rtol, atol = (2e-5, 2e-5) if q_dtype == torch.float32 else (2.0**-7, 1e-5)
+    ok = bool(torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol))
+    ms = time_ms(torch, run)
+    dev_ms = graph_ms(torch, run)
     plain_ms = time_ms(torch, lambda: paged_attention_plain(
         q, kp, vp, table, pos_t, **kw))
     # library yardstick: SDPA over the K/V view gathered and decoded
@@ -440,7 +484,7 @@ def check_paged(torch, dev, shape: str, fmt, q_dtype) -> dict:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = time_ms(torch, lambda: sdpa(qf, kd, vd, attn_mask=mask,
                                          enable_gqa=True))
-    rows = sum(min(p + 1, N_PAGES * PAGE_SIZE) for p in pos)
+    rows = sum(min(p + 1, n_pages * PAGE_SIZE) for p in pos)
     row_bytes = kp.shape[-1] * kp.element_size() + (4 if kw else 0)
     nbytes = (2 * rows * KV * row_bytes + 2 * q.numel() * q.element_size()
               + table.numel() * 4 + B * 4
@@ -448,17 +492,61 @@ def check_paged(torch, dev, shape: str, fmt, q_dtype) -> dict:
     b_ms, b_by = bound_ms(nbytes, 4.0 * rows * H * hd)
     row = {"name": "paged_attention", "shape": shape, "fmt": str(fmt),
            "q_dtype": str(q_dtype).replace("torch.", ""), "B": B, "H": H,
-           "KV": KV, "hd": hd, "pos": pos, "max_abs_err": err, "tol": tol,
-           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-           "bound_ms": b_ms, "bound_by": b_by}
+           "KV": KV, "hd": hd, "pos": pos, "n_pages": n_pages,
+           "max_abs_err": err, "rtol": rtol, "atol": atol, "ms": ms,
+           "device_ms": dev_ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+           "bound_by": b_by}
     log(f"[kernels] paged_attention {shape} fmt={fmt} q={row['q_dtype']} "
-        f"B={B} H={H} KV={KV} hd={hd} pos={pos}: max abs err {err:.2e} "
-        f"(tol {tol:.0e}) | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa(decoded view) {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        f"B={B} H={H} KV={KV} hd={hd} pages={n_pages} pos={pos}: max abs "
+        f"err {err:.2e} (rtol {rtol:.1e}, atol {atol:.0e}) | kernel "
+        f"{ms:.4f} ms "
+        f"({_fmt_ms(dev_ms)} replayed from a CUDA graph), plain "
+        f"{plain_ms:.4f} ms, sdpa(decoded view) {lib_ms:.4f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by}), {ms / b_ms:.1f}x the bound")
     if not ok:
-        raise Failed(f"paged_attention {shape} fmt={fmt}: error {err} > "
-                     f"{tol}")
+        raise Failed(f"paged_attention {shape} fmt={fmt}: error {err} "
+                     f"past rtol {rtol}, atol {atol}")
     return row
+
+
+def check_paged_slots(torch, dev, shape: str) -> dict:
+    """A slot's output is the same bits alone (B = 1: its q row, table row
+    and pos) as inside the batch with the other slots' positions, and the
+    same bits from call to call (the engine's solo-vs-interleaved token
+    identity rests on it): f32 and vq2 pages, f32 and bf16 queries."""
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    out = {}
+    for fmt, q_dtype in (("f32", torch.float32), ("f32", torch.bfloat16),
+                         ("vq2", torch.float32)):
+        q, kp, vp, table, pos_t, kw = paged_inputs(torch, dev, shape, fmt,
+                                                   q_dtype)
+        run = lambda qq, tt, pp: paged_attention(qq, kp, vp, tt, pp, **kw)
+        y = run(q, table, pos_t)
+        same_run = bool(torch.equal(run(q, table, pos_t), y))
+        alone = [bool(torch.equal(run(q[b:b + 1], table[b:b + 1],
+                                      pos_t[b:b + 1])[0], y[b]))
+                 for b in range(q.shape[0])]
+        key = f"{fmt} pages, {str(q_dtype).replace('torch.', '')} q"
+        out[key] = {"two_calls_equal": same_run, "slots_alone_equal": alone}
+        log(f"[kernels] paged_attention bitwise at {shape}, {key}: two "
+            f"calls {same_run}, each slot alone == in the batch {alone}")
+        if not (same_run and all(alone)):
+            raise Failed(f"paged_attention {shape} {key}: slots are not "
+                         "bitwise independent and deterministic")
+    return out
+
+
+def warm_card(torch, dev, seconds: float = 1.0) -> None:
+    """Keep the card busy for ``seconds`` before the first timed row, so
+    that its clocks have ramped up when the timing starts."""
+    a = torch.randn((4096, 4096), device=dev)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(10):
+            a = torch.tanh(a @ a)
+        torch.cuda.synchronize()
 
 
 # the long phase: Llama-2-7B's published 4096-token context
@@ -628,6 +716,7 @@ def check_flash(torch, dev, shape: str, dtype) -> dict:
 def phase_kernels(torch, dev) -> list[dict]:
     t0 = time.perf_counter()
     rows = []
+    warm_card(torch, dev)
     # the quantizer's EM and span sweep, then the serve engine's vq2 KV
     # codebook fit (32 kv heads x 64 tokens x 64 pairs of head dims)
     for label, B, n in (("em", 1024, 512), ("em", 2752, 512),
@@ -646,14 +735,11 @@ def phase_kernels(torch, dev) -> list[dict]:
                                  0))
     for M in (SERVE_MAX_BATCH, 512):
         rows.append(check_matmul(torch, dev, "wq", M, 0, "f32"))
-    invariance = check_matmul_rows(torch, dev)
-    for shape in PAGED_SHAPES:
-        for fmt in ("f32", "bf16", 8, 4, "vq2"):
-            rows.append(check_paged(torch, dev, shape, fmt, torch.float32))
-    # the serve path's own dtypes: the bf16 model's queries over the
-    # engine's f32 pages and over each quantized page format
-    for fmt in ("f32", 8, 4, "vq2"):
-        rows.append(check_paged(torch, dev, "serve", fmt, torch.bfloat16))
+    invariance = {"vq_dequant_matmul": check_matmul_rows(torch, dev)}
+    for shape in ("long", "gqa long"):
+        invariance[f"paged_attention {shape}"] = check_paged_slots(
+            torch, dev, shape)
+    rows += paged_rows(torch, dev)
     for shape in FLASH_SHAPES:
         for dt in (torch.bfloat16, torch.float32):
             rows.append(check_flash(torch, dev, shape, dt))
@@ -840,9 +926,14 @@ SERVE_MAX_LEN, SERVE_PAGE = 256, 16
 KV_FIT_EM_ITERS = 25
 
 
-def serve_prompts(vocab: int, n: int) -> list:
+# the long serve run, at Llama-2-7B's 4096-token context: 4 greedy
+# requests of 3,000-4,000 prompt tokens, 32 new tokens each
+LONG_SERVE_REQUESTS, LONG_SERVE_NEW, LONG_SERVE_MAX_LEN = 4, 32, 4096
+
+
+def serve_prompts(vocab: int, n: int, lo: int = 40, hi: int = 72) -> list:
     rng = np.random.RandomState(0)
-    sizes = rng.randint(40, 73, size=n)
+    sizes = rng.randint(lo, hi + 1, size=n)
     return [rng.randint(0, vocab, size=int(s)) for s in sizes]
 
 
@@ -865,9 +956,11 @@ def _median(xs):
     return xs[len(xs) // 2] if xs else float("nan")
 
 
-def serve_run(torch, dev, model, qparams, kv_bits, n_req, n_new) -> dict:
-    """One engine over ``n_req`` requests; kernel launch counts are zeroed
-    just before ``run`` and read just after."""
+def serve_run(torch, dev, model, qparams, kv_bits, n_req, n_new,
+              max_len: int = SERVE_MAX_LEN, prompt_len=(40, 72)) -> dict:
+    """One engine over ``n_req`` requests with prompts of ``prompt_len``
+    tokens; kernel launch counts are zeroed just before ``run`` and read
+    just after."""
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.vq_assign import vq_assign
     from repro_torch.kernels.vq_dequant_matmul import vq_dequant_matmul
@@ -877,14 +970,15 @@ def serve_run(torch, dev, model, qparams, kv_bits, n_req, n_new) -> dict:
     vq_assign.launches = 0
     t0 = time.perf_counter()
     eng = Engine(model, qparams, max_batch=SERVE_MAX_BATCH,
-                 max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
+                 max_len=max_len, page_size=SERVE_PAGE,
                  paged_attn_impl="fused", vq_matmul_impl="fused",
                  kv_cache_bits=kv_bits, device=dev)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     load_assign = vq_assign.launches
     reqs = [Request(rid=i, prompt=p, max_new_tokens=n_new)
-            for i, p in enumerate(serve_prompts(model.cfg.vocab_size, n_req))]
+            for i, p in enumerate(serve_prompts(model.cfg.vocab_size, n_req,
+                                                *prompt_len))]
     paged_attention.launches = 0
     vq_dequant_matmul.launches = 0
     vq_dequant_matmul.launches_by_m = {}
@@ -901,7 +995,9 @@ def serve_run(torch, dev, model, qparams, kv_bits, n_req, n_new) -> dict:
     recs = eng.drain_request_records()
     ttft = [r.ttft_s for r in recs if r.ttft_s is not None]
     itl = [r.itl_mean_s for r in recs if r.itl_mean_s is not None]
-    res = {"kv_bits": str(kv_bits), "requests": n_req, "new": n_new,
+    res = {"kv_bits": str(kv_bits), "max_len": max_len,
+           "prompt_tokens": [len(r.prompt) for r in reqs],
+           "requests": n_req, "new": n_new,
            "tokens": st["tokens"], "ticks": st["ticks"],
            "decode_ticks": st["decode_ticks"],
            "prefill_chunks": st["prefill_chunks"],
@@ -915,7 +1011,9 @@ def serve_run(torch, dev, model, qparams, kv_bits, n_req, n_new) -> dict:
            "load_vq_assign_launches": load_assign,
            "out": [r.out_tokens for r in reqs],
            "prompts": [r.prompt for r in reqs]}
-    log(f"[serve] kv={kv_bits}: {n_req} requests, {st['tokens']} tokens, "
+    log(f"[serve] kv={kv_bits} max_len={max_len}: {n_req} requests of "
+        f"{min(res['prompt_tokens'])}-{max(res['prompt_tokens'])} prompt "
+        f"tokens, {st['tokens']} tokens, "
         f"{st['ticks']} ticks ({st['decode_ticks']} decode, "
         f"{st['prefill_chunks']} prefill chunks, {st['preemptions']} "
         f"preemptions) in {wall:.3f} s = {res['tok_per_s']:.1f} tok/s "
@@ -932,13 +1030,14 @@ def serve_run(torch, dev, model, qparams, kv_bits, n_req, n_new) -> dict:
 
 def forced_logits(torch, dev, model, eng, prompt, forced, impl):
     """Teacher-forced per-step logits through a fresh paged cache in the
-    engine's page format (and, for vq2, its frozen codebooks)."""
+    engine's page format and length (and, for vq2, its frozen
+    codebooks)."""
     from repro_torch.serve import paged_cache as pc
     from repro_torch.serve.serve_step import teacher_forced_logits
 
-    cache = model.init_cache(1, SERVE_MAX_LEN, dtype=torch.float32,
+    cache = model.init_cache(1, eng.max_len, dtype=torch.float32,
                              paged=eng.layout, device=dev)
-    n_pages = SERVE_MAX_LEN // SERVE_PAGE
+    n_pages = eng.max_len // SERVE_PAGE
     cache = pc.push_page_table(
         cache, np.arange(1, n_pages + 1, dtype=np.int32)[None])
     if eng.cache[0].k_codebook is not None:
@@ -948,6 +1047,105 @@ def forced_logits(torch, dev, model, eng, prompt, forced, impl):
                                  cache=cache, paged_impl=impl)
 
 
+def predict_serve(run: dict, n_layers: int, tag: str) -> dict:
+    """Launch counts of a serve run from the host plan: paged_attention
+    once a layer per decode tick; 7 quantized matmuls a layer in every
+    forward (decode tick or prefill chunk), the decode ticks at M =
+    max_batch; by variant, decode ticks and prefill chunks of <= 16 rows on
+    split-K, wider chunks on the int8 tensor cores, none on the 3-term or
+    FP32 variants (the model is bf16, its leaves int8)."""
+    chunks = prefill_chunk_ms(run["prompts"])
+    want = {"paged_attention": run["decode_ticks"] * n_layers,
+            "vq_dequant_matmul": 7 * n_layers * (run["decode_ticks"]
+                                                 + run["prefill_chunks"]),
+            "chunks": chunks}
+    impl = {"splitk": 7 * n_layers * (run["decode_ticks"]
+                                      + sum(m <= 16 for m in chunks)),
+            "tc_int8": 7 * n_layers * sum(m > 16 for m in chunks)}
+    want["vq_dequant_matmul_by_impl"] = {k: v for k, v in impl.items() if v}
+    shown = chunks if len(chunks) <= 16 else (
+        f"{len(chunks)} chunks, {sum(m > 16 for m in chunks)} of > 16 rows")
+    log(f"[serve] {tag} predicted launches: paged_attention = decode ticks "
+        f"x layers = {want['paged_attention']}; vq_dequant_matmul = 7 x "
+        f"layers x (decode ticks + prefill chunks) = "
+        f"{want['vq_dequant_matmul']}, of them "
+        f"{7 * n_layers * run['decode_ticks']} at M = {SERVE_MAX_BATCH}; "
+        f"prefill chunks: {shown}; by variant "
+        f"{want['vq_dequant_matmul_by_impl']}")
+    return want
+
+
+def serve_run_checks(run: dict, want: dict, n_layers: int, n_new: int,
+                     tag: str) -> dict:
+    """The checks of a serve run against its predicted launch counts."""
+    return {
+        f"{tag}: all requests finished": all(len(o) == n_new
+                                             for o in run["out"]),
+        f"{tag}: paged_attention launches == decode ticks x layers":
+            run["launches"]["paged_attention"]
+            == want["paged_attention"] > 0,
+        f"{tag}: vq_dequant_matmul launches == 7 x layers x forwards":
+            run["launches"]["vq_dequant_matmul"]
+            == want["vq_dequant_matmul"] > 0,
+        f"{tag}: vq_dequant_matmul at M = 4": run["vq_m_counts"].get(
+            SERVE_MAX_BATCH, 0) == 7 * n_layers * run["decode_ticks"],
+        f"{tag}: prefill chunks as planned":
+            run["prefill_chunks"] == len(want["chunks"]),
+        f"{tag}: vq_dequant_matmul launches by variant as planned":
+            run["vq_impl_counts"] == want["vq_dequant_matmul_by_impl"],
+    }
+
+
+def teacher_forced(torch, dev, model, run: dict, eng, tag: str) -> tuple:
+    """Request 0's prompt + outputs through the paged path (gather prefill
+    + kernel decode) against the gather decode and the cache-free forward:
+    {name: (max |diff|, RMS)} and the share of steps whose argmax is the
+    served token."""
+    from repro_torch.models.attention import FLASH_THRESHOLD
+
+    prompt, out = run["prompts"][0], run["out"][0]
+    forced = out[:-1]
+    seq = np.concatenate([prompt, forced])
+    n = len(seq)
+    if n > FLASH_THRESHOLD:
+        # the flash path takes whole 1024-token chunks; the tokens after
+        # the sequence do not move its causal logits
+        seq = np.pad(seq, (0, -n % 1024))
+    with torch.no_grad():
+        fused = forced_logits(torch, dev, model, eng, prompt, forced, "fused")
+        gather = forced_logits(torch, dev, model, eng, prompt, forced,
+                               "gather")
+        free = model.forward(eng.params, {"tokens": torch.as_tensor(
+            seq, device=dev)[None]})[0][0]
+        free = free[len(prompt) - 1:n].float()
+    diffs = {}
+    for name, other in (("cache-free forward", free),
+                        ("gather decode", gather)):
+        d = (fused - other).float()
+        diffs[name] = (float(d.abs().max()), float(d.pow(2).mean().sqrt()))
+        log(f"[serve] {tag} teacher-forced kernel decode vs {name}, "
+            f"{tuple(fused.shape)} logits: max |diff| {diffs[name][0]:.4e} "
+            f"(tol {SERVE_MAX_TOL}), RMS {diffs[name][1]:.4e} (tol "
+            f"{SERVE_RMS_TOL})")
+    agree = float((fused.argmax(-1).cpu()
+                   == torch.tensor(out)).float().mean())
+    log(f"[serve] {tag} teacher-forced argmax reproduces the served tokens "
+        f"on {agree:.4f} of steps")
+    return diffs, agree, fused
+
+
+# bars set from the readings on the H100: sound decodes read up to 5.2e-2
+# max / 1.0e-2 RMS (vs the cache-free forward, which rounds probabilities
+# to bf16) and 3.1e-2 / 5.2e-3 (vs the gather decode); a decode that read
+# K/V at int8 precision drifts 9.4e-2 / 1.77e-2 and fails the RMS bar, a
+# wrong page, mask or scale moves logits O(1)
+SERVE_MAX_TOL, SERVE_RMS_TOL = 0.1, 0.015
+
+
+def within_bars(diff: tuple) -> bool:
+    return diff[0] <= SERVE_MAX_TOL and diff[1] <= SERVE_RMS_TOL
+
+
 def phase_serve(torch, dev, model, qparams) -> dict:
     cfg = model.cfg
     t_phase = time.perf_counter()
@@ -955,55 +1153,10 @@ def phase_serve(torch, dev, model, qparams) -> dict:
                      SERVE_NEW)
     eng = main.pop("engine")
     n_layers = cfg.n_layers
-    want_pa = main["decode_ticks"] * n_layers
-    # 7 quantized matmuls per layer in every forward (decode tick or
-    # prefill chunk); the decode ticks run at M = max_batch
-    want_vq = 7 * n_layers * (main["decode_ticks"] + main["prefill_chunks"])
-    # by variant, from the host plan: decode ticks and prefill chunks of
-    # <= 16 rows on split-K, wider chunks on the int8 tensor cores, none on
-    # the 3-term or FP32 variants (the model is bf16, its leaves int8)
-    chunks = prefill_chunk_ms(main["prompts"])
-    want_impl = {
-        "splitk": 7 * n_layers * (main["decode_ticks"]
-                                  + sum(m <= 16 for m in chunks)),
-        "tc_int8": 7 * n_layers * sum(m > 16 for m in chunks)}
-    want_impl = {k: v for k, v in want_impl.items() if v}
-    log(f"[serve] predicted launches: paged_attention = decode ticks x "
-        f"layers = {want_pa}; vq_dequant_matmul = 7 x layers x (decode "
-        f"ticks + prefill chunks) = {want_vq}, of them "
-        f"{7 * n_layers * main['decode_ticks']} at M = {SERVE_MAX_BATCH}; "
-        f"prefill chunks of {chunks} rows; by variant {want_impl}")
-
-    # teacher-forced: request 0's prompt + outputs through the paged path
+    want = predict_serve(main, n_layers, "256-token run")
+    diffs, greedy_agree, _ = teacher_forced(torch, dev, model, main, eng,
+                                            "256-token run")
     prompt, out = main["prompts"][0], main["out"][0]
-    forced = out[:-1]
-    with torch.no_grad():
-        fused = forced_logits(torch, dev, model, eng, prompt, forced, "fused")
-        gather = forced_logits(torch, dev, model, eng, prompt, forced,
-                               "gather")
-        seq = torch.as_tensor(np.concatenate([prompt, forced]),
-                              device=dev)[None]
-        free = model.forward(eng.params, {"tokens": seq})[0][0]
-        free = free[len(prompt) - 1:].float()
-    diffs = {}
-    for name, other in (("cache-free forward", free),
-                        ("gather decode", gather)):
-        d = (fused - other).float()
-        diffs[name] = (float(d.abs().max()), float(d.pow(2).mean().sqrt()))
-    # bars set from the readings on the H100: sound decodes read up to
-    # 5.2e-2 max / 1.0e-2 RMS (vs the cache-free forward, which rounds
-    # probabilities to bf16) and 3.1e-2 / 5.2e-3 (vs the gather decode);
-    # a decode that read K/V at int8 precision drifts 9.4e-2 / 1.77e-2
-    # and fails the RMS bar, a wrong page, mask or scale moves logits O(1)
-    max_tol, rms_tol = 0.1, 0.015
-    for name, (mx, rms) in diffs.items():
-        log(f"[serve] teacher-forced kernel decode vs {name}, "
-            f"{tuple(fused.shape)} logits: max |diff| {mx:.4e} (tol "
-            f"{max_tol}), RMS {rms:.4e} (tol {rms_tol})")
-    greedy_agree = float((fused.argmax(-1).cpu()
-                          == torch.tensor(out)).float().mean())
-    log(f"[serve] teacher-forced argmax reproduces the served tokens on "
-        f"{greedy_agree:.4f} of steps")
 
     # the vq2 engine's codebook fit: EM_ITERS E-steps per pool (K and V)
     # and layer, each one vq_assign launch over the 32 kv heads
@@ -1028,24 +1181,32 @@ def phase_serve(torch, dev, model, qparams) -> dict:
             f"request 0 (32 steps): max {r['drift_max']:.4e}, RMS "
             f"{r['drift_rms']:.4e}, finite {r['finite']}")
         quant[str(bits)] = r
+    del eng
+    # the long run: 4 requests of 3,000-4,000 prompt tokens on an engine of
+    # Llama-2-7B's 4096-token context, every decode tick's paged_attention
+    # walking 190-256 pages a slot (prefill reads through gather)
+    long = serve_run(torch, dev, model, qparams, 16, LONG_SERVE_REQUESTS,
+                     LONG_SERVE_NEW, max_len=LONG_SERVE_MAX_LEN,
+                     prompt_len=(3000, 4000))
+    leng = long.pop("engine")
+    want_long = predict_serve(long, n_layers, "4096-token run")
+    diffs_long, agree_long, _ = teacher_forced(torch, dev, model, long, leng,
+                                               "4096-token run")
+    del leng
     log(f"[serve] phase {time.perf_counter() - t_phase:.1f}s")
 
-    checks = {
-        "all requests finished": all(len(o) == SERVE_NEW for o in main["out"]),
-        "paged_attention launches == decode ticks x layers":
-            main["launches"]["paged_attention"] == want_pa > 0,
-        "vq_dequant_matmul launches == 7 x layers x forwards":
-            main["launches"]["vq_dequant_matmul"] == want_vq > 0,
-        "vq_dequant_matmul at M = 4": main["vq_m_counts"].get(
-            SERVE_MAX_BATCH, 0) == 7 * n_layers * main["decode_ticks"],
-        "prefill chunks as planned": main["prefill_chunks"] == len(chunks),
-        "vq_dequant_matmul launches by variant as planned":
-            main["vq_impl_counts"] == want_impl,
-        "teacher-forced vs cache-free": diffs["cache-free forward"][0]
-            <= max_tol and diffs["cache-free forward"][1] <= rms_tol,
-        "teacher-forced vs gather decode": diffs["gather decode"][0]
-            <= max_tol and diffs["gather decode"][1] <= rms_tol,
-    }
+    checks = serve_run_checks(main, want, n_layers, SERVE_NEW,
+                              "256-token run")
+    checks.update(serve_run_checks(long, want_long, n_layers, LONG_SERVE_NEW,
+                                   "4096-token run"))
+    checks.update({
+        "teacher-forced vs cache-free": within_bars(
+            diffs["cache-free forward"]),
+        "teacher-forced vs gather decode": within_bars(
+            diffs["gather decode"]),
+        "4096-token run: teacher-forced vs gather decode": within_bars(
+            diffs_long["gather decode"]),
+    })
     for bits, r in quant.items():
         checks[f"kv={bits} finished"] = all(len(o) == 32 for o in r["out"])
         checks[f"kv={bits} paged_attention launches"] = (
@@ -1060,14 +1221,17 @@ def phase_serve(torch, dev, model, qparams) -> dict:
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise Failed(f"serve phase checks failed: {bad}")
-    for r in [main, *quant.values()]:
+    for r in [main, long, *quant.values()]:
         r.pop("prompts")
         r["out"] = r["out"][:2]
+    for w in (want, want_long):
+        w.pop("chunks")
     return {"kv16": main, "quantized": quant, "teacher_forced": diffs,
-            "greedy_agree": greedy_agree, "predicted": {
-                "paged_attention": want_pa, "vq_dequant_matmul": want_vq,
-                "vq_dequant_matmul_by_impl": want_impl,
-                "vq_assign_at_load": want_assign}}
+            "greedy_agree": greedy_agree, "long": long,
+            "long_teacher_forced": diffs_long,
+            "long_greedy_agree": agree_long,
+            "predicted": dict(want, vq_assign_at_load=want_assign),
+            "long_predicted": want_long}
 
 
 def phase_long(torch, dev) -> dict:
@@ -1237,11 +1401,11 @@ def phase_long(torch, dev) -> dict:
 def kernel_line(rows: list[dict], launches: dict) -> dict:
     """One entry per kernel, at the shape its path launches most:
     vq_dequant_matmul at the eval's M=512 on a 4096x4096 projection,
-    vq_assign at the span sweep's B=1024, n=4, paged_attention at the serve
-    phase's B=4, 32 heads of 128, bf16 queries over f32 pages,
-    flash_attention at the long phase's heldout B=8, 32 heads of 128, 4096
-    tokens, bf16. Launches: the main phase's for the first two, the serve
-    phase's (f32 pages) for paged_attention, the long phase's for
+    vq_assign at the span sweep's B=1024, n=4, paged_attention at the long
+    serve run's B=4, 32 heads of 128, 256 pages a slot, bf16 queries over
+    f32 pages, flash_attention at the long phase's heldout B=8, 32 heads of
+    128, 4096 tokens, bf16. Launches: the main phase's for the first two,
+    the long serve run's for paged_attention, the long phase's for
     flash_attention."""
     pick = {
         "vq_dequant_matmul": (
@@ -1254,7 +1418,7 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
             "src/repro_torch/kernels/csrc/vq_assign.cu",
             "src/repro/kernels/vq_assign.py:37"),
         "paged_attention": (
-            lambda r: r["shape"] == "serve" and r["fmt"] == "f32"
+            lambda r: r["shape"] == "long" and r["fmt"] == "f32"
             and r["q_dtype"] == "bfloat16",
             "src/repro_torch/kernels/csrc/paged_attention.cu",
             "src/repro/kernels/paged_attention.py:128"),
@@ -1273,6 +1437,22 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"]})
     return {"kernels": out}
+
+
+def paged_rows(torch, dev) -> list[dict]:
+    """paged_attention's kernels-phase rows: every shape at every page
+    format with f32 queries, and the serve dtypes with bf16 ones."""
+    rows = []
+    for shape in PAGED_SHAPES:
+        for fmt in ("f32", "bf16", 8, 4, "vq2"):
+            rows.append(check_paged(torch, dev, shape, fmt, torch.float32))
+        # the serve path's own dtypes: the bf16 model's queries over the
+        # engine's f32 pages and over each quantized page format
+        if shape != "gqa":
+            for fmt in ("f32", 8, 4, "vq2"):
+                rows.append(check_paged(torch, dev, shape, fmt,
+                                        torch.bfloat16))
+    return rows
 
 
 def main() -> int:
@@ -1297,13 +1477,13 @@ def main() -> int:
     out = os.path.join(out_dir, "chip_smoke.json")
     with open(out, "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "kernels": rows,
-                   "vq_dequant_matmul_bitwise": invariance,
+                   "bitwise": invariance,
                    "small": small_res, "main": main_res,
                    "serve": serve_res, "long": long_res}, f, indent=1,
                   default=str)
     log(f"[done] {time.perf_counter() - t_all:.1f}s; details in {out}")
     launches = dict(main_res["launches"], paged_attention=serve_res[
-        "kv16"]["launches"]["paged_attention"],
+        "long"]["launches"]["paged_attention"],
         flash_attention=long_res["launches"]["flash_attention"])
     print(json.dumps(kernel_line(rows, launches)))
     print(smi)

@@ -33,8 +33,8 @@ _ENTRY = {
                   [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _I, _I, _P]),
     # one int64 array of every argument (csrc/vq_dequant_matmul.cu)
     "vq_dequant_matmul": ("vq_dequant_matmul_launch", [_P]),
-    "paged_attention": ("paged_attention_launch",
-                        [_P, _I] + [_P] * 9 + [_I] * 9 + [_P]),
+    # one int64 array of every argument (csrc/paged_attention.cu)
+    "paged_attention": ("paged_attention_launch", [_P]),
     "flash_attention": ("flash_attention_launch",
                         [_P, _I, _P, _P, _I, _P] + [_I] * 9 + [_P]),
 }

@@ -3,10 +3,11 @@
 Port of ``repro/kernels/paged_attention.py`` (the Pallas kernel) and of its
 oracle ``repro/kernels/ref.py::paged_attention_ref``; ``paged_attention``
 also takes the place of the dispatch in ``repro/kernels/ops.py``. For CUDA
-tensors ``paged_attention`` launches the CUDA kernel
+tensors ``paged_attention`` launches the CUDA kernels
 ``csrc/paged_attention.cu``; for CPU tensors it runs the plain PyTorch
 version ``paged_attention_plain``. ``paged_attention.launches`` counts
-kernel launches.
+calls of the kernel path (a split kernel and, with more than one split, the
+merge of the splits: one call, one count).
 
 One query token per slot attends over its own pages: logical row kpos of
 slot b lives in block ``page_table[b, kpos // page_size]``, row
@@ -16,9 +17,19 @@ block 0 that idle slots map). Pools hold f32 or bf16 values, int8 or packed
 int4 codes with per-row per-kv-head f32 scales, or vq2 indices into
 per-kv-head (16, 2) codebooks with scales; ``kernels/kv_quant.py`` decodes
 them.
+
+The kernel splits each slot's walk over its pages into runs of
+``split_plan(...).pages_per_split`` pages, one CTA each, and merges the
+runs in order. The plan depends on the page size, the head dim, the query
+heads per kv head and the page format only, never on the batch, the table's
+width or any slot's position, so a slot's output is the same bits alone or
+in any batch. The wrapper never reads a device tensor on the host.
 """
 from __future__ import annotations
 
+import array
+import dataclasses
+import functools
 import math
 
 import torch
@@ -27,9 +38,80 @@ from repro_torch.kernels import build
 from repro_torch.kernels import kv_quant as kvq
 
 NEG_INF = -1e30
-_SMEM_LIMIT = 200 * 1024
+# the card's shared memory per block (H100: 227 KB)
+_SMEM_LIMIT = 227 * 1024
 # the kernel's page formats (csrc/paged_attention.cu, enum Fmt)
 _FMT_F32, _FMT_BF16, _FMT_INT8, _FMT_INT4, _FMT_VQ2 = range(5)
+# storage bits of one head dim in each format
+_DIM_BITS = {_FMT_F32: 32, _FMT_BF16: 16, _FMT_INT8: 8, _FMT_INT4: 4,
+             _FMT_VQ2: 2}
+# csrc constants: threads (4 warps) a CTA, codebook bytes, read slack
+_WARPS, _CB_BYTES, _SLACK = 4, 2 * kvq.VQ_K * kvq.VQ_D * 4, 32
+# live rows a split walks and the page buffers of its ring: near the
+# fastest of a sweep over 1-16 pages a split and 1-2 buffers on the H100 at
+# Llama-2-7B's and Qwen2-72B's heads over 4096 tokens (PERF.md).
+# Shorter splits pay their fixed costs (the merge of the warps, the
+# partial) more often, longer ones leave short slots to few CTAs; one
+# buffer read nearly as fast as two (the kernel is instruction-bound once
+# the bytes are in flight), and more buffers cost CTAs an SM
+_SPLIT_ROWS = 128
+_RING_BYTES, _MAX_STAGES = 32 * 1024, 2
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """How the kernel cuts a slot's walk and lays out a CTA:
+    ``pages_per_split`` logical pages a split (CTA), ``stages`` (1 or 2)
+    page buffers in its shared-memory ring, ``heads_per_cta`` query heads of one
+    kv head a CTA, ``dims_per_lane`` head dims a lane holds in registers (4
+    or 8; 0: the wide variant, head dims above 256, with q and the sums in
+    shared memory), ``lanes_per_row`` lanes that share a row, and the CTA's
+    ``smem_bytes``."""
+
+    pages_per_split: int
+    stages: int
+    heads_per_cta: int
+    dims_per_lane: int
+    lanes_per_row: int
+    smem_bytes: int
+
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+@functools.lru_cache(maxsize=1024)
+def split_plan(page_size: int, hd: int, G: int, fmt: int) -> SplitPlan:
+    """The split plan of a call, a function of the page size, the head dim,
+    the query heads per kv head and the page format only: never of the
+    batch, the page table's width or any slot's position, so the order of
+    every sum of a slot is fixed. Raises if even one page buffer does not
+    fit in shared memory. Mirrors csrc ``smem_bytes`` and ``stage_bytes``."""
+    pps = max(1, _SPLIT_ROWS // page_size)
+    row_bytes = -(-hd * _DIM_BITS[fmt] // 8)
+    stage = _round16(2 * page_size * _round16(row_bytes)
+                     + (8 * page_size if fmt >= _FMT_INT8 else 0))
+    head = _CB_BYTES + _round16(4 * pps)  # codebooks, the split's block ids
+    if hd > 256:
+        gt, dpl, lpr = 1, 0, 32
+        fixed = (head + _round16(4 * hd) + 4 * _WARPS * hd
+                 + _round16(_WARPS * 2 * 4))
+        smem = lambda s: fixed + s * stage + _SLACK
+    else:
+        gt = next(n for n in (8, 4, 2, 1) if G % n == 0)
+        dpl = 4 if hd <= 128 else 8
+        lpr = 1 << (-(-hd // dpl) - 1).bit_length()
+        red = 4 * _WARPS * gt * (hd + 2)
+        smem = lambda s: head + max(s * stage + _SLACK, red)
+    stages = max(1, min(_MAX_STAGES, _RING_BYTES // stage))
+    while stages > 1 and smem(stages) > _SMEM_LIMIT:
+        stages -= 1
+    if smem(stages) > _SMEM_LIMIT:
+        raise ValueError(f"paged_attention: a page of {page_size} rows of "
+                         f"{row_bytes} bytes (K and V) needs "
+                         f"{smem(stages)} B of shared memory, above "
+                         f"{_SMEM_LIMIT}")
+    return SplitPlan(pps, stages, gt, dpl, lpr, smem(stages))
 
 
 def _decoded_view(pool, scale, codebook, page_table, hd: int):
@@ -97,8 +179,13 @@ def _page_format(q, k_pool, k_scale, k_codebook) -> int:
     raise ValueError(f"paged_attention: pool dtype {k_pool.dtype}")
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
+def _copy_width(row_bytes: int, *ptrs: int) -> int:
+    """Bytes a cp.async copies (16, 8 or 4) for rows of ``row_bytes`` in
+    pools at ``ptrs``; 0 (plain loads) when not even 4 bytes divide them."""
+    for w in (16, 8, 4):
+        if row_bytes % w == 0 and all(p % w == 0 for p in ptrs):
+            return w
+    return 0
 
 
 def paged_attention(q, k_pool, v_pool, page_table, pos, *, k_scale=None,
@@ -110,21 +197,23 @@ def paged_attention(q, k_pool, v_pool, page_table, pos, *, k_scale=None,
     ``k_codebook``/``v_codebook`` (KV, 16, 2) f32 with scales mark vq2
     pools. Inputs are checked on every device, so CPU callers meet the
     kernel's contract too."""
-    if q.device.type not in ("cpu", "cuda"):
+    cuda = q.is_cuda
+    if not cuda and q.device.type != "cpu":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     if q.dim() != 3 or k_pool.dim() != 4 or page_table.dim() != 2:
         raise ValueError(f"paged_attention: q {tuple(q.shape)}, pool "
                          f"{tuple(k_pool.shape)}, table "
                          f"{tuple(page_table.shape)} must be 3-, 4-, 2-D")
     B, H, hd = q.shape
-    num_blocks, page_size, KV, cols = k_pool.shape
+    pool_shape = k_pool.shape
+    num_blocks, page_size, KV, cols = pool_shape
     n_pages = page_table.shape[1]
-    if (H % KV or tuple(v_pool.shape) != tuple(k_pool.shape)
+    if (H % KV or v_pool.shape != pool_shape
             or v_pool.dtype != k_pool.dtype or page_table.shape[0] != B
-            or tuple(pos.shape) != (B,)):
+            or pos.shape != (B,)):
         raise ValueError(
             f"paged_attention: inconsistent shapes q {tuple(q.shape)} pools "
-            f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)} table "
+            f"{tuple(pool_shape)}/{tuple(v_pool.shape)} table "
             f"{tuple(page_table.shape)} pos {tuple(pos.shape)}")
     if (k_scale is None) != (v_scale is None) or (
             (k_codebook is None) != (v_codebook is None)):
@@ -142,42 +231,57 @@ def paged_attention(q, k_pool, v_pool, page_table, pos, *, k_scale=None,
     if fmt >= _FMT_INT8:
         checks.append(("k_pool", k_pool, torch.int8))
         for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
-            if tuple(t.shape) != (num_blocks, page_size, KV):
+            if t.shape != pool_shape[:3]:
                 raise ValueError(f"paged_attention: {name} "
                                  f"{tuple(t.shape)} vs the pool's "
-                                 f"{(num_blocks, page_size, KV)}")
+                                 f"{tuple(pool_shape[:3])}")
             checks.append((name, t, torch.float32))
     if fmt == _FMT_VQ2:
         for name, t in (("k_codebook", k_codebook),
                         ("v_codebook", v_codebook)):
-            if tuple(t.shape) != (KV, kvq.VQ_K, kvq.VQ_D):
+            if t.shape != (KV, kvq.VQ_K, kvq.VQ_D):
                 raise ValueError(f"paged_attention: {name} "
                                  f"{tuple(t.shape)} vs "
                                  f"{(KV, kvq.VQ_K, kvq.VQ_D)}")
             checks.append((name, t, torch.float32))
+    where = q.get_device()  # the card's index, -1 on the CPU
     for name, t, dt in checks:
-        if t.dtype != dt or t.device != q.device or not t.is_contiguous():
+        if (t.dtype != dt or t.get_device() != where
+                or not t.is_contiguous()):
             raise ValueError(f"paged_attention: {name} must be a "
                              f"contiguous {dt} tensor on {q.device}")
     G = H // KV
-    smem = 4 * (2 * G * hd + 2 * page_size * hd + G * page_size + 3 * G
-                + 2 * kvq.VQ_K * kvq.VQ_D)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"paged_attention: G={G}, hd={hd}, page_size="
-                         f"{page_size} need {smem} B of shared memory")
-    if q.device.type == "cpu":
+    plan = split_plan(page_size, hd, G, fmt)
+    if not cuda:
         return paged_attention_plain(q, k_pool, v_pool, page_table, pos,
                                      k_scale, v_scale, k_codebook, v_codebook)
     out = torch.empty_like(q)
     if B == 0:
         return out
-    fn = build.load("paged_attention").paged_attention_launch
-    rc = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), k_pool.data_ptr(),
-            v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale),
-            _ptr(k_codebook), _ptr(v_codebook), page_table.data_ptr(),
-            pos.data_ptr(),
-            out.data_ptr(), B, H, KV, hd, cols, page_size, n_pages,
-            num_blocks, fmt, torch.cuda.current_stream(q.device).cuda_stream)
+    pps = plan.pages_per_split
+    n_splits = -(-n_pages // pps)
+    # each split's (acc[G, hd], max, sum) per kv head; the tensor stays
+    # referenced until the launch has been queued
+    part = None
+    if n_splits > 1:
+        part = torch.empty((B * KV * n_splits * G * (hd + 2),),
+                           dtype=torch.float32, device=q.device)
+    row_bytes = cols * k_pool.element_size()
+    k_ptr, v_ptr = k_pool.data_ptr(), v_pool.data_ptr()
+    cp = _copy_width(row_bytes, k_ptr, v_ptr)
+    units = row_bytes // cp if cp else row_bytes
+    copy_lanes = min(32, 1 << (units.bit_length() - 1))
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    # every argument in one int64 array, in the order of csrc's struct Args
+    args = array.array("q", (
+        q.data_ptr(), q.dtype == torch.bfloat16, k_ptr, v_ptr,
+        ptr(k_scale), ptr(v_scale), ptr(k_codebook), ptr(v_codebook),
+        page_table.data_ptr(), pos.data_ptr(), out.data_ptr(), ptr(part),
+        B, H, KV, hd, row_bytes, page_size, n_pages, num_blocks, fmt, pps,
+        n_splits, plan.stages, plan.heads_per_cta, plan.dims_per_lane,
+        plan.lanes_per_row, cp, copy_lanes, build.current_stream(q.device)))
+    rc = build.load("paged_attention").paged_attention_launch(
+        args.buffer_info()[0])
     build.check(rc, "paged_attention")
     paged_attention.launches += 1
     return out

@@ -278,7 +278,15 @@ def paged_case(dev, seed, *, B, H, KV, hd, page_size, n_pages, num_blocks,
     (3, 8, 2, 64, 8, 6, 32, None),                    # G = 4, ragged
     (5, 4, 2, 32, 1, 16, 90, None),                   # page_size 1
     (2, 16, 4, 8, 32, 2, 6, [63, 5]),                 # narrow hd, 2 pages
-    (1, 4, 1, 256, 64, 3, 4, [191])])                 # > 48 KB of smem
+    (1, 4, 1, 256, 64, 3, 4, [191]),                  # > 48 KB of smem
+    (2, 4, 2, 512, 4, 40, 80, [150, 3]),              # hd > 256: wide
+    # Llama-2-7B's 4096-token context: 256 pages a slot, many splits
+    (3, 32, 32, 128, 16, 256, 520, [4095, 1234, 0]),  # G = 1
+    (3, 64, 8, 128, 16, 256, 520, [4095, 0, 2900]),   # G = 8
+    # pos on the edge of a split (256 rows at G = 1, 64 at G = 8), one row
+    # short of it and one row past it
+    (3, 8, 8, 128, 16, 32, 60, [256, 255, 257]),      # G = 1
+    (3, 16, 2, 128, 16, 32, 20, [64, 63, 65])])       # G = 8
 def test_paged_attention_matches_plain(dev, fmt, B, H, KV, hd, page_size,
                                        n_pages, num_blocks, pos):
     from repro_torch.kernels.paged_attention import (
@@ -308,9 +316,55 @@ def test_paged_attention_bf16_query(dev, fmt):
     got = paged_attention(q, kp, vp, table, pos_t, **kw)
     want = paged_attention_plain(q, kp, vp, table, pos_t, **kw)
     assert got.dtype == torch.bfloat16
-    # both round the same f32 result to bf16: at most one bf16 ulp apart
-    torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
-                               atol=8e-3)
+    # both round f32 results ~1e-6 apart to bf16, so they differ by at
+    # most one bf16 ulp, 2^-7 of the value
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0**-7,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("fmt", PAGE_FORMATS)
+@pytest.mark.parametrize("H,KV", [(32, 32), (64, 8)])
+def test_paged_attention_slot_is_bitwise_independent(dev, fmt, H, KV):
+    """Slot b's output is the same bits alone (B = 1: its q row, table row
+    and pos) as inside a batch with other positions, and from call to
+    call: the split plan depends on no B, n_pages or other slot."""
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    q, kp, vp, table, pos_t, kw = paged_case(
+        dev, 11, B=4, H=H, KV=KV, hd=128, page_size=16, n_pages=256,
+        num_blocks=700, fmt=fmt, pos=[4000, 17, 0, 2047])
+    y = paged_attention(q, kp, vp, table, pos_t, **kw)
+    assert torch.equal(paged_attention(q, kp, vp, table, pos_t, **kw), y)
+    for b in range(4):
+        alone = paged_attention(q[b:b + 1].contiguous(), kp, vp,
+                                table[b:b + 1].contiguous(),
+                                pos_t[b:b + 1].contiguous(), **kw)
+        assert torch.equal(alone[0], y[b]), b
+
+
+def test_paged_attention_unaligned_pools(dev):
+    """Pools whose rows are not 16-byte multiples or start off a 16-byte
+    boundary (8- and 4-byte copies, plain loads below 4 bytes)."""
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_attention_plain)
+
+    def shifted(pool, offset):
+        """``pool``'s values in a buffer, ``offset`` elements in."""
+        buf = torch.empty(pool.numel() + offset, dtype=pool.dtype,
+                          device=pool.device)
+        view = buf[offset:].view(pool.shape)
+        view.copy_(pool)
+        return view
+
+    for fmt, hd in (("f32", 6), ("bf16", 6), (8, 12), (4, 6), ("vq2", 8)):
+        q, kp, vp, table, pos_t, kw = paged_case(
+            dev, 5, B=2, H=4, KV=2, hd=hd, page_size=8, n_pages=4,
+            num_blocks=12, fmt=fmt, pos=[29, 3])
+        want = paged_attention_plain(q, kp, vp, table, pos_t, **kw)
+        for offset in (0, 1):
+            got = paged_attention(q, shifted(kp, offset), shifted(vp, offset),
+                                  table, pos_t, **kw)
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
 def test_paged_attention_rejects_what_the_kernel_does_not_take(dev):

@@ -3,9 +3,13 @@ carries the int8 codebooks and scales the kernel's split-K and int8
 tensor-core variants read (against the reference's leaves through
 ``convert``), the split-K plan covers K in whole column groups and never
 depends on M, the variant rules of ``vq_dequant_matmul`` and
-``flash_attention``, and CPU tensors never touch a kernel counter.
+``flash_attention``, the split plan of ``paged_attention`` (a slot's live
+pages once each, in order; no dependence on the batch, the table or any
+position; refusals before any launch), and CPU tensors never touch a
+kernel counter.
 """
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +23,8 @@ from repro.core import vq_linear as jvql
 from repro_torch.convert import vqlinear_from_jax
 from repro_torch.core import vq_linear as vql
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import kv_quant as kvq
+from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import vq_dequant_matmul as vqdm
 
 LEAF_CFGS = {
@@ -238,3 +244,135 @@ def test_fused_leaf_checks_its_inputs_once():
         fused.prepared(x.float()[:, :32])
     with pytest.raises(ValueError, match="contiguous"):
         fused.prepared(x.double())
+
+
+PAGE_FMTS = [pa._FMT_F32, pa._FMT_BF16, pa._FMT_INT8, pa._FMT_INT4,
+             pa._FMT_VQ2]
+
+
+def _split_pages(pps: int, pos: int, page_size: int,
+                 n_pages: int) -> list[range]:
+    """The logical pages each live split of a slot at ``pos`` walks, in
+    split order, for ``pps`` pages a split: the walk the kernel is given
+    (csrc ``walk``: split s takes pages [s * pps, (s + 1) * pps) up to
+    pos's page, clamped to the table, and a split past it writes nothing),
+    over the wrapper's grid of ceil(n_pages / pps) splits. The card tests
+    hold the kernel to it."""
+    last = min(max(pos, 0) // page_size, n_pages - 1)
+    splits = [range(s * pps, min((s + 1) * pps, last + 1))
+              for s in range(-(-n_pages // pps))]
+    return [r for r in splits if len(r)]
+
+
+@pytest.mark.parametrize("page_size,hd,G", [
+    (16, 128, 1), (16, 128, 8), (16, 128, 4), (1, 32, 2), (32, 8, 4),
+    (64, 256, 4), (8, 64, 3), (16, 512, 1)])
+@pytest.mark.parametrize("fmt", PAGE_FMTS)
+def test_paged_split_plan_covers_live_pages_once_in_order(page_size, hd, G,
+                                                          fmt):
+    if fmt == pa._FMT_VQ2 and hd % 4:
+        pytest.skip("vq2 pages need head_dim % 4 == 0")
+    plan = pa.split_plan(page_size, hd, G, fmt)
+    pps = plan.pages_per_split
+    assert pps >= 1 and 1 <= plan.stages <= 2
+    assert plan.smem_bytes <= pa._SMEM_LIMIT
+    assert G % plan.heads_per_cta == 0
+    for n_pages in (1, 2, pps, pps + 1, 3 * pps + 2, 256):
+        for pos in sorted({0, 1, page_size - 1, page_size, pps * page_size - 1,
+                           pps * page_size, pps * page_size + 1,
+                           n_pages * page_size - 1, n_pages * page_size,
+                           n_pages * page_size + 7}):
+            splits = _split_pages(pps, pos, page_size, n_pages)
+            live = min(pos // page_size, n_pages - 1) + 1
+            # every live page once, in order; each split a nonempty run of
+            # at most pps pages starting at a multiple of pps
+            assert [p for r in splits for p in r] == list(range(live))
+            assert all(0 < len(r) <= pps and r.start % pps == 0
+                       for r in splits)
+            assert len(splits) <= -(-n_pages // pps)
+
+
+def test_paged_split_plan_depends_on_no_batch_table_or_position():
+    """The plan is a function of the page size, the head dim, G and the
+    page format: its signature has nothing else, so a slot's splits (and
+    the order of its sums) are the same alone, in any batch and beside any
+    other slot's position. Llama-2-7B's decode (G = 1, f32 pages, page size
+    16) splits a 4096-token slot into 32 runs of 8 pages, and so does
+    Qwen2-72B's (G = 8), 8 query heads a CTA."""
+    params = list(inspect.signature(pa.split_plan.__wrapped__).parameters)
+    assert params == ["page_size", "hd", "G", "fmt"]
+    llama = pa.split_plan(16, 128, 1, pa._FMT_F32)
+    assert llama == pa.SplitPlan(8, 2, 1, 4, 32, 33088)
+    assert len(_split_pages(llama.pages_per_split, 4095, 16, 256)) == 32
+    qwen = pa.split_plan(16, 128, 8, pa._FMT_F32)
+    assert (qwen.pages_per_split, qwen.heads_per_cta) == (8, 8)
+    assert len(_split_pages(qwen.pages_per_split, 4095, 16, 256)) == 32
+    # a slot's splits never look at the table's width past its own pages
+    for n_pages in (256, 300, 1024):
+        assert _split_pages(llama.pages_per_split, 1500, 16, n_pages) == \
+            _split_pages(llama.pages_per_split, 1500, 16, 256)
+    # a slot of up to 128 tokens is one split
+    assert len(_split_pages(llama.pages_per_split, 127, 16, 256)) == 1
+    assert len(_split_pages(llama.pages_per_split, 128, 16, 256)) == 2
+
+
+def _paged_inputs(B=2, H=4, KV=2, hd=16, page_size=4, n_pages=4,
+                  num_blocks=10, fmt="f32"):
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((B, H, hd), generator=g)
+    kp = torch.randn((num_blocks, page_size, KV, hd), generator=g)
+    vp = torch.randn((num_blocks, page_size, KV, hd), generator=g)
+    kw = {}
+    if fmt == "vq2":
+        cb = torch.randn((KV, kvq.VQ_K, kvq.VQ_D), generator=g)
+        (kp, ks), (vp, vs) = (kvq.vq_quantize_rows(kp, cb),
+                              kvq.vq_quantize_rows(vp, cb))
+        kw = dict(k_scale=ks, v_scale=vs, k_codebook=cb, v_codebook=cb)
+    table = torch.arange(1, B * n_pages + 1, dtype=torch.int32).reshape(
+        B, n_pages)
+    pos = torch.tensor([n_pages * page_size - 1, 3][:B], dtype=torch.int32)
+    return q, kp.contiguous(), vp.contiguous(), table, pos, kw
+
+
+@pytest.mark.parametrize("case,match", [
+    ("vq2 head_dim", "head_dim % 4"),
+    ("int64 table", "int32"),
+    ("strided q", "contiguous"),
+    ("page beyond shared memory", "shared memory"),
+    ("scales beside f32 pages", "int8"),
+    ("bf16 table", "int32"),
+])
+def test_paged_wrapper_raises_before_any_launch(case, match):
+    """Layouts the kernel does not take raise in the wrapper, on every
+    device, before any launch (the counter does not move)."""
+    q, kp, vp, table, pos, kw = _paged_inputs(
+        fmt="vq2" if case == "vq2 head_dim" else "f32")
+    if case == "vq2 head_dim":
+        q = torch.zeros((2, 4, 18))
+    elif case == "int64 table":
+        table = table.long()
+    elif case == "bf16 table":
+        table = table.to(torch.bfloat16)
+    elif case == "strided q":
+        q = q.transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "page beyond shared memory":
+        # one page of K and V rows (256 x 1 KB each) exceeds 227 KB
+        q, kp, vp, table, pos, kw = _paged_inputs(hd=256, page_size=256,
+                                                  num_blocks=3, n_pages=1)
+    elif case == "scales beside f32 pages":
+        kw = dict(k_scale=torch.ones(kp.shape[:3]),
+                  v_scale=torch.ones(kp.shape[:3]))
+    before = pa.paged_attention.launches
+    with pytest.raises(ValueError, match=match):
+        pa.paged_attention(q, kp, vp, table, pos, **kw)
+    assert pa.paged_attention.launches == before
+
+
+def test_paged_cpu_tensors_touch_no_kernel_counter():
+    q, kp, vp, table, pos, kw = _paged_inputs(fmt="vq2")
+    before = pa.paged_attention.launches
+    got = pa.paged_attention(q, kp, vp, table, pos, **kw)
+    assert pa.paged_attention.launches == before
+    torch.testing.assert_close(
+        got, pa.paged_attention_plain(q, kp, vp, table, pos, **kw),
+        rtol=0, atol=0)
