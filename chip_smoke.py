@@ -5,6 +5,9 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
+Copied alone into a directory without the repository it exits 2 and says
+so: it runs the port from ``src/repro_torch`` beside it.
+
 Phases (each prints its seconds; any failure exits non-zero):
   1. device   — the card's name and power limit; no CUDA device is an error.
   2. build    — compile every kernel of the path (one nvcc per source, in
@@ -17,9 +20,19 @@ Phases (each prints its seconds; any failure exits non-zero):
                 int8 or 3-term tensor cores for bf16 x above; flash:
                 tensor cores for bf16). The card is kept busy for a second
                 first, so the first timed row meets ramped clocks.
-                vq_assign, vq_dequant_matmul and paged_attention rows also
-                carry their device time, the call replayed from a CUDA
-                graph. vq_dequant_matmul's codebooks are
+                vq_assign's source also holds the quantizer's two loops,
+                one launch each: vq_group_sweep at one 256-column group of
+                wq and of w1 (2.25bpv_2d, U from a seeded activation
+                sample's Hessian), held bitwise to vq_assign with U = I
+                and to the plain loop with the real U (indices on >= 99%
+                of spans, tr(E H E^T) within 1%); vq_em at the quantizer's
+                bands and the KV codebook fit's (codebooks at 10 steps
+                within rtol 1e-4, atol 1e-5; distortion at 25 within 0.1%);
+                both the same bits from call to call.
+                vq_assign, vq_group_sweep, vq_em, vq_dequant_matmul and
+                paged_attention rows also carry their device time, the
+                call replayed from a CUDA graph. vq_dequant_matmul's
+                codebooks are
                 in the path's form (int8 times a per-(group, band) scale),
                 plus one row per regime with arbitrary f32 ones; its rows
                 are held bitwise independent of the other rows of x and
@@ -42,8 +55,12 @@ Phases (each prints its seconds; any failure exits non-zero):
                 (em_iters 25, update_iters 10, pack=True), then the packed
                 model's perplexity through prepare_fused_tree (every
                 quantized matmul in the vq_dequant_matmul kernel). Launch
-                counts are zeroed just before and read just after; all 14
-                vq_dequant_matmul launches must be int8 tensor-core ones.
+                counts are zeroed just before and read just after: one
+                vq_group_sweep and one vq_em launch a column group (278),
+                no vq_assign; all 14 vq_dequant_matmul launches must be
+                int8 tensor-core ones. Stage seconds are printed beside
+                the readings from when the host launched every span and
+                EM step.
                 Then
                 teacher-forced logits of the fused form against the
                 dequant_tree (gather) form.
@@ -61,14 +78,16 @@ Phases (each prints its seconds; any failure exits non-zero):
                 and against the gather decode, and three
                 shorter engines (4 requests, 32 new tokens) with int8, int4
                 and vq2 pages, their drift against the f32-page run printed
-                and the vq2 engine's codebook fit counted (vq_assign
-                launches zeroed just before the engine is built). Last,
+                and the vq2 engine's codebook fit counted (one vq_em
+                launch a pool and layer, no vq_assign; counts zeroed just
+                before the engine is built). Last,
                 the long run: an engine of Llama-2-7B's 4096-token context
                 (max_len 4096, f32 pages), 4 greedy requests of 3,000-4,000
                 prompt tokens, 32 new tokens each, so every decode tick's
                 paged_attention walks 190-256 pages a slot; its launches
                 held to the host plan as above and request 0's
-                teacher-forced kernel decode to the gather decode.
+                teacher-forced kernel decode to the gather decode and to
+                the cache-free forward, with the 256-token run's bars.
   7. long     — the quantize path at Llama-2-7B's 4096-token context, same
                 full-width 2-layer model and recipe: calibration 4 x 4096
                 tokens, heldout 8 x 4096; fp perplexity, quantize_model
@@ -80,7 +99,8 @@ Phases (each prints its seconds; any failure exits non-zero):
                 the restored one, and held to the prediction (10 flash
                 launches: 8 on tensor cores, 2 on the FP32 kernel in the
                 f32 advance pass; 28 int8 tensor-core vq_dequant_matmul
-                launches), with the restored leaves bit for bit, the
+                launches; vq_group_sweep and vq_em once a column group,
+                vq_assign never), with the restored leaves bit for bit, the
                 restored perplexity equal to the vq one and the quant
                 event counts.
 Then it prints the kernel JSON line, the card line and, last,
@@ -114,6 +134,29 @@ BF16_TC_FLOP_PER_S = 989e12
 # 4 rows; (N, K) per layer shape
 VQ_D, VQ_K, VQ_GROUP_COLS, VQ_ROWS_PER_BAND = 2, 16, 256, 4
 MATMUL_SHAPES = {"wq": (4096, 4096), "w1": (11008, 4096), "w2": (4096, 11008)}
+# the three entry points of csrc/vq_assign.cu: the quantize path launches
+# the group sweep and EM once a column group each, and vq_assign not at all
+VQ_ENTRY_POINTS = ("vq_assign", "vq_group_sweep", "vq_em")
+# the main phase's readings on an NVIDIA H100 80GB HBM3 at 700.00 W while
+# the host launched every span step and EM step (about 10 small ops each):
+# shown beside this run's, which runs each group's sweep and EM in-kernel
+HOST_LOOP_MAIN = {"recon_error": 550.07, "quantize": 13.35,
+                  "column_sweep": 7.73, "em_init": 2.41,
+                  "codebook_update": 2.64}
+
+
+def predict_groups(cfg) -> int:
+    """Column groups a quantize of ``cfg``'s dense layers runs: 256-column
+    groups over the input width of wq, wk, wv, wo, w1 and w3 (d_model) and
+    of w2 (d_ff)."""
+    return cfg.n_layers * (6 * (cfg.d_model // VQ_GROUP_COLS)
+                           + cfg.d_ff // VQ_GROUP_COLS)
+
+
+def quantize_launch_checks(launches: dict, n_groups: int) -> dict:
+    want = {"vq_assign": 0, "vq_group_sweep": n_groups, "vq_em": n_groups}
+    return {f"{fn} launches == {n}": launches[fn] == n
+            for fn, n in want.items()}
 
 
 def log(msg: str) -> None:
@@ -262,6 +305,190 @@ def check_assign(torch, dev, B: int, n: int, label: str) -> dict:
         f"{b_ms:.6f} ms ({b_by})")
     if not err <= tol:
         raise Failed(f"vq_assign {label}: error {err} > {tol}")
+    return row
+
+
+def sweep_inputs(torch, dev, r: int):
+    """One 256-column group of a Llama-2-7B projection with r rows at
+    2.25bpv_2d, as the quantizer meets it: W (seed r), U and H from the SPD
+    Hessian of a seeded activation sample over the projection's 4096 input
+    columns (the group is its first 256), the Cholesky weights, scales of
+    ones (no blockwise normalization) and each band's codebook from 25 EM
+    steps (plain version) from its Mahalanobis seed."""
+    from repro_torch.core import hessian as hes
+    from repro_torch.core.codebook import mahalanobis_init
+    from repro_torch.kernels.vq_assign import vq_em_plain
+
+    K, cg, d, rg = 4096, VQ_GROUP_COLS, VQ_D, VQ_ROWS_PER_BAND
+    g = torch.Generator(device=dev).manual_seed(r)
+    W = torch.randn((r, cg), generator=g, device=dev)
+    mix = torch.randn((K, K), generator=g, device=dev) / K ** 0.5
+    X = torch.randn((2048, K), generator=g, device=dev) @ (
+        torch.eye(K, device=dev) + 0.5 * mix)
+    H = hes.finalize(hes.accumulate(hes.init_hessian(K, device=dev), X))
+    U = hes.inv_hessian_cholesky(H)
+    wgt = hes.cholesky_diag_weights(U)[:cg].contiguous()
+    S = torch.ones((r, cg), device=dev)
+    spans = cg // d
+    Xb = W.reshape(r // rg, rg * spans, d)
+    Hw = wgt.reshape(1, spans, d).repeat(rg, 1, 1).reshape(rg * spans, d)
+    C = vq_em_plain(Xb, Hw, mahalanobis_init(Xb, VQ_K), 25).contiguous()
+    return W, U[:cg, :cg], H[:cg, :cg].contiguous(), S, C, wgt, Hw
+
+
+def check_sweep(torch, dev, layer: str) -> dict:
+    """vq_group_sweep at one group of ``layer`` against its plain loop on
+    the card: with U = I (no feedback) the indices are vq_assign's bits and
+    Q = C[idx] * S bit for bit; with the real U the indices agree on >= 99%
+    of spans and the group's error tr(E H E^T) is within 1%; two calls give
+    the same bits. Times: the kernel eager and from a CUDA graph, the plain
+    loop, and the bound. The timed calls do not reset W between calls (the
+    work does not depend on the values)."""
+    from repro_torch.core.gptvq import gather_codebooks
+    from repro_torch.kernels.vq_assign import (
+        vq_assign, vq_group_sweep, vq_group_sweep_plain)
+
+    r = MATMUL_SHAPES[layer][0]
+    cg, d, rg, k = VQ_GROUP_COLS, VQ_D, VQ_ROWS_PER_BAND, VQ_K
+    W0, U, H, S, C, wgt, Hw = sweep_inputs(torch, dev, r)
+    kw = dict(d=d, rows_per_band=rg, exact_span_solve=True)
+    spans = cg // d
+    # no feedback: every span is one assignment of the normalized weights
+    W = W0.clone()
+    Qi, ii, _ = vq_group_sweep(W, torch.eye(cg, device=dev), S, C, wgt, **kw)
+    ref = vq_assign((W0 / S).reshape(r // rg, rg * spans, d), Hw,
+                    C).reshape(r, spans)
+    identity = {
+        "indices == vq_assign's (bitwise)": torch.equal(ii, ref),
+        "Q == C[idx] * S (bitwise)": torch.equal(
+            Qi, gather_codebooks(C[None], ii, cg, rg, d) * S),
+        "W unchanged": torch.equal(W, W0)}
+    # the real U, against the plain loop on the card
+    Wk, Wp = W0.clone(), W0.clone()
+    Qk, ik, Ek = vq_group_sweep(Wk, U, S, C, wgt, **kw)
+    Qp, ip, Ep = vq_group_sweep_plain(Wp, U, S, C, wgt, **kw)
+    torch.cuda.synchronize()
+    agree = float((ik == ip).float().mean())
+    err_k = float(torch.sum((W0 - Qk) * ((W0 - Qk) @ H)))
+    err_p = float(torch.sum((W0 - Qp) * ((W0 - Qp) @ H)))
+    rows = (ik == ip).all(dim=1)
+    abs_err = (float((Qk - Qp)[rows].abs().max()) if rows.any()
+               else float("nan"))
+    W2 = W0.clone()
+    again = vq_group_sweep(W2, U, S, C, wgt, **kw)
+    same_bits = all(torch.equal(a, b) for a, b in
+                    zip((W2, *again), (Wk, Qk, ik, Ek)))
+    Wt = W0.clone()
+    ms = time_ms(torch, lambda: vq_group_sweep(Wt, U, S, C, wgt, **kw))
+    dev_ms = graph_ms(torch, lambda: vq_group_sweep(Wt, U, S, C, wgt, **kw))
+    plain_ms = time_ms(torch, lambda: vq_group_sweep_plain(
+        Wt, U, S, C, wgt, **kw), iters=5, warmup=1)
+    # bytes: W read and written, S read, U's upper triangle, the codebooks
+    # and weights read, Q, E and the indices written; operations: each
+    # span's distances to the k centroids (4 a coordinate) and the
+    # multiply-adds of the in-group update
+    nbytes = 4 * (5 * r * cg + cg * (cg + 1) // 2 + C.numel() + cg
+                  + r * spans)
+    flops = (4.0 * k * r * cg
+             + 2.0 * r * d * sum(cg - (j + 1) * d for j in range(spans)))
+    b_ms, b_by = bound_ms(nbytes, flops)
+    row = {"name": "vq_group_sweep", "shape": f"{layer} group", "r": r,
+           "cg": cg, "d": d, "k": k, "rows_per_band": rg,
+           "identity_u": identity, "index_agreement": agree,
+           "rows_agreeing": float(rows.float().mean()),
+           "error_kernel": err_k, "error_plain": err_p,
+           "error_ratio": err_k / err_p, "max_abs_err": abs_err,
+           "bitwise_repeat": same_bits, "ms": ms, "device_ms": dev_ms,
+           "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
+           "bound_by": b_by}
+    log(f"[kernels] vq_group_sweep {layer} group ({r} x {cg}, d={d}, k={k}): "
+        f"U = I {identity}; real U: indices agree on {agree:.6f} of spans "
+        f"(tol 0.99), tr(E H E^T) kernel {err_k:.6g} plain {err_p:.6g} "
+        f"(ratio {err_k / err_p:.6f}, tol 1%), Q max abs err {abs_err:.2e} "
+        f"on agreeing rows, same bits twice {same_bits} | kernel "
+        f"{ms:.4f} ms ({_fmt_ms(dev_ms)} from a CUDA graph), plain loop "
+        f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    if not (all(identity.values()) and agree >= 0.99
+            and abs(err_k - err_p) <= 0.01 * err_p and same_bits):
+        raise Failed(f"vq_group_sweep {layer}: {row}")
+    return row
+
+
+def check_em(torch, dev, label: str, B: int, n: int) -> dict:
+    """vq_em against its plain loop on the card at ``B`` bands of ``n``
+    points (the quantizer's: Hessian weights shared by the bands; the KV
+    codebook fit's: weights of one, a plane a band): at 10 iterations the
+    codebooks agree at rtol 1e-4, atol 1e-5 in every band whose last E-step
+    gave both the same assignment; at the path's 25 the weighted distortion
+    per band agrees within 0.1% on average, and two calls give the same
+    bits. Times at 25 iterations.
+
+    The two sum each centroid's points in another order, so their
+    codebooks differ in the last bits, and a point on a near-tie can then
+    go to another centroid: that band's codebook moves by about a point
+    over the centroid's count (~4e-3 at the KV fit's 256 points a
+    centroid), its distortion by ~1e-8. Such bands are counted (at most
+    10% of them) and held by their distortion only."""
+    from repro_torch.core.codebook import mahalanobis_init
+    from repro_torch.kernels.vq_assign import (
+        vq_assign_plain, vq_em, vq_em_plain)
+
+    d, k, iters = VQ_D, VQ_K, KV_FIT_EM_ITERS
+    g = torch.Generator(device=dev).manual_seed(B * 7 + n)
+    X = torch.randn((B, n, d), generator=g, device=dev)
+    Hw = (torch.ones((B, n, d), device=dev) if label == "kv vq2 fit"
+          else torch.rand((n, d), generator=g, device=dev) + 0.1)
+    C0 = mahalanobis_init(X, k).contiguous()
+    c10_k, c10_p = vq_em(X, Hw, C0, 10), vq_em_plain(X, Hw, C0, 10)
+    # the assignments the 10th M-step read, from each one's 9th codebooks
+    same_e = (vq_assign_plain(X, Hw, vq_em(X, Hw, C0, 9))
+              == vq_assign_plain(X, Hw, vq_em_plain(X, Hw, C0, 9))).all(1)
+    close = torch.isclose(c10_k, c10_p, rtol=1e-4, atol=1e-5).flatten(1)
+    flipped = int((~same_e).sum())
+    close10 = bool(close.all(1)[same_e].all()) and flipped <= B // 10
+    ck, cp = vq_em(X, Hw, C0, iters), vq_em_plain(X, Hw, C0, iters)
+    same_bits = torch.equal(ck, vq_em(X, Hw, C0, iters))
+
+    def distortion(C):
+        diff = X[:, :, None, :] - C[:, None, :, :]
+        dist = torch.sum(Hw.expand(X.shape)[:, :, None, :] * diff * diff, -1)
+        return dist.min(dim=-1).values.sum(dim=-1)
+
+    dk, dp = distortion(ck), distortion(cp)
+    dist_rel = float(((dk - dp).abs() / dp).mean())
+    abs_err = (float((c10_k - c10_p)[same_e].abs().max()) if flipped < B
+               else float("nan"))
+    abs_err_all = float((c10_k - c10_p).abs().max())
+    ms = time_ms(torch, lambda: vq_em(X, Hw, C0, iters))
+    dev_ms = graph_ms(torch, lambda: vq_em(X, Hw, C0, iters))
+    plain_ms = time_ms(torch, lambda: vq_em_plain(X, Hw, C0, iters),
+                       iters=5, warmup=1)
+    # bytes: X, the weights and the seeds read once, the codebooks written;
+    # operations: each step's distances (4 a coordinate a centroid) and its
+    # M-step sums (a multiply-add and an add a coordinate)
+    nbytes = 4 * (X.numel() + Hw.numel() + 2 * C0.numel())
+    flops = iters * B * n * d * (4.0 * k + 3.0)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    row = {"name": "vq_em", "shape": label, "B": B, "n": n, "d": d, "k": k,
+           "iters": iters, "close_at_10": close10,
+           "bands_flipped_at_10": flipped,
+           "bands_close_at_10": int(close.all(1).sum()),
+           "max_abs_err": abs_err, "max_abs_err_all_bands": abs_err_all,
+           "distortion_rel_diff": dist_rel,
+           "bitwise_repeat": same_bits, "ms": ms, "device_ms": dev_ms,
+           "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
+           "bound_by": b_by}
+    log(f"[kernels] vq_em {label} B={B} n={n}: codebooks at 10 iterations "
+        f"within rtol 1e-4, atol 1e-5 where the last E-steps agree {close10} "
+        f"(max abs err {abs_err:.2e}; {flipped} of {B} bands with a "
+        f"near-tie flip, tol {B // 10}; all bands within the tolerance: "
+        f"{row['bands_close_at_10']}, max abs err {abs_err_all:.2e}); "
+        f"distortion at {iters} mean rel diff "
+        f"{dist_rel:.2e} (tol 1e-3); same bits twice {same_bits} | kernel "
+        f"{ms:.4f} ms ({_fmt_ms(dev_ms)} from a CUDA graph), plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    if not (close10 and dist_rel <= 1e-3 and same_bits):
+        raise Failed(f"vq_em {label}: {row}")
     return row
 
 
@@ -723,6 +950,13 @@ def phase_kernels(torch, dev) -> list[dict]:
                         ("sweep", 1024, 4), ("sweep", 2752, 4),
                         ("kv vq2 fit", 32, 4096)):
         rows.append(check_assign(torch, dev, B, n, label))
+    # the loops around it, one launch each: the sweep of one column group of
+    # wq and of w1, EM over a group's bands of wq and of w1, and the KV fit
+    for layer in ("wq", "w1"):
+        rows.append(check_sweep(torch, dev, layer))
+    for label, B, n in (("em", 1024, 512), ("em", 2752, 512),
+                        ("kv vq2 fit", 32, 4096)):
+        rows.append(check_em(torch, dev, label, B, n))
     # decode M = 1 (timed only), the serve engine's decode ticks (M = 4)
     # and prefill chunks (M = 64), the main phase's evaluation (M = 512),
     # the long phase's (8 x 4096 rows); then one row per regime with
@@ -813,7 +1047,7 @@ def phase_main(torch, dev) -> dict:
     from repro_torch.core.pipeline import quantize_model
     from repro_torch.core.recipe import QuantRecipe
     from repro_torch.data.calibration import calibration_tokens
-    from repro_torch.kernels.vq_assign import vq_assign
+    from repro_torch.kernels import vq_assign as vqa
     from repro_torch.kernels.vq_dequant_matmul import vq_dequant_matmul
     from repro_torch.models import model_zoo
     from repro_torch.train.loss import perplexity
@@ -837,7 +1071,11 @@ def phase_main(torch, dev) -> dict:
         PAPER_SETTINGS["2.25bpv_2d"], name="2.25bpv_2d"
     ).with_quantize_overrides(em_iters=25, codebook_update_iters=10)
 
-    vq_assign.launches = 0
+    n_groups = predict_groups(cfg)
+    log(f"[main] predicted quantize launches: vq_group_sweep {n_groups}, "
+        f"vq_em {n_groups} (one each a column group), vq_assign 0")
+    for fn in VQ_ENTRY_POINTS:
+        getattr(vqa, fn).launches = 0
     vq_dequant_matmul.launches = 0
     vq_dequant_matmul.launches_by_impl = {}
     t0 = time.perf_counter()
@@ -854,8 +1092,8 @@ def phase_main(torch, dev) -> dict:
     fused = vql_mod.prepare_fused_tree(qparams)
     ppl_vq = perplexity(model, fused, heldout)
     t["ppl_vq"] = time.perf_counter() - t0
-    launches = {"vq_assign": vq_assign.launches,
-                "vq_dequant_matmul": vq_dequant_matmul.launches}
+    launches = {fn: getattr(vqa, fn).launches for fn in VQ_ENTRY_POINTS}
+    launches["vq_dequant_matmul"] = vq_dequant_matmul.launches
     impls = dict(vq_dequant_matmul.launches_by_impl)
     # one evaluation forward of 8 x 64 rows: 7 matmuls a layer, all on the
     # int8 tensor cores (bf16 x, int8 leaves)
@@ -873,6 +1111,11 @@ def phase_main(torch, dev) -> dict:
         f"{k}={v:.2f}s" for k, v in sorted(rep.stage_seconds.items(),
                                           key=lambda kv: -kv[1])))
     log("[main] seconds: " + "  ".join(f"{k}={v:.2f}" for k, v in t.items()))
+    now = dict(rep.stage_seconds, quantize=t["quantize"],
+               recon_error=rep.total_error())
+    log("[main] beside the host-loop readings: " + "  ".join(
+        f"{k} {now.get(k, float('nan')):.2f} (was {v})"
+        for k, v in HOST_LOOP_MAIN.items()))
     log(f"[main] launches in the main path: {launches}; vq_dequant_matmul "
         f"by variant {impls} (predicted {want_impl})")
     log(f"[main] quantized weights streamed per forward: {packed / 2**20:.1f}"
@@ -899,15 +1142,20 @@ def phase_main(torch, dev) -> dict:
         "logits finite": bool(torch.isfinite(lf).all()),
         "fused vs gather": max_d <= max_tol and rms_d <= rms_tol,
         "bpv": abs(rep.achieved_bpv - 2.25) < 1e-9,
-        "vq_assign launched": launches["vq_assign"] > 0,
         "vq_dequant_matmul launched": launches["vq_dequant_matmul"] > 0,
         "vq_dequant_matmul by variant as planned": impls == want_impl,
+        "column groups as planned": n_groups == sum(
+            leaf.n_cg for lp in qparams["layers"]
+            for sub in (lp["attn"], lp["ffn"]) for leaf in sub.values()),
+        **quantize_launch_checks(launches, n_groups),
     }
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise Failed(f"main path checks failed: {bad}")
     res = {"launches": launches, "vq_impl_counts": impls,
            "predicted_vq_impl_counts": want_impl,
+           "predicted_column_groups": n_groups,
+           "host_loop_readings": HOST_LOOP_MAIN,
            "ppl_fp": ppl_fp, "ppl_vq": ppl_vq,
            "recon_error": rep.total_error(),
            "achieved_bpv": rep.achieved_bpv,
@@ -961,13 +1209,14 @@ def serve_run(torch, dev, model, qparams, kv_bits, n_req, n_new,
     """One engine over ``n_req`` requests with prompts of ``prompt_len``
     tokens; kernel launch counts are zeroed just before ``run`` and read
     just after."""
+    from repro_torch.kernels import vq_assign as vqa
     from repro_torch.kernels.paged_attention import paged_attention
-    from repro_torch.kernels.vq_assign import vq_assign
     from repro_torch.kernels.vq_dequant_matmul import vq_dequant_matmul
     from repro_torch.serve.engine import Engine, Request
 
-    # engine load: a vq2 engine fits its KV codebooks here (vq_assign)
-    vq_assign.launches = 0
+    # engine load: a vq2 engine fits its KV codebooks here (vq_em)
+    for fn in VQ_ENTRY_POINTS:
+        getattr(vqa, fn).launches = 0
     t0 = time.perf_counter()
     eng = Engine(model, qparams, max_batch=SERVE_MAX_BATCH,
                  max_len=max_len, page_size=SERVE_PAGE,
@@ -975,7 +1224,7 @@ def serve_run(torch, dev, model, qparams, kv_bits, n_req, n_new,
                  kv_cache_bits=kv_bits, device=dev)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    load_assign = vq_assign.launches
+    load_launches = {fn: getattr(vqa, fn).launches for fn in VQ_ENTRY_POINTS}
     reqs = [Request(rid=i, prompt=p, max_new_tokens=n_new)
             for i, p in enumerate(serve_prompts(model.cfg.vocab_size, n_req,
                                                 *prompt_len))]
@@ -1008,7 +1257,7 @@ def serve_run(torch, dev, model, qparams, kv_bits, n_req, n_new,
            "itl_median_s": _median(itl), "itl_worst_s": max(itl),
            "launches": launches, "vq_m_counts": ms_seen,
            "vq_impl_counts": impls_seen,
-           "load_vq_assign_launches": load_assign,
+           "load_launches": load_launches,
            "out": [r.out_tokens for r in reqs],
            "prompts": [r.prompt for r in reqs]}
     log(f"[serve] kv={kv_bits} max_len={max_len}: {n_req} requests of "
@@ -1023,7 +1272,7 @@ def serve_run(torch, dev, model, qparams, kv_bits, n_req, n_new,
         f"{res['itl_median_s'] * 1e3:.2f} ms worst "
         f"{res['itl_worst_s'] * 1e3:.2f} ms | launches {launches}, "
         f"vq_dequant_matmul launches by M {ms_seen}, by variant "
-        f"{impls_seen}, vq_assign launches at engine load {load_assign}")
+        f"{impls_seen}, launches at engine load {load_launches}")
     res["engine"] = eng
     return res
 
@@ -1158,9 +1407,11 @@ def phase_serve(torch, dev, model, qparams) -> dict:
                                             "256-token run")
     prompt, out = main["prompts"][0], main["out"][0]
 
-    # the vq2 engine's codebook fit: EM_ITERS E-steps per pool (K and V)
-    # and layer, each one vq_assign launch over the 32 kv heads
-    want_assign = {"8": 0, "4": 0, "vq2": KV_FIT_EM_ITERS * 2 * n_layers}
+    # the vq2 engine's codebook fit: one vq_em launch (every E/M step of
+    # the 32 kv heads) per pool (K and V) and layer; no vq_assign launch
+    want_load = {str(bits): {"vq_assign": 0, "vq_group_sweep": 0,
+                             "vq_em": 2 * n_layers if bits == "vq2" else 0}
+                 for bits in (8, 4, "vq2")}
     quant = {}
     for bits in (8, 4, "vq2"):
         r = serve_run(torch, dev, model, qparams, bits, 4, 32)
@@ -1174,9 +1425,8 @@ def phase_serve(torch, dev, model, qparams) -> dict:
         r["drift_max"] = float(d.abs().max())
         r["drift_rms"] = float(d.pow(2).mean().sqrt())
         r["finite"] = bool(torch.isfinite(got).all())
-        log(f"[serve] kv={bits}: vq_assign launches at engine load "
-            f"{r['load_vq_assign_launches']} (predicted "
-            f"{want_assign[str(bits)]})")
+        log(f"[serve] kv={bits}: launches at engine load "
+            f"{r['load_launches']} (predicted {want_load[str(bits)]})")
         log(f"[serve] kv={bits}: teacher-forced drift vs f32 pages on "
             f"request 0 (32 steps): max {r['drift_max']:.4e}, RMS "
             f"{r['drift_rms']:.4e}, finite {r['finite']}")
@@ -1206,6 +1456,8 @@ def phase_serve(torch, dev, model, qparams) -> dict:
             diffs["gather decode"]),
         "4096-token run: teacher-forced vs gather decode": within_bars(
             diffs_long["gather decode"]),
+        "4096-token run: teacher-forced vs cache-free": within_bars(
+            diffs_long["cache-free forward"]),
     })
     for bits, r in quant.items():
         checks[f"kv={bits} finished"] = all(len(o) == 32 for o in r["out"])
@@ -1216,8 +1468,8 @@ def phase_serve(torch, dev, model, qparams) -> dict:
         checks[f"kv={bits} vq_dequant_matmul on split-K and int8 tensor "
                "cores only"] = set(r["vq_impl_counts"]) <= {"splitk",
                                                             "tc_int8"}
-        checks[f"kv={bits} vq_assign launches at engine load"] = (
-            r["load_vq_assign_launches"] == want_assign[bits])
+        checks[f"kv={bits} launches at engine load"] = (
+            r["load_launches"] == want_load[bits])
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise Failed(f"serve phase checks failed: {bad}")
@@ -1230,7 +1482,7 @@ def phase_serve(torch, dev, model, qparams) -> dict:
             "greedy_agree": greedy_agree, "long": long,
             "long_teacher_forced": diffs_long,
             "long_greedy_agree": agree_long,
-            "predicted": dict(want, vq_assign_at_load=want_assign),
+            "predicted": dict(want, launches_at_load=want_load),
             "long_predicted": want_long}
 
 
@@ -1248,8 +1500,8 @@ def phase_long(torch, dev) -> dict:
     from repro_torch.core.pipeline import quantize_model
     from repro_torch.core.recipe import QuantRecipe
     from repro_torch.data.calibration import calibration_tokens
+    from repro_torch.kernels import vq_assign as vqa
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.vq_assign import vq_assign
     from repro_torch.kernels.vq_dequant_matmul import vq_dequant_matmul
     from repro_torch.models import model_zoo
     from repro_torch.obs import Telemetry, dispatch
@@ -1297,7 +1549,8 @@ def phase_long(torch, dev) -> dict:
     flash_attention.launches_by_impl = {}
     vq_dequant_matmul.launches = 0
     vq_dequant_matmul.launches_by_impl = {}
-    vq_assign.launches = 0
+    for fn in VQ_ENTRY_POINTS:
+        getattr(vqa, fn).launches = 0
     dispatch.reset_dispatch_counters()
     t0 = time.perf_counter()
     ppl_fp = perplexity(model, params, heldout)
@@ -1326,8 +1579,8 @@ def phase_long(torch, dev) -> dict:
     ppl_rs = perplexity(model, vql_mod.prepare_fused_tree(restored), heldout)
     t["ppl_restored"] = time.perf_counter() - t0
     launches = {"flash_attention": flash_attention.launches,
-                "vq_dequant_matmul": vq_dequant_matmul.launches,
-                "vq_assign": vq_assign.launches}
+                "vq_dequant_matmul": vq_dequant_matmul.launches}
+    launches.update({fn: getattr(vqa, fn).launches for fn in VQ_ENTRY_POINTS})
     impls = {"flash_attention": dict(flash_attention.launches_by_impl),
              "vq_dequant_matmul": dict(vq_dequant_matmul.launches_by_impl)}
     flash_dispatch = dispatch.snapshot_dispatch_counters()["flash"]["fused"]
@@ -1359,7 +1612,8 @@ def phase_long(torch, dev) -> dict:
                                           key=lambda kv: -kv[1])))
     log("[long] seconds: " + "  ".join(f"{k}={v:.2f}" for k, v in t.items()))
     log(f"[long] launches: {launches}; predicted flash_attention "
-        f"{want_flash}, vq_dequant_matmul {want_vq}; \"flash\" dispatch "
+        f"{want_flash}, vq_dequant_matmul {want_vq}, vq_group_sweep and "
+        f"vq_em {predict_groups(cfg)} each, vq_assign 0; \"flash\" dispatch "
         f"{flash_dispatch}; by variant {impls} (predicted {want_impl})")
     log(f"[long] checkpoint: {len(pairs)} leaves ({n_bf16} bf16), "
         f"{ck_bytes / 2**20:.1f} MiB, restored bit for bit: {bitwise}")
@@ -1377,7 +1631,8 @@ def phase_long(torch, dev) -> dict:
         "flash dispatch": flash_dispatch == want_flash,
         "vq_dequant_matmul launches": launches["vq_dequant_matmul"] == want_vq,
         "launches by variant as planned": impls == want_impl,
-        "vq_assign launched": launches["vq_assign"] > 0,
+        "column groups as planned": n_groups == predict_groups(cfg),
+        **quantize_launch_checks(launches, predict_groups(cfg)),
         "quant_stage events": n_stage == want_stage,
         "quant_target events": n_target == 7 * cfg.n_layers,
     }
@@ -1399,37 +1654,42 @@ def phase_long(torch, dev) -> dict:
 
 
 def kernel_line(rows: list[dict], launches: dict) -> dict:
-    """One entry per kernel, at the shape its path launches most:
+    """One entry per kernel source, at the shape its path launches most:
     vq_dequant_matmul at the eval's M=512 on a 4096x4096 projection,
-    vq_assign at the span sweep's B=1024, n=4, paged_attention at the long
-    serve run's B=4, 32 heads of 128, 256 pages a slot, bf16 queries over
-    f32 pages, flash_attention at the long phase's heldout B=8, 32 heads of
-    128, 4096 tokens, bf16. Launches: the main phase's for the first two,
-    the long serve run's for paged_attention, the long phase's for
+    vq_assign.cu at its group sweep over one 4096 x 256 group of wq (the
+    main path launches the sweep and EM, not vq_assign itself),
+    paged_attention at the long serve run's B=4, 32 heads of 128, 256 pages
+    a slot, bf16 queries over f32 pages, flash_attention at the long
+    phase's heldout B=8, 32 heads of 128, 4096 tokens, bf16. Launches: the
+    main phase's for the first two (vq_assign.cu's three entry points
+    summed), the long serve run's for paged_attention, the long phase's for
     flash_attention."""
     pick = {
         "vq_dequant_matmul": (
+            "vq_dequant_matmul",
             lambda r: r["shape"] == "wq" and r["M"] == 512
             and r["scale_block"] == 0 and r["cb_form"] == "int8",
             "src/repro_torch/kernels/csrc/vq_dequant_matmul.cu",
             "src/repro/kernels/vq_dequant_matmul.py:137"),
         "vq_assign": (
-            lambda r: r["shape"] == "sweep" and r["B"] == 1024,
+            "vq_group_sweep", lambda r: r["shape"] == "wq group",
             "src/repro_torch/kernels/csrc/vq_assign.cu",
             "src/repro/kernels/vq_assign.py:37"),
         "paged_attention": (
+            "paged_attention",
             lambda r: r["shape"] == "long" and r["fmt"] == "f32"
             and r["q_dtype"] == "bfloat16",
             "src/repro_torch/kernels/csrc/paged_attention.cu",
             "src/repro/kernels/paged_attention.py:128"),
         "flash_attention": (
+            "flash_attention",
             lambda r: r["shape"] == "llama B=8" and r["dtype"] == "bfloat16",
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:68"),
     }
     out = []
-    for name, (sel, source, replaces) in pick.items():
-        r = next(r for r in rows if r["name"] == name and sel(r))
+    for name, (row_name, sel, source, replaces) in pick.items():
+        r = next(r for r in rows if r["name"] == row_name and sel(r))
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": launches.get(name, 0),
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1458,6 +1718,11 @@ def paged_rows(torch, dev) -> list[dict]:
 def main() -> int:
     out_dir = os.path.join(ROOT, "chiprun_out")
 
+    if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
+        print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
+              "from the root of a checkout of the repository",
+              file=sys.stderr)
+        return 2
     import torch
 
     if not torch.cuda.is_available():
@@ -1485,6 +1750,8 @@ def main() -> int:
     launches = dict(main_res["launches"], paged_attention=serve_res[
         "long"]["launches"]["paged_attention"],
         flash_attention=long_res["launches"]["flash_attention"])
+    launches["vq_assign"] = sum(main_res["launches"][fn]
+                                for fn in VQ_ENTRY_POINTS)
     print(json.dumps(kernel_line(rows, launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

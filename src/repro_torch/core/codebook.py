@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.vq_assign import vq_assign
+from repro_torch.kernels.vq_assign import (  # noqa: F401 (m_step: public API)
+    m_step, vq_assign, vq_em)
 from repro_torch.pending import not_ported
 
 
@@ -33,28 +34,12 @@ def assign(X: torch.Tensor, Hw: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     return vq_assign(X, Hw, C)
 
 
-def m_step(X: torch.Tensor, Hw: torch.Tensor, idx: torch.Tensor,
-           C_prev: torch.Tensor) -> torch.Tensor:
-    """Closed-form weighted centroid update (diagonal-Hessian case), per band:
-    c_m = (sum_{i in I_m} Hw_i)^+ (sum_{i in I_m} Hw_i * x_i), elementwise.
-    Empty clusters keep their previous centroid. One-hot batched matmuls, as
-    the reference, keep the sums deterministic."""
-    k = C_prev.shape[1]
-    Hw = Hw.expand(X.shape)
-    onehot = torch.nn.functional.one_hot(idx.long(), k).to(X.dtype)  # (B,n,k)
-    num = onehot.transpose(1, 2) @ (Hw * X)  # (B, k, d)
-    den = onehot.transpose(1, 2) @ Hw        # (B, k, d)
-    new = num / torch.clamp(den, min=1e-12)
-    return torch.where(den <= 1e-12, C_prev, new)
-
-
 def em(X: torch.Tensor, Hw: torch.Tensor, C0: torch.Tensor,
        iters: int = 100) -> torch.Tensor:
-    """Run ``iters`` E/M steps from seed centroids ``C0``; returns codebooks."""
-    C = C0
-    for _ in range(iters):
-        C = m_step(X, Hw, assign(X, Hw, C), C)
-    return C
+    """Run ``iters`` E/M steps from seed centroids ``C0``; returns codebooks.
+    On CUDA every step runs in one ``vq_em`` launch; ``m_step`` is its
+    M-step."""
+    return vq_em(X, Hw, C0, iters)
 
 
 def mahalanobis_init(X: torch.Tensor, k: int) -> torch.Tensor:

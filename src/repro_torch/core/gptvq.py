@@ -9,7 +9,7 @@ Generalizes GPTQ's column-sequential sweep to d-dimensional VQ:
     initialized with Hessian-weighted EM (codebook.py) from the *current*
     (error-compensated) weights — Algorithm 1 lines 9-11;
   * each d-span of each row is assigned to its band codebook with the
-    Hessian-weighted distance (Eq. 4; the ``vq_assign`` kernel on CUDA);
+    Hessian-weighted distance (Eq. 4);
   * the quantization error is propagated into the not-yet-quantized columns
     through the upper Cholesky factor U of H^{-1}.
 
@@ -18,8 +18,9 @@ the remaining columns R is ``-(E U_PP^{-1}) U[P, R]`` (``exact_span_solve``;
 a d x d triangular solve), else the per-column reading E_p / U[p,p].
 
 The reference jits one group's init and sweep and runs the spans in a
-``fori_loop``; here they are Python loops that update the working copy of W
-in place.
+``fori_loop``; here a group's spans run in one ``vq_group_sweep`` launch on
+CUDA (its plain loop on the CPU), updating the working copy of W in place,
+and its EM init in one ``vq_em`` launch.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from repro_torch.core import codebook as cb
 from repro_torch.core import normalization as norm
 from repro_torch.core.bpv import VQConfig
 from repro_torch.core.hessian import cholesky_diag_weights
+from repro_torch.kernels.vq_assign import vq_group_sweep
 
 
 class VQArrays(NamedTuple):
@@ -155,50 +157,18 @@ def _group_init(Wg: torch.Tensor, wgt_g: torch.Tensor, *, cfg: VQConfig,
 def _group_sweep(W: torch.Tensor, U: torch.Tensor, Sg: torch.Tensor,
                  Cg: torch.Tensor, wgt_g: torch.Tensor, gstart: int, *,
                  cfg: VQConfig, group_cols: int, rows_per_band: int):
-    """d-span sweep of one column group with error feedback through U, plus
-    the lazy tail update beyond the group. Updates ``W`` (f32, owned by the
-    caller) in place; returns (Qg, idxg)."""
-    r, _ = W.shape
-    d = cfg.d
-    cg, rg = group_cols, rows_per_band
-    n_bands = r // rg
-    spans_pg = cg // d
-    gend = gstart + cg
-
-    Wg = W[:, gstart:gend].clone()
-    Ug = U[gstart:gend, gstart:gend]
-    Qg = torch.empty((r, cg), dtype=torch.float32, device=W.device)
-    idxg = torch.empty((r, spans_pg), dtype=torch.int32, device=W.device)
-    Eg = torch.empty((r, cg), dtype=torch.float32, device=W.device)
-    hw_spans = wgt_g.reshape(spans_pg, 1, d).expand(spans_pg, rg, d).contiguous()
-
-    for j in range(spans_pg):
-        col = j * d
-        x = Wg[:, col:col + d]
-        S_span = Sg[:, col:col + d]
-        xn = (x / S_span).contiguous().reshape(n_bands, rg, d)
-        ab = cb.assign(xn, hw_spans[j], Cg)  # (n_bands, rg)
-        qn = torch.gather(Cg, 1, ab.long()[..., None].expand(n_bands, rg, d))
-        q = qn.reshape(r, d) * S_span
-
-        E_raw = x - q
-        U_PP = Ug[col:col + d, col:col + d]
-        if cfg.exact_span_solve and d > 1:
-            # Etilde = E_raw @ U_PP^{-1}
-            Et = torch.linalg.solve_triangular(U_PP.T, E_raw.T, upper=False).T
-        else:
-            Et = E_raw / U_PP.diagonal()[None, :]
-
-        if col + d < cg:  # remaining columns within this group
-            Wg[:, col + d:] -= Et @ Ug[col:col + d, col + d:]
-        Qg[:, col:col + d] = q
-        idxg[:, j] = ab.reshape(r)
-        Eg[:, col:col + d] = Et
-
+    """d-span sweep of one column group with error feedback through U (one
+    ``vq_group_sweep`` launch on CUDA), plus the lazy tail update beyond the
+    group. Updates ``W`` (f32, owned by the caller) in place; returns
+    (Qg, idxg)."""
+    gend = gstart + group_cols
+    Qg, idxg, Eg = vq_group_sweep(
+        W[:, gstart:gend], U[gstart:gend, gstart:gend], Sg, Cg, wgt_g,
+        d=cfg.d, rows_per_band=rows_per_band,
+        exact_span_solve=cfg.exact_span_solve)
     # ---- lazy tail update beyond the group ---------------------------------
     if gend < W.shape[1]:
         W[:, gend:] -= Eg @ U[gstart:gend, gend:]
-    W[:, gstart:gend] = Wg
     return Qg, idxg
 
 
@@ -225,8 +195,9 @@ def gptvq_quantize_matrix(W: torch.Tensor, U: torch.Tensor, cfg: VQConfig,
     n_cg = c // cg
     stage = stage if stage is not None else _null_stage
 
-    Wcur = W.to(torch.float32).clone()
-    U = U.to(torch.float32)
+    # row-major working copies (the sweep reads W and U a row at a time)
+    Wcur = W.to(torch.float32).clone(memory_format=torch.contiguous_format)
+    U = U.to(torch.float32).contiguous()
     wgt_all = cholesky_diag_weights(U)  # (c,), 1/U_qq^2
 
     Qs, idxs, cbs, sints, a_list, z_list = [], [], [], [], [], []

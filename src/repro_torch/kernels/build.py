@@ -27,16 +27,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# C signature of each source's launch function: (name, argtypes)
+# C signatures of each source's launch functions: {name: argtypes}; [_P] is
+# one int64 array of every argument, in the order the source's enum gives
 _ENTRY = {
-    "vq_assign": ("vq_assign_launch",
-                  [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _I, _I, _P]),
-    # one int64 array of every argument (csrc/vq_dequant_matmul.cu)
-    "vq_dequant_matmul": ("vq_dequant_matmul_launch", [_P]),
-    # one int64 array of every argument (csrc/paged_attention.cu)
-    "paged_attention": ("paged_attention_launch", [_P]),
-    "flash_attention": ("flash_attention_launch",
-                        [_P, _I, _P, _P, _I, _P] + [_I] * 9 + [_P]),
+    "vq_assign": {
+        "vq_assign_launch":
+            [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _I, _I, _P],
+        "vq_group_sweep_launch": [_P],
+        "vq_em_launch": [_P]},
+    "vq_dequant_matmul": {"vq_dequant_matmul_launch": [_P]},
+    "paged_attention": {"paged_attention_launch": [_P]},
+    "flash_attention": {"flash_attention_launch":
+                        [_P, _I, _P, _P, _I, _P] + [_I] * 9 + [_P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -103,10 +105,10 @@ def load(name: str) -> ctypes.CDLL:
         if _stale(name):
             build_all((name,))
         lib = ctypes.CDLL(str(lib_path(name)))
-        fn_name, argtypes = _ENTRY[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in _ENTRY[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib
 

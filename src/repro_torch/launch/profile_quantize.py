@@ -6,8 +6,9 @@ full-width Llama-2-7B cut to one layer (random weights, seed 0,
 the device's busy share of the wall time and the ops that take the host's
 and the device's time. The profiler's own cost inflates the wall time, so
 the busy share of the profiled wall is a lower bound; the unprofiled wall
-time is printed beside it. Summarizing the ~1M-event trace of one layer
-takes several minutes.
+time is printed beside it (that run comes first, so it also loads the
+kernels, and builds any that are missing). Summarizing the trace of one
+layer takes under a minute.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_quantize \\
         [--table chiprun_out/quantize_profile.txt]

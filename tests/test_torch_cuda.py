@@ -15,7 +15,9 @@ from repro_torch.core import vq_linear as vql
 from repro_torch.core.bpv import VQConfig
 from repro_torch.core.pipeline import quantize_model
 from repro_torch.core.recipe import QuantRecipe
-from repro_torch.kernels.vq_assign import vq_assign, vq_assign_plain
+from repro_torch.kernels.vq_assign import (
+    vq_assign, vq_assign_plain, vq_em, vq_em_plain, vq_group_sweep,
+    vq_group_sweep_plain)
 from repro_torch.kernels.vq_dequant_matmul import (
     vq_dequant_matmul, vq_dequant_matmul_plain)
 from repro_torch.models import model_zoo
@@ -195,6 +197,166 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         vq_assign(x.double(), hw, cb)
 
 
+# ---------------------------------------------------------------------------
+# the quantizer's loops, one launch each: a group's sweep and the EM fit
+# ---------------------------------------------------------------------------
+
+def sweep_case(dev, seed, *, r, cg, d, k, rg, sb=0, identity_u=False):
+    """A column group's inputs as the quantizer makes them: W (r, cg), U from
+    the SPD Hessian of a seeded correlated activation sample (or I), the
+    Cholesky weights, scales (ones, or blockwise at ``sb``) and each band's
+    codebook from 10 EM steps on the normalized group. Returns them with H."""
+    from repro_torch.core import hessian as hes
+    from repro_torch.core import normalization as norm
+    from repro_torch.core.codebook import mahalanobis_init
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    W = torch.randn((r, cg), generator=g, device=dev) * (
+        1.0 + torch.rand((r, 1), generator=g, device=dev))
+    A = torch.randn((cg, cg), generator=g, device=dev) / cg ** 0.5
+    X = torch.randn((2 * cg, cg), generator=g, device=dev) @ (
+        torch.eye(cg, device=dev) + 0.5 * A)
+    H = hes.finalize(hes.accumulate(hes.init_hessian(cg, device=dev), X))
+    U = (torch.eye(cg, device=dev) if identity_u
+         else hes.inv_hessian_cholesky(H))
+    wgt = hes.cholesky_diag_weights(hes.inv_hessian_cholesky(H))
+    S = (norm.compute_block_scales(W, block=sb).expand(cg).contiguous()
+         if sb else torch.ones_like(W))
+    spans = cg // d
+    Xb = (W / S).reshape(r // rg, rg * spans, d)
+    Hw = wgt.reshape(1, spans, d).repeat(rg, 1, 1).reshape(rg * spans, d)
+    C = vq_em_plain(Xb, Hw, mahalanobis_init(Xb, k), 10).contiguous()
+    return W, U, S, C, wgt, H
+
+
+def sweep_error(W0, Q, H):
+    E = W0 - Q
+    return float(torch.sum(E * (E @ H)))
+
+
+# (r, cg, d, k, rows_per_band, scale_block, exact_span_solve): the presets'
+# layouts (core/bpv.PAPER_SETTINGS on 256-column groups), then blockwise
+# scales, the per-column solve, ragged rows and bands, a group wider than
+# the kernel's threads, and one whose rows leave shared memory
+SWEEP_LAYOUTS = [
+    (512, 256, 2, 16, 4, 0, True),       # 2.25bpv_2d
+    (512, 256, 2, 16, 8, 0, True),       # 2.125bpv_2d
+    (256, 256, 4, 256, 128, 0, True),    # 2.25bpv_4d
+    (256, 256, 2, 256, 128, 0, True),    # 4.125bpv_2d
+    (256, 256, 2, 64, 32, 0, True),      # 3.125bpv_2d
+    (256, 256, 1, 4, 1, 0, True),        # 2.125bpv_1d
+    (256, 128, 1, 4, 1, 0, True),        # 2.25bpv_1d
+    (256, 256, 1, 16, 4, 0, True),       # 4.125bpv_1d
+    (512, 256, 2, 16, 4, 32, True),
+    (512, 256, 2, 16, 4, 0, False),
+    (72, 48, 2, 16, 3, 16, True),
+    (40, 640, 2, 16, 4, 32, True),
+    (8, 13000, 2, 4, 4, 0, True),
+]
+
+
+@pytest.mark.parametrize("r,cg,d,k,rg,sb,exact", SWEEP_LAYOUTS)
+def test_vq_group_sweep_matches_plain(dev, r, cg, d, k, rg, sb, exact):
+    W0, U, S, C, wgt, H = sweep_case(dev, r + cg + d, r=r, cg=cg, d=d, k=k,
+                                     rg=rg, sb=sb)
+    kw = dict(d=d, rows_per_band=rg, exact_span_solve=exact)
+    Wk, Wp = W0.clone(), W0.clone()
+    before = vq_group_sweep.launches
+    Qk, ik, Ek = vq_group_sweep(Wk, U, S, C, wgt, **kw)
+    torch.cuda.synchronize()
+    assert vq_group_sweep.launches == before + 1
+    Qp, ip, Ep = vq_group_sweep_plain(Wp, U, S, C, wgt, **kw)
+    # f32 sums in another order can flip a near-tie, which feeds a different
+    # error into that row's later columns: indices agree on >= 99% of spans
+    # and the group's error tr(E H E^T) within 1%
+    assert float((ik == ip).float().mean()) >= 0.99
+    ek, ep = sweep_error(W0, Qk, H), sweep_error(W0, Qp, H)
+    assert abs(ek - ep) <= 0.01 * ep, (ek, ep)
+    rows = (ik == ip).all(dim=1)
+    assert float(rows.float().mean()) >= 0.75
+    torch.testing.assert_close(Qk[rows], Qp[rows], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(Ek[rows], Ep[rows], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(Wk[rows], Wp[rows], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("r,cg,d,k,rg,sb", [
+    (512, 256, 2, 16, 4, 0), (512, 256, 2, 16, 4, 32),
+    (256, 256, 4, 256, 128, 0), (256, 256, 1, 4, 1, 0)])
+def test_vq_group_sweep_without_feedback_is_vq_assign(dev, r, cg, d, k, rg,
+                                                      sb):
+    """With U = I no error feeds forward, so every span is a plain
+    assignment of the normalized weights: the indices are vq_assign's bits,
+    Q is S * C[idx] bit for bit and W is left as it was."""
+    from repro_torch.core.gptvq import gather_codebooks
+
+    W0, U, S, C, wgt, _ = sweep_case(dev, 11 * r + d, r=r, cg=cg, d=d, k=k,
+                                     rg=rg, sb=sb, identity_u=True)
+    W = W0.clone()
+    Q, idx, _ = vq_group_sweep(W, U, S, C, wgt, d=d, rows_per_band=rg,
+                               exact_span_solve=True)
+    spans = cg // d
+    Hw = wgt.reshape(1, spans, d).repeat(rg, 1, 1).reshape(rg * spans, d)
+    ref = vq_assign((W0 / S).reshape(r // rg, rg * spans, d), Hw, C)
+    assert torch.equal(idx, ref.reshape(r, spans))
+    assert torch.equal(Q, gather_codebooks(C[None], idx, cg, rg, d) * S)
+    assert torch.equal(W, W0)
+
+
+def em_distortion(X, Hw, C):
+    """Per band: sum over points of the weighted distance to the nearest
+    centroid."""
+    diff = X[:, :, None, :] - C[:, None, :, :]
+    dist = torch.sum(Hw.expand(X.shape)[:, :, None, :] * diff * diff, -1)
+    return dist.min(dim=-1).values.sum(dim=-1)
+
+
+# (B, n, d, k, shared hw): the quantizer's 2.25bpv_2d bands, the vq2 KV
+# codebook fit, the 4-d and 256-centroid presets' bands, and bands too long
+# for their indices to stay in shared memory
+EM_SHAPES = [(37, 512, 2, 16, True), (4, 4096, 2, 16, False),
+             (3, 8192, 4, 256, True), (2, 16384, 2, 256, True),
+             (2, 60000, 1, 4, False)]
+
+
+@pytest.mark.parametrize("B,n,d,k,shared", EM_SHAPES)
+def test_vq_em_matches_plain(dev, B, n, d, k, shared):
+    from repro_torch.core.codebook import mahalanobis_init
+
+    g = torch.Generator(device=dev).manual_seed(B * n + k)
+    X = torch.randn((B, n, d), generator=g, device=dev)
+    Hw = torch.rand((n, d) if shared else (B, n, d), generator=g,
+                    device=dev) + 0.1
+    C0 = mahalanobis_init(X, k).contiguous()
+    C0[0, -1] = 1e3  # no point picks it: it keeps its seed
+    before = vq_em.launches
+    Ck = vq_em(X, Hw, C0, 10)
+    torch.cuda.synchronize()
+    assert vq_em.launches == before + 1
+    Cp = vq_em_plain(X, Hw, C0, 10)
+    # 10 steps of f32 sums in another order (the test of the port against
+    # the reference holds the same tolerance)
+    torch.testing.assert_close(Ck, Cp, rtol=1e-4, atol=1e-5)
+    assert torch.equal(Ck[0, -1], C0[0, -1])
+    dk, dp = em_distortion(X, Hw, Ck), em_distortion(X, Hw, Cp)
+    assert float(((dk - dp).abs() / dp).mean()) <= 1e-3
+
+
+def test_vq_sweep_and_em_are_deterministic(dev):
+    from repro_torch.core.codebook import mahalanobis_init
+
+    W0, U, S, C, wgt, _ = sweep_case(dev, 3, r=1024, cg=256, d=2, k=16, rg=4)
+    runs = []
+    for _ in range(2):
+        W = W0.clone()
+        runs.append((W, *vq_group_sweep(W, U, S, C, wgt, d=2, rows_per_band=4,
+                                        exact_span_solve=True)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    X = (W0 / S).reshape(256, 512, 2)
+    Hw = wgt.reshape(1, 128, 2).repeat(4, 1, 1).reshape(512, 2)
+    C0 = mahalanobis_init(X, 16).contiguous()
+    assert torch.equal(vq_em(X, Hw, C0, 25), vq_em(X, Hw, C0, 25))
+
+
 def test_quantize_on_cuda_matches_cpu(dev):
     cfg = SMOKE["llama2-7b"].scaled(dtype="float32", n_layers=1)
     model = model_zoo.build(cfg)
@@ -210,10 +372,16 @@ def test_quantize_on_cuda_matches_cpu(dev):
                              if isinstance(vv, dict) else vv.to(dev))
                         for kk, vv in lp.items()} for lp in v])
                   for k, v in params.items()}
-    before = vq_assign.launches
+    before = (vq_assign.launches, vq_group_sweep.launches, vq_em.launches)
     q, rep = quantize_model(model, params_gpu, tokens.to(dev), recipe=recipe,
                             pack=True)
-    assert vq_assign.launches > before
+    # each column group: one EM launch and one sweep launch, no vq_assign
+    n_groups = sum(leaf.n_cg for lp in q["layers"]
+                   for sub in (lp["attn"], lp["ffn"]) for leaf in sub.values())
+    assert n_groups > 0
+    assert (vq_assign.launches, vq_group_sweep.launches,
+            vq_em.launches) == (before[0], before[1] + n_groups,
+                                before[2] + n_groups)
     for name, e in rep.per_target.items():
         ref = rep_cpu.per_target[name]["error"]
         assert abs(e["error"] - ref) <= 0.10 * ref, (name, e["error"], ref)
