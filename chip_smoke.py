@@ -47,6 +47,12 @@ Phases (each prints its seconds; any failure exits non-zero):
                 Each bf16 flash row also counts the outputs that differ
                 from bf16(plain) for the tensor-core kernel, the FP32 one
                 and p1-only and p1 + p2 controls (every term of p shows).
+                For the budget phase: vq_group_sweep in its babai metric
+                mode at the wq and w1 groups (held to its plain version by
+                the same bars, counted under launches_by_impl["babai"]),
+                and one vq_group_sweep and one vq_em row at a d = 1
+                (2.125bpv_1d) and a k = 256 (4.125bpv_2d) setting at the
+                wq group's shape.
   4. small    — the whole path on the SKILL smoke config, on the card and
                 on the CPU (plain versions), held against each other.
   5. main     — the port's main path at Llama-2-7B full width with depth cut
@@ -64,7 +70,25 @@ Phases (each prints its seconds; any failure exits non-zero):
                 Then
                 teacher-forced logits of the fused form against the
                 dequant_tree (gather) form.
-  6. serve    — main's packed model served by the paged engine (max_batch
+  6. budget   — the budgeted path at the same full width: fresh weights
+                (seed 0), main's tokens, quantize_model at budget_bpv 2.5
+                (raised by 0.25 until the allocator picks two settings)
+                with the closed-form scorer and main's overrides; the
+                allocation, achieved bpv (<= the budget), stage seconds and
+                recon error printed. Held: vq_group_sweep and vq_em once a
+                column group of the allocated settings (all diagonal),
+                vq_assign never, no (c, c) Hessian built in the pre-pass
+                (init_hessian counted inside it), the packed model's
+                perplexity with one vq_dequant_matmul launch a packed leaf,
+                by variant as the host plan predicts, and main's
+                fused-vs-gather bars. Then the method table on block 0's
+                full-width Hessians (wq, w1, w2): gptvq, kmeans and
+                kmeans_data at 2.125bpv_2d, IntQuant(2, 128) by RTN and
+                GPTQ, gptvq with the babai and cd solvers at 2.25bpv_2d,
+                each one's tr(E H E^T) and seconds; held: cd_refine never
+                above the gptq sweep it refines and every babai sweep
+                launched in-kernel; the Table-1 order is printed only.
+  7. serve    — main's packed model served by the paged engine (max_batch
                 4, max_len 256, page_size 16, f32 KV pages, fused paged
                 attention and fused VQ matmuls): 8 greedy requests of 40-72
                 prompt tokens, 64 new tokens each. Launch counts zeroed just
@@ -88,7 +112,7 @@ Phases (each prints its seconds; any failure exits non-zero):
                 held to the host plan as above and request 0's
                 teacher-forced kernel decode to the gather decode and to
                 the cache-free forward, with the 256-token run's bars.
-  7. long     — the quantize path at Llama-2-7B's 4096-token context, same
+  8. long     — the quantize path at Llama-2-7B's 4096-token context, same
                 full-width 2-layer model and recipe: calibration 4 x 4096
                 tokens, heldout 8 x 4096; fp perplexity, quantize_model
                 with a Telemetry, vq perplexity, the packed checkpoint
@@ -110,6 +134,7 @@ chiprun_out/chip_smoke.json. The profiler pass over the quantize path is
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -134,6 +159,14 @@ BF16_TC_FLOP_PER_S = 989e12
 # 4 rows; (N, K) per layer shape
 VQ_D, VQ_K, VQ_GROUP_COLS, VQ_ROWS_PER_BAND = 2, 16, 256, 4
 MATMUL_SHAPES = {"wq": (4096, 4096), "w1": (11008, 4096), "w2": (4096, 11008)}
+# the budget phase: the budget it starts from (raised by the step until the
+# allocator picks two settings), the settings of its extra kernel rows (a
+# d = 1 and a k = 256 point) and block 0's matrices of its method table
+BUDGET_BPV, BUDGET_STEP = 2.5, 0.25
+BUDGET_KERNEL_SETTINGS = ("2.125bpv_1d", "4.125bpv_2d")
+METHOD_TABLE_LEAVES = {"wq": ("attn", "wq", "attn_in"),
+                       "w1": ("ffn", "w_in", "ffn_in"),
+                       "w2": ("ffn", "w_out", "ffn_out_in")}
 # the three entry points of csrc/vq_assign.cu: the quantize path launches
 # the group sweep and EM once a column group each, and vq_assign not at all
 VQ_ENTRY_POINTS = ("vq_assign", "vq_group_sweep", "vq_em")
@@ -308,18 +341,30 @@ def check_assign(torch, dev, B: int, n: int, label: str) -> dict:
     return row
 
 
-def sweep_inputs(torch, dev, r: int):
-    """One 256-column group of a Llama-2-7B projection with r rows at
-    2.25bpv_2d, as the quantizer meets it: W (seed r), U and H from the SPD
-    Hessian of a seeded activation sample over the projection's 4096 input
-    columns (the group is its first 256), the Cholesky weights, scales of
-    ones (no blockwise normalization) and each band's codebook from 25 EM
-    steps (plain version) from its Mahalanobis seed."""
+def sweep_layout(setting: str, r: int, c: int = 4096) -> tuple:
+    """(d, k, group columns, rows a band) of a PAPER_SETTINGS point on an
+    (r, c) projection, as the quantizer plans it."""
+    from repro_torch.core.bpv import PAPER_SETTINGS
+    from repro_torch.core.gptvq import plan_groups
+
+    cfg = PAPER_SETTINGS[setting]
+    cg, rg = plan_groups(r, c, cfg)
+    return cfg.d, cfg.k, cg, rg
+
+
+def sweep_inputs(torch, dev, r: int, setting: str = "2.25bpv_2d"):
+    """One column group of a Llama-2-7B projection with r rows at
+    ``setting``, as the quantizer meets it: W (seed r), U and H from the
+    SPD Hessian of a seeded activation sample over the projection's 4096
+    input columns (the group is its first columns), the Cholesky weights,
+    scales of ones (no blockwise normalization) and each band's codebook
+    from 25 EM steps (plain version) from its Mahalanobis seed."""
     from repro_torch.core import hessian as hes
     from repro_torch.core.codebook import mahalanobis_init
     from repro_torch.kernels.vq_assign import vq_em_plain
 
-    K, cg, d, rg = 4096, VQ_GROUP_COLS, VQ_D, VQ_ROWS_PER_BAND
+    K = 4096
+    d, k, cg, rg = sweep_layout(setting, r, K)
     g = torch.Generator(device=dev).manual_seed(r)
     W = torch.randn((r, cg), generator=g, device=dev)
     mix = torch.randn((K, K), generator=g, device=dev) / K ** 0.5
@@ -332,40 +377,51 @@ def sweep_inputs(torch, dev, r: int):
     spans = cg // d
     Xb = W.reshape(r // rg, rg * spans, d)
     Hw = wgt.reshape(1, spans, d).repeat(rg, 1, 1).reshape(rg * spans, d)
-    C = vq_em_plain(Xb, Hw, mahalanobis_init(Xb, VQ_K), 25).contiguous()
+    C = vq_em_plain(Xb, Hw, mahalanobis_init(Xb, k), 25).contiguous()
     return W, U[:cg, :cg], H[:cg, :cg].contiguous(), S, C, wgt, Hw
 
 
-def check_sweep(torch, dev, layer: str) -> dict:
-    """vq_group_sweep at one group of ``layer`` against its plain loop on
-    the card: with U = I (no feedback) the indices are vq_assign's bits and
-    Q = C[idx] * S bit for bit; with the real U the indices agree on >= 99%
-    of spans and the group's error tr(E H E^T) is within 1%; two calls give
-    the same bits. Times: the kernel eager and from a CUDA graph, the plain
-    loop, and the bound. The timed calls do not reset W between calls (the
-    work does not depend on the values)."""
+def check_sweep(torch, dev, layer: str, setting: str = "2.25bpv_2d",
+                babai: bool = False) -> dict:
+    """vq_group_sweep at one group of ``layer`` at ``setting`` against its
+    plain loop on the card: with U = I (no feedback; diagonal metric) the
+    indices are vq_assign's bits and Q = C[idx] * S bit for bit; with the
+    real U the indices agree on >= 99% of spans and the group's error
+    tr(E H E^T) is within 1%; two calls give the same bits. ``babai``: the
+    kernel's metric mode, each span's full (U_PP^T U_PP)^{-1}, held to the
+    plain loop's metric mode by the same bars. Times: the kernel eager and
+    from a CUDA graph, the plain loop, and the bound. The timed calls do
+    not reset W between calls (the work does not depend on the values)."""
     from repro_torch.core.gptvq import gather_codebooks
     from repro_torch.kernels.vq_assign import (
-        vq_assign, vq_group_sweep, vq_group_sweep_plain)
+        span_metrics, vq_assign, vq_group_sweep, vq_group_sweep_plain)
 
     r = MATMUL_SHAPES[layer][0]
-    cg, d, rg, k = VQ_GROUP_COLS, VQ_D, VQ_ROWS_PER_BAND, VQ_K
-    W0, U, H, S, C, wgt, Hw = sweep_inputs(torch, dev, r)
-    kw = dict(d=d, rows_per_band=rg, exact_span_solve=True)
+    d, k, cg, rg = sweep_layout(setting, r)
+    W0, U, H, S, C, wgt, Hw = sweep_inputs(torch, dev, r, setting)
+    metric = span_metrics(U, d) if babai else None
+    kw = dict(d=d, rows_per_band=rg, exact_span_solve=True, metric=metric)
     spans = cg // d
-    # no feedback: every span is one assignment of the normalized weights
-    W = W0.clone()
-    Qi, ii, _ = vq_group_sweep(W, torch.eye(cg, device=dev), S, C, wgt, **kw)
-    ref = vq_assign((W0 / S).reshape(r // rg, rg * spans, d), Hw,
-                    C).reshape(r, spans)
-    identity = {
-        "indices == vq_assign's (bitwise)": torch.equal(ii, ref),
-        "Q == C[idx] * S (bitwise)": torch.equal(
-            Qi, gather_codebooks(C[None], ii, cg, rg, d) * S),
-        "W unchanged": torch.equal(W, W0)}
+    identity = {}
+    if not babai:
+        # no feedback: every span is one assignment of the normalized
+        # weights
+        W = W0.clone()
+        Qi, ii, _ = vq_group_sweep(W, torch.eye(cg, device=dev), S, C, wgt,
+                                   **kw)
+        ref = vq_assign((W0 / S).reshape(r // rg, rg * spans, d), Hw,
+                        C).reshape(r, spans)
+        identity = {
+            "indices == vq_assign's (bitwise)": torch.equal(ii, ref),
+            "Q == C[idx] * S (bitwise)": torch.equal(
+                Qi, gather_codebooks(C[None], ii, cg, rg, d) * S),
+            "W unchanged": torch.equal(W, W0)}
     # the real U, against the plain loop on the card
     Wk, Wp = W0.clone(), W0.clone()
+    impl = "babai" if babai else "diag"
+    before = vq_group_sweep.launches_by_impl.get(impl, 0)
     Qk, ik, Ek = vq_group_sweep(Wk, U, S, C, wgt, **kw)
+    variant_ok = vq_group_sweep.launches_by_impl.get(impl, 0) == before + 1
     Qp, ip, Ep = vq_group_sweep_plain(Wp, U, S, C, wgt, **kw)
     torch.cuda.synchronize()
     agree = float((ik == ip).float().mean())
@@ -382,39 +438,47 @@ def check_sweep(torch, dev, layer: str) -> dict:
     ms = time_ms(torch, lambda: vq_group_sweep(Wt, U, S, C, wgt, **kw))
     dev_ms = graph_ms(torch, lambda: vq_group_sweep(Wt, U, S, C, wgt, **kw))
     plain_ms = time_ms(torch, lambda: vq_group_sweep_plain(
-        Wt, U, S, C, wgt, **kw), iters=5, warmup=1)
-    # bytes: W read and written, S read, U's upper triangle, the codebooks
-    # and weights read, Q, E and the indices written; operations: each
-    # span's distances to the k centroids (4 a coordinate) and the
-    # multiply-adds of the in-group update
+        Wt, U, S, C, wgt, **kw), iters=3, warmup=1)
+    # bytes: W read and written, S read, U's upper triangle, the codebooks,
+    # weights (and metrics) read, Q, E and the indices written; operations:
+    # each span's distances to the k centroids (diagonal: 4 a coordinate;
+    # babai: y's 2 and y M y's 2 + 2d a coordinate) and the multiply-adds
+    # of the in-group update
     nbytes = 4 * (5 * r * cg + cg * (cg + 1) // 2 + C.numel() + cg
-                  + r * spans)
-    flops = (4.0 * k * r * cg
+                  + r * spans + (metric.numel() if babai else 0))
+    per_coord = 4.0 + 2.0 * d if babai else 4.0
+    flops = (per_coord * k * r * cg
              + 2.0 * r * d * sum(cg - (j + 1) * d for j in range(spans)))
     b_ms, b_by = bound_ms(nbytes, flops)
-    row = {"name": "vq_group_sweep", "shape": f"{layer} group", "r": r,
-           "cg": cg, "d": d, "k": k, "rows_per_band": rg,
-           "identity_u": identity, "index_agreement": agree,
+    label = f"{layer} group" + ("" if setting == "2.25bpv_2d"
+                                else f" {setting}")
+    row = {"name": "vq_group_sweep", "shape": label, "setting": setting,
+           "metric": impl, "r": r, "cg": cg, "d": d, "k": k,
+           "rows_per_band": rg, "identity_u": identity,
+           "index_agreement": agree,
            "rows_agreeing": float(rows.float().mean()),
            "error_kernel": err_k, "error_plain": err_p,
            "error_ratio": err_k / err_p, "max_abs_err": abs_err,
-           "bitwise_repeat": same_bits, "ms": ms, "device_ms": dev_ms,
+           "bitwise_repeat": same_bits, "counted_as": impl,
+           "ms": ms, "device_ms": dev_ms,
            "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
            "bound_by": b_by}
-    log(f"[kernels] vq_group_sweep {layer} group ({r} x {cg}, d={d}, k={k}): "
-        f"U = I {identity}; real U: indices agree on {agree:.6f} of spans "
-        f"(tol 0.99), tr(E H E^T) kernel {err_k:.6g} plain {err_p:.6g} "
-        f"(ratio {err_k / err_p:.6f}, tol 1%), Q max abs err {abs_err:.2e} "
-        f"on agreeing rows, same bits twice {same_bits} | kernel "
+    log(f"[kernels] vq_group_sweep {label} ({impl} metric; {r} x {cg}, "
+        f"d={d}, k={k}, {rg} rows a band): U = I {identity or 'n/a'}; real "
+        f"U: indices agree on {agree:.6f} of spans (tol 0.99), tr(E H E^T) "
+        f"kernel {err_k:.6g} plain {err_p:.6g} (ratio {err_k / err_p:.6f}, "
+        f"tol 1%), Q max abs err {abs_err:.2e} on agreeing rows, same bits "
+        f"twice {same_bits}, counted as {impl} {variant_ok} | kernel "
         f"{ms:.4f} ms ({_fmt_ms(dev_ms)} from a CUDA graph), plain loop "
         f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
-    if not (all(identity.values()) and agree >= 0.99
+    if not (all(identity.values()) and agree >= 0.99 and variant_ok
             and abs(err_k - err_p) <= 0.01 * err_p and same_bits):
-        raise Failed(f"vq_group_sweep {layer}: {row}")
+        raise Failed(f"vq_group_sweep {label}: {row}")
     return row
 
 
-def check_em(torch, dev, label: str, B: int, n: int) -> dict:
+def check_em(torch, dev, label: str, B: int, n: int, d: int = VQ_D,
+             k: int = VQ_K) -> dict:
     """vq_em against its plain loop on the card at ``B`` bands of ``n``
     points (the quantizer's: Hessian weights shared by the bands; the KV
     codebook fit's: weights of one, a plane a band): at 10 iterations the
@@ -433,7 +497,7 @@ def check_em(torch, dev, label: str, B: int, n: int) -> dict:
     from repro_torch.kernels.vq_assign import (
         vq_assign_plain, vq_em, vq_em_plain)
 
-    d, k, iters = VQ_D, VQ_K, KV_FIT_EM_ITERS
+    iters = KV_FIT_EM_ITERS
     g = torch.Generator(device=dev).manual_seed(B * 7 + n)
     X = torch.randn((B, n, d), generator=g, device=dev)
     Hw = (torch.ones((B, n, d), device=dev) if label == "kv vq2 fit"
@@ -957,6 +1021,15 @@ def phase_kernels(torch, dev) -> list[dict]:
     for label, B, n in (("em", 1024, 512), ("em", 2752, 512),
                         ("kv vq2 fit", 32, 4096)):
         rows.append(check_em(torch, dev, label, B, n))
+    # the budget phase's settings: the babai metric at 2.25bpv_2d, then a
+    # d = 1 and a k = 256 setting, each at wq's group
+    for layer in ("wq", "w1"):
+        rows.append(check_sweep(torch, dev, layer, babai=True))
+    for setting in BUDGET_KERNEL_SETTINGS:
+        rows.append(check_sweep(torch, dev, "wq", setting))
+        d, k, cg, rg = sweep_layout(setting, 4096)
+        rows.append(check_em(torch, dev, f"em {setting}", 4096 // rg,
+                             rg * cg // d, d, k))
     # decode M = 1 (timed only), the serve engine's decode ticks (M = 4)
     # and prefill chunks (M = 64), the main phase's evaluation (M = 512),
     # the long phase's (8 x 4096 rows); then one row per regime with
@@ -1163,7 +1236,280 @@ def phase_main(torch, dev) -> dict:
            "seconds": t, "logit_max_diff": max_d, "logit_rms_diff": rms_d,
            "packed_bytes": packed, "dense_bytes": dense,
            "max_memory_allocated": peak}
-    return res, model, qparams
+    return res, model, qparams, (calib, heldout)
+
+
+def budget_groups(params, per_target) -> int:
+    """Column groups the allocated settings give: one vq_group_sweep and
+    one vq_em launch each (c / plan_groups(r, c, cfg)[0] a target)."""
+    from repro_torch.core.bpv import VQConfig
+    from repro_torch.core.gptvq import plan_groups
+
+    n = 0
+    for name, e in per_target.items():
+        _, i, sub, leaf = name.split(".")
+        c, r = params["layers"][int(i)][sub][leaf].shape  # (in, out)
+        cfg = VQConfig(d=e["d"], bits_per_dim=e["bits_per_dim"],
+                       group_size=e["group_size"])
+        n += c // plan_groups(r, c, cfg)[0]
+    return n
+
+
+def predict_matmul_impls(fused, M: int, x_dtype) -> dict:
+    """vq_dequant_matmul launches by variant for one forward of M rows:
+    one a packed leaf, each at the variant its layout selects."""
+    from repro_torch.core.vq_linear import FusedVQLinear
+    from repro_torch.kernels.vq_dequant_matmul import select_impl
+
+    want: dict = {}
+    for lp in fused["layers"]:
+        for sub in (lp["attn"], lp["ffn"]):
+            for leaf in sub.values():
+                if not isinstance(leaf, FusedVQLinear):
+                    continue
+                p = leaf.prepared
+                d, k_c, _, rpb, gc, sb = p.layout
+                impl = select_impl(M, x_dtype, d=d, k_c=k_c,
+                                   rows_per_band=rpb, n_bands=p.n_bands,
+                                   group_cols=gc, scale_block=sb,
+                                   has_int8=p.int8_ok)
+                want[impl] = want.get(impl, 0) + 1
+    return want
+
+
+def phase_budget(torch, dev, model, calib, heldout) -> dict:
+    """The budgeted path at full width: quantize_model with budget_bpv on
+    fresh weights (seed 0) and main's tokens, the closed-form scorer, then
+    the packed model through the fused kernel; then the method table on
+    block 0's full-width Hessians. See the module docstring."""
+    from repro_torch.core import adapters, hessian as hes
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core import vq_linear as vql_mod
+    from repro_torch.core.bpv import PAPER_SETTINGS
+    from repro_torch.core.gptvq import gptvq_quantize_matrix, plan_groups
+    from repro_torch.core.recipe import IntQuant, QuantRecipe, Quantize
+    from repro_torch.core.solvers import cd_refine
+    from repro_torch.kernels import vq_assign as vqa
+    from repro_torch.kernels.vq_dequant_matmul import vq_dequant_matmul
+    from repro_torch.train.loss import perplexity
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    params = model.init_params(seed=0, device=dev)
+    overrides = dict(em_iters=25, codebook_update_iters=10)
+    recipe = QuantRecipe.uniform(
+        PAPER_SETTINGS["2.25bpv_2d"], name="2.25bpv_2d"
+    ).with_quantize_overrides(**overrides)
+
+    # the pre-pass may build no (c, c) Hessian: count init_hessian calls
+    # made inside it (diagonal states are counted too, to show it ran)
+    inits = {"full": 0, "diag": 0}
+    real_prepass = pl._budget_prepass
+    real_init, real_diag = hes.init_hessian, hes.init_diag_hessian
+
+    def guarded_prepass(*a, **kw):
+        def full(*ia, **ikw):
+            inits["full"] += 1
+            return real_init(*ia, **ikw)
+
+        def diag(*ia, **ikw):
+            inits["diag"] += 1
+            return real_diag(*ia, **ikw)
+
+        hes.init_hessian, hes.init_diag_hessian = full, diag
+        try:
+            return real_prepass(*a, **kw)
+        finally:
+            hes.init_hessian, hes.init_diag_hessian = real_init, real_diag
+
+    budget, tries = BUDGET_BPV, []
+    pl._budget_prepass = guarded_prepass
+    try:
+        while True:
+            for fn in VQ_ENTRY_POINTS:
+                getattr(vqa, fn).launches = 0
+            vqa.vq_group_sweep.launches_by_impl = {}
+            t0 = time.perf_counter()
+            qparams, rep = pl.quantize_model(
+                model, params, calib, recipe=recipe, budget_bpv=budget,
+                budget_scorer="closed_form", pack=True)
+            torch.cuda.synchronize()
+            t_quant = time.perf_counter() - t0
+            launches = {fn: getattr(vqa, fn).launches
+                        for fn in VQ_ENTRY_POINTS}
+            sweep_impls = dict(vqa.vq_group_sweep.launches_by_impl)
+            alloc = {k: e["rule"].split("]")[0][len("budget["):]
+                     for k, e in rep.per_target.items()}
+            tries.append((budget, sorted(set(alloc.values()))))
+            if len(set(alloc.values())) >= 2 or budget >= 4.125:
+                break
+            log(f"[budget] {budget} bpv allocates one setting "
+                f"{set(alloc.values())}; raising by {BUDGET_STEP}")
+            budget += BUDGET_STEP
+    finally:
+        pl._budget_prepass = real_prepass
+    n_groups = budget_groups(params, rep.per_target)
+    packed_groups = sum(leaf.n_cg for lp in qparams["layers"]
+                        for sub in (lp["attn"], lp["ffn"])
+                        for leaf in sub.values())
+    log(f"[budget] budget {budget} bpv (tried {tries}): achieved "
+        f"{rep.achieved_bpv:.6f} bpv, quantize {t_quant:.2f}s, recon err "
+        f"{rep.total_error():.4f}")
+    for name, setting in alloc.items():
+        e = rep.per_target[name]
+        log(f"[budget]   {name}: {setting} (bpv {e['bpv']:.4f}, error "
+            f"{e['error']:.5f})")
+    log("[budget] stages: " + "  ".join(
+        f"{k}={v:.2f}s" for k, v in sorted(rep.stage_seconds.items(),
+                                          key=lambda kv: -kv[1])))
+    log(f"[budget] pre-pass Hessian states: {inits['diag']} diagonal, "
+        f"{inits['full']} (c, c)")
+
+    fused = vql_mod.prepare_fused_tree(qparams)
+    M = heldout.numel()
+    want_impl = predict_matmul_impls(fused, M, getattr(torch, cfg.dtype))
+    vq_dequant_matmul.launches = 0
+    vq_dequant_matmul.launches_by_impl = {}
+    t0 = time.perf_counter()
+    ppl_vq = perplexity(model, fused, heldout)
+    t_ppl = time.perf_counter() - t0
+    mm_launches = vq_dequant_matmul.launches
+    impls = dict(vq_dequant_matmul.launches_by_impl)
+    with torch.no_grad():
+        lf = model.forward(fused, {"tokens": heldout})[0]
+        lg = model.forward(qparams, {"tokens": heldout})[0]
+    dl = (lf - lg).float()
+    max_d, rms_d = float(dl.abs().max()), float(dl.pow(2).mean().sqrt())
+    log(f"[budget] launches: {launches}, vq_group_sweep by metric "
+        f"{sweep_impls} (predicted {n_groups} groups; packed leaves hold "
+        f"{packed_groups}); vq ppl {ppl_vq:.3f} in {t_ppl:.2f}s, "
+        f"vq_dequant_matmul {mm_launches} launches by variant {impls} "
+        f"(predicted {want_impl}); fused vs gather logits max |diff| "
+        f"{max_d:.4e} (tol 0.5), RMS {rms_d:.4e} (tol 0.05)")
+    checks = {
+        "two or more settings": len(set(alloc.values())) >= 2,
+        "achieved bpv <= budget": rep.achieved_bpv <= budget + 1e-9,
+        "vq_group_sweep launches == groups": launches["vq_group_sweep"]
+        == n_groups == packed_groups,
+        "vq_em launches == groups": launches["vq_em"] == n_groups,
+        "vq_assign launches == 0": launches["vq_assign"] == 0,
+        "sweeps all diagonal (gptq solver)": sweep_impls == {
+            "diag": n_groups},
+        "no (c, c) Hessian in the pre-pass": inits["full"] == 0
+        and inits["diag"] > 0,
+        "vq_dequant_matmul a packed leaf": mm_launches == 7 * cfg.n_layers,
+        "vq_dequant_matmul by variant as planned": impls == want_impl,
+        "ppl finite": math.isfinite(ppl_vq),
+        "fused vs gather": max_d <= 0.5 and rms_d <= 0.05,
+        "budget stages": {"budget_prepass", "budget_allocate"}
+        <= set(rep.stage_seconds),
+    }
+    del qparams, fused, lf, lg
+
+    # ---- the method table on block 0's full-width Hessians ---------------
+    t_tab = time.perf_counter()
+    adapter = adapters.get_adapter(model, params)
+    blk = adapter.blocks()[0]
+    taps: dict = {}
+    for ci, c in enumerate(calib[i:i + 8] for i in range(0, len(calib), 8)):
+        taps = blk.capture(adapter.calib_state(c, ci), taps,
+                           frozenset({"attn", "mlp"}))
+    stage_s: dict = {}
+
+    def stage(name):
+        import contextlib
+
+        @contextlib.contextmanager
+        def timed():
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            stage_s[name] = stage_s.get(name, 0.0) + time.perf_counter() - ts
+        return timed()
+
+    s2125 = dataclasses.replace(PAPER_SETTINGS["2.125bpv_2d"], **overrides)
+    s225 = dataclasses.replace(PAPER_SETTINGS["2.25bpv_2d"], **overrides)
+    methods = {
+        "gptvq 2.125bpv_2d": Quantize(s2125),
+        "kmeans 2.125bpv_2d": Quantize(s2125, method="kmeans"),
+        "kmeans_data 2.125bpv_2d": Quantize(s2125, method="kmeans_data"),
+        "rtn int2 g128": IntQuant(2, 128, method="rtn"),
+        "gptq int2 g128": IntQuant(2, 128),
+        "gptvq 2.25bpv_2d": Quantize(s225),
+        "babai 2.25bpv_2d": Quantize(s225, solver="babai"),
+        "cd 2.25bpv_2d": Quantize(s225, solver="cd"),
+    }
+    table, babai_launches, babai_want = {}, 0, 0
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for layer, (sub, leaf, tap) in METHOD_TABLE_LEAVES.items():
+        W_io = params["layers"][0][sub][leaf]
+        H = hes.finalize(taps[tap])
+        row = {}
+        for label, action in methods.items():
+            stage_s.clear()
+            before = vqa.vq_group_sweep.launches_by_impl.get("babai", 0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            q, _ = pl._apply_action(W_io, H, action, gen, stage)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            if action is methods["babai 2.25bpv_2d"]:
+                babai_launches += vqa.vq_group_sweep.launches_by_impl.get(
+                    "babai", 0) - before
+                c, r = W_io.shape
+                babai_want += c // plan_groups(r, c, s225)[0]
+            row[label] = {"error": pl._recon_error(W_io, q, H),
+                          "seconds": sec, "stages": dict(stage_s)}
+        # cd_refine's property on one sweep: never above the sweep it
+        # refines
+        W = W_io.T.float()
+        U = hes.inv_hessian_cholesky(H, s225.percdamp)
+        res = gptvq_quantize_matrix(W, U, s225)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Qcd, _, n_changed = cd_refine(
+            W, res.arrays.Q, res.arrays.indices, res.arrays.codebooks,
+            res.expanded_scales(), H, cfg=s225, group_cols=res.group_cols,
+            rows_per_band=res.rows_per_band, passes=s225.cd_passes)
+        torch.cuda.synchronize()
+        t_cd = time.perf_counter() - t0
+        e_sweep = float(torch.sum((W - res.arrays.Q)
+                                  * ((W - res.arrays.Q) @ H)))
+        e_cd = float(torch.sum((W - Qcd) * ((W - Qcd) @ H)))
+        row["cd_refine on the gptq sweep"] = {
+            "error_sweep": e_sweep, "error_cd": e_cd, "seconds": t_cd,
+            "switches": n_changed}
+        checks[f"cd <= gptq sweep ({layer})"] = e_cd <= e_sweep
+        table[layer] = row
+        e = {k: v["error"] for k, v in row.items() if "error" in v}
+        log(f"[budget] method table {layer} {tuple(W_io.shape[::-1])}: "
+            + "; ".join(f"{k} {v['error']:.5g} ({v['seconds']:.2f}s)"
+                        for k, v in row.items() if "error" in v))
+        log(f"[budget]   {layer}: cd_refine on the gptq sweep "
+            f"{e_sweep:.6g} -> {e_cd:.6g} ({n_changed} switches, "
+            f"{t_cd:.2f}s); gptq_quantize {row['gptq int2 g128']['stages']}"
+            f"; Table-1 order kmeans >= kmeans_data >= gptvq: "
+            f"{e['kmeans 2.125bpv_2d'] >= e['kmeans_data 2.125bpv_2d'] >= e['gptvq 2.125bpv_2d']}"
+            " (printed, not held: random weights)")
+    checks["babai sweeps launched in-kernel"] = babai_launches == babai_want
+    log(f"[budget] method table {time.perf_counter() - t_tab:.1f}s; babai "
+        f"launches {babai_launches} (predicted {babai_want})")
+    bad = [k for k, ok in checks.items() if not ok]
+    log(f"[budget] phase {time.perf_counter() - t_phase:.1f}s")
+    if bad:
+        raise Failed(f"budget phase checks failed: {bad}")
+    return {"budget_bpv": budget, "tries": tries, "allocation": alloc,
+            "achieved_bpv": rep.achieved_bpv,
+            "recon_error": rep.total_error(),
+            "per_target": rep.per_target, "stage_seconds": rep.stage_seconds,
+            "quantize_seconds": t_quant, "launches": launches,
+            "sweep_by_metric": sweep_impls, "predicted_groups": n_groups,
+            "prepass_hessian_states": inits, "ppl_vq": ppl_vq,
+            "vq_impl_counts": impls, "predicted_vq_impl_counts": want_impl,
+            "logit_max_diff": max_d, "logit_rms_diff": rms_d,
+            "method_table": table, "babai_launches": babai_launches,
+            "checks": checks, "seconds": time.perf_counter() - t_phase}
 
 
 # the serve phase: 8 greedy requests of 40-72 prompt tokens, 64 new tokens
@@ -1660,10 +2006,12 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
     main path launches the sweep and EM, not vq_assign itself),
     paged_attention at the long serve run's B=4, 32 heads of 128, 256 pages
     a slot, bf16 queries over f32 pages, flash_attention at the long
-    phase's heldout B=8, 32 heads of 128, 4096 tokens, bf16. Launches: the
-    main phase's for the first two (vq_assign.cu's three entry points
-    summed), the long serve run's for paged_attention, the long phase's for
-    flash_attention."""
+    phase's heldout B=8, 32 heads of 128, 4096 tokens, bf16; and the group
+    sweep's babai metric mode at the same wq group. Launches: the main
+    phase's for the first two (vq_assign.cu's three entry points summed),
+    the long serve run's for paged_attention, the long phase's for
+    flash_attention, the budget phase's method table for the babai
+    sweep."""
     pick = {
         "vq_dequant_matmul": (
             "vq_dequant_matmul",
@@ -1672,7 +2020,13 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
             "src/repro_torch/kernels/csrc/vq_dequant_matmul.cu",
             "src/repro/kernels/vq_dequant_matmul.py:137"),
         "vq_assign": (
-            "vq_group_sweep", lambda r: r["shape"] == "wq group",
+            "vq_group_sweep",
+            lambda r: r["shape"] == "wq group" and r["metric"] == "diag",
+            "src/repro_torch/kernels/csrc/vq_assign.cu",
+            "src/repro/kernels/vq_assign.py:37"),
+        "vq_group_sweep_babai": (
+            "vq_group_sweep",
+            lambda r: r["shape"] == "wq group" and r["metric"] == "babai",
             "src/repro_torch/kernels/csrc/vq_assign.cu",
             "src/repro/kernels/vq_assign.py:37"),
         "paged_attention": (
@@ -1734,7 +2088,8 @@ def main() -> int:
     phase_build()
     rows, invariance = phase_kernels(torch, dev)
     small_res = phase_small(torch, dev)
-    main_res, model, qparams = phase_main(torch, dev)
+    main_res, model, qparams, (calib, heldout) = phase_main(torch, dev)
+    budget_res = phase_budget(torch, dev, model, calib, heldout)
     serve_res = phase_serve(torch, dev, model, qparams)
     del model, qparams
     long_res = phase_long(torch, dev)
@@ -1744,7 +2099,7 @@ def main() -> int:
         json.dump({"device": name, "nvidia_smi": smi, "kernels": rows,
                    "bitwise": invariance,
                    "small": small_res, "main": main_res,
-                   "serve": serve_res, "long": long_res}, f, indent=1,
+                   "budget": budget_res, "serve": serve_res, "long": long_res}, f, indent=1,
                   default=str)
     log(f"[done] {time.perf_counter() - t_all:.1f}s; details in {out}")
     launches = dict(main_res["launches"], paged_attention=serve_res[
@@ -1752,6 +2107,7 @@ def main() -> int:
         flash_attention=long_res["launches"]["flash_attention"])
     launches["vq_assign"] = sum(main_res["launches"][fn]
                                 for fn in VQ_ENTRY_POINTS)
+    launches["vq_group_sweep_babai"] = budget_res["babai_launches"]
     print(json.dumps(kernel_line(rows, launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

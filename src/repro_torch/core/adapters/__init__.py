@@ -9,6 +9,8 @@ from repro_torch.core.adapters.base import (  # noqa: F401 (public API)
     ModelAdapter,
     WeightSpec,
     acc_tap,
+    diag_capture,
+    diag_capture_active,
     tree_get,
     tree_set,
 )

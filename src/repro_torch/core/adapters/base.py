@@ -12,12 +12,14 @@
     calibration state through the quantized block (``advance``) so
     downstream Hessians see upstream quantization error.
 
-The diagonal-only capture mode and mesh-sharded accumulation of the
-reference are not ported yet (ROADMAP.md queue 1, "Budgets and solvers" and
-"Multi-device and training").
+Inside ``diag_capture()`` every tap accumulates an O(c)
+``DiagHessianState`` instead of the (c, c) Hessian: the budget pre-pass
+reads diag(H) only. The reference's mesh-sharded accumulation is not
+ported yet (ROADMAP.md queue 1, "Multi-device and training").
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -98,13 +100,37 @@ class ModelAdapter:
         raise NotImplementedError
 
 
+_capture_mode = {"diag_only": False}
+
+
+@contextlib.contextmanager
+def diag_capture():
+    """Within this context, acc_tap accumulates O(c) diagonals only."""
+    prev = _capture_mode["diag_only"]
+    _capture_mode["diag_only"] = True
+    try:
+        yield
+    finally:
+        _capture_mode["diag_only"] = prev
+
+
+def diag_capture_active() -> bool:
+    return _capture_mode["diag_only"]
+
+
 def acc_tap(taps: dict, name: str, x: torch.Tensor) -> dict:
     """Accumulate activations ``x`` (..., c) into the named Hessian tap."""
     state = taps.get(name)
     if state is None:
-        state = hes.init_hessian(x.shape[-1], device=x.device)
+        c = x.shape[-1]
+        state = (hes.init_diag_hessian(c, device=x.device)
+                 if _capture_mode["diag_only"]
+                 else hes.init_hessian(c, device=x.device))
     taps = dict(taps)
-    taps[name] = hes.accumulate(state, x)
+    if isinstance(state, hes.DiagHessianState):
+        taps[name] = hes.accumulate_diag(state, x)
+    else:
+        taps[name] = hes.accumulate(state, x)
     return taps
 
 

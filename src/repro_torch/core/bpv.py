@@ -76,6 +76,20 @@ class VQConfig:
         )
 
 
+def group_size_for_overhead(
+    d: int, bits_per_dim: float, target_overhead: float, codebook_bits: int = 8,
+    scale_block: int = 0, scale_bits: int = 4,
+) -> int:
+    """Smallest power-of-two group size whose codebook+scale overhead is
+    <= target (paper §4.1: e.g. 2D/2b/int8 @ 0.125 bpv -> l = 2048)."""
+    k = int(round(2 ** (d * bits_per_dim)))
+    scale_oh = scale_bits / scale_block if scale_block > 0 else 0.0
+    budget = target_overhead - scale_oh
+    assert budget > 0, "scale overhead alone exceeds the target"
+    l = k * d * codebook_bits / budget
+    return 2 ** math.ceil(math.log2(l))
+
+
 def effective_bpv(cfg: VQConfig, r: int, c: int) -> float:
     """Achieved bits-per-value of ``cfg`` on a concrete (r, c) matrix.
 
@@ -92,6 +106,16 @@ def effective_bpv(cfg: VQConfig, r: int, c: int) -> float:
     # group actually planned instead of cfg.group_size
     codebook = cfg.codebook_bits_per_value * cfg.group_size / (cg * rg)
     return cfg.index_bits_per_value + codebook + cfg.scale_bits_per_value
+
+
+def int_quant_bpv(bits: int, group_size: int, c: int) -> float:
+    """Achieved bpv of uniform integer quantization on ``c`` input columns:
+    index bits + one fp16 scale per (row, group). Groups fall back to the
+    largest divisor of c, mirroring quant.compute_qparams."""
+    gs = c if group_size in (-1, None) else min(group_size, c)
+    while c % gs != 0:
+        gs -= 1
+    return bits + DENSE_BITS / gs
 
 
 def weighted_bpv(items) -> float:

@@ -14,7 +14,6 @@ import torch
 
 from repro_torch.kernels.vq_assign import (  # noqa: F401 (m_step: public API)
     m_step, vq_assign, vq_em)
-from repro_torch.pending import not_ported
 
 
 def weighted_distances(X: torch.Tensor, Hw: torch.Tensor,
@@ -32,6 +31,13 @@ def assign(X: torch.Tensor, Hw: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     """E-step / Eq. 4: Hessian-weighted nearest-centroid assignment,
     (B, n) int32. On CUDA this is the ``vq_assign`` kernel."""
     return vq_assign(X, Hw, C)
+
+
+def em_objective(X: torch.Tensor, Hw: torch.Tensor,
+                 C: torch.Tensor) -> torch.Tensor:
+    """Per-band EM objective, (B,): the summed Hessian-weighted distance of
+    each point to its nearest centroid."""
+    return torch.sum(torch.amin(weighted_distances(X, Hw, C), dim=-1), dim=-1)
 
 
 def em(X: torch.Tensor, Hw: torch.Tensor, C0: torch.Tensor,
@@ -61,7 +67,30 @@ def mahalanobis_init(X: torch.Tensor, k: int) -> torch.Tensor:
     return torch.gather(X, 1, rows[..., None].expand(B, k, d))
 
 
-kmeanspp_init = not_ported("codebook.kmeanspp_init", "Budgets and solvers")
+def kmeanspp_init(X: torch.Tensor, Hw: torch.Tensor, k: int,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """k-means++ seeding with the Hessian-weighted distance (Table 6), per
+    band: the first centroid uniformly, each next one with probability
+    proportional to a point's distance to its nearest chosen centroid. The
+    draws come from ``generator`` (on X's device), so the seeds differ from
+    the reference's ``jax.random`` draws; compare them by error, not
+    value."""
+    B, n, d = X.shape
+    first = torch.randint(0, n, (B,), generator=generator, device=X.device)
+    rows = torch.arange(B, device=X.device)
+    C = torch.zeros((B, k, d), dtype=X.dtype, device=X.device)
+    C[:, 0] = X[rows, first]
+    dmin = weighted_distances(X, Hw, C[:, :1])[..., 0]
+    for i in range(1, k):
+        w = torch.clamp(dmin, min=0.0)
+        tot = w.sum(dim=1, keepdim=True)
+        # every point already on a centroid: draw uniformly
+        w = torch.where(tot > 1e-12, w, torch.ones_like(w))
+        choice = torch.multinomial(w, 1, generator=generator)[:, 0]
+        C[:, i] = X[rows, choice]
+        dmin = torch.minimum(
+            dmin, weighted_distances(X, Hw, C[:, i:i + 1])[..., 0])
+    return C
 
 
 def init_codebook(X: torch.Tensor, Hw: torch.Tensor, *, k: int,

@@ -1,5 +1,5 @@
 """GPTVQ Algorithm 1: Hessian-compensated vector quantization of a matrix
-(port of ``repro/core/gptvq.py``, ``"gptq"`` solver).
+(port of ``repro/core/gptvq.py``).
 
 Generalizes GPTQ's column-sequential sweep to d-dimensional VQ:
 
@@ -20,7 +20,9 @@ a d x d triangular solve), else the per-column reading E_p / U[p,p].
 The reference jits one group's init and sweep and runs the spans in a
 ``fori_loop``; here a group's spans run in one ``vq_group_sweep`` launch on
 CUDA (its plain loop on the CPU), updating the working copy of W in place,
-and its EM init in one ``vq_em`` launch.
+and its EM init in one ``vq_em`` launch. The ``babai`` solver's full span
+metric runs in the same launch (the kernel's metric mode); ``cd`` refines
+the finished sweep with ``solvers.cd_refine``.
 """
 from __future__ import annotations
 
@@ -34,7 +36,8 @@ from repro_torch.core import codebook as cb
 from repro_torch.core import normalization as norm
 from repro_torch.core.bpv import VQConfig
 from repro_torch.core.hessian import cholesky_diag_weights
-from repro_torch.kernels.vq_assign import vq_group_sweep
+from repro_torch.core.solvers import VALID_SOLVERS, cd_refine
+from repro_torch.kernels.vq_assign import span_metrics, vq_group_sweep
 
 
 class VQArrays(NamedTuple):
@@ -156,16 +159,22 @@ def _group_init(Wg: torch.Tensor, wgt_g: torch.Tensor, *, cfg: VQConfig,
 
 def _group_sweep(W: torch.Tensor, U: torch.Tensor, Sg: torch.Tensor,
                  Cg: torch.Tensor, wgt_g: torch.Tensor, gstart: int, *,
-                 cfg: VQConfig, group_cols: int, rows_per_band: int):
+                 cfg: VQConfig, group_cols: int, rows_per_band: int,
+                 solver: str = "gptq"):
     """d-span sweep of one column group with error feedback through U (one
     ``vq_group_sweep`` launch on CUDA), plus the lazy tail update beyond the
     group. Updates ``W`` (f32, owned by the caller) in place; returns
-    (Qg, idxg)."""
+    (Qg, idxg). With ``solver="babai"`` and d > 1 every span's assignment
+    reads its full conditional metric (``solvers.span_metric``, all of the
+    group's spans in one batched solve); otherwise the diagonal one."""
     gend = gstart + group_cols
+    Ug = U[gstart:gend, gstart:gend]
+    metric = (span_metrics(Ug, cfg.d) if solver == "babai" and cfg.d > 1
+              else None)
     Qg, idxg, Eg = vq_group_sweep(
-        W[:, gstart:gend], U[gstart:gend, gstart:gend], Sg, Cg, wgt_g,
+        W[:, gstart:gend], Ug, Sg, Cg, wgt_g,
         d=cfg.d, rows_per_band=rows_per_band,
-        exact_span_solve=cfg.exact_span_solve)
+        exact_span_solve=cfg.exact_span_solve, metric=metric)
     # ---- lazy tail update beyond the group ---------------------------------
     if gend < W.shape[1]:
         W[:, gend:] -= Eg @ U[gstart:gend, gend:]
@@ -178,18 +187,24 @@ def _null_stage(name):
 
 def gptvq_quantize_matrix(W: torch.Tensor, U: torch.Tensor, cfg: VQConfig,
                           generator: torch.Generator | None = None, *,
-                          solver: str = "gptq", stage=None) -> VQResult:
+                          solver: str = "gptq", H: torch.Tensor | None = None,
+                          stage=None) -> VQResult:
     """Run Algorithm 1 on one weight matrix. ``U`` from inv_hessian_cholesky.
 
-    Only the paper's ``"gptq"`` solver is ported. ``stage`` is an optional
-    1-arg context-manager factory (the pipeline's stage timer) wrapped around
-    each group's ``em_init`` and ``column_sweep``. ``generator`` feeds the
+    ``solver`` picks the inner assignment rule (solvers.VALID_SOLVERS):
+    "gptq" is the paper's diagonal-metric sweep, "babai" the full-metric
+    nearest-plane variant, "cd" adds a coordinate-descent refinement pass
+    (requires ``H``). ``stage`` is an optional 1-arg context-manager factory
+    (the pipeline's stage timer) wrapped around each group's ``em_init`` and
+    ``column_sweep`` and the ``cd_refine`` pass. ``generator`` feeds the
     kmeans++ seed (``cfg.em_seed``); the default Mahalanobis seed is
     deterministic and draws nothing."""
-    if solver != "gptq":
-        raise NotImplementedError(
-            f"solver {solver!r} is not ported yet (ROADMAP.md queue 1, "
-            "'Budgets and solvers')")
+    if solver not in VALID_SOLVERS:
+        raise ValueError(f"unknown solver {solver!r}; expected one of "
+                         f"{VALID_SOLVERS}")
+    if solver == "cd" and H is None:
+        raise ValueError("solver='cd' needs the Hessian H for its "
+                         "coordinate-descent objective")
     r, c = W.shape
     cg, rg = plan_groups(r, c, cfg)
     n_cg = c // cg
@@ -210,7 +225,8 @@ def gptvq_quantize_matrix(W: torch.Tensor, U: torch.Tensor, cfg: VQConfig,
                 rows_per_band=rg, generator=generator)
         with stage("column_sweep"):
             Qg, idxg = _group_sweep(Wcur, U, Sg, Cg, wgt_g, gstart, cfg=cfg,
-                                    group_cols=cg, rows_per_band=rg)
+                                    group_cols=cg, rows_per_band=rg,
+                                    solver=solver)
         Qs.append(Qg)
         idxs.append(idxg)
         cbs.append(Cg)
@@ -226,8 +242,17 @@ def gptvq_quantize_matrix(W: torch.Tensor, U: torch.Tensor, cfg: VQConfig,
         scale_a=torch.stack(a_list, dim=0).reshape(n_cg),
         scale_z=torch.stack(z_list, dim=0).reshape(n_cg),
     )
-    return VQResult(arrays=arrays, cfg=cfg, r=r, c=c, group_cols=cg,
-                    rows_per_band=rg)
+    res = VQResult(arrays=arrays, cfg=cfg, r=r, c=c, group_cols=cg,
+                   rows_per_band=rg)
+    if solver == "cd" and cfg.cd_passes > 0:
+        with stage("cd_refine"):
+            Q, idx, _changed = cd_refine(
+                W.to(torch.float32), arrays.Q, arrays.indices,
+                arrays.codebooks, res.expanded_scales(), H, cfg=cfg,
+                group_cols=cg, rows_per_band=rg, passes=cfg.cd_passes)
+        res = dataclasses.replace(
+            res, arrays=arrays._replace(Q=Q, indices=idx))
+    return res
 
 
 def layer_error(W: torch.Tensor, Q: torch.Tensor, H: torch.Tensor) -> torch.Tensor:

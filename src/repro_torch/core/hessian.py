@@ -4,9 +4,10 @@ The per-layer objective Hessian of ``||W X - Ŵ X||_F^2`` w.r.t. a row of W is
 ``H = X X^T`` (shape (c, c), c = in_features), shared across rows.
 ``accumulate`` keeps the full (c, c) running sum the column sweep needs; it
 adds into the state's matrix in place (one (c, c) buffer per tap instead of
-a new one per chunk). The diagonal-only and mesh-sharded variants of the
-reference are not ported yet (ROADMAP.md queue 1, "Budgets and solvers"
-and "Multi-device and training").
+a new one per chunk). ``DiagHessianState`` + ``accumulate_diag`` keep only
+``sum_i x_i^2`` per column: the budget pre-pass reads ``diag(H)`` alone, so
+it never materializes (c, c). The mesh-sharded variant of the reference is
+not ported yet (ROADMAP.md queue 1, "Multi-device and training").
 """
 from __future__ import annotations
 
@@ -22,8 +23,19 @@ class HessianState(NamedTuple):
     n: int           # number of accumulated tokens
 
 
+class DiagHessianState(NamedTuple):
+    """O(c) accumulator: only the diagonal ``sum_i x_i[q]^2`` per column."""
+
+    diag: torch.Tensor  # (c,) running sum of x^2 per column
+    n: int              # number of accumulated tokens
+
+
 def init_hessian(c: int, dtype=torch.float32, device=None) -> HessianState:
     return HessianState(torch.zeros((c, c), dtype=dtype, device=device), 0)
+
+
+def init_diag_hessian(c: int, dtype=torch.float32, device=None) -> DiagHessianState:
+    return DiagHessianState(torch.zeros((c,), dtype=dtype, device=device), 0)
 
 
 def accumulate(state: HessianState, x: torch.Tensor) -> HessianState:
@@ -34,9 +46,22 @@ def accumulate(state: HessianState, x: torch.Tensor) -> HessianState:
     return HessianState(state.H, state.n + xf.shape[0])
 
 
+def accumulate_diag(state: DiagHessianState, x: torch.Tensor) -> DiagHessianState:
+    """Accumulate ``diag(X^T X)`` without ever forming (c, c)."""
+    c = state.diag.shape[0]
+    xf = x.reshape(-1, c).to(state.diag.dtype)
+    return DiagHessianState(state.diag + torch.sum(xf * xf, dim=0),
+                            state.n + xf.shape[0])
+
+
 def finalize(state: HessianState) -> torch.Tensor:
     """Mean Hessian (scale-invariant for the argmin, but keeps damping sane)."""
     return state.H / max(state.n, 1)
+
+
+def finalize_diag(state: DiagHessianState) -> torch.Tensor:
+    """Mean Hessian diagonal, (c,)."""
+    return state.diag / max(state.n, 1)
 
 
 def inv_hessian_cholesky(H: torch.Tensor, percdamp: float = 0.01) -> torch.Tensor:
@@ -71,8 +96,5 @@ def cholesky_diag_weights(U: torch.Tensor) -> torch.Tensor:
     return 1.0 / torch.clamp(d * d, min=1e-20)
 
 
-init_diag_hessian = not_ported("hessian.init_diag_hessian", "Budgets and solvers")
-accumulate_diag = not_ported("hessian.accumulate_diag", "Budgets and solvers")
-finalize_diag = not_ported("hessian.finalize_diag", "Budgets and solvers")
 accumulate_sharded = not_ported("hessian.accumulate_sharded",
                                 "Multi-device and training")

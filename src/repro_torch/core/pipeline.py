@@ -17,15 +17,23 @@ With ``telemetry`` (an ``obs.Telemetry``) each stage also records a
 ``quant_stage`` row per (block, stage) call and one ``quant_target`` row
 per quantized target, with the reference's schemas.
 
-Not ported yet: budgeted mixed precision and the int/kmeans actions
-(ROADMAP.md queue 1, "Budgets and solvers") and mesh-sharded Hessian
-capture ("Multi-device and training"); those arguments raise when set.
+Configuration is a ``QuantRecipe`` (or the legacy ``(method, cfg)`` pair,
+compiled by ``QuantRecipe.from_legacy``); its actions are GPTVQ (every
+solver) and its ``kmeans`` / ``kmeans_data`` ablations, ``IntQuant`` (RTN or
+GPTQ) and ``KeepDense``. ``budget_bpv`` turns on Hessian-budgeted mixed
+precision: a pre-pass over the unquantized model collects per-target
+diagonal Hessians (never a (c, c) one), and a greedy allocator picks each
+target's setting so the model-wide weighted bpv stays on budget.
+
+Not ported yet: mesh-sharded Hessian capture (ROADMAP.md queue 1,
+"Multi-device and training"); ``hessian_mesh=`` raises.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import time
+import warnings
 from typing import Any, Callable
 
 import torch
@@ -33,15 +41,20 @@ import torch
 from repro_torch.core import adapters
 from repro_torch.core import hessian as hes
 from repro_torch.core import vq_linear as vql_mod
-from repro_torch.core.bpv import weighted_bpv
+from repro_torch.core.bpv import VQConfig, weighted_bpv
 from repro_torch.core.codebook_compress import codebook_update, quantize_codebooks
 from repro_torch.core.gptvq import gptvq_quantize_matrix, layer_error
+from repro_torch.core.quant import gptq_quantize, rtn_quantize
 from repro_torch.core.recipe import (
+    BudgetEntry,
+    IntQuant,
     KeepDense,
     QuantRecipe,
     Quantize,
+    RecipeError,
     Resolved,
     TargetInfo,
+    allocate_budget,
 )
 from repro_torch.device import full_fp32_matmuls
 
@@ -50,13 +63,19 @@ from repro_torch.device import full_fp32_matmuls
 class QuantizeReport:
     per_layer: list     # one row per block: {"layer", "block", target: err}
     total_seconds: float
+    method: str             # legacy method, or "recipe[:<name>]"
+    bits_per_value: float   # nominal cfg bpv (legacy uniform) / achieved
     # per canonical target: {"action", "rule", "bpv", "numel", "error", ...}
-    per_target: dict
-    achieved_bpv: float     # numel-weighted model-wide bpv, overhead incl.
-    recipe: str             # the recipe's name
-    # seconds per pipeline stage (hessian_capture, em_init, column_sweep,
-    # codebook_update, advance); each stage synchronizes the device on exit
-    stage_seconds: dict
+    per_target: dict = dataclasses.field(default_factory=dict)
+    achieved_bpv: float = 0.0   # numel-weighted model-wide bpv, overhead incl.
+    recipe: dict | None = None  # the resolved recipe, JSON-able
+    # seconds per pipeline stage (budget_prepass, budget_allocate,
+    # hessian_capture, em_init, column_sweep, cd_refine, codebook_update,
+    # advance); each stage synchronizes the device on exit
+    stage_seconds: dict = dataclasses.field(default_factory=dict)
+    # anomalies (budget pre-pass targets whose Hessian tap never fired,
+    # scored by weight variance instead)
+    warnings: list = dataclasses.field(default_factory=list)
 
     def total_error(self) -> float:
         """Summed Hessian-weighted reconstruction error over all targets."""
@@ -69,28 +88,65 @@ def _null_stage(name):
     return contextlib.nullcontext()
 
 
+def _eye(W: torch.Tensor) -> torch.Tensor:
+    return torch.eye(W.shape[1], dtype=torch.float32, device=W.device)
+
+
 def _apply_action(W_io, H, action, generator=None, stage=_null_stage):
-    """W_io: (in, out) kernel, H its input Hessian. Returns
-    (fake-quant (in, out), VQLinear)."""
-    if not isinstance(action, Quantize) or action.method != "gptvq":
-        raise NotImplementedError(
-            f"action {action!r} is not ported yet (ROADMAP.md queue 1, "
-            "'Budgets and solvers')")
+    """W_io: (in, out) kernel, H its input Hessian (None: identity).
+    Returns (fake-quant (in, out), VQLinear | None), as the reference:
+    only ``gptvq`` packs; ``IntQuant``, ``kmeans`` and ``kmeans_data``
+    leave a dense fake-quant leaf. Every VQ method runs the ``vq_em`` and
+    ``vq_group_sweep`` kernels on CUDA; they differ only in U."""
     W = W_io.T.to(torch.float32)  # (out, in)
+    if isinstance(action, IntQuant):
+        if action.method == "rtn":
+            with stage("column_sweep"):
+                q = rtn_quantize(W, action.bits, action.group_size)
+            return q.T.to(W_io.dtype), None
+        if action.method != "gptq":
+            raise ValueError(f"unknown IntQuant method {action.method!r}")
+        U = hes.inv_hessian_cholesky(H if H is not None else _eye(W))
+        with stage("column_sweep"):
+            Q = gptq_quantize(W, U, bits=action.bits,
+                              group_size=action.group_size)
+        return Q.T.to(W_io.dtype), None
+    if not isinstance(action, Quantize):
+        raise TypeError(f"no quantizer for action {action!r}")
     cfg = action.cfg
-    U = hes.inv_hessian_cholesky(H, cfg.percdamp)
+    if action.method == "kmeans":
+        # Table-1 baseline: plain k-means clustering, no Hessian weighting,
+        # no error feedback (identity H => EM == k-means, U == I)
+        res = gptvq_quantize_matrix(W, _eye(W), cfg, generator, stage=stage)
+        return res.arrays.Q.T.to(W_io.dtype), None
+    U = hes.inv_hessian_cholesky(H if H is not None else _eye(W),
+                                 cfg.percdamp)
+    if action.method == "kmeans_data":
+        # Table-1 middle row: Hessian-weighted EM/assignment but no GPTQ
+        # error feedback: diagonal-only U
+        res = gptvq_quantize_matrix(W, torch.diag(U.diagonal()), cfg,
+                                    generator, stage=stage)
+        return res.arrays.Q.T.to(W_io.dtype), None
+    if action.method != "gptvq":
+        raise ValueError(f"unknown Quantize method {action.method!r}")
+    H_eff = H if H is not None else _eye(W)
     res = gptvq_quantize_matrix(W, U, cfg, generator, solver=action.solver,
+                                H=H_eff if action.solver == "cd" else None,
                                 stage=stage)
     with stage("codebook_update"):
-        res = quantize_codebooks(codebook_update(res, W, H))
+        if H is not None:
+            res = codebook_update(res, W, H)
+        res = quantize_codebooks(res)
         packed = vql_mod.from_vq_result(res)
     return res.arrays.Q.T.to(W_io.dtype), packed
 
 
 def _recon_error(W_io, q_io, H) -> float:
     """Hessian-weighted reconstruction error of one quantized matrix."""
-    return float(layer_error(W_io.T.to(torch.float32),
-                             q_io.T.to(torch.float32), H))
+    W = W_io.T.to(torch.float32)
+    if H is None:
+        H = _eye(W)
+    return float(layer_error(W, q_io.T.to(torch.float32), H))
 
 
 def _collect_targets(blocks) -> list[TargetInfo]:
@@ -110,6 +166,109 @@ def _collect_targets(blocks) -> list[TargetInfo]:
     return out
 
 
+def _check_plan(blocks, plan) -> None:
+    """Fail fast on actions the target's leaf cannot support."""
+    for blk in blocks:
+        block_params = blk.params()
+        for spec in blk.targets():
+            res = plan[f"{blk.prefix}.{spec.name}"]
+            if isinstance(res.action, KeepDense):
+                continue
+            W = adapters.tree_get(block_params, spec.path)
+            if W.dim() != 2:
+                raise RecipeError(
+                    f"target {blk.prefix}.{spec.name!r} has shape "
+                    f"{tuple(W.shape)}; only 2-D kernels can quantize — use "
+                    f"keep_dense (matched {res.rule})")
+
+
+def _budget_prepass(adapter, chunks, plan, progress, mesh=None,
+                    mesh_axis: str = "data"):
+    """Collect per-target diagonal Hessians from the *unquantized* model.
+
+    One forward sweep under ``adapters.diag_capture()``: every tap
+    accumulates an O(c) ``DiagHessianState``; the (c, c) Hessian is never
+    materialized. Installs the original params and advances, on a fresh
+    blocks() list so the real sweep starts clean. Returns (diag, missed):
+    ``missed`` maps target names whose Hessian could not be collected to a
+    reason string. ``mesh`` (sharded capture) is not ported yet."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh-sharded capture is not ported yet (ROADMAP.md queue 1, "
+            "'Multi-device and training')")
+    states = [adapter.calib_state(c, ci) for ci, c in enumerate(chunks)]
+    diag: dict[str, torch.Tensor] = {}
+    missed: dict[str, str] = {}
+    with adapters.diag_capture():
+        for blk in adapter.blocks():
+            eligible = [
+                spec for spec in blk.targets()
+                if isinstance(plan[f"{blk.prefix}.{spec.name}"].action,
+                              Quantize) and spec.tap is not None]
+            groups = frozenset(spec.group for spec in eligible)
+            taps: dict = {}
+            if groups:
+                for st in states:
+                    taps = blk.capture(st, taps, groups)
+            for spec in eligible:
+                tap = taps.get(spec.tap)
+                name = f"{blk.prefix}.{spec.name}"
+                if tap is None:
+                    missed[name] = f"tap {spec.tap!r} never fired"
+                    continue
+                diag[name] = hes.finalize_diag(tap)
+            blk.install(blk.params())
+            states = [blk.advance(st) for st in states]
+            if progress:
+                progress(f"budget pre-pass: {blk.name}")
+    return diag, missed
+
+
+def _allocate(blocks, plan, diag, missed, budget_bpv, progress,
+              scorer: str = "closed_form"):
+    """Rewrite Quantize plan entries with the budget allocator's choice.
+
+    Returns (plan, warnings): targets the pre-pass could not collect a
+    Hessian for are scored by weight variance (identity weights) and
+    reported in ``warnings``."""
+    entries, fixed_bits, fixed_numel = [], 0.0, 0
+    warn_rows: list[str] = []
+    for blk in blocks:
+        block_params = blk.params()
+        for spec in blk.targets():
+            name = f"{blk.prefix}.{spec.name}"
+            res = plan[name]
+            W = adapters.tree_get(block_params, spec.path)
+            Wq, numel = W.T.to(torch.float32), W.numel()
+            if isinstance(res.action, Quantize):
+                diag_h = diag.get(name)
+                if diag_h is None:
+                    why = missed.get(name, "no Hessian tap declared")
+                    msg = (f"budget pre-pass: {why} for {name}; scoring "
+                           f"by weight variance (identity Hessian)")
+                    warn_rows.append(msg)
+                    warnings.warn(msg, stacklevel=3)
+                    diag_h = torch.ones((Wq.shape[-1],), dtype=torch.float32,
+                                        device=Wq.device)
+                entries.append(BudgetEntry(
+                    name=name, W=Wq, diag_h=diag_h,
+                    base_cfg=res.action.cfg, numel=numel))
+            else:
+                r, c = Wq.shape[-2], Wq.shape[-1]
+                fixed_bits += numel * res.action.bpv(r, c)
+                fixed_numel += numel
+    alloc = allocate_budget(entries, budget_bpv, fixed_bits=fixed_bits,
+                            fixed_numel=fixed_numel, scorer=scorer,
+                            progress=progress)
+    for name, (setting, cfg) in alloc.items():
+        old = plan[name]
+        plan[name] = Resolved(
+            Quantize(cfg, method=old.action.method,
+                     solver=old.action.solver),
+            rule=f"budget[{setting}]<-{old.rule}")
+    return plan, warn_rows
+
+
 def _target_entry(res: Resolved, spec, W) -> dict:
     """JSON-able per-target report row."""
     r, c = W.shape[-1], W.shape[-2]
@@ -122,6 +281,9 @@ def _target_entry(res: Resolved, spec, W) -> dict:
         entry.update(action="quantize", method=action.method,
                      d=action.cfg.d, bits_per_dim=action.cfg.bits_per_dim,
                      group_size=action.cfg.group_size)
+    elif isinstance(action, IntQuant):
+        entry.update(action="int_quant", method=action.method,
+                     bits=action.bits, group_size=action.group_size)
     else:
         entry.update(action="keep_dense", reason=action.reason)
     return entry
@@ -132,32 +294,56 @@ def quantize_model(
     model,
     params,
     tokens: torch.Tensor,      # (n_seq, S) calibration tokens
+    method: str = "gptvq",
+    cfg: Any = None,           # VQConfig for gptvq; {"bits","group_size"} else
     *,
-    recipe: QuantRecipe | None = None,
+    recipe: QuantRecipe | None = None,  # declarative per-target rules
+    budget_bpv: float | None = None,    # Hessian-budgeted mixed precision
+    budget_scorer: str = "closed_form",  # or "refit" (validation oracle)
+    hessian_mesh=None,         # not ported yet: raises when set
+    hessian_mesh_axis: str = "data",
     pack: bool = False,        # True -> VQLinear leaves (serving format)
     chunk: int = 8,            # calibration sequences per forward chunk
+    quantize_attn: bool = True,   # deprecated: use a recipe rule instead
+    quantize_mlp: bool = True,    # deprecated: use a recipe rule instead
     seed: int = 0,
     progress: Callable[[str], None] | None = None,
-    budget_bpv: float | None = None,
-    hessian_mesh=None,
     telemetry=None,
 ):
     """Quantize a model of a ported family. Returns (new_params, report).
 
-    Resolves a per-target plan from the recipe (default: uniform GPTVQ at
-    ``VQConfig()``), then runs three passes per block through the family's
-    adapter: (1) Hessian capture from the current calibration activations,
-    (2) per-target application of the resolved action, (3) advancing the
+    Resolves a per-target plan from the recipe (or from the legacy
+    ``method`` / ``cfg`` pair via ``QuantRecipe.from_legacy``), optionally
+    rewrites its Quantize entries with the budget allocator's choices
+    (``budget_bpv``), then runs three passes per block through the family's
+    adapter: (1) Hessian capture for the taps the plan needs, (2)
+    per-target application of the resolved action, (3) advancing the
     activations through the quantized block. Runs on the device of
     ``params``. ``telemetry`` (an ``obs.Telemetry``) adds the stage spans
     and the ``quant_stage`` / ``quant_target`` events."""
-    for name, val in (("budget_bpv", budget_bpv),
-                      ("hessian_mesh", hessian_mesh)):
-        if val is not None:
-            raise NotImplementedError(
-                f"{name}= is not ported yet (ROADMAP.md queue 1: "
-                "'Budgets and solvers', 'Multi-device and training')")
-    recipe = recipe if recipe is not None else QuantRecipe()
+    if hessian_mesh is not None:
+        raise NotImplementedError(
+            "hessian_mesh= is not ported yet (ROADMAP.md queue 1, "
+            "'Multi-device and training')")
+    legacy = recipe is None
+    if not legacy and (method != "gptvq" or cfg is not None):
+        raise ValueError(
+            "pass either a recipe or the legacy (method, cfg) pair — "
+            "explicit method/cfg would be silently ignored alongside "
+            "recipe=")
+    if legacy:
+        if not (quantize_attn and quantize_mlp):
+            warnings.warn(
+                "quantize_attn/quantize_mlp are deprecated; pass a "
+                "QuantRecipe with keep_dense rules instead",
+                DeprecationWarning, stacklevel=2)
+        if cfg is None:
+            cfg = (VQConfig()
+                   if method in ("gptvq", "kmeans", "kmeans_data")
+                   else {"bits": 4, "group_size": 128})
+        recipe = QuantRecipe.from_legacy(
+            method, cfg, quantize_attn=quantize_attn,
+            quantize_mlp=quantize_mlp)
     full_fp32_matmuls()  # params may come from anywhere: enforce it here too
     t0 = time.time()
     stage_seconds: dict[str, float] = {}
@@ -188,6 +374,15 @@ def quantize_model(
 
     blocks = adapter.blocks()
     plan = recipe.resolve(_collect_targets(blocks))
+    _check_plan(blocks, plan)
+    report_warnings: list[str] = []
+    if budget_bpv is not None:
+        with _stage("budget_prepass"):
+            diag, missed = _budget_prepass(adapter, chunks, plan, progress)
+        with _stage("budget_allocate"):
+            plan, report_warnings = _allocate(
+                blocks, plan, diag, missed, budget_bpv, progress,
+                scorer=budget_scorer)
 
     states = [adapter.calib_state(c, ci) for ci, c in enumerate(chunks)]
     report_rows = []
@@ -220,18 +415,19 @@ def quantize_model(
             if isinstance(res.action, KeepDense):
                 per_target[name] = entry
                 continue
-            tap = taps.get(spec.tap)
-            if tap is None:
+            tap = taps.get(spec.tap) if spec.tap is not None else None
+            if res.needs_hessian and spec.tap is not None and tap is None:
                 # an adapter bug: capture never accumulated what targets()
-                # promised (every ported action needs the Hessian)
+                # promised
                 raise KeyError(
                     f"block {blk.name!r}: Hessian tap {spec.tap!r} for "
                     f"target {spec.name!r} was never captured")
             t_tgt = time.perf_counter()
-            H = hes.finalize(tap)
+            H = hes.finalize(tap) if tap is not None else None
             q, packed = _apply_action(W, H, res.action, gen, blk_stage)
-            packed = dataclasses.replace(packed, rule=res.rule)
-            leaf = packed if pack else q
+            if packed is not None:
+                packed = dataclasses.replace(packed, rule=res.rule)
+            leaf = packed if (pack and packed is not None) else q
             err = _recon_error(W, q, H)
             if telemetry is not None:
                 telemetry.events.emit(
@@ -253,7 +449,16 @@ def quantize_model(
     new_params = adapter.finalize()
     achieved = weighted_bpv(
         (e["numel"], e["bpv"]) for e in per_target.values())
+    if legacy and budget_bpv is None:
+        # uniform legacy accounting: the nominal per-tensor formula
+        bpv = cfg.bits_per_value if isinstance(cfg, VQConfig) else (
+            cfg["bits"] + 16.0 / cfg["group_size"])
+        label = method
+    else:
+        bpv = achieved
+        label = f"recipe:{recipe.name}" if recipe.name else "recipe"
     return new_params, QuantizeReport(
-        report_rows, time.time() - t0, per_target=per_target,
-        achieved_bpv=achieved, recipe=recipe.name,
-        stage_seconds=stage_seconds)
+        report_rows, time.time() - t0, label, bpv,
+        per_target=per_target, achieved_bpv=achieved,
+        recipe=recipe.to_json(), stage_seconds=stage_seconds,
+        warnings=report_warnings)

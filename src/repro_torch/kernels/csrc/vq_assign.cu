@@ -26,6 +26,15 @@
 //     shared memory for the whole sweep (global memory where a row is too
 //     wide), the bands' codebooks too; U's rows are read from L2, the next
 //     one fetched while the span is assigned. Two barriers a span.
+//     Metric mode (the `babai` solver, core/solvers.py; the reference's
+//     `solver == "babai" and d > 1` branch of _group_sweep): with `metric`
+//     set, span j's argmin minimises y^T M_j y, y = (x/S - c) * S, over the
+//     span's d x d conditional metric M_j = (U_PP^T U_PP)^{-1}. The metrics
+//     of all of a group's spans are formed before the launch, in one
+//     batched triangular solve (kernels/vq_assign.py::span_metrics), and
+//     passed as a (spans, D, D) tensor; the assigning thread fetches M_j a
+//     span ahead with the other span operands (at most 16 floats). Without
+//     it the diagonal weighted_argmin runs, unchanged.
 //   vq_em_kernel: `iters` E/M steps of one band a CTA, the codebook in
 //     shared memory throughout. E-step: weighted_argmin per point into an
 //     index array (shared memory, global scratch for very long bands).
@@ -69,6 +78,39 @@ __device__ __forceinline__ int weighted_argmin(const float (&xv)[D],
     for (int p = 0; p < D; ++p) {
       const float df = __fsub_rn(xv[p], c[m * D + p]);
       s = __fadd_rn(s, __fmul_rn(__fmul_rn(hv[p], df), df));
+    }
+    if (s < best) {
+      best = s;
+      best_i = m;
+    }
+  }
+  return best_i;
+}
+
+// The babai span metric for one point: argmin_m y^T M y with
+// y[p] = (xv[p] - c[m, p]) * sv[p], ties to the lowest index. Each term is
+// rounded as the plain version writes it: y, then (y M)[p] summed over e in
+// order, then sum_p y[p] * (y M)[p] left to right, no FMA contraction.
+template <int D>
+__device__ __forceinline__ int metric_argmin(const float (&xv)[D],
+                                             const float (&sv)[D],
+                                             const float (&mv)[D][D],
+                                             const float* c, int k) {
+  float best = INFINITY;
+  int best_i = 0;
+#pragma unroll 2
+  for (int m = 0; m < k; ++m) {
+    float y[D];
+#pragma unroll
+    for (int p = 0; p < D; ++p)
+      y[p] = __fmul_rn(__fsub_rn(xv[p], c[m * D + p]), sv[p]);
+    float s = 0.f;
+#pragma unroll
+    for (int p = 0; p < D; ++p) {
+      float ym = 0.f;
+#pragma unroll
+      for (int e = 0; e < D; ++e) ym = __fadd_rn(ym, __fmul_rn(y[e], mv[e][p]));
+      s = __fadd_rn(s, __fmul_rn(y[p], ym));
     }
     if (s < best) {
       best = s;
@@ -151,6 +193,7 @@ struct SweepArgs {
   const float* s;      // (r, cg) normalization scales, row stride lds
   const float* cb;     // (n_bands, k, D) codebooks
   const float* wgt;    // (cg,) Hessian weights 1 / U_qq^2
+  const float* metric; // (cg / D, D, D) span metrics (babai), or null
   float* q;            // (r, cg) out: S * C[idx]
   float* e;            // (r, cg) out: compensated errors Et
   int32_t* idx;        // (r, cg / D) out
@@ -213,7 +256,7 @@ __global__ void vq_group_sweep_kernel(SweepArgs a) {
   const int row = row0 + t;
   const bool assigns = t < nr;
   const float* crow = cbs + (long long)(row / a.rpb - band0) * ldc;
-  float hv[D], upp[D][D], sv[D];
+  float hv[D], upp[D][D], sv[D], mv[D][D];
   auto fetch = [&](int col) {
 #pragma unroll
     for (int p = 0; p < D; ++p) {
@@ -222,6 +265,13 @@ __global__ void vq_group_sweep_kernel(SweepArgs a) {
 #pragma unroll
       for (int q2 = 0; q2 <= p; ++q2)
         upp[q2][p] = __ldg(a.u + (col + q2) * ldu + col + p);
+    }
+    if (a.metric) {
+      const float* mp = a.metric + (long long)col * D;  // span col / D
+#pragma unroll
+      for (int p = 0; p < D; ++p)
+#pragma unroll
+        for (int e = 0; e < D; ++e) mv[p][e] = __ldg(mp + p * D + e);
     }
   };
   if (assigns) fetch(0);
@@ -243,7 +293,8 @@ __global__ void vq_group_sweep_kernel(SweepArgs a) {
         x[p] = wt[t * ldt + col + p];
         xn[p] = x[p] / sv[p];
       }
-      const int m = weighted_argmin<D>(xn, hv, crow, a.k);
+      const int m = a.metric ? metric_argmin<D>(xn, sv, mv, crow, a.k)
+                             : weighted_argmin<D>(xn, hv, crow, a.k);
       float* qr = a.q + (long long)row * cg + col;
       float* er = a.e + (long long)row * cg + col;
 #pragma unroll
@@ -414,7 +465,7 @@ extern "C" int vq_assign_launch(const float* x, const float* hw,
 enum SweepArg {
   kSwW, kSwLdw, kSwU, kSwLdu, kSwS, kSwLds, kSwCb, kSwWgt, kSwQ, kSwE,
   kSwIdx, kSwR, kSwCg, kSwD, kSwK, kSwRpb, kSwExact, kSwRows, kSwThreads,
-  kSwStream
+  kSwMetric, kSwStream
 };
 
 extern "C" int vq_group_sweep_launch(const long long* p) {
@@ -424,6 +475,7 @@ extern "C" int vq_group_sweep_launch(const long long* p) {
   a.s = reinterpret_cast<const float*>(p[kSwS]);
   a.cb = reinterpret_cast<const float*>(p[kSwCb]);
   a.wgt = reinterpret_cast<const float*>(p[kSwWgt]);
+  a.metric = reinterpret_cast<const float*>(p[kSwMetric]);
   a.q = reinterpret_cast<float*>(p[kSwQ]);
   a.e = reinterpret_cast<float*>(p[kSwE]);
   a.idx = reinterpret_cast<int32_t*>(p[kSwIdx]);

@@ -6,13 +6,17 @@ in the CUDA source ``csrc/vq_assign.cu``:
 
 * ``vq_assign``: one assignment of (B, n, d) points to per-band codebooks;
 * ``vq_group_sweep``: one column group's d-span sweep with error feedback
-  (the span loop of ``repro/core/gptvq.py::_group_sweep``);
+  (the span loop of ``repro/core/gptvq.py::_group_sweep``), with the
+  diagonal Eq. 4 metric or, given ``metric`` (``span_metrics``), the
+  ``babai`` solver's full d x d span metric;
 * ``vq_em``: ``iters`` Hessian-weighted E/M steps per band
   (``repro/core/codebook.py::em``).
 
 Each launches its kernel for CUDA tensors and runs its plain PyTorch version
 (``vq_assign_plain``, ``vq_group_sweep_plain``, ``vq_em_plain``) only for
-CPU tensors; each counts its kernel launches in ``.launches``.
+CPU tensors; each counts its kernel launches in ``.launches``, and
+``vq_group_sweep`` also by metric in ``.launches_by_impl`` (``"diag"`` /
+``"babai"``).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import array
 
 import torch
 
+from repro_torch.core.solvers import span_metric
 from repro_torch.kernels import build
 
 _THREADS = 128
@@ -209,12 +214,24 @@ vq_em.launches = 0
 # GPTVQ column-group sweep
 # ---------------------------------------------------------------------------
 
+def span_metrics(Ug: torch.Tensor, d: int) -> torch.Tensor:
+    """The ``babai`` metric of every d-span of a group, (cg / d, d, d):
+    ``solvers.span_metric`` of each diagonal d x d block U_PP of the group's
+    block of U, all in one batched triangular solve."""
+    spans = Ug.shape[0] // d
+    U_PP = Ug.reshape(spans, d, spans, d).diagonal(dim1=0, dim2=2)
+    return span_metric(U_PP.permute(2, 0, 1)).contiguous()
+
+
 def vq_group_sweep_plain(Wg: torch.Tensor, Ug: torch.Tensor, Sg: torch.Tensor,
                          Cg: torch.Tensor, wgt_g: torch.Tensor, *, d: int,
-                         rows_per_band: int, exact_span_solve: bool):
+                         rows_per_band: int, exact_span_solve: bool,
+                         metric: torch.Tensor | None = None):
     """The d-span sweep of one column group with error feedback through U,
     as ``repro.core.gptvq._group_sweep``'s span loop: updates ``Wg`` in
-    place and returns (Qg, idxg, Eg)."""
+    place and returns (Qg, idxg, Eg). With ``metric`` (``span_metrics``)
+    span j is assigned as ``solvers.assign_babai`` does, by y M_j y^T with
+    y = (x / S - c) * S; otherwise by the diagonal Hessian weights."""
     r, cg = Wg.shape
     rg = rows_per_band
     n_bands = r // rg
@@ -229,7 +246,13 @@ def vq_group_sweep_plain(Wg: torch.Tensor, Ug: torch.Tensor, Sg: torch.Tensor,
         x = Wg[:, col:col + d]
         S_span = Sg[:, col:col + d]
         xn = (x / S_span).contiguous().reshape(n_bands, rg, d)
-        ab = vq_assign_plain(xn, hw_spans[j], Cg)  # (n_bands, rg)
+        if metric is None:
+            ab = vq_assign_plain(xn, hw_spans[j], Cg)  # (n_bands, rg)
+        else:
+            y = ((xn[:, :, None, :] - Cg[:, None, :, :])
+                 * S_span.reshape(n_bands, rg, 1, d))
+            dist = torch.sum(y * (y @ metric[j]), dim=-1)
+            ab = torch.argmin(dist, dim=-1).to(torch.int32)
         qn = torch.gather(Cg, 1, ab.long()[..., None].expand(n_bands, rg, d))
         q = qn.reshape(r, d) * S_span
 
@@ -262,7 +285,8 @@ def _sweep_plan(r: int, cg: int) -> tuple[int, int]:
 
 def vq_group_sweep(Wg: torch.Tensor, Ug: torch.Tensor, Sg: torch.Tensor,
                    Cg: torch.Tensor, wgt_g: torch.Tensor, *, d: int,
-                   rows_per_band: int, exact_span_solve: bool):
+                   rows_per_band: int, exact_span_solve: bool,
+                   metric: torch.Tensor | None = None):
     """One column group's d-span sweep with error feedback (GPTVQ Algorithm
     1's inner loop), updating ``Wg`` in place.
 
@@ -272,6 +296,9 @@ def vq_group_sweep(Wg: torch.Tensor, Ug: torch.Tensor, Sg: torch.Tensor,
     rows_per_band, k, d) the bands' codebooks; wgt_g (cg,) the Hessian
     weights 1 / U_qq^2. Returns Qg (r, cg) = S * C[idx], idxg (r, cg / d)
     int32 and Eg (r, cg), the compensated errors the tail update reads.
+    ``metric`` (cg / d, d, d) f32, from ``span_metrics``, switches the
+    argmin to the ``babai`` solver's full span metric (the kernel's metric
+    mode); None keeps the diagonal Eq. 4 weights.
     On CUDA one launch runs every span; the result is the same bits from
     call to call. Inputs are checked on every device."""
     what = "vq_group_sweep"
@@ -298,13 +325,19 @@ def vq_group_sweep(Wg: torch.Tensor, Ug: torch.Tensor, Sg: torch.Tensor,
         if t.stride(1) != 1 or t.stride(0) < t.shape[1]:
             raise ValueError(f"{what}: {name} must have unit column stride "
                              "and disjoint rows")
-    for name, t in (("Cg", Cg), ("wgt_g", wgt_g)):
-        if not t.is_contiguous():
+    if metric is not None:
+        if tuple(metric.shape) != (cg // d, d, d):
+            raise ValueError(f"{what}: metric {tuple(metric.shape)} must be "
+                             f"({cg // d}, {d}, {d})")
+        _check_f32(what, Wg.device, metric=metric)
+    for name, t in (("Cg", Cg), ("wgt_g", wgt_g), ("metric", metric)):
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
     if Wg.device.type == "cpu":
         return vq_group_sweep_plain(Wg, Ug, Sg, Cg, wgt_g, d=d,
                                     rows_per_band=rg,
-                                    exact_span_solve=exact_span_solve)
+                                    exact_span_solve=exact_span_solve,
+                                    metric=metric)
     dev = Wg.device
     out = torch.empty((2 * r * cg,), dtype=torch.float32, device=dev)
     Qg, Eg = out[:r * cg].view(r, cg), out[r * cg:].view(r, cg)
@@ -315,11 +348,16 @@ def vq_group_sweep(Wg: torch.Tensor, Ug: torch.Tensor, Sg: torch.Tensor,
         Sg.data_ptr(), Sg.stride(0), Cg.data_ptr(), wgt_g.data_ptr(),
         Qg.data_ptr(), Eg.data_ptr(), idxg.data_ptr(), r, cg, d,
         Cg.shape[1], rg, int(bool(exact_span_solve)), rows, threads,
+        0 if metric is None else metric.data_ptr(),
         build.current_stream(dev)))
     rc = build.load("vq_assign").vq_group_sweep_launch(args.buffer_info()[0])
     build.check(rc, what)
     vq_group_sweep.launches += 1
+    impl = "diag" if metric is None else "babai"
+    vq_group_sweep.launches_by_impl[impl] = (
+        vq_group_sweep.launches_by_impl.get(impl, 0) + 1)
     return Qg, idxg, Eg
 
 
 vq_group_sweep.launches = 0
+vq_group_sweep.launches_by_impl = {}

@@ -12,11 +12,21 @@ reference's metadata keys; ``--events-out`` the ``quant_stage`` /
 ``quant_target`` JSONL events; ``--metrics-out`` the ``span.quant/*``
 metrics snapshot.
 
+``--recipe`` takes a preset name (any PAPER_SETTINGS key, or
+``mixed_demo``) or a JSON recipe file; ``--budget-bpv`` turns on
+Hessian-budgeted mixed precision on top of it (``--budget-scorer``: the
+closed form or the refit oracle); ``--solver`` sets the sweep's solver on
+every quantize action. The checkpoint metadata carries the resolved
+recipe and the per-target map.
+
   PYTHONPATH=src python -m repro_torch.launch.quantize --arch llama2-7b \
       --smoke --device cpu --seq-len 4096 --sequences 2 --out /tmp/ck \
       --events-out /tmp/ck_events.jsonl
+  PYTHONPATH=src python -m repro_torch.launch.quantize --arch llama2-7b \
+      --smoke --device cpu --budget-bpv 2.5 --solver babai --out /tmp/ck
 
-Not ported yet: the budget, solver and mesh flags.
+Not ported yet: the mesh flag (ROADMAP.md queue 1, "Multi-device and
+training").
 """
 from __future__ import annotations
 
@@ -47,8 +57,22 @@ def main(argv=None):
     ap.add_argument("--setting", default="2.25bpv_2d",
                     choices=sorted(PAPER_SETTINGS))
     ap.add_argument("--recipe", default=None,
-                    help="preset name (%s); overrides --setting"
-                         % ", ".join(sorted(PRESET_RECIPES)))
+                    help="preset name (%s) or recipe JSON path; overrides "
+                         "--setting" % ", ".join(sorted(PRESET_RECIPES)))
+    ap.add_argument("--budget-bpv", type=float, default=None,
+                    help="model-wide bits-per-value budget: per-target "
+                         "settings are allocated by Hessian sensitivity")
+    ap.add_argument("--budget-scorer", default="closed_form",
+                    choices=("closed_form", "refit"),
+                    help="budget pre-pass error proxy: the O(r*c) "
+                         "rate-distortion closed form (default) or the "
+                         "trimmed-EM refit (validation oracle)")
+    ap.add_argument("--solver", default=None,
+                    choices=("gptq", "babai", "cd"),
+                    help="inner sweep solver on every quantize action: "
+                         "gptq (paper default), babai (full conditional "
+                         "span metric), cd (+coordinate-descent "
+                         "refinement)")
     ap.add_argument("--sequences", type=int, default=16)
     ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--em-iters", type=int, default=None,
@@ -97,14 +121,19 @@ def main(argv=None):
                  if v is not None}
     if overrides:
         recipe = recipe.with_quantize_overrides(**overrides)
-    print(f"arch={cfg.name} recipe={recipe.name or 'custom'} "
-          f"calib={tuple(calib.shape)} device={device}")
+    if args.solver is not None:
+        recipe = recipe.with_solver(args.solver)
+    budget = f" budget={args.budget_bpv}bpv" if args.budget_bpv else ""
+    solver = f" solver={args.solver}" if args.solver else ""
+    print(f"arch={cfg.name} recipe={recipe.name or 'custom'}{budget}"
+          f"{solver} calib={tuple(calib.shape)} device={device}")
 
     ppl_fp = perplexity(model, params, heldout)
     telemetry = Telemetry(events_out=args.events_out)
     t0 = time.time()
     qparams, rep = quantize_model(
-        model, params, calib, recipe=recipe, pack=True,
+        model, params, calib, recipe=recipe, budget_bpv=args.budget_bpv,
+        budget_scorer=args.budget_scorer, pack=True,
         progress=lambda msg: print(f"  {msg}", flush=True),
         telemetry=telemetry)
     dt = time.time() - t0
@@ -119,6 +148,8 @@ def main(argv=None):
             for k, v in sorted(rep.stage_seconds.items(),
                                key=lambda kv: -kv[1]))
         print(f"  stages: {parts}")
+    for w in rep.warnings:
+        print(f"  WARNING: {w}")
     if args.metrics_out:
         telemetry.write_metrics(args.metrics_out)
         print(f"  metrics snapshot -> {args.metrics_out}")
@@ -130,14 +161,12 @@ def main(argv=None):
               + (" ..." if len(dense) > 6 else ""))
 
     ck = Checkpointer(args.out, keep=1)
-    # the reference's keys; "warnings" come only from its budget pre-pass,
-    # which is not ported, so the list is empty
     ck.save(0, qparams, metadata={
-        "arch": cfg.name, "recipe": recipe.to_json(),
+        "arch": cfg.name, "recipe": rep.recipe,
         "achieved_bpv": rep.achieved_bpv, "per_target": rep.per_target,
-        "budget_bpv": None, "ppl_fp": float(ppl_fp),
+        "budget_bpv": args.budget_bpv, "ppl_fp": float(ppl_fp),
         "ppl_vq": float(ppl_vq), "seconds": dt,
-        "stage_seconds": rep.stage_seconds, "warnings": [],
+        "stage_seconds": rep.stage_seconds, "warnings": rep.warnings,
     })
     print(f"packed checkpoint written to {args.out}")
     return rep, ppl_fp, ppl_vq

@@ -1,0 +1,570 @@
+"""Port parity for Hessian-budgeted mixed precision and the recipe layer:
+the O(c) diagonal-Hessian pre-pass, the closed-form and refit scorers, the
+greedy allocator, recipe JSON, the legacy shim, and budgeted / mixed
+``quantize_model`` runs against the reference on the same params and
+tokens; the port's case of ``tests/core/test_budget_solvers.py`` and
+``tests/core/test_recipe.py``.
+
+Tolerances: the diag Hessian rtol 1e-6 and its token count exact;
+``allocate_budget`` exactly the reference's allocations (setting names) on
+the reference test's entries at budgets 2.25, 2.5, 3.0 and 4.0 — the
+greedy skips upgrades that overshoot, so more budget can leave a target
+lower, and the port keeps that (the reference's own monotone property
+fails; it is not held here); ``closed_form_proxy_error`` rtol 1e-5;
+``_proxy_error`` within 2%; recipe JSON equal dict for dict; whole models
+exact in per-target actions and achieved bpv, per-target errors within
+10% (the two-layer bar).
+"""
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import SMOKE as JSMOKE
+from repro.core import hessian as jhes
+from repro.core import recipe as jrecipe
+from repro.core.bpv import PAPER_SETTINGS as JSETTINGS
+from repro.core.pipeline import quantize_model as j_quantize_model
+from repro.models import model_zoo as jzoo
+
+from repro_torch.configs import SMOKE
+from repro_torch.convert import params_from_jax
+from repro_torch.core import adapters, hessian as hes, recipe
+from repro_torch.core import pipeline as pl
+from repro_torch.core.bpv import PAPER_SETTINGS, effective_bpv
+from repro_torch.core.recipe import (
+    BUDGET_CANDIDATES, BudgetEntry, IntQuant, KeepDense, QuantRecipe,
+    Quantize, RecipeError, Rule, allocate_budget, closed_form_proxy_error,
+    get_recipe)
+from repro_torch.launch import quantize as launch_quantize
+from repro_torch.models import model_zoo
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+BUDGETS = (2.25, 2.5, 3.0, 4.0)
+SMOKE_KW = dict(dtype="float32", n_layers=2, d_model=64, vocab_size=256,
+                max_seq_len=64)
+QUANT_KW = dict(em_iters=4, codebook_update_iters=2)
+MIXED_JSON = {
+    "name": "mixed-methods", "strict": False,
+    "default": {"action": "quantize", "setting": "2.25bpv_2d"},
+    "rules": [
+        {"pattern": "*.attn.wq", "action": "quantize",
+         "setting": "2.25bpv_2d", "solver": "babai"},
+        {"pattern": "*.attn.wk", "action": "quantize",
+         "setting": "2.125bpv_2d", "method": "kmeans"},
+        {"pattern": "*.attn.wv", "action": "quantize",
+         "setting": "2.125bpv_1d", "method": "kmeans_data"},
+        {"pattern": "layers.0.attn.wo", "action": "int_quant", "bits": 3,
+         "group_size": 64, "method": "rtn"},
+        {"pattern": "group:mlp", "action": "int_quant", "bits": 4,
+         "group_size": 128},
+        {"pattern": "layers.1.attn.wo", "action": "keep_dense",
+         "reason": "sensitive"},
+        {"pattern": "layers.1.ffn.w_out", "action": "quantize",
+         "solver": "cd", "overrides": {"d": 2, "group_size": 512,
+                                       "em_iters": 3}}]}
+
+
+def _ref_entries(n=6, seed=0):
+    """The reference test's allocator entries (tests/core/
+    test_budget_solvers.py::_entries), as numpy."""
+    shapes = [(64, 128), (128, 128), (96, 192), (64, 256), (128, 384),
+              (32, 128), (192, 128), (64, 384)][:n]
+    out = []
+    for i, (r, c) in enumerate(shapes):
+        k1, k2 = jax.random.split(
+            jax.random.fold_in(jax.random.PRNGKey(seed), i))
+        W = jax.random.normal(k1, (r, c)) * (
+            1.0 + jax.random.uniform(k2, (r, 1)))
+        dh = jnp.abs(jax.random.normal(k2, (c,))) + 0.1
+        out.append((f"t{i}", np.asarray(W), np.asarray(dh)))
+    return out
+
+
+def _entries(raw, base):
+    return [BudgetEntry(name=n, W=_t(W), diag_h=_t(dh), base_cfg=base,
+                        numel=W.size) for n, W, dh in raw]
+
+
+@pytest.fixture(scope="module")
+def alloc_ref():
+    base = dataclasses.replace(JSETTINGS["2.25bpv_2d"], em_iters=6,
+                               codebook_update_iters=0)
+    out = {"raw": {}, "alloc": {}, "cf": {}, "refit": {}}
+    for seed in (0, 1, 2):
+        raw = _ref_entries(seed=seed)
+        entries = [jrecipe.BudgetEntry(name=n, W=jnp.asarray(W),
+                                       diag_h=jnp.asarray(dh), base_cfg=base,
+                                       numel=W.size) for n, W, dh in raw]
+        out["raw"][seed] = raw
+        for budget in BUDGETS:
+            out["alloc"][(seed, budget)] = {
+                k: v[0] for k, v in jrecipe.allocate_budget(
+                    entries, budget).items()}
+        for e in entries:
+            for s in BUDGET_CANDIDATES:
+                cfg = _cand(base, JSETTINGS[s])
+                out["cf"][(seed, e.name, s)] = \
+                    jrecipe.closed_form_proxy_error(e.W, e.diag_h, cfg)
+    # the refit oracle on two entries, three settings
+    entries = [jrecipe.BudgetEntry(name=n, W=jnp.asarray(W),
+                                   diag_h=jnp.asarray(dh), base_cfg=base,
+                                   numel=W.size)
+               for n, W, dh in out["raw"][0][:2]]
+    for e in entries:
+        for s in REFIT_SETTINGS:
+            out["refit"][(e.name, s)] = jrecipe._proxy_error(
+                e.W, e.diag_h, _cand(base, JSETTINGS[s]))
+    return out
+
+
+REFIT_SETTINGS = ("2.125bpv_1d", "2.25bpv_2d", "2.25bpv_4d")
+
+
+def _cand(base, b):
+    return dataclasses.replace(base, d=b.d, bits_per_dim=b.bits_per_dim,
+                               group_size=b.group_size,
+                               codebook_bits=b.codebook_bits)
+
+
+def _base():
+    return dataclasses.replace(PAPER_SETTINGS["2.25bpv_2d"], em_iters=6,
+                               codebook_update_iters=0)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("budget", BUDGETS)
+def test_allocation_equals_reference(alloc_ref, seed, budget):
+    entries = _entries(alloc_ref["raw"][seed], _base())
+    got = allocate_budget(entries, budget)
+    assert {k: v[0] for k, v in got.items()} == \
+        alloc_ref["alloc"][(seed, budget)]
+    # and it is within the budget, with the candidate's own config
+    bits = sum(effective_bpv(got[e.name][1], *e.W.shape) * e.numel
+               for e in entries)
+    assert bits / sum(e.numel for e in entries) <= budget + 1e-9
+    for name, (setting, cfg) in got.items():
+        b = PAPER_SETTINGS[setting]
+        assert (cfg.d, cfg.bits_per_dim, cfg.group_size, cfg.em_iters) == (
+            b.d, b.bits_per_dim, b.group_size, 6)
+
+
+def test_allocation_keeps_the_reference_non_monotone_step(alloc_ref):
+    """Seed 1 is the reference's failing monotone case: some target sits
+    at a cheaper setting under a larger budget. The port reproduces the
+    same allocations, non-monotone step included."""
+    entries = _entries(alloc_ref["raw"][1], _base())
+    bpvs = [{e.name: effective_bpv(allocate_budget(entries, b)[e.name][1],
+                                   *e.W.shape) for e in entries}
+            for b in BUDGETS]
+    downgrades = [(nm, i) for i in range(1, len(bpvs)) for nm in bpvs[i]
+                  if bpvs[i][nm] < bpvs[i - 1][nm] - 1e-9]
+    ref_bpvs = [{nm: PAPER_SETTINGS[s].bits_per_value for nm, s in
+                 alloc_ref["alloc"][(1, b)].items()} for b in BUDGETS]
+    ref_down = [(nm, i) for i in range(1, len(ref_bpvs))
+                for nm in ref_bpvs[i]
+                if ref_bpvs[i][nm] < ref_bpvs[i - 1][nm] - 1e-9]
+    assert downgrades == ref_down and downgrades
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_closed_form_matches_reference(alloc_ref, seed):
+    for name, W, dh in alloc_ref["raw"][seed]:
+        for s in BUDGET_CANDIDATES:
+            got = closed_form_proxy_error(_t(W), _t(dh),
+                                          _cand(_base(), PAPER_SETTINGS[s]))
+            want = alloc_ref["cf"][(seed, name, s)]
+            assert got == pytest.approx(want, rel=1e-5, abs=1e-12), (name, s)
+
+
+@pytest.mark.parametrize("setting", REFIT_SETTINGS)
+def test_refit_proxy_matches_reference(alloc_ref, setting):
+    for name, W, dh in alloc_ref["raw"][0][:2]:
+        got = recipe._proxy_error(_t(W), _t(dh),
+                                  _cand(_base(), PAPER_SETTINGS[setting]))
+        want = alloc_ref["refit"][(name, setting)]
+        assert abs(got - want) <= 0.02 * want, (name, got, want)
+
+
+def test_closed_form_zero_when_codebook_covers_vectors():
+    W = torch.randn(8, 16, generator=torch.Generator().manual_seed(0))
+    cfg = dataclasses.replace(PAPER_SETTINGS["2.25bpv_4d"], group_size=4096)
+    assert closed_form_proxy_error(W, None, cfg) == 0.0
+
+
+def test_allocator_refusals(alloc_ref):
+    entries = _entries(alloc_ref["raw"][0][:2], _base())
+    with pytest.raises(RecipeError, match="unknown budget scorer"):
+        allocate_budget(entries, 2.5, scorer="vibes")
+    with pytest.raises(RecipeError, match="infeasible"):
+        allocate_budget(entries, 2.0)
+    assert allocate_budget([], 2.5) == {}
+
+
+# ---------------------------------------------------------------------------
+# the O(c) pre-pass
+# ---------------------------------------------------------------------------
+
+def test_diag_hessian_matches_reference():
+    rng = np.random.default_rng(5)
+    X = rng.standard_normal((3, 40, 96)).astype(np.float32)
+    st = jhes.init_diag_hessian(96)
+    for chunk in X:
+        st = jhes.accumulate_diag(st, jnp.asarray(chunk))
+    pst = hes.init_diag_hessian(96)
+    for chunk in X:
+        pst = hes.accumulate_diag(pst, _t(chunk))
+    assert pst.n == int(st.n) == 120
+    assert tuple(pst.diag.shape) == (96,)
+    np.testing.assert_allclose(hes.finalize_diag(pst).numpy(),
+                               np.asarray(jhes.finalize_diag(st)), rtol=1e-6)
+    # and it is the full Hessian's diagonal
+    full = hes.finalize(hes.accumulate(hes.init_hessian(96),
+                                       _t(X.reshape(-1, 96))))
+    torch.testing.assert_close(hes.finalize_diag(pst), full.diagonal(),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_diag_capture_switches_acc_tap():
+    x = torch.randn(2, 5, 16)
+    assert not adapters.diag_capture_active()
+    with adapters.diag_capture():
+        assert adapters.diag_capture_active()
+        taps = adapters.acc_tap({}, "t", x)
+        taps = adapters.acc_tap(taps, "t", x)
+    assert not adapters.diag_capture_active()
+    assert isinstance(taps["t"], hes.DiagHessianState) and taps["t"].n == 20
+    assert isinstance(adapters.acc_tap({}, "t", x)["t"], hes.HessianState)
+
+
+def _smoke_model():
+    cfg = SMOKE["llama2-7b"].scaled(**SMOKE_KW)
+    return cfg, model_zoo.build(cfg)
+
+
+def test_budget_prepass_never_builds_full_hessian(ref_models, monkeypatch):
+    cfg, model = _smoke_model()
+    params = params_from_jax(ref_models["params"], cfg, device="cpu")
+
+    def boom(*a, **k):
+        raise AssertionError("budget pre-pass materialized (c, c)")
+
+    monkeypatch.setattr(hes, "init_hessian", boom)
+    adapter = adapters.get_adapter(model, params)
+    plan = QuantRecipe.uniform(PAPER_SETTINGS["2.25bpv_2d"]).resolve(
+        pl._collect_targets(adapter.blocks()))
+    calib = torch.from_numpy(ref_models["calib"]).long()
+    diag, missed = pl._budget_prepass(adapter, [calib], plan, None)
+    assert not missed and len(diag) == 7 * cfg.n_layers
+    assert all(v.dim() == 1 for v in diag.values())
+
+
+# ---------------------------------------------------------------------------
+# recipes: JSON, presets, legacy shim
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", sorted(jrecipe.PRESET_RECIPES))
+def test_preset_json_equals_reference(name):
+    want = jrecipe.PRESET_RECIPES[name].to_json()
+    got = recipe.PRESET_RECIPES[name].to_json()
+    assert got == want
+    assert QuantRecipe.from_json(got) == recipe.PRESET_RECIPES[name]
+
+
+def test_mixed_methods_json_round_trip_equals_reference(tmp_path):
+    want = jrecipe.QuantRecipe.from_json(MIXED_JSON)
+    got = QuantRecipe.from_json(MIXED_JSON)
+    assert got.to_json() == want.to_json()
+    assert QuantRecipe.from_json(got.to_json()) == got
+    path = tmp_path / "mixed.json"
+    path.write_text(json.dumps(MIXED_JSON))
+    assert get_recipe(str(path)) == got == QuantRecipe.from_file(str(path))
+    kinds = [type(r.action).__name__ for r in got.rules]
+    assert kinds.count("IntQuant") == 2 and "KeepDense" in kinds
+
+
+@pytest.mark.parametrize("method,cfg", [
+    ("gptvq", None), ("kmeans", "2.125bpv_2d"), ("kmeans_data", None),
+    ("rtn", {"bits": 3, "group_size": 64}), ("gptq", None)])
+def test_from_legacy_equals_reference(method, cfg):
+    jcfg = JSETTINGS[cfg] if isinstance(cfg, str) else cfg
+    pcfg = PAPER_SETTINGS[cfg] if isinstance(cfg, str) else cfg
+    for attn, mlp in ((True, True), (False, True), (True, False)):
+        want = jrecipe.QuantRecipe.from_legacy(
+            method, jcfg, quantize_attn=attn, quantize_mlp=mlp).to_json()
+        got = QuantRecipe.from_legacy(method, pcfg, quantize_attn=attn,
+                                      quantize_mlp=mlp).to_json()
+        assert got == want
+
+
+def test_recipe_refusals():
+    with pytest.raises(RecipeError, match="unknown method"):
+        QuantRecipe.from_legacy("awq", None)
+    with pytest.raises(RecipeError, match="unknown action"):
+        QuantRecipe.from_json({"rules": [{"pattern": "*", "action": "x"}]})
+    with pytest.raises(RecipeError, match="override"):
+        QuantRecipe.from_json({"default": {"overrides": {"nope": 1}}})
+    with pytest.raises(RecipeError, match="strict"):
+        QuantRecipe.from_json({"strict": True, "default": {}})
+    with pytest.raises(RecipeError, match="not a .json path"):
+        get_recipe("mixed.yaml")
+
+
+def test_int_quant_action_accounting():
+    a = IntQuant(bits=2, group_size=128)
+    assert a.needs_hessian and not IntQuant(method="rtn").needs_hessian
+    assert a.bpv(4096, 11008) == 2 + 16 / 128
+    assert not Quantize(method="kmeans").needs_hessian
+    assert Quantize(method="kmeans_data").needs_hessian
+
+
+# ---------------------------------------------------------------------------
+# whole models against the reference (same params and tokens)
+# ---------------------------------------------------------------------------
+
+RUNS = {
+    "budget": dict(preset="2.25bpv_2d", budget=2.5),
+    "mixed_demo": dict(preset="mixed_demo", budget=None),
+    "mixed_methods": dict(json=MIXED_JSON, budget=None),
+}
+
+
+def _recipe_for(R, S, spec):
+    rec = (R.QuantRecipe.from_json(spec["json"]) if "json" in spec
+           else R.PRESET_RECIPES[spec["preset"]])
+    rec = rec.with_quantize_overrides(**QUANT_KW)
+    if "solver" in spec:
+        rec = rec.with_solver(spec["solver"])
+    return rec
+
+
+@pytest.fixture(scope="module")
+def ref_models():
+    cfg = JSMOKE["llama2-7b"].scaled(**SMOKE_KW)
+    model = jzoo.build(cfg)
+    params = model.init_params(jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+    calib = rng.integers(0, cfg.vocab_size, size=(8, 32)).astype(np.int32)
+    out = dict(params=_np_tree(params), calib=calib, runs={})
+    for name, spec in RUNS.items():
+        _, rep = j_quantize_model(
+            model, params, jnp.asarray(calib),
+            recipe=_recipe_for(jrecipe, JSETTINGS, spec),
+            budget_bpv=spec["budget"])
+        out["runs"][name] = dict(
+            per_target={k: dict(v) for k, v in rep.per_target.items()},
+            achieved_bpv=rep.achieved_bpv, method=rep.method,
+            bits_per_value=rep.bits_per_value, recipe=rep.recipe,
+            stages=set(rep.stage_seconds), warnings=rep.warnings)
+    return out
+
+
+@pytest.mark.parametrize("name", list(RUNS))
+def test_quantize_model_matches_reference(ref_models, name):
+    spec = RUNS[name]
+    cfg, model = _smoke_model()
+    params = params_from_jax(ref_models["params"], cfg, device="cpu")
+    qparams, rep = pl.quantize_model(
+        model, params, torch.from_numpy(ref_models["calib"]).long(),
+        recipe=_recipe_for(recipe, PAPER_SETTINGS, spec),
+        budget_bpv=spec["budget"], pack=True)
+    want = ref_models["runs"][name]
+    assert rep.achieved_bpv == want["achieved_bpv"]
+    assert (rep.method, rep.bits_per_value) == (want["method"],
+                                                want["bits_per_value"])
+    assert rep.recipe == want["recipe"]
+    assert set(rep.stage_seconds) == want["stages"]
+    assert rep.warnings == want["warnings"] == []
+    if spec["budget"] is not None:
+        assert rep.achieved_bpv <= spec["budget"] + 1e-9
+    assert set(rep.per_target) == set(want["per_target"])
+    for tname, e in rep.per_target.items():
+        r = want["per_target"][tname]
+        assert {k: v for k, v in e.items() if k != "error"} == \
+            {k: v for k, v in r.items() if k != "error"}, tname
+        if "error" in r:
+            assert abs(e["error"] - r["error"]) <= 0.10 * r["error"], (
+                tname, e["error"], r["error"])
+    # only gptvq targets pack; the baselines stay dense fake-quant leaves
+    for lp, i in zip(qparams["layers"], range(cfg.n_layers)):
+        for sub in ("attn", "ffn"):
+            for leaf_name, leaf in lp[sub].items():
+                e = rep.per_target.get(f"layers.{i}.{sub}.{leaf_name}")
+                if e is None:
+                    continue
+                packs = (e["action"] == "quantize"
+                         and e["method"] == "gptvq")
+                assert isinstance(leaf, torch.Tensor) != packs, leaf_name
+
+
+def test_budgeted_babai_allocates_as_gptq(ref_models):
+    """The solver does not enter the allocation: a budgeted babai run picks
+    the reference's gptq allocation target for target."""
+    cfg, model = _smoke_model()
+    params = params_from_jax(ref_models["params"], cfg, device="cpu")
+    _, rep = pl.quantize_model(
+        model, params, torch.from_numpy(ref_models["calib"]).long(),
+        recipe=_recipe_for(recipe, PAPER_SETTINGS,
+                           dict(preset="2.25bpv_2d", solver="babai")),
+        budget_bpv=2.5)
+    want = ref_models["runs"]["budget"]
+    assert rep.achieved_bpv == want["achieved_bpv"]
+    for tname, e in rep.per_target.items():
+        assert e["rule"] == want["per_target"][tname]["rule"]
+    assert all(a["solver"] == "babai"
+               for a in [rep.recipe["default"]])
+
+
+def test_tap_miss_warns_and_falls_back_to_weight_variance(ref_models,
+                                                         monkeypatch):
+    cfg, model = _smoke_model()
+    params = params_from_jax(ref_models["params"], cfg, device="cpu")
+    real = pl._budget_prepass
+
+    def drop_one(adapter, chunks, plan, progress):
+        diag, missed = real(adapter, chunks, plan, progress)
+        diag.pop("layers.0.attn.wq", None)
+        missed["layers.0.attn.wq"] = "tap 'attn_in' never fired"
+        return diag, missed
+
+    monkeypatch.setattr(pl, "_budget_prepass", drop_one)
+    with pytest.warns(UserWarning, match="layers.0.attn.wq"):
+        _, rep = pl.quantize_model(
+            model, params, torch.from_numpy(ref_models["calib"]).long(),
+            recipe=get_recipe("2.25bpv_2d").with_quantize_overrides(
+                **QUANT_KW), budget_bpv=2.5)
+    assert any("layers.0.attn.wq" in w and "weight variance" in w
+               for w in rep.warnings)
+    assert rep.per_target["layers.0.attn.wq"]["action"] == "quantize"
+
+
+def test_legacy_method_and_refusals(ref_models):
+    cfg, model = _smoke_model()
+    params = params_from_jax(ref_models["params"], cfg, device="cpu")
+    calib = torch.from_numpy(ref_models["calib"]).long()
+    _, rep = pl.quantize_model(model, params, calib, "rtn",
+                               {"bits": 4, "group_size": 32})
+    assert (rep.method, rep.bits_per_value) == ("rtn", 4 + 16 / 32)
+    assert {e["action"] for e in rep.per_target.values()} == {"int_quant"}
+    with pytest.raises(ValueError, match="either a recipe"):
+        pl.quantize_model(model, params, calib, "rtn",
+                          recipe=get_recipe("2.25bpv_2d"))
+    bad = QuantRecipe(rules=(Rule("layers.0.attn.wq", KeepDense("x")),),
+                      default=Quantize(dataclasses.replace(
+                          PAPER_SETTINGS["2.25bpv_2d"], **QUANT_KW)))
+    _, rep = pl.quantize_model(model, params, calib, recipe=bad,
+                               budget_bpv=3.0)
+    assert rep.per_target["layers.0.attn.wq"]["action"] == "keep_dense"
+    assert rep.achieved_bpv <= 3.0 + 1e-9
+
+
+@pytest.mark.parametrize("extra", [
+    ["--budget-bpv", "2.5"], ["--budget-bpv", "2.5", "--solver", "babai"],
+    ["--solver", "cd"], ["--recipe", "JSON"]])
+def test_launcher_budget_solver_and_json(extra, tmp_path, capsys):
+    if extra == ["--recipe", "JSON"]:
+        path = tmp_path / "recipe.json"
+        path.write_text(json.dumps(MIXED_JSON))
+        extra = ["--recipe", str(path)]
+    out_dir = tmp_path / "ck"
+    rep, ppl_fp, ppl_vq = launch_quantize.main(
+        ["--arch", "llama2-7b", "--smoke", "--device", "cpu",
+         "--sequences", "8", "--seq-len", "32", "--em-iters", "4",
+         "--update-iters", "2", "--out", str(out_dir)] + extra)
+    out = capsys.readouterr().out
+    assert "packed checkpoint written" in out
+    assert np.isfinite(ppl_fp) and np.isfinite(ppl_vq)
+    manifest = next(out_dir.rglob("manifest.json"))
+    meta = json.loads(manifest.read_text())
+    meta = meta.get("metadata", meta)
+    assert meta["recipe"] == rep.recipe and len(meta["per_target"]) == 14
+    if "--budget-bpv" in extra:
+        assert meta["budget_bpv"] == 2.5 and rep.achieved_bpv <= 2.5 + 1e-9
+        assert {"budget_prepass", "budget_allocate"} <= set(rep.stage_seconds)
+        assert all(e["rule"].startswith("budget[")
+                   for e in meta["per_target"].values())
+    if "cd" in extra:
+        assert "cd_refine" in rep.stage_seconds
+
+
+# ---------------------------------------------------------------------------
+# the slice's names exist in the port with the reference's signatures
+# ---------------------------------------------------------------------------
+
+SIGNATURES = [
+    ("core.bpv", "int_quant_bpv"), ("core.bpv", "group_size_for_overhead"),
+    ("core.hessian", "init_diag_hessian"), ("core.hessian", "accumulate_diag"),
+    ("core.hessian", "finalize_diag"), ("core.hessian", "DiagHessianState"),
+    ("core.adapters.base", "diag_capture"),
+    ("core.adapters.base", "diag_capture_active"),
+    ("core.adapters.base", "acc_tap"),
+    ("core.quant", "UniformQParams"), ("core.quant", "compute_qparams"),
+    ("core.quant", "quantize_column"), ("core.quant", "rtn_quantize"),
+    ("core.quant", "rtn_int_weights"), ("core.quant", "dequantize_int"),
+    ("core.quant", "gptq_quantize"),
+    ("core.solvers", "span_metric"), ("core.solvers", "assign_babai"),
+    ("core.solvers", "cd_refine"),
+    ("core.codebook", "em_objective"), ("core.codebook", "kmeanspp_init"),
+    ("core.codebook", "init_codebook"),
+    ("core.codebook_compress", "SVDCodebooks"),
+    ("core.codebook_compress", "svd_compress"),
+    ("core.gptvq", "gptvq_quantize_matrix"),
+    ("core.recipe", "IntQuant"), ("core.recipe", "BudgetEntry"),
+    ("core.recipe", "_proxy_error"), ("core.recipe", "closed_form_proxy_error"),
+    ("core.recipe", "allocate_budget"),
+    ("core.recipe", "QuantRecipe.with_solver"),
+    ("core.recipe", "QuantRecipe.from_legacy"),
+    ("core.recipe", "QuantRecipe.from_json"),
+    ("core.recipe", "QuantRecipe.from_file"),
+    ("core.pipeline", "_apply_action"), ("core.pipeline", "_check_plan"),
+    ("core.pipeline", "_budget_prepass"), ("core.pipeline", "_allocate"),
+    ("core.pipeline", "quantize_model"), ("core.pipeline", "QuantizeReport"),
+]
+
+
+def _params(obj):
+    """Parameter (or field) names; the reference's jax keys are the port's
+    torch generators, and a trailing ``device`` argument is the port's."""
+    import inspect
+
+    if hasattr(obj, "_fields"):
+        names = list(obj._fields)
+    elif dataclasses.is_dataclass(obj):
+        names = [f.name for f in dataclasses.fields(obj)]
+    else:
+        names = list(inspect.signature(obj).parameters)
+    names = ["generator" if n == "key" else n for n in names]
+    return [n for n in names if n != "device"]
+
+
+@pytest.mark.parametrize("module,name", SIGNATURES)
+def test_slice_names_have_the_reference_signature(module, name):
+    import importlib
+
+    def get(pkg):
+        obj = importlib.import_module(f"{pkg}.{module}")
+        for part in name.split("."):
+            obj = getattr(obj, part)
+        return obj
+
+    assert _params(get("repro_torch")) == _params(get("repro")), name

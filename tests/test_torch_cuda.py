@@ -16,8 +16,8 @@ from repro_torch.core.bpv import VQConfig
 from repro_torch.core.pipeline import quantize_model
 from repro_torch.core.recipe import QuantRecipe
 from repro_torch.kernels.vq_assign import (
-    vq_assign, vq_assign_plain, vq_em, vq_em_plain, vq_group_sweep,
-    vq_group_sweep_plain)
+    span_metrics, vq_assign, vq_assign_plain, vq_em, vq_em_plain,
+    vq_group_sweep, vq_group_sweep_plain)
 from repro_torch.kernels.vq_dequant_matmul import (
     vq_dequant_matmul, vq_dequant_matmul_plain)
 from repro_torch.models import model_zoo
@@ -300,6 +300,96 @@ def test_vq_group_sweep_without_feedback_is_vq_assign(dev, r, cg, d, k, rg,
     assert torch.equal(idx, ref.reshape(r, spans))
     assert torch.equal(Q, gather_codebooks(C[None], idx, cg, rg, d) * S)
     assert torch.equal(W, W0)
+
+
+# (r, cg, d, k, rows_per_band, scale_block): the babai metric mode at the
+# smoke config's 2.25bpv_2d and 4d layouts, the quantizer's 256-column
+# groups at d = 2 and 4, blockwise scales, and a k = 256 codebook
+BABAI_LAYOUTS = [
+    (64, 64, 2, 16, 4, 0), (256, 64, 4, 256, 64, 0),
+    (512, 256, 2, 16, 4, 0), (256, 256, 4, 256, 128, 0),
+    (512, 256, 2, 16, 4, 32), (256, 256, 2, 256, 128, 0)]
+
+
+@pytest.mark.parametrize("r,cg,d,k,rg,sb", BABAI_LAYOUTS)
+def test_vq_group_sweep_babai_matches_plain(dev, r, cg, d, k, rg, sb):
+    """The sweep's babai metric mode (y M_j y^T per span) against its plain
+    version: indices on >= 99% of spans, the group's error within 1%, the
+    same bits from call to call, counted under launches_by_impl["babai"]."""
+    W0, U, S, C, wgt, H = sweep_case(dev, 5 * r + cg + d, r=r, cg=cg, d=d,
+                                     k=k, rg=rg, sb=sb)
+    metric = span_metrics(U, d)
+    kw = dict(d=d, rows_per_band=rg, exact_span_solve=True, metric=metric)
+    Wk, Wp, W2 = W0.clone(), W0.clone(), W0.clone()
+    before = dict(vq_group_sweep.launches_by_impl)
+    Qk, ik, Ek = vq_group_sweep(Wk, U, S, C, wgt, **kw)
+    torch.cuda.synchronize()
+    after = vq_group_sweep.launches_by_impl
+    assert after.get("babai", 0) == before.get("babai", 0) + 1
+    assert after.get("diag", 0) == before.get("diag", 0)
+    Qp, ip, Ep = vq_group_sweep_plain(Wp, U, S, C, wgt, **kw)
+    assert float((ik == ip).float().mean()) >= 0.99
+    ek, ep = sweep_error(W0, Qk, H), sweep_error(W0, Qp, H)
+    assert abs(ek - ep) <= 0.01 * ep, (ek, ep)
+    again = vq_group_sweep(W2, U, S, C, wgt, **kw)
+    assert all(torch.equal(a, b) for a, b in zip((W2, *again),
+                                                 (Wk, Qk, ik, Ek)))
+    # the diagonal metric gives another assignment on a correlated U
+    _, idiag, _ = vq_group_sweep(W0.clone(), U, S, C, wgt, d=d,
+                                 rows_per_band=rg, exact_span_solve=True)
+    assert not torch.equal(idiag, ik)
+
+
+def test_budgeted_quantize_on_cuda_matches_cpu(dev):
+    """A budgeted smoke quantize (mixed settings by the allocator, babai on
+    every target) on the card against the same run on the CPU: the same
+    allocation, per-target errors within 10%, one sweep (babai where d > 1)
+    and one EM launch a column group, and one vq_dequant_matmul launch a
+    packed leaf in the evaluation."""
+    from repro_torch.core.recipe import get_recipe
+
+    cfg = SMOKE["llama2-7b"].scaled(dtype="float32", n_layers=2)
+    model = model_zoo.build(cfg)
+    params = model.init_params(seed=0, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (8, 32),
+                           generator=torch.Generator().manual_seed(0))
+    recipe = get_recipe("2.25bpv_2d").with_quantize_overrides(
+        em_iters=4, codebook_update_iters=2).with_solver("babai")
+    _, rep_cpu = quantize_model(model, params, tokens, recipe=recipe,
+                                budget_bpv=2.5)
+    params_gpu = {k: (v.to(dev) if torch.is_tensor(v) else
+                      [{kk: ({n: t.to(dev) for n, t in vv.items()}
+                             if isinstance(vv, dict) else vv.to(dev))
+                        for kk, vv in lp.items()} for lp in v])
+                  for k, v in params.items()}
+    before = (vq_group_sweep.launches, dict(vq_group_sweep.launches_by_impl),
+              vq_em.launches, vq_assign.launches)
+    q, rep = quantize_model(model, params_gpu, tokens.to(dev), recipe=recipe,
+                            budget_bpv=2.5, pack=True)
+    torch.cuda.synchronize()
+    assert rep.achieved_bpv == rep_cpu.achieved_bpv <= 2.5 + 1e-9
+    for name, e in rep.per_target.items():
+        assert e["rule"] == rep_cpu.per_target[name]["rule"]
+        ref = rep_cpu.per_target[name]["error"]
+        assert abs(e["error"] - ref) <= 0.10 * ref, (name, e["error"], ref)
+    leaves = [leaf for lp in q["layers"] for sub in (lp["attn"], lp["ffn"])
+              for leaf in sub.values()]
+    assert len({leaf.d for leaf in leaves}) >= 2  # mixed settings
+    want = {"diag": 0, "babai": 0}
+    for leaf in leaves:
+        want["babai" if leaf.d > 1 else "diag"] += leaf.n_cg
+    n_groups = sum(want.values())
+    got = {k: vq_group_sweep.launches_by_impl.get(k, 0) - before[1].get(k, 0)
+           for k in want}
+    assert got == want
+    assert (vq_group_sweep.launches - before[0], vq_em.launches - before[2],
+            vq_assign.launches - before[3]) == (n_groups, n_groups, 0)
+    before = vq_dequant_matmul.launches
+    tok = tokens[:2].to(dev)
+    lf = model.forward(vql.prepare_fused_tree(q), {"tokens": tok})[0]
+    assert vq_dequant_matmul.launches - before == 7 * cfg.n_layers
+    lg = model.forward(q, {"tokens": tok})[0]
+    torch.testing.assert_close(lf, lg, rtol=1e-4, atol=1e-4)
 
 
 def em_distortion(X, Hw, C):

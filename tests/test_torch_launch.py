@@ -16,10 +16,7 @@ import torch
 import repro_torch
 from repro_torch.configs import SMOKE
 from repro_torch.convert import params_from_jax
-from repro_torch.core.bpv import VQConfig
-from repro_torch.core.gptvq import gptvq_quantize_matrix
 from repro_torch.core.pipeline import quantize_model
-from repro_torch.core.recipe import get_recipe
 from repro_torch.data.calibration import calibration_tokens
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
@@ -126,12 +123,7 @@ def test_every_kernel_source_has_a_wrapper():
 
 
 @pytest.mark.parametrize("module,name", [
-    ("core.hessian", "accumulate_diag"), ("core.hessian", "accumulate_sharded"),
-    ("core.codebook", "kmeanspp_init"),
-    ("core.codebook_compress", "svd_compress"),
-    ("core.recipe", "IntQuant"), ("core.recipe", "allocate_budget"),
-    ("core.hessian", "init_diag_hessian"),
-    ("core.recipe", "closed_form_proxy_error")])
+    ("core.hessian", "accumulate_sharded")])
 def test_left_out_functions_name_their_roadmap_entry(module, name):
     import importlib
 
@@ -143,13 +135,8 @@ def test_left_out_functions_name_their_roadmap_entry(module, name):
 def test_left_out_options_raise():
     cfg = SMOKE["llama2-7b"].scaled(dtype="float32", n_layers=1)
     model = model_zoo.build(cfg)
-    with pytest.raises(NotImplementedError, match="Budgets and solvers"):
+    with pytest.raises(NotImplementedError, match="Multi-device and training"):
         quantize_model(model, {}, torch.zeros((1, 4), dtype=torch.long),
-                       budget_bpv=2.5)
-    with pytest.raises(NotImplementedError, match="Budgets and solvers"):
-        gptvq_quantize_matrix(torch.zeros(4, 4), torch.eye(4), VQConfig(),
-                              solver="babai")
+                       hessian_mesh=object())
     with pytest.raises(NotImplementedError, match="five families"):
         model_zoo.build(SMOKE["qwen3-moe-30b-a3b"])
-    with pytest.raises(NotImplementedError, match="JSON"):
-        get_recipe("mixed.json")
