@@ -127,6 +127,30 @@ Phases (each prints its seconds; any failure exits non-zero):
                 vq_assign never), with the restored leaves bit for bit, the
                 restored perplexity equal to the vq one and the quant
                 event counts.
+  9. moe     — the MoE family at Qwen3-MoE-30B-A3B's full width, depth cut
+                to 2 layers (random weights from seed 0, bf16; 128 experts,
+                top-8, 32 query heads over 4 kv heads): calibration 16 x 256
+                tokens, fp perplexity on a heldout 8 x 256, quantize_model
+                at 2.25bpv_2d with a Telemetry (every expert its own
+                routed-token Hessians), vq perplexity through
+                prepare_fused_tree (each expert stack one vq_dequant_matmul
+                launch), then main's serve run on the packed model. Held:
+                vq_group_sweep and vq_em once a column group of every
+                expert (4,944 each), vq_assign never; achieved bpv equal to
+                the host plan's; every expert matmul one launch a stack
+                (launches_by_experts[128] = 3 x layers x forwards, no
+                expert launched alone), by variant as the host plan
+                predicts; fused vs gather teacher-forced logits with the
+                gather forward's routing replayed (main's bars) and, free,
+                the count of (token, layer) routings that flipped; the
+                serve run's kernel decode vs gather decode, routing
+                replayed, at the serve bars; solo and interleaved tokens
+                identical. Its kernels-phase rows: the expert-stacked
+                vq_dequant_matmul at E = 128 for w_in and w_out at the
+                decode tick's 32 rows an expert and a prefill chunk's 8,
+                bitwise equal to 128 separate 2-D launches and the same
+                bits twice, beside torch.bmm on the dense bf16 stack; and
+                paged_attention at its serve shape (G = 8).
 Then it prints the kernel JSON line, the card line and, last,
 {"ok": true, "device": {...}}. Per-shape results go to
 chiprun_out/chip_smoke.json. The profiler pass over the quantize path is
@@ -679,6 +703,89 @@ def check_matmul_rows(torch, dev) -> dict:
     return out
 
 
+def check_expert_matmul(torch, dev, weight: str, M: int) -> dict:
+    """The expert-stacked vq_dequant_matmul at E = 128 of one Qwen3-MoE
+    expert stack's layout (int8 codebooks, bf16 x of M rows an expert):
+    one launch, counted once under its variant and its expert count;
+    allclose to the plain per-expert loop; bitwise equal to 128 separate
+    2-D launches on each expert's slice and the same bits twice. Timed
+    eager and replayed from a CUDA graph, beside the 128 2-D launches, the
+    plain loop and torch.bmm on the dense bf16 stack."""
+    from repro_torch.kernels.vq_dequant_matmul import (
+        Prepared, reconstruct, vq_dequant_matmul,
+        vq_dequant_matmul_experts_plain)
+
+    E, (N, K) = MOE_EXPERTS, MOE_MATMUL_SHAPES[weight]
+    d, k = VQ_D, VQ_K
+    n_cg, n_bands = K // VQ_GROUP_COLS, N // VQ_ROWS_PER_BAND
+    g = torch.Generator(device=dev).manual_seed(E + N + K + M)
+    words = torch.randint(-2**31, 2**31 - 1, (E, N, K // d // 8),
+                          generator=g, device=dev, dtype=torch.int32)
+    cb = torch.randn((E, n_cg, n_bands, k, d), generator=g, device=dev) * 0.05
+    s = cb.abs().amax(dim=(3, 4)) / 127
+    cb_i8 = torch.clamp(torch.round(cb / s[..., None, None]), -128,
+                        127).to(torch.int8)
+    cb = cb_i8.to(torch.float32) * s[..., None, None]
+    x = torch.randn((E, M, K), generator=g, device=dev).to(torch.bfloat16)
+    kw = dict(d=d, code_bits=4, rows_per_band=VQ_ROWS_PER_BAND,
+              group_cols=VQ_GROUP_COLS, scale_block=0)
+    prep = Prepared(words, cb, k_c=k, codebooks_i8=cb_i8, cb_scale=s, **kw)
+    run = lambda: prep(x)
+    n0 = vq_dequant_matmul.launches
+    by_impl = dict(vq_dequant_matmul.launches_by_impl)
+    by_e = dict(vq_dequant_matmul.launches_by_experts)
+    y = run()
+    (impl,) = impl_delta(by_impl, vq_dequant_matmul.launches_by_impl)
+    one_launch = (vq_dequant_matmul.launches == n0 + 1 and impl_delta(
+        by_e, vq_dequant_matmul.launches_by_experts) == {E: 1})
+    ref = vq_dequant_matmul_experts_plain(x, words, cb, **kw)
+    ones = [Prepared(words[e], cb[e], k_c=k, codebooks_i8=cb_i8[e],
+                     cb_scale=s[e], **kw) for e in range(E)]
+    loop = lambda: [p(x[e]) for e, p in enumerate(ones)]
+    bitwise = bool(torch.equal(y, torch.stack(loop())))
+    twice = bool(torch.equal(run(), y))
+    torch.cuda.synchronize()
+    err = float((y - ref).abs().max())
+    tol = 1e-4 * float(ref.abs().max())
+    ms = time_ms(torch, run)
+    dev_ms = graph_ms(torch, run)
+    loop_ms = time_ms(torch, loop, 5, 1)
+    plain_ms = time_ms(torch, lambda: vq_dequant_matmul_experts_plain(
+        x, words, cb, **kw), 3, 1)
+    Wt = torch.stack([reconstruct(words[e], cb[e], None, **kw)
+                      for e in range(E)]).to(torch.bfloat16).transpose(
+                          1, 2).contiguous()  # (E, K, N)
+    lib_ms = time_ms(torch, lambda: torch.bmm(x, Wt))
+    lib_dev_ms = graph_ms(torch, lambda: torch.bmm(x, Wt))
+    # the bytes the launch must move: x, every expert's words, int8
+    # codebooks and their scales, y; the operations: 2MNK an expert on the
+    # bf16 tensor cores (int8 values are exact in bf16)
+    nbytes = (x.numel() * 2 + words.numel() * 4 + cb_i8.numel()
+              + s.numel() * 4 + E * M * N * 4)
+    b_ms, b_by = bound_ms(nbytes, 2.0 * E * M * N * K, BF16_TC_FLOP_PER_S)
+    row = {"name": "vq_dequant_matmul", "shape": f"{weight} experts",
+           "E": E, "M": M, "N": N, "K": K, "scale_block": 0,
+           "cb_form": "int8", "impl": impl, "max_abs_err": err, "tol": tol,
+           "one_launch": one_launch, "bitwise_2d_launches": bitwise,
+           "two_calls_equal": twice, "ms": ms, "device_ms": dev_ms,
+           "loop_2d_ms": loop_ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+           "bound_ms": b_ms, "bound_by": b_by}
+    log(f"[kernels] vq_dequant_matmul {weight} x {E} experts M={M} N={N} "
+        f"K={K} ({impl}): one launch {one_launch}, max abs err {err:.2e} "
+        f"(tol {tol:.2e}), bitwise == {E} 2-D launches {bitwise}, two calls "
+        f"{twice} | kernel {ms:.4f} ms ({_fmt_ms(dev_ms)} replayed from a "
+        f"CUDA graph), {E} 2-D launches {loop_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, torch.bmm(x, W) bf16 {lib_ms:.4f} ms "
+        f"({_fmt_ms(lib_dev_ms)} from a graph), bound {b_ms:.4f} ms "
+        f"({b_by})")
+    if not (err <= tol and one_launch and bitwise and twice):
+        raise Failed(f"vq_dequant_matmul {weight} x {E} experts M={M}: "
+                     f"error {err} (tol {tol}), one launch {one_launch}, "
+                     f"bitwise {bitwise}, two calls {twice}")
+    return row
+
+
 # paged decode attention at the serve phase's shape (Llama-2-7B heads) and
 # a GQA shape (Qwen2-72B heads, G = 8), 16 pages of 16 rows a slot as the
 # 256-token engine; then both at Llama-2-7B's 4096-token context (256 pages
@@ -691,6 +798,9 @@ PAGED_SHAPES = {
                  n_pages=256),
     "gqa long": dict(B=4, H=64, KV=8, hd=128, pos=[4095, 3071, 1500, 0],
                      n_pages=256),
+    # the moe phase's engine: Qwen3-MoE heads (32 over 4 kv heads, G = 8)
+    "moe serve": dict(B=4, H=32, KV=4, hd=128, pos=[0, 57, 111, 135],
+                      n_pages=16),
 }
 PAGE_SIZE = 16
 
@@ -1042,6 +1152,10 @@ def phase_kernels(torch, dev) -> list[dict]:
                                  0))
     for M in (SERVE_MAX_BATCH, 512):
         rows.append(check_matmul(torch, dev, "wq", M, 0, "f32"))
+    # the moe phase's expert stacks, one launch a stack
+    for weight in MOE_MATMUL_SHAPES:
+        for M in MOE_SLAB_ROWS:
+            rows.append(check_expert_matmul(torch, dev, weight, M))
     invariance = {"vq_dequant_matmul": check_matmul_rows(torch, dev)}
     for shape in ("long", "gqa long"):
         invariance[f"paged_attention {shape}"] = check_paged_slots(
@@ -1255,9 +1369,10 @@ def budget_groups(params, per_target) -> int:
     return n
 
 
-def predict_matmul_impls(fused, M: int, x_dtype) -> dict:
+def predict_matmul_impls(fused, M: int, x_dtype, m_experts=None) -> dict:
     """vq_dequant_matmul launches by variant for one forward of M rows:
-    one a packed leaf, each at the variant its layout selects."""
+    one a packed leaf, each at the variant its layout selects (an expert
+    stack: one launch at ``m_experts`` rows an expert)."""
     from repro_torch.core.vq_linear import FusedVQLinear
     from repro_torch.kernels.vq_dequant_matmul import select_impl
 
@@ -1269,7 +1384,8 @@ def predict_matmul_impls(fused, M: int, x_dtype) -> dict:
                     continue
                 p = leaf.prepared
                 d, k_c, _, rpb, gc, sb = p.layout
-                impl = select_impl(M, x_dtype, d=d, k_c=k_c,
+                rows = m_experts if p.n_experts else M
+                impl = select_impl(rows, x_dtype, d=d, k_c=k_c,
                                    rows_per_band=rpb, n_bands=p.n_bands,
                                    group_cols=gc, scale_block=sb,
                                    has_int8=p.int8_ok)
@@ -1524,6 +1640,26 @@ KV_FIT_EM_ITERS = 25
 # requests of 3,000-4,000 prompt tokens, 32 new tokens each
 LONG_SERVE_REQUESTS, LONG_SERVE_NEW, LONG_SERVE_MAX_LEN = 4, 32, 4096
 
+# the moe phase: Qwen3-MoE-30B-A3B at full width, 2 of its 48 layers;
+# calibration and heldout (sequences, tokens)
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-30b-a3b", 2
+MOE_CALIB, MOE_HELDOUT = (16, 256), (8, 256)
+# its expert stacks at 2.25bpv_2d (the Llama projections' layout: d = 2,
+# k = 16, 256-column groups of 4 rows): one expert's (N, K) of w_in (w_gate
+# alike) and w_out; rows an expert in a decode tick (max_batch slots x a
+# capacity of 8) and in a 64-token prefill chunk (a capacity of 8)
+MOE_EXPERTS = 128
+MOE_MATMUL_SHAPES = {"w_in": (768, 2048), "w_out": (2048, 768)}
+MOE_SLAB_ROWS = (SERVE_MAX_BATCH * 8, 8)
+# free-routing fused vs gather: the share of (token, layer) routings whose
+# expert set may differ. A bf16 rounding difference moves the router's
+# logits by ~1e-3 where the 8th and 9th of 128 are ~0.06 apart, and a
+# flip in layer 0 moves that token's input to layer 1 O(1). The first
+# reading on the H100 was 10.08% (413 of 4096); a router reading wrong
+# logits or ids would share ~8 of 128 experts a token with the gather
+# form's choice, flipping nearly every routing (PERF.md, section 6)
+MOE_FLIP_TOL = 0.20
+
 
 def serve_prompts(vocab: int, n: int, lo: int = 40, hi: int = 72) -> list:
     rng = np.random.RandomState(0)
@@ -1578,6 +1714,7 @@ def serve_run(torch, dev, model, qparams, kv_bits, n_req, n_new,
     vq_dequant_matmul.launches = 0
     vq_dequant_matmul.launches_by_m = {}
     vq_dequant_matmul.launches_by_impl = {}
+    vq_dequant_matmul.launches_by_experts = {}
     t0 = time.perf_counter()
     eng.run(reqs)
     torch.cuda.synchronize()
@@ -1586,6 +1723,7 @@ def serve_run(torch, dev, model, qparams, kv_bits, n_req, n_new,
                 "vq_dequant_matmul": vq_dequant_matmul.launches}
     ms_seen = dict(vq_dequant_matmul.launches_by_m)
     impls_seen = dict(vq_dequant_matmul.launches_by_impl)
+    experts_seen = dict(vq_dequant_matmul.launches_by_experts)
     st = eng.stats
     recs = eng.drain_request_records()
     ttft = [r.ttft_s for r in recs if r.ttft_s is not None]
@@ -1602,7 +1740,7 @@ def serve_run(torch, dev, model, qparams, kv_bits, n_req, n_new,
            "ttft_median_s": _median(ttft), "ttft_worst_s": max(ttft),
            "itl_median_s": _median(itl), "itl_worst_s": max(itl),
            "launches": launches, "vq_m_counts": ms_seen,
-           "vq_impl_counts": impls_seen,
+           "vq_impl_counts": impls_seen, "vq_experts_counts": experts_seen,
            "load_launches": load_launches,
            "out": [r.out_tokens for r in reqs],
            "prompts": [r.prompt for r in reqs]}
@@ -1981,6 +2119,7 @@ def phase_long(torch, dev) -> dict:
         **quantize_launch_checks(launches, predict_groups(cfg)),
         "quant_stage events": n_stage == want_stage,
         "quant_target events": n_target == 7 * cfg.n_layers,
+        "quant_stage events": n_stage == want_stage,
     }
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
@@ -1999,6 +2138,331 @@ def phase_long(torch, dev) -> dict:
             "max_memory_allocated": peak}
 
 
+class route_hook:
+    """Within the context every ``models/moe.route`` call's expert ids are
+    recorded (the list ``as`` binds); with ``replay`` (an earlier
+    recording, one entry a call in the same order) each call takes the
+    recorded ids instead, its gate values read from its own probabilities
+    at them."""
+
+    def __init__(self, moe, replay=None):
+        self.moe, self.replay, self.seen = moe, replay, []
+
+    def __enter__(self):
+        real, it = self.moe.route, (None if self.replay is None
+                                    else iter(self.replay))
+        self.real = real
+
+        def hooked(x, router, k):
+            probs, gate, ids = real(x, router, k)
+            if it is not None:
+                ids = next(it)
+                gate = probs.gather(-1, ids)
+            self.seen.append(ids)
+            return probs, gate, ids
+
+        self.moe.route = hooked
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
+
+
+def routing_flips(torch, a: list, b: list) -> tuple[list, int]:
+    """Between two recordings of the same forwards: the (token, layer)
+    routings whose expert sets differ, a route call (a layer) each, and
+    the routings a call."""
+    flips = []
+    for x, y in zip(a, b):
+        sx, sy = x.sort(-1).values, y.sort(-1).values
+        flips.append(int((sx != sy).any(-1).sum()))
+    return flips, a[0][..., 0].numel()
+
+
+def moe_plan(cfg, setting) -> tuple[int, float, list]:
+    """The host plan of a moe quantize at ``setting``: column groups (one
+    vq_group_sweep and one vq_em launch each: E x c / group columns a
+    target), the size-weighted effective bpv of the targets' shapes, and
+    the targets (name, matrices, r, c)."""
+    from repro_torch.core.bpv import effective_bpv, weighted_bpv
+    from repro_torch.core.gptvq import plan_groups
+
+    D, hd, F = cfg.d_model, cfg.head_dim, cfg.d_ff
+    shapes = {"attn.wq": (1, cfg.n_heads * hd, D),
+              "attn.wk": (1, cfg.n_kv_heads * hd, D),
+              "attn.wv": (1, cfg.n_kv_heads * hd, D),
+              "attn.wo": (1, D, cfg.n_heads * hd),
+              "ffn.w_in": (cfg.n_experts, F, D),
+              "ffn.w_gate": (cfg.n_experts, F, D),
+              "ffn.w_out": (cfg.n_experts, D, F)}
+    targets = [(f"layers.{i}.{n}", *sh) for i in range(cfg.n_layers)
+               for n, sh in shapes.items()]
+    groups = sum(E * c // plan_groups(r, c, setting)[0]
+                 for _, E, r, c in targets)
+    bpv = weighted_bpv((E * r * c, effective_bpv(setting, r, c))
+                       for _, E, r, c in targets)
+    return groups, bpv, targets
+
+
+def predict_moe_serve(run: dict, fused, cfg) -> dict:
+    """Launch counts of a moe serve run from the host plan: paged_attention
+    once a layer per decode tick; in every forward 4 attention matmuls and
+    3 expert stacks a layer, each stack one launch of 128 experts; the
+    decode ticks' attention at M = max_batch and experts at max_batch x
+    capacity(1) rows an expert, a prefill chunk's attention at its padded
+    rows m and experts at capacity(m); by variant as each leaf's layout
+    selects at those rows."""
+    import torch
+
+    from repro_torch.models import moe
+
+    chunks = prefill_chunk_ms(run["prompts"])
+    forwards = run["decode_ticks"] + run["prefill_chunks"]
+    plan = [(SERVE_MAX_BATCH, SERVE_MAX_BATCH * moe.capacity(1, cfg),
+             run["decode_ticks"])] + [(m, moe.capacity(m, cfg), 1)
+                                      for m in chunks]
+    impls: dict = {}
+    for m_attn, m_exp, times in plan:
+        for k, v in predict_matmul_impls(fused, m_attn, torch.bfloat16,
+                                         m_exp).items():
+            impls[k] = impls.get(k, 0) + v * times
+    want = {"paged_attention": run["decode_ticks"] * cfg.n_layers,
+            "vq_dequant_matmul": 7 * cfg.n_layers * forwards,
+            "by_experts": {cfg.n_experts: 3 * cfg.n_layers * forwards},
+            "by_impl": impls, "chunks": chunks,
+            "decode_rows": plan[0][:2]}
+    log(f"[moe] serve predicted launches: paged_attention = decode ticks x "
+        f"layers = {want['paged_attention']}; vq_dequant_matmul = 7 x layers "
+        f"x forwards = {want['vq_dequant_matmul']}, of them "
+        f"{want['by_experts']} expert stacks (experts: launches); decode "
+        f"rows (attention, a expert) {plan[0][:2]}; prefill chunks {chunks}; "
+        f"by variant {impls}")
+    return want
+
+
+def phase_moe(torch, dev) -> dict:
+    """The MoE family at Qwen3-MoE-30B-A3B's full width, 2 layers: see the
+    module docstring."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import vq_linear as vql_mod
+    from repro_torch.core.bpv import PAPER_SETTINGS
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.data.calibration import calibration_tokens
+    from repro_torch.kernels import vq_assign as vqa
+    from repro_torch.kernels.vq_dequant_matmul import vq_dequant_matmul
+    from repro_torch.models import model_zoo, moe
+    from repro_torch.obs import Telemetry
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.train.loss import perplexity
+
+    t_phase = time.perf_counter()
+    cfg = ARCHS[MOE_ARCH].scaled(n_layers=MOE_LAYERS)
+    log(f"[moe] {cfg.name}: d_model {cfg.d_model}, heads {cfg.n_heads} over "
+        f"{cfg.n_kv_heads} kv x {cfg.head_dim}, {cfg.n_experts} experts "
+        f"top-{cfg.n_experts_active} of d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, layers {cfg.n_layers}, dtype {cfg.dtype}")
+    torch.cuda.reset_peak_memory_stats()
+    t = {}
+    t0 = time.perf_counter()
+    model = model_zoo.build(cfg)
+    params = model.init_params(seed=0, device=dev)
+    calib = calibration_tokens(cfg.vocab_size, n_sequences=MOE_CALIB[0],
+                               seq_len=MOE_CALIB[1], device=dev)
+    heldout = calibration_tokens(cfg.vocab_size, n_sequences=MOE_HELDOUT[0],
+                                 seq_len=MOE_HELDOUT[1], seed=777,
+                                 device=dev)
+    torch.cuda.synchronize()
+    t["init"] = time.perf_counter() - t0
+    setting = PAPER_SETTINGS["2.25bpv_2d"]
+    recipe = QuantRecipe.uniform(setting, name="2.25bpv_2d"
+                                 ).with_quantize_overrides(
+                                     em_iters=25, codebook_update_iters=10)
+    n_groups, want_bpv, targets = moe_plan(cfg, setting)
+    log(f"[moe] host plan: {len(targets)} targets, vq_group_sweep and vq_em "
+        f"{n_groups} launches each (one a column group of every expert), "
+        f"vq_assign 0; achieved bpv {want_bpv:.6f}")
+
+    for fn in VQ_ENTRY_POINTS:
+        getattr(vqa, fn).launches = 0
+    t0 = time.perf_counter()
+    ppl_fp = perplexity(model, params, heldout)
+    t["ppl_fp"] = time.perf_counter() - t0
+    tel = Telemetry()
+    # every event of the run: a stage event a column group and expert
+    # outnumbers the log's default ring
+    tel.events.keep = 1 << 20
+    t0 = time.perf_counter()
+    qparams, rep = quantize_model(
+        model, params, calib, recipe=recipe, pack=True, telemetry=tel,
+        progress=lambda m: log(f"[moe]   {m} "
+                               f"({time.perf_counter() - t0:.1f}s)"))
+    torch.cuda.synchronize()
+    t["quantize"] = time.perf_counter() - t0
+    quant_launches = {fn: getattr(vqa, fn).launches
+                      for fn in VQ_ENTRY_POINTS}
+    n_target = sum(e["event"] == "quant_target" for e in tel.events.events)
+    n_stage = sum(e["event"] == "quant_stage" for e in tel.events.events)
+    # a stage event for the sweep and the EM of every column group, the
+    # codebook update of every matrix, capture and advance of every block
+    want_stage = (2 * n_groups + sum(E for _, E, _, _ in targets)
+                  + 2 * cfg.n_layers)
+    del params
+
+    fused = vql_mod.prepare_fused_tree(qparams)
+    vq_dequant_matmul.launches = 0
+    vq_dequant_matmul.launches_by_impl = {}
+    vq_dequant_matmul.launches_by_experts = {}
+    t0 = time.perf_counter()
+    ppl_vq = perplexity(model, fused, heldout)
+    torch.cuda.synchronize()
+    t["ppl_vq"] = time.perf_counter() - t0
+    eval_launches = {"launches": vq_dequant_matmul.launches,
+                     "by_impl": dict(vq_dequant_matmul.launches_by_impl),
+                     "by_experts": dict(
+                         vq_dequant_matmul.launches_by_experts)}
+    B, S = MOE_HELDOUT
+    want_eval = {"launches": 7 * cfg.n_layers,
+                 "by_impl": predict_matmul_impls(
+                     fused, B * S, torch.bfloat16,
+                     B * moe.capacity(S, cfg)),
+                 "by_experts": {cfg.n_experts: 3 * cfg.n_layers}}
+
+    # fused vs gather teacher-forced logits: free, then with the gather
+    # forward's routing replayed in the fused one
+    with torch.no_grad():
+        with route_hook(moe) as gather_ids:
+            lg = model.forward(qparams, {"tokens": heldout})[0]
+        with route_hook(moe) as free_ids:
+            lf_free = model.forward(fused, {"tokens": heldout})[0]
+        with route_hook(moe, replay=gather_ids):
+            lf = model.forward(fused, {"tokens": heldout})[0]
+    by_layer, per_layer = routing_flips(torch, gather_ids, free_ids)
+    flips, routings = sum(by_layer), per_layer * len(by_layer)
+    diffs = {}
+    for name, got in (("replayed", lf), ("free", lf_free)):
+        dl = (got - lg).float()
+        diffs[name] = (float(dl.abs().max()), float(dl.pow(2).mean().sqrt()))
+    del lg, lf_free
+    max_tol, rms_tol = 0.5, 0.05  # main's fused-vs-gather bars
+    log(f"[moe] fused vs gather logits {tuple(lf.shape)}, routing replayed: "
+        f"max |diff| {diffs['replayed'][0]:.4e} (tol {max_tol}), RMS "
+        f"{diffs['replayed'][1]:.4e} (tol {rms_tol}); free routing: max "
+        f"{diffs['free'][0]:.4e}, RMS {diffs['free'][1]:.4e}, {flips} of "
+        f"{routings} (token, layer) routings flipped "
+        f"({flips / routings:.4%}; bar {MOE_FLIP_TOL:.0%}), by layer "
+        f"{by_layer} of {per_layer}")
+
+    # the serve run, main's engine and traffic, then each request alone
+    t0 = time.perf_counter()
+    run = serve_run(torch, dev, model, qparams, 16, SERVE_REQUESTS,
+                    SERVE_NEW)
+    eng = run.pop("engine")
+    want_serve = predict_moe_serve(run, eng.params, cfg)
+    prompt, out = run["prompts"][0], run["out"][0]
+    with torch.no_grad():
+        with route_hook(moe) as tf_ids:
+            tf_gather = forced_logits(torch, dev, model, eng, prompt,
+                                      out[:-1], "gather")
+        with route_hook(moe, replay=tf_ids):
+            tf_kernel = forced_logits(torch, dev, model, eng, prompt,
+                                      out[:-1], "fused")
+    d = (tf_kernel - tf_gather).float()
+    tf_diff = (float(d.abs().max()), float(d.pow(2).mean().sqrt()))
+    log(f"[moe] serve: teacher-forced kernel decode vs gather decode, "
+        f"routing replayed, {tuple(d.shape)} logits: max |diff| "
+        f"{tf_diff[0]:.4e} (tol {SERVE_MAX_TOL}), RMS {tf_diff[1]:.4e} (tol "
+        f"{SERVE_RMS_TOL})")
+    solo = []
+    for i, p in enumerate(run["prompts"]):
+        e = Engine(model, qparams, max_batch=SERVE_MAX_BATCH,
+                   max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
+                   paged_attn_impl="fused", vq_matmul_impl="fused",
+                   device=dev)
+        r = Request(rid=100 + i, prompt=p, max_new_tokens=SERVE_NEW)
+        e.run([r])
+        solo.append(r.out_tokens)
+    solo_same = [a == b for a, b in zip(solo, run["out"])]
+    log(f"[moe] solo vs interleaved tokens identical: {solo_same}")
+    t["serve"] = time.perf_counter() - t0
+    del eng
+
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[moe] ppl fp={ppl_fp:.3f} vq={ppl_vq:.3f} | recon err="
+        f"{rep.total_error():.4f} | achieved {rep.achieved_bpv:.6f} bpv "
+        f"(host plan {want_bpv:.6f})")
+    log("[moe] stages: " + "  ".join(
+        f"{k}={v:.2f}s" for k, v in sorted(rep.stage_seconds.items(),
+                                          key=lambda kv: -kv[1])))
+    log("[moe] seconds: " + "  ".join(f"{k}={v:.2f}" for k, v in t.items()))
+    log(f"[moe] quantize launches {quant_launches} (predicted "
+        f"vq_group_sweep and vq_em {n_groups} each, vq_assign 0); "
+        f"quant_target events {n_target} (predicted {7 * cfg.n_layers}), "
+        f"quant_stage {n_stage} (predicted {want_stage}); evaluation "
+        f"matmuls "
+        f"{eval_launches} (predicted {want_eval})")
+    log(f"[moe] max_memory_allocated {peak / 2**30:.2f} GiB; phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+
+    n_fwd = run["decode_ticks"] + run["prefill_chunks"]
+    dec_attn, dec_exp = want_serve["decode_rows"]
+    checks = {
+        "ppl finite": math.isfinite(ppl_fp) and math.isfinite(ppl_vq),
+        "logits shape": tuple(lf.shape) == (B, S, cfg.padded_vocab),
+        "logits finite": bool(torch.isfinite(lf).all()),
+        "fused vs gather, routing replayed": (
+            diffs["replayed"][0] <= max_tol
+            and diffs["replayed"][1] <= rms_tol),
+        "free routing flips within the bar": flips <= MOE_FLIP_TOL * routings,
+        "bpv == host plan": abs(rep.achieved_bpv - want_bpv) < 1e-9,
+        "quant_target events": n_target == 7 * cfg.n_layers,
+        "quant_stage events": n_stage == want_stage,
+        **quantize_launch_checks(quant_launches, n_groups),
+        "evaluation: 7 launches a layer by variant as planned":
+            eval_launches == want_eval,
+        "serve: all requests finished": all(len(o) == SERVE_NEW
+                                            for o in run["out"]),
+        "serve: prefill chunks as planned":
+            run["prefill_chunks"] == len(want_serve["chunks"]),
+        "serve: paged_attention launches == decode ticks x layers":
+            run["launches"]["paged_attention"]
+            == want_serve["paged_attention"] > 0,
+        "serve: vq_dequant_matmul launches == 7 x layers x forwards":
+            run["launches"]["vq_dequant_matmul"]
+            == want_serve["vq_dequant_matmul"] > 0,
+        "serve: every expert stack one launch (no expert alone)":
+            run["vq_experts_counts"] == want_serve["by_experts"],
+        "serve: decode ticks at the planned rows":
+            run["vq_m_counts"].get(dec_attn, 0)
+            >= 4 * cfg.n_layers * run["decode_ticks"]
+            and run["vq_m_counts"].get(dec_exp, 0)
+            >= 3 * cfg.n_layers * run["decode_ticks"],
+        "serve: by variant as planned":
+            run["vq_impl_counts"] == want_serve["by_impl"],
+        "serve: teacher-forced kernel vs gather decode, routing replayed":
+            within_bars(tf_diff),
+        "serve: solo == interleaved tokens": all(solo_same),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise Failed(f"moe phase checks failed: {bad}")
+    run.pop("prompts")
+    run["out"] = run["out"][:2]
+    want_serve.pop("chunks")
+    return {"launches": quant_launches, "predicted_column_groups": n_groups,
+            "eval_launches": eval_launches, "predicted_eval": want_eval,
+            "ppl_fp": ppl_fp, "ppl_vq": ppl_vq,
+            "recon_error": rep.total_error(),
+            "achieved_bpv": rep.achieved_bpv, "predicted_bpv": want_bpv,
+            "stage_seconds": rep.stage_seconds, "seconds": t,
+            "logit_diffs": diffs, "routing_flips": by_layer,
+            "routings": routings, "serve": run,
+            "serve_predicted": want_serve,
+            "serve_teacher_forced": tf_diff, "solo_equal": solo_same,
+            "max_memory_allocated": peak,
+            "phase_seconds": time.perf_counter() - t_phase}
+
+
 def kernel_line(rows: list[dict], launches: dict) -> dict:
     """One entry per kernel source, at the shape its path launches most:
     vq_dequant_matmul at the eval's M=512 on a 4096x4096 projection,
@@ -2011,7 +2475,9 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
     phase's for the first two (vq_assign.cu's three entry points summed),
     the long serve run's for paged_attention, the long phase's for
     flash_attention, the budget phase's method table for the babai
-    sweep."""
+    sweep; and the expert-stacked vq_dequant_matmul at a Qwen3-MoE decode
+    tick's w_in stack (128 experts of 32 rows), launches from the moe
+    phase's serve run."""
     pick = {
         "vq_dequant_matmul": (
             "vq_dequant_matmul",
@@ -2040,6 +2506,12 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
             lambda r: r["shape"] == "llama B=8" and r["dtype"] == "bfloat16",
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:68"),
+        "vq_dequant_matmul_experts": (
+            "vq_dequant_matmul",
+            lambda r: r["shape"] == "w_in experts"
+            and r["M"] == MOE_SLAB_ROWS[0],
+            "src/repro_torch/kernels/csrc/vq_dequant_matmul.cu",
+            "src/repro/kernels/vq_dequant_matmul.py:137"),
     }
     out = []
     for name, (row_name, sel, source, replaces) in pick.items():
@@ -2055,9 +2527,14 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
 
 def paged_rows(torch, dev) -> list[dict]:
     """paged_attention's kernels-phase rows: every shape at every page
-    format with f32 queries, and the serve dtypes with bf16 ones."""
+    format with f32 queries, and the serve dtypes with bf16 ones; the moe
+    serve shape at its path's bf16 queries over f32 pages."""
     rows = []
     for shape in PAGED_SHAPES:
+        if shape == "moe serve":  # the moe phase's own dtypes only
+            rows.append(check_paged(torch, dev, shape, "f32",
+                                    torch.bfloat16))
+            continue
         for fmt in ("f32", "bf16", 8, 4, "vq2"):
             rows.append(check_paged(torch, dev, shape, fmt, torch.float32))
         # the serve path's own dtypes: the bf16 model's queries over the
@@ -2093,14 +2570,16 @@ def main() -> int:
     serve_res = phase_serve(torch, dev, model, qparams)
     del model, qparams
     long_res = phase_long(torch, dev)
+    torch.cuda.empty_cache()
+    moe_res = phase_moe(torch, dev)
     os.makedirs(out_dir, exist_ok=True)
     out = os.path.join(out_dir, "chip_smoke.json")
     with open(out, "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "kernels": rows,
                    "bitwise": invariance,
                    "small": small_res, "main": main_res,
-                   "budget": budget_res, "serve": serve_res, "long": long_res}, f, indent=1,
-                  default=str)
+                   "budget": budget_res, "serve": serve_res, "long": long_res,
+                   "moe": moe_res}, f, indent=1, default=str)
     log(f"[done] {time.perf_counter() - t_all:.1f}s; details in {out}")
     launches = dict(main_res["launches"], paged_attention=serve_res[
         "long"]["launches"]["paged_attention"],
@@ -2108,6 +2587,8 @@ def main() -> int:
     launches["vq_assign"] = sum(main_res["launches"][fn]
                                 for fn in VQ_ENTRY_POINTS)
     launches["vq_group_sweep_babai"] = budget_res["babai_launches"]
+    launches["vq_dequant_matmul_experts"] = moe_res["serve"][
+        "vq_experts_counts"].get(MOE_EXPERTS, 0)
     print(json.dumps(kernel_line(rows, launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

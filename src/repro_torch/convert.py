@@ -2,9 +2,12 @@
 
 ``params_from_jax`` turns the numpy leaves of the reference's
 ``init_params`` tree into the port's parameter dict, unstacking the
-``layers`` leading axis into a list of per-layer dicts. ``vqlinear_from_jax``
-does the same for one packed ``VQLinear`` (any object with the reference's
-field names; uint32 words are reinterpreted as int32), and
+``layers`` leading axis into a list of per-layer dicts (a MoE layer's
+expert stacks (E, D, F) stay stacked inside its dict, and its router stays
+f32, as the reference keeps it). ``vqlinear_from_jax`` does the same for
+one packed ``VQLinear`` (any object with the reference's field names, an
+expert stack's arrays with their leading E; uint32 words are reinterpreted
+as int32), and
 ``paged_cache_from_jax`` for a reference ``PagedKVCache`` (pools, scales,
 codebooks, page table). Nothing here imports jax: callers pass numpy arrays
 (or objects ``np.asarray`` accepts).
@@ -27,21 +30,30 @@ def _tensor(a, dtype, device) -> torch.Tensor:
         device=device, dtype=dtype)
 
 
-def _map(tree, f):
+# leaves the reference keeps in f32 whatever the model's dtype
+_F32_LEAVES = ("router",)
+
+
+def _map(tree, f, key=None):
     if isinstance(tree, dict):
-        return {k: _map(v, f) for k, v in tree.items()}
-    return f(tree)
+        return {k: _map(v, f, k) for k, v in tree.items()}
+    return f(tree, key)
 
 
 def params_from_jax(np_tree: dict, cfg: ModelConfig, device=None) -> dict:
-    """Reference dense-family params (layers stacked on a leading axis) ->
-    port params (``layers`` a list of per-layer dicts) in ``cfg.dtype``."""
+    """Reference dense- or moe-family params (layers stacked on a leading
+    axis) -> port params (``layers`` a list of per-layer dicts) in
+    ``cfg.dtype``, the router in f32."""
     dev = resolve_device(device)
-    dtype = DTYPES[cfg.dtype]
-    out = {k: _map(v, lambda a: _tensor(a, dtype, dev))
-           for k, v in np_tree.items() if k != "layers"}
+
+    def conv(a, key):
+        dtype = (torch.float32 if key in _F32_LEAVES
+                 else DTYPES[cfg.dtype])
+        return _tensor(a, dtype, dev)
+
+    out = {k: _map(v, conv, k) for k, v in np_tree.items() if k != "layers"}
     out["layers"] = [_map(np_tree["layers"],
-                          lambda a, i=i: _tensor(a[i], dtype, dev))
+                          lambda a, key, i=i: conv(a[i], key))
                      for i in range(cfg.n_layers)]
     return out
 

@@ -13,8 +13,9 @@
     downstream Hessians see upstream quantization error.
 
 Inside ``diag_capture()`` every tap accumulates an O(c)
-``DiagHessianState`` instead of the (c, c) Hessian: the budget pre-pass
-reads diag(H) only. The reference's mesh-sharded accumulation is not
+``DiagHessianState`` instead of the (c, c) Hessian (a per-expert tap,
+through ``acc_expert_tap``, an (E, c) stack): the budget pre-pass reads
+diag(H) only. The reference's mesh-sharded accumulation is not
 ported yet (ROADMAP.md queue 1, "Multi-device and training").
 """
 from __future__ import annotations
@@ -34,9 +35,13 @@ class WeightSpec:
     """One quantizable weight leaf inside a block.
 
     path       — key path into the block's parameter tree, e.g.
-                 ("attn", "wq"); the leaf is an (in, out) kernel.
+                 ("attn", "wq"). The leaf is an (in, out) kernel, or an
+                 (E, in, out) expert stack when ``per_expert`` is set.
     tap        — name of the Hessian tap (``capture`` output) whose
                  statistics quantize this leaf (``None``: no static tap).
+                 Plain taps accumulate a ``hessian.HessianState``;
+                 per-expert taps an (E, c, c) stack (or (E, c) diagonals
+                 under ``diag_capture``) with (E,) routed-token counts.
     group      — "attn" or "mlp"; rule patterns can address it as
                  ``group:attn`` / ``group:mlp``.
     keep_dense — when set, the adapter declares this target dense by default
@@ -50,6 +55,7 @@ class WeightSpec:
     path: tuple
     tap: str | None
     group: str = "attn"
+    per_expert: bool = False
     keep_dense: str | None = None
 
 
@@ -131,6 +137,15 @@ def acc_tap(taps: dict, name: str, x: torch.Tensor) -> dict:
         taps[name] = hes.accumulate_diag(state, x)
     else:
         taps[name] = hes.accumulate(state, x)
+    return taps
+
+
+def acc_expert_tap(taps: dict, name: str, new: tuple) -> dict:
+    """Accumulate a per-expert (Hessian stack, (E,) count) pair — the
+    stack is (E, c, c), or (E, c) diagonals under diag_capture()."""
+    taps = dict(taps)
+    acc = taps.get(name)
+    taps[name] = new if acc is None else (acc[0] + new[0], acc[1] + new[1])
     return taps
 
 

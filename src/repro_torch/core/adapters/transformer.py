@@ -1,5 +1,5 @@
-"""Adapter for the dense transformer family (port of the dense half of
-``repro/core/adapters/transformer.py``).
+"""Adapter for the transformer family: dense GQA stacks and MoE stacks
+(port of the dense and MoE parts of ``repro/core/adapters/transformer.py``).
 
 Block anatomy (pre-norm residual):
 
@@ -8,7 +8,9 @@ Block anatomy (pre-norm residual):
 Taps: "attn_in" feeds the q/k/v projections, "attn_out_in" (the pre-``wo``
 attention output) feeds the output projection, "ffn_in" feeds the up/gate
 projections and "ffn_out_in" (the activated hidden state) the down
-projection.
+projection. MoE blocks replace the dense FFN taps with per-expert Hessian
+stacks accumulated from each expert's *routed* tokens ("experts_in",
+"experts_out"; models/moe.expert_hessians).
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 from repro_torch.core import vq_linear as vql_mod
 from repro_torch.core.adapters import base
 from repro_torch.core.adapters.base import WeightSpec
-from repro_torch.models import attention, common as cm, mlp, transformer
+from repro_torch.models import attention, common as cm, mlp, moe, transformer
 
 
 class _DenseBlock(base.BlockAdapter):
@@ -27,6 +29,7 @@ class _DenseBlock(base.BlockAdapter):
         self.index = index
         self.name = f"layer{index}"
         self.prefix = f"layers.{index}"
+        self.kind = transformer.block_kind(self.cfg, index)
         self._p = adapter.layer(index)
         self._new = None
 
@@ -40,9 +43,16 @@ class _DenseBlock(base.BlockAdapter):
                                 "attn"))
         names = ["w_in", "w_out"] + (["w_gate"] if cm.is_gated(
             self.cfg.activation) else [])
-        tap = {"w_in": "ffn_in", "w_gate": "ffn_in", "w_out": "ffn_out_in"}
-        specs += [WeightSpec(f"ffn.{w}", ("ffn", w), tap[w], "mlp")
-                  for w in names]
+        if self.kind == "dense":
+            tap = {"w_in": "ffn_in", "w_gate": "ffn_in",
+                   "w_out": "ffn_out_in"}
+            specs += [WeightSpec(f"ffn.{w}", ("ffn", w), tap[w], "mlp")
+                      for w in names]
+        else:  # moe: expert stacks with routed-token Hessians
+            tap = {"w_in": "experts_in", "w_gate": "experts_in",
+                   "w_out": "experts_out"}
+            specs += [WeightSpec(f"ffn.{w}", ("ffn", w), tap[w], "mlp",
+                                 per_expert=True) for w in names]
         return tuple(specs)
 
     def capture(self, x, taps, groups):
@@ -58,9 +68,16 @@ class _DenseBlock(base.BlockAdapter):
         xa = x + a
         x2 = cm.rmsnorm(xa, lp["norm2"], cfg.norm_eps)
         if "mlp" in groups:
-            taps = base.acc_tap(taps, "ffn_in", x2)
-            taps = base.acc_tap(taps, "ffn_out_in",
-                                mlp.pre_out(lp["ffn"], cfg, x2))
+            if self.kind == "dense":
+                taps = base.acc_tap(taps, "ffn_in", x2)
+                taps = base.acc_tap(taps, "ffn_out_in",
+                                    mlp.pre_out(lp["ffn"], cfg, x2))
+            else:
+                eh_in, eh_out = moe.expert_hessians(
+                    lp["ffn"], cfg, x2,
+                    diag_only=base.diag_capture_active())
+                taps = base.acc_expert_tap(taps, "experts_in", eh_in)
+                taps = base.acc_expert_tap(taps, "experts_out", eh_out)
         return taps
 
     def install(self, new_params):
@@ -69,12 +86,13 @@ class _DenseBlock(base.BlockAdapter):
 
     def advance(self, x):
         dense_lp = vql_mod.dequant_tree(self._new, torch.float32)
-        return transformer._block_apply(dense_lp, self.cfg, x, pos=0)[0]
+        return transformer._block_apply(dense_lp, self.cfg, self.kind, x,
+                                        pos=0)[0]
 
 
 class TransformerAdapter(base.ModelAdapter):
-    """Family "dense": a list of block dicts under params["layers"] with
-    transformer.embed_tokens in front."""
+    """Families "dense" and "moe": a list of block dicts under
+    params["layers"] with transformer.embed_tokens in front."""
 
     def __init__(self, model, params):
         super().__init__(model, params)

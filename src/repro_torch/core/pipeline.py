@@ -25,6 +25,12 @@ precision: a pre-pass over the unquantized model collects per-target
 diagonal Hessians (never a (c, c) one), and a greedy allocator picks each
 target's setting so the model-wide weighted bpv stays on budget.
 
+Expert stacks (``WeightSpec.per_expert``: an (E, in, out) leaf of a MoE
+block) quantize expert by expert, each with its own routed-token Hessian
+(``_quantize_expert_stack``), and pack into one stacked ``VQLinear``;
+the budget pre-pass scores a stack by its experts' mean diagonal Hessian
+and the allocator gives all E matrices one setting.
+
 Not ported yet: mesh-sharded Hessian capture (ROADMAP.md queue 1,
 "Multi-device and training"); ``hessian_mesh=`` raises.
 """
@@ -149,6 +155,37 @@ def _recon_error(W_io, q_io, H) -> float:
     return float(layer_error(W, q_io.T.to(torch.float32), H))
 
 
+def _stack_packed(packs: list) -> vql_mod.VQLinear:
+    """Per-expert VQLinear leaves -> one with a leading E on every array
+    (the static fields are every expert's: one layout)."""
+    arrays = ("words", "codebooks", "cb_scale", "scale_sint", "scale_a",
+              "scale_z")
+    return dataclasses.replace(packs[0], **{
+        f: torch.stack([getattr(p, f) for p in packs]) for f in arrays})
+
+
+def _quantize_expert_stack(Ws, tap, action, generator, pack, rule: str,
+                           stage=_null_stage):
+    """Quantize an (E, in, out) expert stack, one routed-token Hessian per
+    expert, the experts in order from one generator (the reference splits
+    its key an expert). Returns (new leaf, summed reconstruction error)."""
+    Hs, n = tap if tap is not None else (None, None)
+    # n: raw routed-token counts summed over chunks; clamp exactly once here
+    qs, packs = [], []
+    err = 0.0
+    for e in range(Ws.shape[0]):
+        He = Hs[e] / torch.clamp(n[e], min=1.0) if Hs is not None else None
+        q, packed = _apply_action(Ws[e], He, action, generator, stage)
+        qs.append(q)
+        if packed is not None:
+            packed = dataclasses.replace(packed, rule=rule)
+        packs.append(packed)
+        err += _recon_error(Ws[e], q, He)
+    if pack and packs[0] is not None:
+        return _stack_packed(packs), err
+    return torch.stack(qs), err
+
+
 def _collect_targets(blocks) -> list[TargetInfo]:
     """Flatten every block's WeightSpecs into resolver TargetInfo rows."""
     out = []
@@ -175,11 +212,12 @@ def _check_plan(blocks, plan) -> None:
             if isinstance(res.action, KeepDense):
                 continue
             W = adapters.tree_get(block_params, spec.path)
-            if W.dim() != 2:
+            if W.dim() != (3 if spec.per_expert else 2):
                 raise RecipeError(
                     f"target {blk.prefix}.{spec.name!r} has shape "
-                    f"{tuple(W.shape)}; only 2-D kernels can quantize — use "
-                    f"keep_dense (matched {res.rule})")
+                    f"{tuple(W.shape)}; only 2-D kernels (or 3-D expert "
+                    f"stacks) can quantize — use keep_dense (matched "
+                    f"{res.rule})")
 
 
 def _budget_prepass(adapter, chunks, plan, progress, mesh=None,
@@ -187,7 +225,8 @@ def _budget_prepass(adapter, chunks, plan, progress, mesh=None,
     """Collect per-target diagonal Hessians from the *unquantized* model.
 
     One forward sweep under ``adapters.diag_capture()``: every tap
-    accumulates an O(c) ``DiagHessianState``; the (c, c) Hessian is never
+    accumulates an O(c) ``DiagHessianState`` (a per-expert tap an (E, c)
+    stack, scored by its experts' mean); the (c, c) Hessian is never
     materialized. Installs the original params and advances, on a fresh
     blocks() list so the real sweep starts clean. Returns (diag, missed):
     ``missed`` maps target names whose Hessian could not be collected to a
@@ -216,7 +255,12 @@ def _budget_prepass(adapter, chunks, plan, progress, mesh=None,
                 if tap is None:
                     missed[name] = f"tap {spec.tap!r} never fired"
                     continue
-                diag[name] = hes.finalize_diag(tap)
+                if spec.per_expert:
+                    Hd, n = tap  # (E, c) diagonal stack
+                    diag[name] = (Hd / torch.clamp(n, min=1.0)[:, None]
+                                  ).mean(0)
+                else:
+                    diag[name] = hes.finalize_diag(tap)
             blk.install(blk.params())
             states = [blk.advance(st) for st in states]
             if progress:
@@ -239,7 +283,11 @@ def _allocate(blocks, plan, diag, missed, budget_bpv, progress,
             name = f"{blk.prefix}.{spec.name}"
             res = plan[name]
             W = adapters.tree_get(block_params, spec.path)
-            Wq, numel = W.T.to(torch.float32), W.numel()
+            # an expert stack: its E matrices share one choice, scored on
+            # the first
+            replicas = W.shape[0] if spec.per_expert else 1
+            Wq = (W[0] if spec.per_expert else W).T.to(torch.float32)
+            numel = W.numel()
             if isinstance(res.action, Quantize):
                 diag_h = diag.get(name)
                 if diag_h is None:
@@ -252,7 +300,8 @@ def _allocate(blocks, plan, diag, missed, budget_bpv, progress,
                                         device=Wq.device)
                 entries.append(BudgetEntry(
                     name=name, W=Wq, diag_h=diag_h,
-                    base_cfg=res.action.cfg, numel=numel))
+                    base_cfg=res.action.cfg, numel=numel,
+                    replicas=replicas))
             else:
                 r, c = Wq.shape[-2], Wq.shape[-1]
                 fixed_bits += numel * res.action.bpv(r, c)
@@ -423,12 +472,16 @@ def quantize_model(
                     f"block {blk.name!r}: Hessian tap {spec.tap!r} for "
                     f"target {spec.name!r} was never captured")
             t_tgt = time.perf_counter()
-            H = hes.finalize(tap) if tap is not None else None
-            q, packed = _apply_action(W, H, res.action, gen, blk_stage)
-            if packed is not None:
-                packed = dataclasses.replace(packed, rule=res.rule)
-            leaf = packed if (pack and packed is not None) else q
-            err = _recon_error(W, q, H)
+            if spec.per_expert:
+                leaf, err = _quantize_expert_stack(
+                    W, tap, res.action, gen, pack, res.rule, blk_stage)
+            else:
+                H = hes.finalize(tap) if tap is not None else None
+                q, packed = _apply_action(W, H, res.action, gen, blk_stage)
+                if packed is not None:
+                    packed = dataclasses.replace(packed, rule=res.rule)
+                leaf = packed if (pack and packed is not None) else q
+                err = _recon_error(W, q, H)
             if telemetry is not None:
                 telemetry.events.emit(
                     "quant_target", name=name, action=entry["action"],

@@ -27,6 +27,15 @@ Two execution forms:
     kernel's plain version runs instead, and ``dequantize`` shares its
     decode (``kernels/vq_dequant_matmul.reconstruct``).
 
+A mixture-of-experts layer stacks its experts' leaves: every array of a
+``VQLinear`` / ``FusedVQLinear`` carries a leading E (the reference's
+``jax.tree.map(jnp.stack)``), the static fields are one expert's.
+``dequantize`` and ``dequant_tree`` map over the stack (the gather form);
+``prepare_fused`` makes one grouped ``vq_dequant_matmul`` input for it,
+which ``expert_fused_matmul`` (``models/common.expert_matmul``) runs in
+one launch. ``fused_matmul`` refuses a stacked leaf, as the reference
+does.
+
 ``COUNTS`` is the "vq" dispatch counter (registered with ``obs.dispatch``):
 "gather" counts leaves densified by ``dequant_tree``, "fused" counts
 ``fused_matmul`` calls. ``retag`` picks the form for a whole tree.
@@ -120,10 +129,11 @@ def unpack_indices(vql: VQLinear) -> torch.Tensor:
 
 def _scale_plane(scale_a, scale_sint, scale_z, r: int, c: int,
                  scale_block: int) -> torch.Tensor:
-    """exp2(a*sint + z) as an (r, c / scale_block) f32 plane."""
-    s = torch.exp2(scale_a[:, None, None] * scale_sint.to(torch.float32)
-                   + scale_z[:, None, None])  # (n_cg, r, cg/Ns)
-    return s.transpose(0, 1).reshape(r, c // scale_block)
+    """exp2(a*sint + z) as an (r, c / scale_block) f32 plane (an expert
+    stack's: (E, r, c / scale_block))."""
+    s = torch.exp2(scale_a[..., None, None] * scale_sint.to(torch.float32)
+                   + scale_z[..., None, None])  # (..., n_cg, r, cg/Ns)
+    return s.transpose(-3, -2).reshape(*s.shape[:-3], r, c // scale_block)
 
 
 def _folded(vql: VQLinear) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -137,13 +147,25 @@ def _folded(vql: VQLinear) -> tuple[torch.Tensor, torch.Tensor | None]:
     return codebooks_f, scales
 
 
+def _stacked(leaf) -> bool:
+    """True for an expert stack (a leading E on every array)."""
+    return leaf.words.dim() > 2
+
+
 def dequantize(vql: VQLinear, dtype=torch.bfloat16) -> torch.Tensor:
-    """Reconstruct W (r, c) — the gather form."""
+    """Reconstruct W (r, c) — the gather form; an expert stack gives
+    (E, r, c), expert by expert."""
     codebooks_f, scales = _folded(vql)
-    return vqdm.reconstruct(
-        vql.words, codebooks_f, scales, d=vql.d, code_bits=vql.code_bits,
-        rows_per_band=vql.rows_per_band, group_cols=vql.group_cols,
-        scale_block=vql.scale_block).to(dtype)
+    kw = dict(d=vql.d, code_bits=vql.code_bits,
+              rows_per_band=vql.rows_per_band, group_cols=vql.group_cols,
+              scale_block=vql.scale_block)
+    if not _stacked(vql):
+        return vqdm.reconstruct(vql.words, codebooks_f, scales,
+                                **kw).to(dtype)
+    return torch.stack([
+        vqdm.reconstruct(vql.words[e], codebooks_f[e],
+                         None if scales is None else scales[e], **kw)
+        for e in range(vql.words.shape[0])]).to(dtype)
 
 
 def _map_leaves(tree, f):
@@ -155,13 +177,14 @@ def _map_leaves(tree, f):
 
 
 def dequant_tree(tree, dtype=torch.bfloat16):
-    """Replace VQLinear leaves with dense (in, out) weights; other leaves,
-    FusedVQLinear included (consumed at the matmul sites), pass through."""
+    """Replace VQLinear leaves with dense (in, out) weights (an expert
+    stack: (E, in, out)); other leaves, FusedVQLinear included (consumed at
+    the matmul sites), pass through."""
     def f(x):
         if not isinstance(x, VQLinear):
             return x
         COUNTS["gather"] += 1
-        return dequantize(x, dtype).T
+        return dequantize(x, dtype).transpose(-1, -2)
 
     return _map_leaves(tree, f)
 
@@ -255,11 +278,25 @@ def fused_matmul(x: torch.Tensor, fvl: FusedVQLinear) -> torch.Tensor:
     """y = x @ W_io (f32) where W_io is the (in, out) dense view of ``fvl``;
     x may carry leading dims. The ``vq_dequant_matmul`` kernel on CUDA,
     its inputs other than x checked once, when the leaf was made
-    (``fvl.prepared``)."""
+    (``fvl.prepared``). An expert stack goes through
+    ``models/common.expert_matmul`` instead."""
+    if _stacked(fvl):
+        raise ValueError("a stacked FusedVQLinear goes through "
+                         "models/common.expert_matmul")
     COUNTS["fused"] += 1
     lead, K = x.shape[:-1], x.shape[-1]
     y = fvl.prepared(x.reshape(-1, K).contiguous())
     return y.reshape(*lead, fvl.r)
+
+
+def expert_fused_matmul(x: torch.Tensor, fvl: FusedVQLinear) -> torch.Tensor:
+    """y (E, M, r) f32 = x (E, M, c) @ W_io[e] of a stacked ``fvl``: one
+    ``vq_dequant_matmul`` launch for the whole stack on CUDA (the plain
+    per-expert loop on the CPU)."""
+    if not _stacked(fvl):
+        raise ValueError("expert_fused_matmul takes a stacked FusedVQLinear")
+    COUNTS["fused"] += 1
+    return fvl.prepared(x.contiguous())
 
 
 def quantize_array(W: torch.Tensor, H: torch.Tensor | None, cfg: VQConfig,

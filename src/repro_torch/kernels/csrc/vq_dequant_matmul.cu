@@ -63,6 +63,16 @@
 // fp32 (M > 16, f32 x, or bf16 x with another d): PR 11's kernel, FP32
 //   CUDA-core FMAs on 64 x 64 tiles, decode through a shared-memory
 //   codebook slice. Bound: 2MNK at the FP32 peak (67 TFLOP/s).
+//
+// Expert stacks (a mixture-of-experts layer: E matrices of one layout, x
+// (E, M, K), y (E, M, N)) run in one launch: every variant's grid has a
+// third axis, blockIdx.z = expert, and a CTA first moves each operand's
+// pointer by the expert's stride (at_expert); the CTA body is the 2-D
+// one, so expert e's rows of y are bitwise a 2-D launch's on its slice.
+// The TPU kernel is mapped over the stack one pallas_call an expert;
+// here the 3 x 128 launches a Qwen3-MoE layer would take become 3. The
+// split-K partial sums are (n_splits, E, M, N), so the reduce pass sums
+// all experts' splits in one launch, in split order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,7 +97,28 @@ struct Args {
   float* part;  // (n_splits, M, N) scratch of splitk
   int ldx, M, N, K, d, k_c, cbits, rpb, gc, sblk, n_bands;
   int gps, n_splits, seg_cols;  // splitk plan
+  // expert stacks: each operand's stride from one expert to the next (x
+  // in bytes, the others in elements; y's is M * N) and the stride from
+  // one split's partial sums to the next (experts * M * N)
+  long long es_x, es_words, es_cb, es_cb_scale, es_scales, part_split;
 };
+
+// The operands of expert blockIdx.z (absent ones stay null).
+__device__ __forceinline__ Args at_expert(const Args& a0) {
+  const long long e = blockIdx.z;
+  Args a = a0;
+  a.x = static_cast<const char*>(a0.x) + e * a0.es_x;
+  a.words = a0.words + e * a0.es_words;
+  a.cb_f = a0.cb_f + e * a0.es_cb;
+  a.cb_i8 = a0.cb_i8 != nullptr ? a0.cb_i8 + e * a0.es_cb : nullptr;
+  a.cb_scale =
+      a0.cb_scale != nullptr ? a0.cb_scale + e * a0.es_cb_scale : nullptr;
+  a.scales = a0.scales != nullptr ? a0.scales + e * a0.es_scales : nullptr;
+  a.y = a0.y + e * (long long)a0.M * a0.N;
+  a.part = a0.part != nullptr ? a0.part + e * (long long)a0.M * a0.N
+                              : nullptr;
+  return a;
+}
 
 // ---------------------------------------------------------------------------
 // fp32: PR 11's kernel (M > 16 where the tensor-core tiles do not apply)
@@ -95,13 +126,16 @@ struct Args {
 
 template <typename XT, int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
-    vqdm_fp32_kernel(const XT* __restrict__ x,
-                     const uint32_t* __restrict__ words,
-                     const float* __restrict__ cb,
-                     const float* __restrict__ scales,
-                     float* __restrict__ y, int M, int N, int K, int d,
-                     int k_c, int cbits, int rows_per_band, int group_cols,
-                     int scale_block, int n_bands) {
+    vqdm_fp32_kernel(const Args a0) {
+  const Args a = at_expert(a0);
+  const XT* __restrict__ x = static_cast<const XT*>(a.x);
+  const uint32_t* __restrict__ words = a.words;
+  const float* __restrict__ cb = a.cb_f;
+  const float* __restrict__ scales = a.scales;
+  float* __restrict__ y = a.y;
+  const int M = a.M, N = a.N, K = a.K, d = a.d, k_c = a.k_c;
+  const int cbits = a.cbits, rows_per_band = a.rpb, group_cols = a.gc;
+  const int scale_block = a.sblk, n_bands = a.n_bands;
   constexpr int NT = (BM / TM) * (BN / TN);
   __shared__ float xs[BK][BM + 1];
   __shared__ float ws[BK][BN + 1];
@@ -190,7 +224,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 }
 
 template <typename XT>
-int launch_fp32(const Args& a, cudaStream_t stream) {
+int launch_fp32(const Args& a, int n_experts, cudaStream_t stream) {
   constexpr int BM = 64, BN = 64, BK = 32, TM = 4, TN = 4;
   auto kern = vqdm_fp32_kernel<XT, BM, BN, BK, TM, TN>;
   // codebook slice of the most bands an N tile can touch
@@ -200,10 +234,8 @@ int launch_fp32(const Args& a, cudaStream_t stream) {
   static int granted[64];
   cudaError_t e = mma::allow_smem(kern, smem, granted);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM);
-  kern<<<grid, (BM / TM) * (BN / TN), smem, stream>>>(
-      static_cast<const XT*>(a.x), a.words, a.cb_f, a.scales, a.y, a.M,
-      a.N, a.K, a.d, a.k_c, a.cbits, a.rpb, a.gc, a.sblk, a.n_bands);
+  dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, n_experts);
+  kern<<<grid, (BM / TM) * (BN / TN), smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -296,9 +328,8 @@ __device__ __forceinline__ void splitk_smem(const Args& a, float*& xs,
 template <int MT>
 __device__ __forceinline__ void splitk_store(const Args& a, const float* ys,
                                              int n0, int rows) {
-  float* dst = a.n_splits == 1
-                   ? a.y
-                   : a.part + (long long)blockIdx.y * a.M * a.N;
+  float* dst =
+      a.n_splits == 1 ? a.y : a.part + (long long)blockIdx.y * a.part_split;
   for (int i = threadIdx.x; i < a.M * rows; i += kSkThreads) {
     const int m = i / rows, rl = i - m * rows;
     dst[(long long)m * a.N + n0 + rl] = ys[rl * MT + m];
@@ -372,8 +403,9 @@ __device__ __forceinline__ void chunk_fma4(float (*acc)[MT], const float* xs,
 
 template <int MT, int D, int CB>
 __global__ void __launch_bounds__(kSkThreads, MT <= 4 ? 3 : 2)
-    vqdm_splitk_fast_kernel(const Args a, int x_is_bf16) {
+    vqdm_splitk_fast_kernel(const Args a0, int x_is_bf16) {
   static_assert(MT % 4 == 0, "x rows are read 4 at a time");
+  const Args a = at_expert(a0);
   float *xs, *ys, *cbs;
   splitk_smem<MT>(a, xs, ys, cbs);
   constexpr int kLanes = 32 / CB;    // codes a word
@@ -486,7 +518,8 @@ __device__ __forceinline__ void decode_fma(float* acc, const float* xs,
 // two of lanes (up to the warp) takes one row, strided over its words.
 template <int MT>
 __global__ void __launch_bounds__(kSkThreads, 2)
-    vqdm_splitk_kernel(const Args a, int x_is_bf16) {
+    vqdm_splitk_kernel(const Args a0, int x_is_bf16) {
+  const Args a = at_expert(a0);
   float *xs, *ys, *cbs;
   splitk_smem<MT>(a, xs, ys, cbs);
   const int d = a.d;
@@ -558,7 +591,8 @@ __global__ void __launch_bounds__(kSkThreads, 2)
   splitk_store<MT>(a, ys, n0, rows);
 }
 
-// y = sum over splits of part, in split order
+// y = sum over splits of part, in split order (every expert's: part is
+// (n_splits, experts, M, N), y (experts, M, N), mn = experts * M * N)
 __global__ void vqdm_splitk_reduce(const float* __restrict__ part,
                                    float* __restrict__ y, long long mn,
                                    int n_splits) {
@@ -572,7 +606,7 @@ __global__ void vqdm_splitk_reduce(const float* __restrict__ part,
 
 template <int MT, typename Kernel>
 int launch_splitk_kernel(Kernel kern, int* granted, const Args& a,
-                         int x_is_bf16, cudaStream_t stream) {
+                         int x_is_bf16, int n_experts, cudaStream_t stream) {
   int nb_max = (kSkBN + a.rpb - 2) / a.rpb + 1;
   if (nb_max > a.n_bands) nb_max = a.n_bands;
   const int seg_pad = (a.seg_cols - 1) + ((a.seg_cols - 1) >> 6) + 1;
@@ -582,11 +616,11 @@ int launch_splitk_kernel(Kernel kern, int* granted, const Args& a,
                        (size_t)ng_max * nb_max * a.k_c * a.d);
   cudaError_t e = mma::allow_smem(kern, smem, granted);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((a.N + kSkBN - 1) / kSkBN, a.n_splits);
+  dim3 grid((a.N + kSkBN - 1) / kSkBN, a.n_splits, n_experts);
   kern<<<grid, kSkThreads, smem, stream>>>(a, x_is_bf16);
   e = cudaGetLastError();
   if (e != cudaSuccess || a.n_splits == 1) return (int)e;
-  const long long mn = (long long)a.M * a.N;
+  const long long mn = a.part_split;
   const int blocks = (int)((mn + 255) / 256 < 4096 ? (mn + 255) / 256 : 4096);
   vqdm_splitk_reduce<<<blocks, 256, 0, stream>>>(a.part, a.y, mn,
                                                  a.n_splits);
@@ -595,41 +629,42 @@ int launch_splitk_kernel(Kernel kern, int* granted, const Args& a,
 
 // MT only sets how many staged rows of x (zeros past M) a thread FMAs
 template <int D, int CB>
-int launch_splitk_fast(const Args& a, int x_is_bf16, cudaStream_t stream) {
+int launch_splitk_fast(const Args& a, int x_is_bf16, int n_experts,
+                       cudaStream_t stream) {
   static int g4[64], g8[64], g16[64];
   if (a.M <= 4)
     return launch_splitk_kernel<4>(vqdm_splitk_fast_kernel<4, D, CB>, g4, a,
-                                   x_is_bf16, stream);
+                                   x_is_bf16, n_experts, stream);
   if (a.M <= 8)
     return launch_splitk_kernel<8>(vqdm_splitk_fast_kernel<8, D, CB>, g8, a,
-                                   x_is_bf16, stream);
+                                   x_is_bf16, n_experts, stream);
   return launch_splitk_kernel<16>(vqdm_splitk_fast_kernel<16, D, CB>, g16, a,
-                                  x_is_bf16, stream);
+                                  x_is_bf16, n_experts, stream);
 }
 
 // vec == 4 only for the (d, container bits) pairs of the paper's presets
 // (the wrapper's _SPLITK_FAST); anything else runs the generic kernel
-int launch_splitk(const Args& a, int x_is_bf16, int vec,
-                  cudaStream_t stream) {
+int launch_splitk(const Args& a, int x_is_bf16, int vec, int n_experts,
+                  cudaStream_t s) {
   if (vec == 4) {
     switch (a.d * 100 + a.cbits) {
-      case 102: return launch_splitk_fast<1, 2>(a, x_is_bf16, stream);
-      case 104: return launch_splitk_fast<1, 4>(a, x_is_bf16, stream);
-      case 204: return launch_splitk_fast<2, 4>(a, x_is_bf16, stream);
-      case 208: return launch_splitk_fast<2, 8>(a, x_is_bf16, stream);
-      case 408: return launch_splitk_fast<4, 8>(a, x_is_bf16, stream);
+      case 102: return launch_splitk_fast<1, 2>(a, x_is_bf16, n_experts, s);
+      case 104: return launch_splitk_fast<1, 4>(a, x_is_bf16, n_experts, s);
+      case 204: return launch_splitk_fast<2, 4>(a, x_is_bf16, n_experts, s);
+      case 208: return launch_splitk_fast<2, 8>(a, x_is_bf16, n_experts, s);
+      case 408: return launch_splitk_fast<4, 8>(a, x_is_bf16, n_experts, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   static int g4[64], g8[64], g16[64];
   if (a.M <= 4)
     return launch_splitk_kernel<4>(vqdm_splitk_kernel<4>, g4, a, x_is_bf16,
-                                   stream);
+                                   n_experts, s);
   if (a.M <= 8)
     return launch_splitk_kernel<8>(vqdm_splitk_kernel<8>, g8, a, x_is_bf16,
-                                   stream);
+                                   n_experts, s);
   return launch_splitk_kernel<16>(vqdm_splitk_kernel<16>, g16, a, x_is_bf16,
-                                  stream);
+                                  n_experts, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -665,7 +700,8 @@ struct TcSmem {
 
 template <bool I8, int D>
 __global__ void __launch_bounds__(kTcThreads, 2)
-    vqdm_tc_kernel(const Args a) {
+    vqdm_tc_kernel(const Args a0) {
+  const Args a = at_expert(a0);
   using S = TcSmem<I8>;
   constexpr int BN = kTcBN, kThreads = kTcThreads;
   extern __shared__ float4 tc_smem4[];
@@ -935,7 +971,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 }
 
 template <bool I8, int D>
-int launch_tc_d(const Args& a, cudaStream_t stream) {
+int launch_tc_d(const Args& a, int n_experts, cudaStream_t stream) {
   auto kern = vqdm_tc_kernel<I8, D>;
   int nb_max = (kTcBN + a.rpb - 2) / a.rpb + 1;
   if (nb_max > a.n_bands) nb_max = a.n_bands;
@@ -943,7 +979,8 @@ int launch_tc_d(const Args& a, cudaStream_t stream) {
   static int granted[64];
   cudaError_t e = mma::allow_smem(kern, smem, granted);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((a.N + kTcBN - 1) / kTcBN, (a.M + kTcBM - 1) / kTcBM);
+  dim3 grid((a.N + kTcBN - 1) / kTcBN, (a.M + kTcBM - 1) / kTcBM,
+            n_experts);
   kern<<<grid, kTcThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -951,11 +988,11 @@ int launch_tc_d(const Args& a, cudaStream_t stream) {
 // one 64-row N tile for both forms: a 128-row tile ran slower at every M
 // measured on the H100
 template <bool I8>
-int launch_tc(const Args& a, cudaStream_t stream) {
+int launch_tc(const Args& a, int n_experts, cudaStream_t stream) {
   switch (a.d) {
-    case 1: return launch_tc_d<I8, 1>(a, stream);
-    case 2: return launch_tc_d<I8, 2>(a, stream);
-    case 4: return launch_tc_d<I8, 4>(a, stream);
+    case 1: return launch_tc_d<I8, 1>(a, n_experts, stream);
+    case 2: return launch_tc_d<I8, 2>(a, n_experts, stream);
+    case 4: return launch_tc_d<I8, 4>(a, n_experts, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -963,22 +1000,27 @@ int launch_tc(const Args& a, cudaStream_t stream) {
 }  // namespace
 
 // The launch's arguments, in this order, as one int64 array (pointers and
-// the stream as addresses, 0 for null): one ctypes argument instead of 26
+// the stream as addresses, 0 for null): one ctypes argument instead of 32
 // keeps the host's cost of a call low (the decode ticks issue many).
 //   x, x_is_bf16 (0: f32, 1: bf16), ldx (x's row stride, elements), words,
 //   cb_f, cb_i8 / cb_scale (the int8 codebooks and their scales, or 0;
 //   variant 2 needs them), scales (0 when scale_block == 0), y, part (the
-//   (n_splits, M, N) f32 scratch of variant 1 when n_splits > 1), M, N, K,
-//   d, k_c, cbits, rows_per_band, group_cols, scale_block, n_bands,
-//   variant (0 fp32, 1 splitk, 2 tc_int8, 3 tc_split3: the wrapper's
-//   names), gps / n_splits / seg_cols / vec (variant 1's plan: column
-//   groups a split, splits, columns a staged segment, words a load), stream
+//   (n_splits, experts, M, N) f32 scratch of variant 1 when n_splits > 1),
+//   M, N, K, d, k_c, cbits, rows_per_band, group_cols, scale_block,
+//   n_bands, variant (0 fp32, 1 splitk, 2 tc_int8, 3 tc_split3: the
+//   wrapper's names), gps / n_splits / seg_cols / vec (variant 1's plan:
+//   column groups a split, splits, columns a staged segment, words a
+//   load), experts (1 for one matrix) and the per-expert strides of x (in
+//   bytes), words, the codebooks (f32 and int8 alike), cb_scale and
+//   scales (in elements), stream. M, N, K and the layout are one
+//   expert's; every operand holds `experts` of them back to back.
 // Returns cudaGetLastError() after the launch (or the error that refused
 // it).
 enum LaunchArg {
   kX, kXIsBf16, kLdx, kWords, kCbF, kCbI8, kCbScale, kScales, kY, kPart,
   kM, kN, kK, kD, kKc, kCbits, kRpb, kGc, kSblk, kNBands,
-  kVariant, kGps, kNSplits, kSegCols, kVec, kStream
+  kVariant, kGps, kNSplits, kSegCols, kVec,
+  kExperts, kEsX, kEsWords, kEsCb, kEsCbScale, kEsScales, kStream
 };
 
 extern "C" int vq_dequant_matmul_launch(const long long* p) {
@@ -986,8 +1028,11 @@ extern "C" int vq_dequant_matmul_launch(const long long* p) {
   const int M = (int)p[kM], N = (int)p[kN], K = (int)p[kK], d = (int)p[kD];
   const int cbits = (int)p[kCbits], ldx = (int)p[kLdx];
   const int x_is_bf16 = (int)p[kXIsBf16], vec = (int)p[kVec];
-  if (d < 1 || 32 % d != 0 || cbits < 1 || cbits > 16 || M < 1 || N < 1)
+  const long long experts = p[kExperts];
+  if (d < 1 || 32 % d != 0 || cbits < 1 || cbits > 16 || M < 1 || N < 1 ||
+      experts < 1 || experts > 65535)
     return (int)cudaErrorInvalidValue;
+  const int E = (int)experts;
   Args a{ptr(kX),
          static_cast<const uint32_t*>(ptr(kWords)),
          static_cast<const float*>(ptr(kCbF)),
@@ -998,27 +1043,28 @@ extern "C" int vq_dequant_matmul_launch(const long long* p) {
          reinterpret_cast<float*>(p[kPart]),
          ldx, M, N, K, d, (int)p[kKc], cbits, (int)p[kRpb], (int)p[kGc],
          (int)p[kSblk], (int)p[kNBands], (int)p[kGps], (int)p[kNSplits],
-         (int)p[kSegCols]};
+         (int)p[kSegCols], p[kEsX], p[kEsWords], p[kEsCb], p[kEsCbScale],
+         p[kEsScales], experts * M * N};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(p[kStream]);
   switch ((int)p[kVariant]) {
     case 0:
       if (ldx != K) return (int)cudaErrorInvalidValue;
-      return x_is_bf16 ? launch_fp32<__nv_bfloat16>(a, s)
-                       : launch_fp32<float>(a, s);
+      return x_is_bf16 ? launch_fp32<__nv_bfloat16>(a, E, s)
+                       : launch_fp32<float>(a, E, s);
     case 1:
       if (M > 16 || a.gps < 1 || a.n_splits < 1 || a.seg_cols < d ||
           (vec != 1 && vec != 4) || (a.n_splits > 1 && a.part == nullptr))
         return (int)cudaErrorInvalidValue;
-      return launch_splitk(a, x_is_bf16, vec, s);
+      return launch_splitk(a, x_is_bf16, vec, E, s);
     case 2:
       if (!x_is_bf16 || a.cb_i8 == nullptr || a.cb_scale == nullptr ||
           a.gc % kTcBK != 0 || (a.k_c * d) % 4 != 0 ||
           (a.sblk > 0 && a.sblk % kTcBK != 0) || ldx % 8 != 0)
         return (int)cudaErrorInvalidValue;
-      return launch_tc<true>(a, s);
+      return launch_tc<true>(a, E, s);
     case 3:
       if (!x_is_bf16 || ldx % 8 != 0) return (int)cudaErrorInvalidValue;
-      return launch_tc<false>(a, s);
+      return launch_tc<false>(a, E, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

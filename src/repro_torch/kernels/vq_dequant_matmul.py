@@ -19,9 +19,20 @@ dtype and the layout (never by a failure):
                   three bf16 terms;
   * ``fp32``      M > 16, f32 x (or d outside {1, 2, 4}): FP32 CUDA cores.
 
-``vq_dequant_matmul.launches`` counts kernel launches,
-``launches_by_m`` the same launches by M and ``launches_by_impl`` by
-variant; CPU tensors touch none of them.
+An expert stack (a mixture-of-experts layer's E matrices of one layout:
+every array below with a leading E, x (E, M, K), y (E, M, N)) runs in one
+launch: the kernel's grid has a third axis over experts, and each expert's
+rows of y are bitwise what a 2-D launch on its slice gives (the variant and
+split plan are chosen from one expert's M, N, K and layout, as for a 2-D
+call). ``Prepared`` checks a stack's layout once; a stack the grouped
+launch cannot take raises ``ValueError`` (it is never split into 2-D
+launches). Its plain version is the per-expert loop of
+``vq_dequant_matmul_plain``.
+
+``vq_dequant_matmul.launches`` counts kernel launches (a stack's one),
+``launches_by_m`` the same launches by M (one expert's rows),
+``launches_by_impl`` by variant and ``launches_by_experts`` a stack's
+launches by its expert count; CPU tensors touch none of them.
 
 Layout (core/vq_linear.FusedVQLinear): x (M, K) f32 or bf16; words: the
 N * K/d codes packed row-major into int32 words holding uint32 bit
@@ -159,6 +170,19 @@ def vq_dequant_matmul_plain(x, words, codebooks, scales=None, *, d: int,
     return x.to(torch.float32) @ W.T
 
 
+def vq_dequant_matmul_experts_plain(x, words, codebooks, scales=None, *,
+                                    d: int, code_bits: int,
+                                    rows_per_band: int, group_cols: int,
+                                    scale_block: int = 0) -> torch.Tensor:
+    """Plain version of a stack: x (E, M, K), every other array with a
+    leading E; returns (E, M, N) f32, expert by expert."""
+    return torch.stack([vq_dequant_matmul_plain(
+        x[e], words[e], codebooks[e],
+        None if scales is None else scales[e], d=d, code_bits=code_bits,
+        rows_per_band=rows_per_band, group_cols=group_cols,
+        scale_block=scale_block) for e in range(x.shape[0])])
+
+
 def _layout_error(K, words_shape, cb_shape, scales_shape, i8_shapes, d, k_c,
                   code_bits, rows_per_band, group_cols,
                   scale_block) -> str | None:
@@ -189,11 +213,16 @@ def _layout_error(K, words_shape, cb_shape, scales_shape, i8_shapes, d, k_c,
     return None
 
 
+_MAX_EXPERTS = 65535  # the grid's third axis
+
+
 class Prepared:
     """The static inputs of ``vq_dequant_matmul`` (everything but x),
     checked once; calling it with x runs the matmul. A fused leaf keeps one
     (core/vq_linear.FusedVQLinear), so that a decode tick's calls check
-    only x."""
+    only x. Given codebooks (E, n_cg, n_bands, k_c, d) and every other
+    array with the same leading E, it is an expert stack: x (E, M, K) in,
+    (E, M, N) out, one launch."""
 
     def __init__(self, words, codebooks, scales=None, *, d: int, k_c: int,
                  code_bits: int, rows_per_band: int, group_cols: int,
@@ -205,12 +234,31 @@ class Prepared:
         dev = words.device
         if dev.type not in ("cpu", "cuda"):
             raise ValueError(f"vq_dequant_matmul: unsupported device {dev}")
-        K = codebooks.shape[0] * group_cols if codebooks.dim() == 4 else -1
+        stacked = codebooks.dim() == 5
+        E = codebooks.shape[0] if stacked else 0
+        arrays = (("words", words), ("codebooks", codebooks),
+                  ("scales", scales), ("codebooks_i8", codebooks_i8),
+                  ("cb_scale", cb_scale))
+        if stacked:
+            lead = {name: (t.dim(), t.shape[0]) for name, t in arrays
+                    if t is not None}
+            want = {"words": 3, "codebooks": 5, "scales": 3,
+                    "codebooks_i8": 5, "cb_scale": 3}
+            bad = [n for n, (nd, e) in lead.items()
+                   if nd != want[n] or e != E]
+            if bad or not 1 <= E <= _MAX_EXPERTS:
+                raise ValueError(
+                    f"vq_dequant_matmul: an expert stack needs 1..."
+                    f"{_MAX_EXPERTS} experts and the same leading E on "
+                    f"every array; got {E} experts, (ndim, E) {lead}")
+        one = (lambda t: t[0]) if stacked else (lambda t: t)
+        cb1 = one(codebooks)
+        K = cb1.shape[0] * group_cols if cb1.dim() == 4 else -1
         err = _layout_error(
-            K, tuple(words.shape), tuple(codebooks.shape),
-            tuple(scales.shape) if scale_block else None,
-            None if codebooks_i8 is None else (tuple(codebooks_i8.shape),
-                                               tuple(cb_scale.shape)),
+            K, tuple(one(words).shape), tuple(cb1.shape),
+            tuple(one(scales).shape) if scale_block else None,
+            None if codebooks_i8 is None else (tuple(one(codebooks_i8).shape),
+                                               tuple(one(cb_scale).shape)),
             d, k_c, code_bits, rows_per_band, group_cols, scale_block)
         if err is not None:
             raise ValueError(f"vq_dequant_matmul: {err}")
@@ -225,8 +273,8 @@ class Prepared:
                                  f"contiguous {dt} tensor on {dev}")
         self.words, self.codebooks, self.scales = words, codebooks, scales
         self.codebooks_i8, self.cb_scale = codebooks_i8, cb_scale
-        self.device, self.K = dev, K
-        self.n_bands = codebooks.shape[1]
+        self.device, self.K, self.n_experts = dev, K, E
+        self.n_bands = cb1.shape[1]
         self.N = self.n_bands * rows_per_band
         self.layout = (d, k_c, code_bits, rows_per_band, group_cols,
                        scale_block)
@@ -236,29 +284,44 @@ class Prepared:
                          else codebooks_i8.data_ptr(),
                          0 if cb_scale is None else cb_scale.data_ptr(),
                          scales.data_ptr() if scale_block else 0)
-            self.int8_ok = codebooks_i8 is not None and self.ptrs[2] % 4 == 0
-            self.words_aligned = self.ptrs[0] % 16 == 0
+            # an expert's words, codebooks, ... start where the previous
+            # expert's end (elements a stride; 0 for one matrix)
+            self.strides = tuple(
+                0 if t is None or not stacked else t[0].numel()
+                for t in (words, codebooks, cb_scale, scales))
+            es_words, es_cb = self.strides[:2]
+            # every expert's slice keeps the alignment of the first
+            self.int8_ok = (codebooks_i8 is not None and self.ptrs[2] % 4 == 0
+                            and es_cb % 4 == 0)
+            self.words_aligned = (self.ptrs[0] % 16 == 0
+                                  and (es_words * 4) % 16 == 0)
 
     def __call__(self, x) -> torch.Tensor:
         """y = x @ W.T, (M, N) f32, for x (M, K) f32 or bf16 on the same
-        device: the CUDA kernel, or on the CPU its plain version."""
+        device (a stack: x (E, M, K), y (E, M, N)): the CUDA kernel, or on
+        the CPU its plain version."""
         d, k_c, code_bits, rpb, gc, sb = self.layout
-        K, N, dev = self.K, self.N, self.device
-        if (x.dim() != 2 or x.shape[1] != K
+        K, N, dev, E = self.K, self.N, self.device, self.n_experts
+        want = (E, K) if E else (K,)
+        if (x.dim() != len(want) + 1 or tuple(x.shape[:-2]) != want[:-1]
+                or x.shape[-1] != K
                 or x.dtype not in (torch.float32, torch.bfloat16)
                 or x.device != dev or not x.is_contiguous()):
+            rows = f"({E}, M, {K})" if E else f"(M, {K})"
             raise ValueError(
-                f"vq_dequant_matmul: x must be a contiguous (M, {K}) f32 or "
+                f"vq_dequant_matmul: x must be a contiguous {rows} f32 or "
                 f"bf16 tensor on {dev}, not {tuple(x.shape)} {x.dtype} on "
                 f"{x.device}")
         if not x.is_cuda:
-            return vq_dequant_matmul_plain(
-                x, self.words, self.codebooks, self.scales, d=d,
-                code_bits=code_bits, rows_per_band=rpb, group_cols=gc,
-                scale_block=sb)
-        M = x.shape[0]
+            plain = (vq_dequant_matmul_experts_plain if E
+                     else vq_dequant_matmul_plain)
+            return plain(x, self.words, self.codebooks, self.scales, d=d,
+                         code_bits=code_bits, rows_per_band=rpb,
+                         group_cols=gc, scale_block=sb)
+        M, n_e = x.shape[-2], max(E, 1)
         if M == 0 or N == 0:
-            return torch.empty((M, N), dtype=torch.float32, device=dev)
+            return torch.empty((*want[:-1], M, N), dtype=torch.float32,
+                               device=dev)
         is_bf16 = x.dtype == torch.bfloat16
         impl, code, plan, cbits = _launch_config(
             M, is_bf16, N, K, d, k_c, code_bits, rpb, gc, sb, self.int8_ok,
@@ -267,33 +330,40 @@ class Prepared:
         if code >= 2 and (K % 8 or x.data_ptr() % 16):
             # tensor cores copy x's rows 16 bytes at a time: pad the stride
             ldx = -(-K // 8) * 8
-            xp = torch.zeros((M, ldx), dtype=x.dtype, device=dev)
-            xp[:, :K] = x
+            xp = torch.zeros((*want[:-1], M, ldx), dtype=x.dtype, device=dev)
+            xp[..., :K] = x
             x = xp
-        # y and, with more than one split, the (splits, M, N) partial sums
+        # y and, with more than one split, the (splits, E, M, N) partial
+        # sums
+        mn = n_e * M * N
         n_part = plan.n_splits if plan.n_splits > 1 else 0
-        buf = torch.empty(((1 + n_part) * M * N,), dtype=torch.float32,
+        buf = torch.empty(((1 + n_part) * mn,), dtype=torch.float32,
                           device=dev)
         words_p, cb_p, i8_p, scale_p, plane_p = self.ptrs
+        es_words, es_cb, es_cb_scale, es_scales = self.strides
         use_i8 = code != 0 and i8_p != 0
         ptr = buf.data_ptr()
         # every argument in one int64 array, in the C side's order
         args = array.array("q", (
             x.data_ptr(), is_bf16, ldx, words_p, cb_p,
             i8_p if use_i8 else 0, scale_p if use_i8 else 0, plane_p, ptr,
-            ptr + 4 * M * N if n_part else 0, M, N, K, d, k_c, cbits, rpb,
+            ptr + 4 * mn if n_part else 0, M, N, K, d, k_c, cbits, rpb,
             gc, sb, self.n_bands, code, plan.groups_per_split,
-            plan.n_splits, plan.seg_cols, plan.vec,
-            build.current_stream(dev)))
+            plan.n_splits, plan.seg_cols, plan.vec, n_e,
+            M * ldx * x.element_size() if E else 0, es_words, es_cb,
+            es_cb_scale, es_scales, build.current_stream(dev)))
         rc = build.load("vq_dequant_matmul").vq_dequant_matmul_launch(
             args.buffer_info()[0])
         if rc:
             build.check(rc, f"vq_dequant_matmul ({impl})")
         vq_dequant_matmul.launches += 1
-        for counts, key in ((vq_dequant_matmul.launches_by_m, M),
-                            (vq_dequant_matmul.launches_by_impl, impl)):
-            counts[key] = counts.get(key, 0) + 1
-        return buf[:M * N].view(M, N)
+        counts = [(vq_dequant_matmul.launches_by_m, M),
+                  (vq_dequant_matmul.launches_by_impl, impl)]
+        if E:
+            counts.append((vq_dequant_matmul.launches_by_experts, E))
+        for c, key in counts:
+            c[key] = c.get(key, 0) + 1
+        return buf[:mn].view(*want[:-1], M, N)
 
 
 def vq_dequant_matmul(x, words, codebooks, scales=None, *, d: int, k_c: int,
@@ -333,3 +403,4 @@ def _launch_config(M, is_bf16, N, K, d, k_c, code_bits, rows_per_band,
 vq_dequant_matmul.launches = 0
 vq_dequant_matmul.launches_by_m = {}  # M (rows of x) -> launches
 vq_dequant_matmul.launches_by_impl = {}  # variant (IMPLS) -> launches
+vq_dequant_matmul.launches_by_experts = {}  # a stack's E -> launches

@@ -1,1 +1,1 @@
-"""Model assemblies of the port (dense family in this slice)."""
+"""Model assemblies of the port (the dense and moe families)."""

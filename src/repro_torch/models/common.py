@@ -1,10 +1,15 @@
 """Shared neural-net primitives (port of ``repro/models/common.py``): dense
-init, the matmul dispatch on dense or fused-VQ weights, norms, RoPE and
-activations.
+init, the matmul dispatch on dense or fused-VQ weights (one matrix, or an
+expert stack), norms, RoPE and activations.
 
 Parameter convention: plain nested dicts of tensors; dense kernels are
 (in, out), as in the reference. Mixed-dtype matmuls promote like jnp
 (bf16 @ f32 -> f32).
+
+``MATMUL_DISPATCH`` is the reference's "matmul" dispatch source: one count
+a call, by the weight form each matmul site met (dense or fused VQ, one
+matrix or an expert stack), so a leaf densified where it should have
+stayed fused shows as a count moving.
 """
 from __future__ import annotations
 
@@ -13,7 +18,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.obs.dispatch import register_dispatch
+
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+MATMUL_DISPATCH = register_dispatch(
+    "matmul", ("dense", "fused_vq", "expert_dense", "expert_fused_vq"))
 
 
 # ---------------------------------------------------------------------------
@@ -43,9 +52,38 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
     from repro_torch.core import vq_linear as vql_mod
 
     if isinstance(w, vql_mod.FusedVQLinear):
+        MATMUL_DISPATCH["fused_vq"] += 1
         return vql_mod.fused_matmul(x, w).to(x.dtype)
+    MATMUL_DISPATCH["dense"] += 1
     dt = torch.promote_types(x.dtype, w.dtype)
     return x.to(dt) @ w.to(dt)
+
+
+def expert_matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """Per-expert matmul: einsum('...ecd,edf->...ecf') for a dense (E, d, f)
+    stack, or a stacked ``FusedVQLinear`` (leading E on every array)
+    through the ``vq_dequant_matmul`` kernel's expert axis: one launch for
+    the whole stack, the dense weights never materialized. x is (E, C, d)
+    or (B, E, C, d); the result has x's dtype.
+
+    The reference casts x to f32 before its fused expert matmul; here the
+    kernel takes x as it comes. Every such x in the model is a bf16
+    activation (or f32 in an f32 model), so the cast is exact and the
+    bf16 tensor-core variants apply: the same products, summed in another
+    order."""
+    from repro_torch.core import vq_linear as vql_mod
+
+    if not isinstance(w, vql_mod.FusedVQLinear):
+        MATMUL_DISPATCH["expert_dense"] += 1
+        eq = "ecd,edf->ecf" if x.dim() == 3 else "becd,edf->becf"
+        return torch.einsum(eq, x, w.to(x.dtype))
+    MATMUL_DISPATCH["expert_fused_vq"] += 1
+    if x.dim() == 3:  # (E, C, D)
+        return vql_mod.expert_fused_matmul(x, w).to(x.dtype)
+    B, E, C, D = x.shape
+    xt = x.transpose(0, 1).reshape(E, B * C, D)
+    y = vql_mod.expert_fused_matmul(xt, w)
+    return y.reshape(E, B, C, -1).transpose(0, 1).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,6 @@
-"""Unified model API (port of ``repro/models/model_zoo.py``), dense family.
+"""Unified model API (port of ``repro/models/model_zoo.py``): the dense and
+moe families (``transformer.PORTED``); the others raise, naming the
+families still pending.
 
 ``build(cfg)`` returns a ``Model`` whose ``init_params(seed, device)`` makes
 random weights from a seed (on ``cuda`` unless ``device="cpu"``), whose
@@ -28,10 +30,7 @@ class Model:
 
 
 def build(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md queue 1, "
-            "'The other five families')")
+    transformer._check_family(cfg)
 
     def init_params(seed: int = 0, device=None):
         dev = resolve_device(device)

@@ -1,13 +1,17 @@
-"""Decoder-only LM assembly, dense kind (port of ``repro/models/transformer.py``).
+"""Decoder-only LM assembly, dense and MoE kinds (port of
+``repro/models/transformer.py``).
 
 The reference stores homogeneous stacks with a leading layer axis and scans
 them; here ``params["layers"]`` is a list of per-layer dicts run by a Python
 loop, and a cache is a list with one ``KVCache`` or ``PagedKVCache`` per
 layer (not a slice of a stacked leaf). ``_block_apply`` densifies
 ``VQLinear`` leaves through ``vq_linear.dequant_tree`` (the gather form),
-while ``FusedVQLinear`` leaves reach ``common.matmul`` (the fused kernel).
-MoE and xLSTM blocks are not ported yet (ROADMAP.md queue 1, "The other
-five families").
+while ``FusedVQLinear`` leaves reach ``common.matmul`` /
+``common.expert_matmul`` (the fused kernel). A MoE block's FFN is
+``models/moe`` (expert stacks with a leading E); its load-balancing loss is
+summed over the layers into ``forward``'s aux. xLSTM blocks are not ported
+yet (ROADMAP.md queue 1, "The other five families"): of the families,
+``PORTED`` run here and ``PENDING`` raise.
 """
 from __future__ import annotations
 
@@ -16,22 +20,30 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, common as cm, mlp
+from repro_torch.models import attention, common as cm, mlp, moe
+
+PORTED = ("dense", "moe")
+PENDING = ("vlm", "ssm", "hybrid", "audio")
 
 
-def _block_init(gen, cfg: ModelConfig, dtype, device):
+def block_kind(cfg: ModelConfig, i: int) -> str:
+    return "moe" if cfg.family == "moe" else "dense"
+
+
+def _block_init(gen, cfg: ModelConfig, kind: str, dtype, device):
+    ffn = moe.init if kind == "moe" else mlp.init
     return {
         "norm1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
         "attn": attention.init(gen, cfg, dtype, device=device),
         "norm2": torch.ones((cfg.d_model,), dtype=dtype, device=device),
-        "ffn": mlp.init(gen, cfg, dtype, device=device),
+        "ffn": ffn(gen, cfg, dtype, device=device),
     }
 
 
-def _block_apply(p, cfg: ModelConfig, x, *, pos=0, cache=None,
+def _block_apply(p, cfg: ModelConfig, kind: str, x, *, pos=0, cache=None,
                  paged_impl="gather"):
     """One pre-norm residual block; VQLinear leaves are densified first.
-    Returns (x, new_cache)."""
+    Returns (x, new_cache, aux_loss)."""
     from repro_torch.core import vq_linear as vql_mod
 
     p = vql_mod.dequant_tree(p, cm.DTYPES[cfg.dtype])  # no-op if not VQ
@@ -40,14 +52,20 @@ def _block_apply(p, cfg: ModelConfig, x, *, pos=0, cache=None,
         cache=cache, paged_impl=paged_impl)
     x = x + h
     h2 = cm.rmsnorm(x, p["norm2"], cfg.norm_eps)
-    return x + mlp.apply(p["ffn"], cfg, h2), new_kv
+    if kind == "moe":
+        f, aux = moe.apply(p["ffn"], cfg, h2)
+    else:
+        f = mlp.apply(p["ffn"], cfg, h2)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + f, new_kv, aux
 
 
 def _check_family(cfg: ModelConfig):
-    if cfg.family != "dense":
+    if cfg.family not in PORTED:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md queue 1, "
-            "'The other five families')")
+            f"family {cfg.family!r} is not ported yet; pending: "
+            f"{', '.join(PENDING)} (ROADMAP.md queue 1, 'The other five "
+            "families')")
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator | None,
@@ -62,8 +80,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator | None,
     if not cfg.tie_embeddings:
         params["lm_head"] = cm.dense_init(gen, cfg.d_model, cfg.padded_vocab,
                                           dtype=dtype, device=device)
-    params["layers"] = [_block_init(gen, cfg, dtype, device)
-                        for _ in range(cfg.n_layers)]
+    params["layers"] = [_block_init(gen, cfg, block_kind(cfg, i), dtype,
+                                    device) for i in range(cfg.n_layers)]
     return params
 
 
@@ -93,8 +111,8 @@ def unembed(params, cfg: ModelConfig, x):
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, pos=0,
             cache=None, paged_impl: str = "gather",
             last_only: bool = False):
-    """Returns (logits, new_cache, aux_loss); logits are f32 and the dense
-    kind has no aux loss. ``pos`` is a scalar start position or, over paged
+    """Returns (logits, new_cache, aux_loss); logits are f32, aux_loss the
+    MoE layers' summed load-balancing loss (0 for dense). ``pos`` is a scalar start position or, over paged
     caches, a per-slot (B,) vector. ``paged_impl`` picks the paged decode
     read ("gather" | "fused", see attention._paged_apply). VQ leaves run in
     the form they arrive in (VQLinear: gather, FusedVQLinear: fused; see
@@ -106,14 +124,15 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, pos=0,
     params = {**params, **vql_mod.dequant_tree(top, cm.DTYPES[cfg.dtype])}
     x = embed_tokens(params, cfg, tokens)
     new_cache = None if cache is None else []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer_p in enumerate(params["layers"]):
-        x, new_c = _block_apply(layer_p, cfg, x, pos=pos,
-                                cache=None if cache is None else cache[i],
-                                paged_impl=paged_impl)
+        x, new_c, a = _block_apply(
+            layer_p, cfg, block_kind(cfg, i), x, pos=pos,
+            cache=None if cache is None else cache[i], paged_impl=paged_impl)
+        aux = aux + a
         if cache is not None:
             new_cache.append(new_c)
     if last_only:
         x = x[:, -1:]
     x = cm.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(params, cfg, x), new_cache, aux

@@ -19,7 +19,8 @@ from repro_torch.kernels.vq_assign import (
     span_metrics, vq_assign, vq_assign_plain, vq_em, vq_em_plain,
     vq_group_sweep, vq_group_sweep_plain)
 from repro_torch.kernels.vq_dequant_matmul import (
-    vq_dequant_matmul, vq_dequant_matmul_plain)
+    Prepared, vq_dequant_matmul, vq_dequant_matmul_experts_plain,
+    vq_dequant_matmul_plain)
 from repro_torch.models import model_zoo
 
 pytestmark = pytest.mark.cuda
@@ -185,6 +186,90 @@ def test_vq_dequant_matmul_rows_are_independent(dev, M, sub):
     other = x.clone()
     other[sub:] = torch.randn_like(other[sub:].float()).to(other.dtype)
     assert torch.equal(run(other)[:sub], y[:sub])
+
+
+def _stack(cases):
+    """The per-expert inputs of ``_vq_case`` stacked on a leading E (None
+    stays None); the layout keywords are the first case's."""
+    cols = list(zip(*[c[:-1] for c in cases]))
+    return [None if col[0] is None else torch.stack(col) for col in cols] + [
+        cases[0][-1]]
+
+
+@pytest.mark.parametrize("int8_form", [True, False])
+@pytest.mark.parametrize("E,M,N,K,d,bits,rg,cg,sb,xdt,impl", [
+    # split-K: the 16-byte path with splits, a Qwen3-MoE prefill chunk's
+    # expert slab (C = 8 rows), flat words (generic path), one split
+    (3, 4, 130, 1024, 2, 2, 2, 256, 0, torch.bfloat16, "splitk"),
+    (4, 8, 768, 2048, 2, 2, 4, 256, 0, torch.bfloat16, "splitk"),
+    (3, 3, 68, 36, 2, 2, 4, 12, 6, torch.float32, "splitk"),
+    (2, 1, 72, 256, 2, 2, 4, 256, 64, torch.float32, "splitk"),
+    # tensor cores: a decode tick's slab (max_batch 4 x C = 8 rows), a
+    # scale plane at d = 1, flat words
+    (3, 32, 192, 1024, 2, 2, 4, 256, 0, torch.bfloat16, "tc"),
+    (2, 130, 192, 768, 1, 2, 4, 128, 64, torch.bfloat16, "tc"),
+    (3, 20, 68, 36, 2, 2, 4, 12, 6, torch.bfloat16, "tc"),
+    # FP32 CUDA cores (f32 x)
+    (3, 40, 72, 384, 2, 2, 8, 128, 0, torch.float32, "fp32"),
+])
+def test_vq_dequant_matmul_expert_stack(dev, E, M, N, K, d, bits, rg, cg,
+                                        sb, xdt, impl, int8_form):
+    """An expert stack in one launch (the grid's expert axis): expert e's
+    rows are bitwise a 2-D launch's on its slice, the same bits twice, and
+    close to the plain per-expert loop; counted once, under its variant
+    and its expert count."""
+    x, words, cb, scales, cb_i8, cb_scale, kw = _stack([
+        _vq_case(dev, M, N, K, d, bits, rg, cg, sb, xdt, int8_form, seed=e)
+        for e in range(E)])
+    if impl == "tc":
+        impl = ("tc_int8" if int8_form and cg % 64 == 0 and sb % 64 == 0
+                else "tc_split3")
+    prep = Prepared(words, cb, scales, codebooks_i8=cb_i8,
+                    cb_scale=cb_scale, **kw)
+    n0 = vq_dequant_matmul.launches
+    by_impl = dict(vq_dequant_matmul.launches_by_impl)
+    by_e = dict(vq_dequant_matmul.launches_by_experts)
+    y = prep(x)
+    torch.cuda.synchronize()
+    assert vq_dequant_matmul.launches == n0 + 1
+    got = {k: v - by_impl.get(k, 0)
+           for k, v in vq_dequant_matmul.launches_by_impl.items()
+           if v != by_impl.get(k, 0)}
+    assert got == {impl: 1}
+    assert vq_dequant_matmul.launches_by_experts.get(E, 0) == (
+        by_e.get(E, 0) + 1)
+    assert y.shape == (E, M, N)
+    for e in range(E):
+        one = Prepared(words[e], cb[e], None if scales is None else scales[e],
+                       codebooks_i8=None if cb_i8 is None else cb_i8[e],
+                       cb_scale=None if cb_scale is None else cb_scale[e],
+                       **kw)
+        assert torch.equal(y[e], one(x[e])), e
+    assert torch.equal(prep(x), y)
+    kw.pop("k_c")
+    ref = vq_dequant_matmul_experts_plain(x, words, cb, scales, **kw)
+    # f32 sums in another order than cuBLAS, as the 2-D variants
+    torch.testing.assert_close(y, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_expert_stack_rejects_what_the_grouped_launch_does_not_take(dev):
+    """A stack the grouped launch cannot take raises before any launch: it
+    is never split into 2-D launches."""
+    x, words, cb, _, cb_i8, cb_scale, kw = _stack([
+        _vq_case(dev, 4, 64, 256, 2, 2, 4, 256, 0, torch.bfloat16, True,
+                 seed=e) for e in range(3)])
+    n0 = vq_dequant_matmul.launches
+    with pytest.raises(ValueError, match="same leading E"):
+        Prepared(words[:2], cb, codebooks_i8=cb_i8, cb_scale=cb_scale, **kw)
+    with pytest.raises(ValueError, match="same leading E"):
+        Prepared(words, cb, codebooks_i8=cb_i8[:, 0], cb_scale=cb_scale,
+                 **kw)
+    prep = Prepared(words, cb, codebooks_i8=cb_i8, cb_scale=cb_scale, **kw)
+    with pytest.raises(ValueError, match=r"\(3, M, 256\)"):
+        prep(x[:2].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        prep(x.transpose(0, 1).contiguous().transpose(0, 1))
+    assert vq_dequant_matmul.launches == n0
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
