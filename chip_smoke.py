@@ -151,6 +151,46 @@ Phases (each prints its seconds; any failure exits non-zero):
                 bitwise equal to 128 separate 2-D launches and the same
                 bits twice, beside torch.bmm on the dense bf16 stack; and
                 paged_attention at its serve shape (G = 8).
+ 10. vlm     — the vlm family at Phi-3-vision-4.2B's full width, depth cut
+                to 2 layers (random weights from seed 0, bf16; MHA, 32
+                heads of 96): quantize_model at 2.25bpv_2d calibrated on
+                text only (the long phase's 4 x 4096 tokens); heldout 2
+                sequences of 1,024 seeded patch embeddings + 3,072 text
+                tokens: fp and vq perplexity on the text positions, fused
+                vs gather logits (main's bars), a dense-cache prefill of
+                the patches + 2,048 tokens and one decode step against
+                the full forward's row (the serve bars); then main's serve
+                run, text only (the engine passes no patches, as the
+                reference's), each request alone, and 4 x 32 on vq2
+                pages. Held: vq_group_sweep and vq_em once a column group
+                (predict_groups), vq_assign never; flash_attention 10 tc
+                and 2 fp32 launches at hd 96; every matmul by variant as
+                planned; paged_attention every decode tick; kernel vs
+                gather decode; solo = interleaved tokens. Its kernels-
+                phase rows: paged_attention at its serve shape (B 4, 32
+                heads of 96, 16 pages) every format and query dtype, with
+                each slot bitwise alone and in the batch; flash_attention
+                at B 2, 4,096 tokens, 32 heads of 96 (tc and fp32);
+                vq_dequant_matmul at Phi-3's w_in (M 4 and 64).
+ 11. ssm     — the ssm family at xLSTM-125M's full width and depth (12
+                layers, sLSTM at 3 and 9, tied vocab 50,304; bf16):
+                calibration 16 x 256, heldout 8 x 256; the two recurrences
+                timed alone at a decode tick and a 64-token chunk;
+                quantize_model at 2.25bpv_2d with the keep-dense targets
+                (mLSTM w_i/w_f, sLSTM r_*) reported with their reasons
+                and left untouched; fused vs gather logits in bf16 (bars
+                set from the first readings: the random 12-layer model
+                amplifies a bf16 rounding, measured in the run as its f32
+                copy's sensitivity to rounding the dequantized W) and in
+                the f32 copy (main's bars); main's serve run (no
+                paged_attention: every prompt fed in exact power-of-two
+                chunks, the state slot-resident), each request alone, a
+                preemption replay and a prefix cache that stays off; the
+                served path teacher-forced, fused vs gather decode and vs
+                the cache-free forward, in bf16 (the ssm bars) and in the
+                f32 copy (the serve bars). Its kernels-phase rows:
+                vq_dequant_matmul at the mLSTM up projection's width (M 4
+                and 64), its rows bitwise independent.
 Then it prints the kernel JSON line, the card line and, last,
 {"ok": true, "device": {...}}. Per-shape results go to
 chiprun_out/chip_smoke.json. The profiler pass over the quantize path is
@@ -183,6 +223,11 @@ BF16_TC_FLOP_PER_S = 989e12
 # 4 rows; (N, K) per layer shape
 VQ_D, VQ_K, VQ_GROUP_COLS, VQ_ROWS_PER_BAND = 2, 16, 256, 4
 MATMUL_SHAPES = {"wq": (4096, 4096), "w1": (11008, 4096), "w2": (4096, 11008)}
+# the vlm and ssm phases' widths, held at a decode tick's and a prefill
+# chunk's rows: Phi-3-vision's w_in (d_model 3072 -> d_ff 8192) and
+# xLSTM-125M's mLSTM up projection (768 -> 1536), each at the layout
+# plan_groups gives it at 2.25bpv_2d
+FAMILY_MATMUL_SHAPES = {"phi3 w1": (8192, 3072), "xlstm up": (1536, 768)}
 # the budget phase: the budget it starts from (raised by the step until the
 # allocator picks two settings), the settings of its extra kernel rows (a
 # d = 1 and a k = 256 point) and block 0's matrices of its method table
@@ -582,13 +627,15 @@ def check_em(torch, dev, label: str, B: int, n: int, d: int = VQ_D,
 
 def matmul_inputs(torch, dev, layer: str, M: int, scale_block: int,
                   cb_form: str):
-    """Random codes, codebooks and x at a Llama-2-7B projection's layout.
+    """Random codes, codebooks and x at a projection's layout (Llama-2-7B's,
+    or plan_groups' for FAMILY_MATMUL_SHAPES).
     cb_form "int8": the path's form, int8 values times a per-(group, band)
     f32 scale as quantize_codebooks leaves them (the kernel also gets the
     int8 codebooks and the scales); "f32": arbitrary f32 codebooks."""
-    N, K = MATMUL_SHAPES[layer]
+    N, K = matmul_nk(layer)
     d, k = VQ_D, VQ_K
-    n_cg, n_bands = K // VQ_GROUP_COLS, N // VQ_ROWS_PER_BAND
+    gc, rpb = matmul_layout(layer)
+    n_cg, n_bands = K // gc, N // rpb
     g = torch.Generator(device=dev).manual_seed(N + K + M + scale_block)
     words = torch.randint(-2**31, 2**31 - 1, (N, K // d // 8),
                           generator=g, device=dev, dtype=torch.int32)
@@ -605,9 +652,25 @@ def matmul_inputs(torch, dev, layer: str, M: int, scale_block: int,
         scales = torch.rand((N, K // scale_block), generator=g,
                             device=dev) + 0.5
     x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
-    kw = dict(d=d, code_bits=4, rows_per_band=VQ_ROWS_PER_BAND,
-              group_cols=VQ_GROUP_COLS, scale_block=scale_block)
+    kw = dict(d=d, code_bits=4, rows_per_band=rpb, group_cols=gc,
+              scale_block=scale_block)
     return x, words, cb, scales, extra, kw
+
+
+def matmul_nk(layer: str) -> tuple[int, int]:
+    return {**MATMUL_SHAPES, **FAMILY_MATMUL_SHAPES}[layer]
+
+
+def matmul_layout(layer: str) -> tuple[int, int]:
+    """(group_cols, rows_per_band) of a projection at 2.25bpv_2d: the
+    Llama-2-7B layout for MATMUL_SHAPES, plan_groups' for the others."""
+    if layer in MATMUL_SHAPES:
+        return VQ_GROUP_COLS, VQ_ROWS_PER_BAND
+    from repro_torch.core.bpv import PAPER_SETTINGS
+    from repro_torch.core.gptvq import plan_groups
+
+    N, K = FAMILY_MATMUL_SHAPES[layer]
+    return plan_groups(N, K, PAPER_SETTINGS["2.25bpv_2d"])
 
 
 def check_matmul(torch, dev, layer: str, M: int, scale_block: int,
@@ -615,7 +678,7 @@ def check_matmul(torch, dev, layer: str, M: int, scale_block: int,
     from repro_torch.kernels.vq_dequant_matmul import (
         Prepared, reconstruct, vq_dequant_matmul, vq_dequant_matmul_plain)
 
-    N, K = MATMUL_SHAPES[layer]
+    N, K = matmul_nk(layer)
     x, words, cb, scales, extra, kw = matmul_inputs(torch, dev, layer, M,
                                                     scale_block, cb_form)
     # timed as the path calls it: a fused leaf checks its codes and
@@ -670,7 +733,7 @@ def check_matmul(torch, dev, layer: str, M: int, scale_block: int,
     return row
 
 
-def check_matmul_rows(torch, dev) -> dict:
+def check_matmul_rows(torch, dev, layer: str = "wq") -> dict:
     """Row m of y is the same bit for bit whatever the other rows of x
     hold (the engine's solo-vs-interleaved token identity rests on it),
     and two calls give the same bits. At M = 4 (split-K) y of x[:1] is
@@ -681,7 +744,7 @@ def check_matmul_rows(torch, dev) -> dict:
 
     out = {}
     for M, sub in ((4, 1), (64, 17)):
-        x, words, cb, _, extra, kw = matmul_inputs(torch, dev, "wq", M, 0,
+        x, words, cb, _, extra, kw = matmul_inputs(torch, dev, layer, M, 0,
                                                    "int8")
         run = lambda xx: vq_dequant_matmul(xx, words, cb, k_c=VQ_K, **kw,
                                            **extra)
@@ -694,11 +757,11 @@ def check_matmul_rows(torch, dev) -> dict:
         out[M] = {"rows_checked": sub, "two_calls_equal": same_run,
                   "rows_alone_equal": same_rows,
                   "other_rows_changed_equal": same_other}
-        log(f"[kernels] vq_dequant_matmul bitwise at M={M}: two calls "
+        log(f"[kernels] vq_dequant_matmul {layer} bitwise at M={M}: two calls "
             f"{same_run}, y(x[:{sub}]) == y(x)[:{sub}] {same_rows}, with "
             f"the other rows changed {same_other}")
         if not (same_run and same_rows and same_other):
-            raise Failed(f"vq_dequant_matmul rows at M={M} are not "
+            raise Failed(f"vq_dequant_matmul {layer} rows at M={M} are not "
                          "bitwise independent and deterministic")
     return out
 
@@ -800,6 +863,9 @@ PAGED_SHAPES = {
                      n_pages=256),
     # the moe phase's engine: Qwen3-MoE heads (32 over 4 kv heads, G = 8)
     "moe serve": dict(B=4, H=32, KV=4, hd=128, pos=[0, 57, 111, 135],
+                      n_pages=16),
+    # the vlm phase's engine: Phi-3-vision heads (MHA, 32 heads of 96)
+    "vlm serve": dict(B=4, H=32, KV=32, hd=96, pos=[0, 57, 111, 135],
                       n_pages=16),
 }
 PAGE_SIZE = 16
@@ -967,6 +1033,10 @@ FLASH_SHAPES = {
                      q_offset=1536),
     "non-causal": dict(B=2, Sq=512, Sk=2048, H=8, KV=8, hd=64,
                        causal=False, q_offset=0),
+    # the vlm phase's evaluation: Phi-3-vision heads (32 of 96), 1,024
+    # patches + 3,072 text tokens a sequence
+    "phi3 B=2": dict(B=2, Sq=4096, Sk=4096, H=32, KV=32, hd=96, causal=True,
+                     q_offset=0),
 }
 
 
@@ -1152,12 +1222,18 @@ def phase_kernels(torch, dev) -> list[dict]:
                                  0))
     for M in (SERVE_MAX_BATCH, 512):
         rows.append(check_matmul(torch, dev, "wq", M, 0, "f32"))
+    # the vlm and ssm phases' widths at a decode tick and a prefill chunk
+    for layer in FAMILY_MATMUL_SHAPES:
+        for M in (SERVE_MAX_BATCH, SERVE_PREFILL_CHUNK):
+            rows.append(check_matmul(torch, dev, layer, M, 0))
     # the moe phase's expert stacks, one launch a stack
     for weight in MOE_MATMUL_SHAPES:
         for M in MOE_SLAB_ROWS:
             rows.append(check_expert_matmul(torch, dev, weight, M))
-    invariance = {"vq_dequant_matmul": check_matmul_rows(torch, dev)}
-    for shape in ("long", "gqa long"):
+    invariance = {"vq_dequant_matmul": check_matmul_rows(torch, dev),
+                  "vq_dequant_matmul xlstm up": check_matmul_rows(
+                      torch, dev, "xlstm up")}
+    for shape in ("long", "gqa long", "vlm serve"):
         invariance[f"paged_attention {shape}"] = check_paged_slots(
             torch, dev, shape)
     rows += paged_rows(torch, dev)
@@ -1167,6 +1243,15 @@ def phase_kernels(torch, dev) -> list[dict]:
     log(f"[kernels] {len(rows)} checks passed in "
         f"{time.perf_counter() - t0:.1f}s")
     return rows, invariance
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nest of dicts and lists, in order."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
+    return [tree]
 
 
 def _to(tree, dev):
@@ -1378,10 +1463,8 @@ def predict_matmul_impls(fused, M: int, x_dtype, m_experts=None) -> dict:
 
     want: dict = {}
     for lp in fused["layers"]:
-        for sub in (lp["attn"], lp["ffn"]):
-            for leaf in sub.values():
-                if not isinstance(leaf, FusedVQLinear):
-                    continue
+        for leaf in tree_leaves(lp):
+            if isinstance(leaf, FusedVQLinear):
                 p = leaf.prepared
                 d, k_c, _, rpb, gc, sb = p.layout
                 rows = m_experts if p.n_experts else M
@@ -1667,17 +1750,23 @@ def serve_prompts(vocab: int, n: int, lo: int = 40, hi: int = 72) -> list:
     return [rng.randint(0, vocab, size=int(s)) for s in sizes]
 
 
-def prefill_chunk_ms(prompts) -> list:
+def prefill_chunk_ms(prompts, pad: bool = True) -> list:
     """The rows (M) of each prefill forward the engine plans for these
     prompts (scheduler.prefill_chunk_len: full chunks, then the rest
-    padded to its power-of-two bucket)."""
+    padded to its power-of-two bucket, or, for a recurrent family
+    (``pad=False``), fed as its exact power-of-two pieces)."""
     out = []
     for p in prompts:
         rest = len(p)
         while rest > 0:
-            out.append(SERVE_PREFILL_CHUNK if rest >= SERVE_PREFILL_CHUNK
-                       else 1 << (rest - 1).bit_length())
-            rest -= min(rest, SERVE_PREFILL_CHUNK)
+            if rest >= SERVE_PREFILL_CHUNK:
+                m = real = SERVE_PREFILL_CHUNK
+            elif pad:
+                m, real = 1 << (rest - 1).bit_length(), rest
+            else:
+                m = real = 1 << (rest.bit_length() - 1)
+            out.append(m)
+            rest -= real
     return out
 
 
@@ -1761,10 +1850,13 @@ def serve_run(torch, dev, model, qparams, kv_bits, n_req, n_new,
     return res
 
 
-def forced_logits(torch, dev, model, eng, prompt, forced, impl):
+def forced_logits(torch, dev, model, eng, prompt, forced, impl,
+                  params=None):
     """Teacher-forced per-step logits through a fresh paged cache in the
-    engine's page format and length (and, for vq2, its frozen
-    codebooks)."""
+    engine's page format and length (and, for vq2, its frozen codebooks;
+    a recurrent layer starts from its reset state), on the engine's params
+    unless ``params`` is given."""
+    from repro_torch.models.attention import PagedKVCache
     from repro_torch.serve import paged_cache as pc
     from repro_torch.serve.serve_step import teacher_forced_logits
 
@@ -1773,11 +1865,12 @@ def forced_logits(torch, dev, model, eng, prompt, forced, impl):
     n_pages = eng.max_len // SERVE_PAGE
     cache = pc.push_page_table(
         cache, np.arange(1, n_pages + 1, dtype=np.int32)[None])
-    if eng.cache[0].k_codebook is not None:
-        cache = [c._replace(k_codebook=e.k_codebook, v_codebook=e.v_codebook)
-                 for c, e in zip(cache, eng.cache)]
-    return teacher_forced_logits(model, eng.params, prompt, forced,
-                                 cache=cache, paged_impl=impl)
+    cache = [c._replace(k_codebook=e.k_codebook, v_codebook=e.v_codebook)
+             if isinstance(e, PagedKVCache) and e.k_codebook is not None
+             else c for c, e in zip(cache, eng.cache)]
+    return teacher_forced_logits(
+        model, eng.params if params is None else params, prompt, forced,
+        cache=cache, paged_impl=impl)
 
 
 def predict_serve(run: dict, n_layers: int, tag: str) -> dict:
@@ -2119,12 +2212,11 @@ def phase_long(torch, dev) -> dict:
         **quantize_launch_checks(launches, predict_groups(cfg)),
         "quant_stage events": n_stage == want_stage,
         "quant_target events": n_target == 7 * cfg.n_layers,
-        "quant_stage events": n_stage == want_stage,
     }
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise Failed(f"long phase checks failed: {bad}")
-    return {"launches": launches, "launches_by_impl": impls, "predicted": {
+    return calib, heldout, {"launches": launches, "launches_by_impl": impls, "predicted": {
                 "flash_attention": want_flash, "vq_dequant_matmul": want_vq,
                 "quant_stage": want_stage, "by_impl": want_impl},
             "flash_dispatch": flash_dispatch, "ppl_fp": ppl_fp,
@@ -2253,7 +2345,6 @@ def phase_moe(torch, dev) -> dict:
     from repro_torch.kernels.vq_dequant_matmul import vq_dequant_matmul
     from repro_torch.models import model_zoo, moe
     from repro_torch.obs import Telemetry
-    from repro_torch.serve.engine import Engine, Request
     from repro_torch.train.loss import perplexity
 
     t_phase = time.perf_counter()
@@ -2373,15 +2464,7 @@ def phase_moe(torch, dev) -> dict:
         f"routing replayed, {tuple(d.shape)} logits: max |diff| "
         f"{tf_diff[0]:.4e} (tol {SERVE_MAX_TOL}), RMS {tf_diff[1]:.4e} (tol "
         f"{SERVE_RMS_TOL})")
-    solo = []
-    for i, p in enumerate(run["prompts"]):
-        e = Engine(model, qparams, max_batch=SERVE_MAX_BATCH,
-                   max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
-                   paged_attn_impl="fused", vq_matmul_impl="fused",
-                   device=dev)
-        r = Request(rid=100 + i, prompt=p, max_new_tokens=SERVE_NEW)
-        e.run([r])
-        solo.append(r.out_tokens)
+    solo = solo_tokens(torch, dev, model, qparams, run["prompts"], SERVE_NEW)
     solo_same = [a == b for a, b in zip(solo, run["out"])]
     log(f"[moe] solo vs interleaved tokens identical: {solo_same}")
     t["serve"] = time.perf_counter() - t0
@@ -2459,6 +2542,651 @@ def phase_moe(torch, dev) -> dict:
             "routings": routings, "serve": run,
             "serve_predicted": want_serve,
             "serve_teacher_forced": tf_diff, "solo_equal": solo_same,
+            "max_memory_allocated": peak,
+            "phase_seconds": time.perf_counter() - t_phase}
+
+# the vlm phase: Phi-3-vision-4.2B at full width, 2 of its 32 layers,
+# calibrated on text only: the long phase's 4 x 4096 calibration tokens
+# (drawn below 32,000, inside Phi-3's vocab of 32,064). Heldout: 2
+# sequences of 1,024 seeded patch embeddings (x 0.1, as the reference's
+# tests/models/test_smoke.py makes them) + the first 3,072 tokens of the
+# long phase's first two heldout sequences. Its vq2-page engine: 4
+# requests, 32 new tokens each
+VLM_ARCH, VLM_LAYERS = "phi-3-vision-4.2b", 2
+VLM_HELDOUT, VLM_TEXT = 2, 3072
+# its dense-cache prefill: the patches and the first 2,048 text tokens (a
+# flash attention over 3,072 rows: its chunks take whole 1,024-row
+# blocks), then one decode step at position 3,072
+VLM_PREFILL = 2048
+VLM_VQ2 = (4, 32)
+# the ssm phase: xLSTM-125M at full width and depth (12 layers, sLSTM at
+# 3 and 9); calibration and heldout (sequences, tokens)
+SSM_ARCH = "xlstm-125m"
+SSM_CALIB, SSM_HELDOUT = (16, 256), (8, 256)
+# main's fused-vs-gather bars on the teacher-forced logits
+FUSED_MAX_TOL, FUSED_RMS_TOL = 0.5, 0.05
+# the ssm phase's bf16 comparisons (fused vs gather logits; the served
+# path's teacher-forced decode vs the gather decode and the cache-free
+# forward): twice the first readings on the H100 (max 0.97, RMS 0.101 for
+# fused vs gather; logits ~0.55 RMS). The 12-layer random xLSTM amplifies
+# a bf16 rounding (of the dequantized W, which the gather form makes, or
+# of an activation) that much, so main's and the serve bars cannot hold
+# in bf16; the phase measures that sensitivity directly (its f32 copy
+# with the dequantized W exact against rounded to bf16). A wrong code,
+# band or scale moves logits O(1) and fails the f32 copy's comparisons,
+# held to main's and the serve bars
+SSM_BF16_MAX_TOL, SSM_BF16_RMS_TOL = 2.0, 0.2
+
+
+def family_plan(model, params, setting) -> dict:
+    """The host plan of a quantize at ``setting`` through the family's
+    adapter: the targets it quantizes ((r, c) each) and those it keeps
+    dense (reason), the column groups (one vq_group_sweep and one vq_em
+    launch each) and the size-weighted achieved bpv."""
+    from repro_torch.core import adapters
+    from repro_torch.core.bpv import effective_bpv, weighted_bpv
+    from repro_torch.core.gptvq import plan_groups
+    from repro_torch.core.recipe import DENSE_BITS
+
+    quant, dense, sizes = {}, {}, []
+    for blk in adapters.get_adapter(model, params).blocks():
+        for spec in blk.targets():
+            W = adapters.tree_get(blk.params(), spec.path)
+            name = f"{blk.prefix}.{spec.name}"
+            r, c = W.shape[-1], W.shape[-2]
+            if spec.keep_dense:
+                dense[name] = spec.keep_dense
+                sizes.append((W.numel(), DENSE_BITS))
+            else:
+                quant[name] = (r, c)
+                sizes.append((W.numel(), effective_bpv(setting, r, c)))
+    groups = sum(c // plan_groups(r, c, setting)[0]
+                 for r, c in quant.values())
+    return {"quantized": quant, "dense": dense, "groups": groups,
+            "bpv": weighted_bpv(sizes)}
+
+
+def zero_counts() -> None:
+    """Every kernel wrapper's launch counts to 0."""
+    from repro_torch.kernels import vq_assign as vqa
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.vq_dequant_matmul import vq_dequant_matmul
+
+    for fn in VQ_ENTRY_POINTS:
+        getattr(vqa, fn).launches = 0
+    for fn in (flash_attention, paged_attention, vq_dequant_matmul):
+        fn.launches = 0
+    flash_attention.launches_by_impl = {}
+    vq_dequant_matmul.launches_by_impl = {}
+    vq_dequant_matmul.launches_by_m = {}
+    vq_dequant_matmul.launches_by_experts = {}
+
+
+def to_f32(tree):
+    """An f32 copy of a params tree: dense leaves in f32, VQLinear leaves
+    as they are."""
+    import torch
+
+    from repro_torch.core.vq_linear import VQLinear
+
+    if isinstance(tree, dict):
+        return {k: to_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_f32(v) for v in tree]
+    return tree if isinstance(tree, VQLinear) else tree.to(torch.float32)
+
+
+def logit_diff(torch, a, b) -> tuple:
+    d = (a - b).float()
+    return float(d.abs().max()), float(d.pow(2).mean().sqrt())
+
+
+def text_ppl(torch, logits, tokens) -> float:
+    """train/loss.perplexity's number from logits already computed: the
+    last S positions (the text's, after any patches)."""
+    from repro_torch.train.loss import next_token_loss
+
+    lg = logits[:, -tokens.shape[1]:].float()
+    return float(torch.exp(next_token_loss(lg, tokens, z_loss=0.0)[1]["nll"]))
+
+
+def solo_tokens(torch, dev, model, qparams, prompts, n_new, rid0=100):
+    """Each prompt served alone on a fresh engine (the serve runs' own
+    settings)."""
+    from repro_torch.serve.engine import Engine, Request
+
+    out = []
+    for i, p in enumerate(prompts):
+        e = Engine(model, qparams, max_batch=SERVE_MAX_BATCH,
+                   max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
+                   paged_attn_impl="fused", vq_matmul_impl="fused",
+                   device=dev)
+        r = Request(rid=rid0 + i, prompt=p, max_new_tokens=n_new)
+        e.run([r])
+        out.append(r.out_tokens)
+    return out
+
+
+def phase_vlm(torch, dev, calib, long_heldout) -> dict:
+    """The vlm family at Phi-3-vision-4.2B's full width, 2 layers: see the
+    module docstring."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import vq_linear as vql_mod
+    from repro_torch.core.bpv import PAPER_SETTINGS
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.kernels import vq_assign as vqa
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.vq_dequant_matmul import vq_dequant_matmul
+    from repro_torch.models import model_zoo
+    from repro_torch.train.loss import perplexity
+
+    t_phase = time.perf_counter()
+    cfg = ARCHS[VLM_ARCH].scaled(n_layers=VLM_LAYERS)
+    n_img = cfg.n_image_tokens
+    log(f"[vlm] {cfg.name}: d_model {cfg.d_model}, heads {cfg.n_heads} over "
+        f"{cfg.n_kv_heads} kv x {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, layers {cfg.n_layers}, dtype {cfg.dtype}; text "
+        f"calibration {tuple(calib.shape)}; heldout {VLM_HELDOUT} x ({n_img} "
+        f"patches + {VLM_TEXT} text tokens)")
+    torch.cuda.reset_peak_memory_stats()
+    t = {}
+    t0 = time.perf_counter()
+    model = model_zoo.build(cfg)
+    params = model.init_params(seed=0, device=dev)
+    text = long_heldout[:VLM_HELDOUT, :VLM_TEXT].contiguous()
+    g = torch.Generator(device=dev).manual_seed(1)
+    patches = torch.randn((VLM_HELDOUT, n_img, cfg.d_model), generator=g,
+                          device=dev) * 0.1
+    batch = {"tokens": text, "patches": patches}
+    torch.cuda.synchronize()
+    t["init"] = time.perf_counter() - t0
+    setting = PAPER_SETTINGS["2.25bpv_2d"]
+    recipe = QuantRecipe.uniform(setting, name="2.25bpv_2d"
+                                 ).with_quantize_overrides(
+                                     em_iters=25, codebook_update_iters=10)
+    plan = family_plan(model, params, setting)
+    # flash: every attention over > 2048 tokens. Per layer the fp
+    # evaluation, the capture (one calibration chunk), the fused and the
+    # gather evaluations and the dense-cache prefill on tensor cores (bf16
+    # q, k, v); the advance pass on the FP32 kernel (f32-dequantized
+    # weights, as the reference's adapters/transformer.advance)
+    want_flash = {"tc": 5 * cfg.n_layers, "fp32": cfg.n_layers}
+    log(f"[vlm] host plan: {len(plan['quantized'])} targets, "
+        f"vq_group_sweep and vq_em {plan['groups']} launches each "
+        f"(predict_groups {predict_groups(cfg)}), vq_assign 0; achieved bpv "
+        f"{plan['bpv']:.6f}; flash_attention by variant {want_flash}")
+
+    zero_counts()
+    t0 = time.perf_counter()
+    ppl_fp = perplexity(model, params, text, batch_extra={"patches": patches})
+    t["ppl_fp"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qparams, rep = quantize_model(
+        model, params, calib, recipe=recipe, pack=True,
+        progress=lambda m: log(f"[vlm]   {m} "
+                               f"({time.perf_counter() - t0:.1f}s)"))
+    torch.cuda.synchronize()
+    t["quantize"] = time.perf_counter() - t0
+    quant_launches = {fn: getattr(vqa, fn).launches
+                      for fn in VQ_ENTRY_POINTS}
+    del params
+
+    fused = vql_mod.prepare_fused_tree(qparams)
+    B, S = VLM_HELDOUT, n_img + VLM_TEXT
+    # the fused evaluation, then the dense-cache prefill of the patches and
+    # VLM_PREFILL text tokens, then one decode step
+    P = n_img + VLM_PREFILL
+    want_eval = {}
+    for m in (B * S, B * P, B):
+        for k, v in predict_matmul_impls(fused, m, torch.bfloat16).items():
+            want_eval[k] = want_eval.get(k, 0) + v
+    vq_dequant_matmul.launches = 0
+    vq_dequant_matmul.launches_by_impl = {}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        lf = model.forward(fused, batch)[0]
+        torch.cuda.synchronize()
+        t["eval_fused"] = time.perf_counter() - t0
+        ppl_vq = text_ppl(torch, lf, text)
+        t0 = time.perf_counter()
+        cache = model.init_cache(B, P + 1, dtype=torch.bfloat16, device=dev)
+        _, cache, _ = model.forward(
+            fused, {"tokens": text[:, :VLM_PREFILL], "patches": patches},
+            cache=cache, pos=0, last_only=True)
+        ld = model.forward(
+            fused, {"tokens": text[:, VLM_PREFILL:VLM_PREFILL + 1]},
+            cache=cache, pos=P)[0]
+        torch.cuda.synchronize()
+        t["prefill_decode"] = time.perf_counter() - t0
+        del cache
+        eval_launches = {"launches": vq_dequant_matmul.launches,
+                         "by_impl": dict(vq_dequant_matmul.launches_by_impl)}
+        dec_diff = logit_diff(torch, ld[:, 0], lf[:, P])
+        lg = model.forward(qparams, batch)[0]
+    diffs = logit_diff(torch, lf, lg)
+    del lg
+    flash = {"launches": flash_attention.launches,
+             "by_impl": dict(flash_attention.launches_by_impl)}
+    log(f"[vlm] fused vs gather logits {tuple(lf.shape)}: max |diff| "
+        f"{diffs[0]:.4e} (tol {FUSED_MAX_TOL}), RMS {diffs[1]:.4e} (tol "
+        f"{FUSED_RMS_TOL})")
+    log(f"[vlm] dense-cache prefill of {n_img} patches + {VLM_PREFILL} "
+        f"tokens, then one decode step, vs the full forward's row {P}: max "
+        f"|diff| {dec_diff[0]:.4e} (tol {SERVE_MAX_TOL}), RMS "
+        f"{dec_diff[1]:.4e} (tol {SERVE_RMS_TOL})")
+
+    # text-only serving (the engine passes no patches, as the reference's)
+    t0 = time.perf_counter()
+    run = serve_run(torch, dev, model, qparams, 16, SERVE_REQUESTS,
+                    SERVE_NEW)
+    eng = run.pop("engine")
+    want_serve = predict_serve(run, cfg.n_layers, "vlm run")
+    tf_diffs, agree, _ = teacher_forced(torch, dev, model, run, eng,
+                                        "vlm run")
+    solo = solo_tokens(torch, dev, model, qparams, run["prompts"], SERVE_NEW)
+    solo_same = [a == b for a, b in zip(solo, run["out"])]
+    log(f"[vlm] solo vs interleaved tokens identical: {solo_same}")
+    vq2 = serve_run(torch, dev, model, qparams, "vq2", *VLM_VQ2)
+    e2 = vq2.pop("engine")
+    prompt, out = run["prompts"][0], run["out"][0]
+    n_forced = VLM_VQ2[1] - 1
+    with torch.no_grad():
+        ref = forced_logits(torch, dev, model, eng, prompt, out[:n_forced],
+                            "fused")
+        got = forced_logits(torch, dev, model, e2, prompt, out[:n_forced],
+                            "fused")
+    vq2["drift"] = logit_diff(torch, got, ref)
+    vq2["finite"] = bool(torch.isfinite(got).all())
+    log(f"[vlm] kv=vq2: teacher-forced drift vs f32 pages on request 0 "
+        f"({n_forced + 1} steps): max {vq2['drift'][0]:.4e}, RMS "
+        f"{vq2['drift'][1]:.4e}, finite {vq2['finite']}; launches at engine "
+        f"load {vq2['load_launches']}")
+    t["serve"] = time.perf_counter() - t0
+    del eng, e2
+
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[vlm] ppl (text positions) fp={ppl_fp:.3f} vq={ppl_vq:.3f} | "
+        f"recon err={rep.total_error():.4f} | achieved "
+        f"{rep.achieved_bpv:.6f} bpv (host plan {plan['bpv']:.6f})")
+    log("[vlm] stages: " + "  ".join(
+        f"{k}={v:.2f}s" for k, v in sorted(rep.stage_seconds.items(),
+                                          key=lambda kv: -kv[1])))
+    log("[vlm] seconds: " + "  ".join(f"{k}={v:.2f}" for k, v in t.items()))
+    log(f"[vlm] quantize launches {quant_launches}; flash_attention "
+        f"{flash} (predicted by variant {want_flash}); evaluation, prefill "
+        f"and decode matmuls {eval_launches} (predicted {want_eval})")
+    log(f"[vlm] max_memory_allocated {peak / 2**30:.2f} GiB; phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+
+    checks = {
+        "ppl finite": math.isfinite(ppl_fp) and math.isfinite(ppl_vq),
+        "logits shape": tuple(lf.shape) == (B, S, cfg.padded_vocab),
+        "logits finite": bool(torch.isfinite(lf).all()),
+        "fused vs gather": (diffs[0] <= FUSED_MAX_TOL
+                            and diffs[1] <= FUSED_RMS_TOL),
+        "prefill + decode vs the full forward": within_bars(dec_diff),
+        "bpv == host plan": abs(rep.achieved_bpv - plan["bpv"]) < 1e-9,
+        "column groups == predict_groups": plan["groups"]
+            == predict_groups(cfg),
+        **quantize_launch_checks(quant_launches, plan["groups"]),
+        "flash_attention launches by variant as planned":
+            flash["by_impl"] == want_flash
+            and flash["launches"] == sum(want_flash.values()),
+        "evaluation matmuls by variant as planned":
+            eval_launches["by_impl"] == want_eval
+            and eval_launches["launches"] == sum(want_eval.values()),
+        **serve_run_checks(run, want_serve, cfg.n_layers, SERVE_NEW, "serve"),
+        "serve: teacher-forced kernel vs gather decode": within_bars(
+            tf_diffs["gather decode"]),
+        "serve: teacher-forced kernel vs cache-free": within_bars(
+            tf_diffs["cache-free forward"]),
+        "serve: solo == interleaved tokens": all(solo_same),
+        "vq2: finished": all(len(o) == VLM_VQ2[1] for o in vq2["out"]),
+        "vq2: paged_attention every decode tick":
+            vq2["launches"]["paged_attention"]
+            == vq2["decode_ticks"] * cfg.n_layers > 0,
+        "vq2: launches at engine load": vq2["load_launches"] == {
+            "vq_assign": 0, "vq_group_sweep": 0, "vq_em": 2 * cfg.n_layers},
+        "vq2: logits finite": vq2["finite"],
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise Failed(f"vlm phase checks failed: {bad}")
+    for r in (run, vq2):
+        r.pop("prompts")
+        r["out"] = r["out"][:2]
+    want_serve.pop("chunks")
+    return {"launches": quant_launches, "predicted_column_groups":
+            plan["groups"], "flash": flash, "predicted_flash": want_flash,
+            "eval_launches": eval_launches, "predicted_eval": want_eval,
+            "ppl_fp": ppl_fp, "ppl_vq": ppl_vq,
+            "recon_error": rep.total_error(),
+            "achieved_bpv": rep.achieved_bpv, "predicted_bpv": plan["bpv"],
+            "stage_seconds": rep.stage_seconds, "seconds": t,
+            "fused_vs_gather": diffs, "prefill_decode_vs_full": dec_diff,
+            "serve": run, "serve_predicted": want_serve,
+            "serve_teacher_forced": tf_diffs, "greedy_agree": agree,
+            "solo_equal": solo_same, "vq2": vq2,
+            "max_memory_allocated": peak,
+            "phase_seconds": time.perf_counter() - t_phase}
+
+
+def time_recurrences(torch, dev, cfg, params) -> dict:
+    """The two recurrences alone on the card, at a decode tick (B =
+    max_batch, one step) and a 64-token prefill chunk (B = 1): the mLSTM
+    core (models/xlstm._mlstm_core) on random q/k/v and gates at layer 0's
+    widths, and slstm_apply (its four input projections and the loop) with
+    an sLSTM layer's weights, each from its reset state."""
+    from repro_torch.models import xlstm
+
+    d_inner, H, hd = xlstm._mlstm_dims(cfg)
+    sl = params["layers"][cfg.slstm_layers[0]]["core"]
+    g = torch.Generator(device=dev).manual_seed(2)
+    out = {}
+    for B, S in ((SERVE_MAX_BATCH, 1), (1, SERVE_PREFILL_CHUNK)):
+        qkv = [torch.randn((B, S, H, hd), generator=g, device=dev).to(
+            torch.bfloat16) for _ in range(3)]
+        gates = [torch.randn((B, S, H), generator=g, device=dev)
+                 for _ in range(2)]
+        st = xlstm.mlstm_cache(cfg, B, dev)
+        x = torch.randn((B, S, cfg.d_model), generator=g, device=dev).to(
+            torch.bfloat16)
+        sc = xlstm.slstm_cache(cfg, B, dev)
+        with torch.no_grad():
+            ms_m = time_ms(torch, lambda: xlstm._mlstm_core(*qkv, *gates, st))
+            ms_s = time_ms(torch, lambda: xlstm.slstm_apply(sl, cfg, x, sc))
+        out[f"B={B} S={S}"] = {"mlstm_core_ms": ms_m, "slstm_apply_ms": ms_s}
+        log(f"[ssm] recurrences at B={B} S={S}: mLSTM core {ms_m:.4f} ms, "
+            f"sLSTM block core {ms_s:.4f} ms")
+    return out
+
+
+def predict_ssm_serve(run: dict, fused) -> dict:
+    """Launch counts of an ssm serve run from the host plan: no
+    paged_attention (no attention leaves); every packed leaf once a
+    forward, the decode ticks at M = max_batch, the prefill chunks at the
+    prompts' exact power-of-two pieces (the engine pads no recurrent
+    prompt); by variant as each leaf's layout selects at those rows."""
+    import torch
+
+    from repro_torch.core.vq_linear import FusedVQLinear
+
+    chunks = prefill_chunk_ms(run["prompts"], pad=False)
+    per_fwd = sum(isinstance(leaf, FusedVQLinear)
+                  for lp in fused["layers"] for leaf in tree_leaves(lp))
+    impls: dict = {}
+    for m, times in [(SERVE_MAX_BATCH, run["decode_ticks"])] + [
+            (m, 1) for m in chunks]:
+        for k, v in predict_matmul_impls(fused, m, torch.bfloat16).items():
+            impls[k] = impls.get(k, 0) + v * times
+    want = {"paged_attention": 0,
+            "vq_dequant_matmul": per_fwd * (run["decode_ticks"]
+                                            + len(chunks)),
+            "at_m4": per_fwd * (run["decode_ticks"] + chunks.count(
+                SERVE_MAX_BATCH)), "by_impl": impls,
+            "chunks": chunks, "per_forward": per_fwd}
+    log(f"[ssm] serve predicted launches: paged_attention 0; "
+        f"vq_dequant_matmul = {per_fwd} x forwards = "
+        f"{want['vq_dequant_matmul']}, of them {want['at_m4']} at M = "
+        f"{SERVE_MAX_BATCH}; prefill chunks {len(chunks)} "
+        f"(sizes {sorted(set(chunks))}); by variant {impls}")
+    return want
+
+
+def phase_ssm(torch, dev) -> dict:
+    """The ssm family at xLSTM-125M's full width and depth: see the module
+    docstring."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import adapters
+    from repro_torch.core import vq_linear as vql_mod
+    from repro_torch.core.bpv import PAPER_SETTINGS
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.data.calibration import calibration_tokens
+    from repro_torch.kernels import vq_assign as vqa
+    from repro_torch.kernels.vq_dequant_matmul import vq_dequant_matmul
+    from repro_torch.models import model_zoo
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.train.loss import perplexity
+
+    t_phase = time.perf_counter()
+    cfg = ARCHS[SSM_ARCH]
+    log(f"[ssm] {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads} heads, "
+        f"sLSTM at layers {tuple(cfg.slstm_layers)} of {cfg.n_layers}, vocab "
+        f"{cfg.vocab_size} (tied), dtype {cfg.dtype}; calibration "
+        f"{SSM_CALIB}, heldout {SSM_HELDOUT}")
+    torch.cuda.reset_peak_memory_stats()
+    t = {}
+    t0 = time.perf_counter()
+    model = model_zoo.build(cfg)
+    params = model.init_params(seed=0, device=dev)
+    calib = calibration_tokens(cfg.vocab_size, n_sequences=SSM_CALIB[0],
+                               seq_len=SSM_CALIB[1], device=dev)
+    heldout = calibration_tokens(cfg.vocab_size, n_sequences=SSM_HELDOUT[0],
+                                 seq_len=SSM_HELDOUT[1], seed=777,
+                                 device=dev)
+    torch.cuda.synchronize()
+    t["init"] = time.perf_counter() - t0
+    setting = PAPER_SETTINGS["2.25bpv_2d"]
+    recipe = QuantRecipe.uniform(setting, name="2.25bpv_2d"
+                                 ).with_quantize_overrides(
+                                     em_iters=25, codebook_update_iters=10)
+    plan = family_plan(model, params, setting)
+    log(f"[ssm] host plan: {len(plan['quantized'])} targets quantized, "
+        f"{len(plan['dense'])} kept dense, vq_group_sweep and vq_em "
+        f"{plan['groups']} launches each, vq_assign 0; achieved bpv "
+        f"{plan['bpv']:.6f}; {model_zoo.count_params(model) / 1e6:.1f} M "
+        "parameters")
+    recurrences = time_recurrences(torch, dev, cfg, params)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    ppl_fp = perplexity(model, params, heldout)
+    t["ppl_fp"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qparams, rep = quantize_model(
+        model, params, calib, recipe=recipe, pack=True,
+        progress=lambda m: log(f"[ssm]   {m} "
+                               f"({time.perf_counter() - t0:.1f}s)"))
+    torch.cuda.synchronize()
+    t["quantize"] = time.perf_counter() - t0
+    quant_launches = {fn: getattr(vqa, fn).launches
+                      for fn in VQ_ENTRY_POINTS}
+    # the keep-dense targets: reported with their reasons, and left as the
+    # same tensors (no vq_* launch touched them: the launches above are the
+    # quantized targets' column groups exactly)
+    kept = {name: rep.per_target[name].get("reason")
+            for name in plan["dense"]}
+    kept_same = all(
+        torch.equal(adapters.tree_get(qparams, path), adapters.tree_get(
+            params, path))
+        for path in (("layers", int(n.split(".")[1]), *n.split(".")[2:])
+                     for n in plan["dense"]))
+
+    fused = vql_mod.prepare_fused_tree(qparams)
+    B, S = SSM_HELDOUT
+    want_eval = predict_matmul_impls(fused, B * S, torch.bfloat16)
+    vq_dequant_matmul.launches = 0
+    vq_dequant_matmul.launches_by_impl = {}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        lf = model.forward(fused, {"tokens": heldout})[0]
+        torch.cuda.synchronize()
+        t["eval_fused"] = time.perf_counter() - t0
+        eval_launches = {"launches": vq_dequant_matmul.launches,
+                         "by_impl": dict(vq_dequant_matmul.launches_by_impl)}
+        lg = model.forward(qparams, {"tokens": heldout})[0]
+    ppl_vq = text_ppl(torch, lf, heldout)
+    diffs = logit_diff(torch, lf, lg)
+    windows = {f"{lo}-{hi}": logit_diff(torch, lf[:, lo:hi], lg[:, lo:hi])
+               for lo, hi in ((0, 16), (16, 64), (64, S)) if lo < S}
+    del lg
+    # the f32 copy: the same packed leaves (the fused form on the fp32
+    # variant, the gather form dequantized to f32), where no activation or
+    # W is rounded to bf16; and the model's own sensitivity to the bf16
+    # rounding of the dequantized W, which sets the bf16 comparisons' bars
+    model32 = model_zoo.build(cfg.scaled(dtype="float32"))
+    q32 = to_f32(qparams)
+    with torch.no_grad():
+        lg32 = model32.forward(q32, {"tokens": heldout})[0]
+        f32_diffs = logit_diff(
+            torch, model32.forward(vql_mod.prepare_fused_tree(q32),
+                                   {"tokens": heldout})[0], lg32)
+        rounded = to_f32(vql_mod.dequant_tree(q32, torch.bfloat16))
+        sens = logit_diff(torch, model32.forward(
+            rounded, {"tokens": heldout})[0], lg32)
+        del lg32, rounded
+    bars = (SSM_BF16_MAX_TOL, SSM_BF16_RMS_TOL)
+    log(f"[ssm] f32 copy, fused vs gather logits: max |diff| "
+        f"{f32_diffs[0]:.4e} (tol {FUSED_MAX_TOL}), RMS {f32_diffs[1]:.4e} "
+        f"(tol {FUSED_RMS_TOL})")
+    log(f"[ssm] sensitivity: the f32 copy with the dequantized W exact "
+        f"against rounded to bf16: max {sens[0]:.4e}, RMS {sens[1]:.4e}")
+    log(f"[ssm] bf16 fused vs gather logits {tuple(lf.shape)}: max |diff| "
+        f"{diffs[0]:.4e} (tol {bars[0]}), RMS {diffs[1]:.4e} (tol "
+        f"{bars[1]}); by positions "
+        + ", ".join(f"{k}: {v[0]:.4e} / {v[1]:.4e}"
+                    for k, v in windows.items()))
+
+    t0 = time.perf_counter()
+    run = serve_run(torch, dev, model, qparams, 16, SERVE_REQUESTS,
+                    SERVE_NEW)
+    eng = run.pop("engine")
+    t["serve"] = time.perf_counter() - t0
+    want_serve = predict_ssm_serve(run, eng.params)
+    prompt, out = run["prompts"][0], run["out"][0]
+    forced = out[:-1]
+    seq = torch.as_tensor(np.concatenate([prompt, forced]), device=dev)
+    # request 0's served path, teacher-forced: the fused decode against the
+    # gather decode and the cache-free forward, in the bf16 model (the
+    # bars above) and in its f32 copy (the serve bars)
+    fused32 = vql_mod.prepare_fused_tree(q32)
+    tf_diffs = {}
+    with torch.no_grad():
+        for tag, mdl, fused_p, gather_p in (("bf16", model, eng.params,
+                                             qparams),
+                                            ("f32", model32, fused32, q32)):
+            tf_kernel = forced_logits(torch, dev, mdl, eng, prompt, forced,
+                                      "gather", params=fused_p)
+            tf_gather = forced_logits(torch, dev, mdl, eng, prompt, forced,
+                                      "gather", params=gather_p)
+            free = mdl.forward(fused_p, {"tokens": seq[None]})[0][0][
+                len(prompt) - 1:]
+            for name, other in (("gather decode", tf_gather),
+                                ("cache-free forward", free)):
+                d = tf_diffs[f"{tag} {name}"] = logit_diff(torch, tf_kernel,
+                                                           other)
+                tol = bars if tag == "bf16" else (SERVE_MAX_TOL,
+                                                  SERVE_RMS_TOL)
+                log(f"[ssm] serve, {tag}: teacher-forced fused decode vs "
+                    f"{name}, {tuple(tf_kernel.shape)} logits: max |diff| "
+                    f"{d[0]:.4e} (tol {tol[0]:.4e}), RMS {d[1]:.4e} (tol "
+                    f"{tol[1]:.4e})")
+    del q32, fused32
+    t0 = time.perf_counter()
+    solo = solo_tokens(torch, dev, model, qparams, run["prompts"], SERVE_NEW)
+    solo_same = [a == b for a, b in zip(solo, run["out"])]
+    log(f"[ssm] solo vs interleaved tokens identical: {solo_same}")
+    # preemption: a pool of 6 pages a slot where a request needs up to 9;
+    # the youngest is evicted, replayed from a reset state, and every
+    # request's tokens are the unpressured run's
+    tight = Engine(model, qparams, max_batch=SERVE_MAX_BATCH,
+                   max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
+                   num_blocks=6 * SERVE_MAX_BATCH + 1,
+                   paged_attn_impl="fused", vq_matmul_impl="fused",
+                   device=dev)
+    reqs = [Request(rid=200 + i, prompt=p, max_new_tokens=SERVE_NEW)
+            for i, p in enumerate(run["prompts"])]
+    tight.run(reqs)
+    preempt = {"preemptions": tight.stats["preemptions"],
+               "tokens_equal": [r.out_tokens == o
+                                for r, o in zip(reqs, run["out"])]}
+    log(f"[ssm] preemption replay: {preempt['preemptions']} preemptions, "
+        f"tokens equal to the unpressured run: {preempt['tokens_equal']}")
+    prefix_inert = Engine(model, qparams, max_batch=SERVE_MAX_BATCH,
+                          max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
+                          prefix_cache=True, device=dev).prefix_cache is None
+    log(f"[ssm] prefix cache asked for and left off (slot-resident state): "
+        f"{prefix_inert}")
+    t["solo_preempt"] = time.perf_counter() - t0
+    del eng, tight
+
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[ssm] ppl fp={ppl_fp:.3f} vq={ppl_vq:.3f} | recon err="
+        f"{rep.total_error():.4f} | achieved {rep.achieved_bpv:.6f} bpv "
+        f"(host plan {plan['bpv']:.6f}) | kept dense {len(kept)}: reasons "
+        f"{sorted(set(kept.values()))}")
+    log("[ssm] stages: " + "  ".join(
+        f"{k}={v:.2f}s" for k, v in sorted(rep.stage_seconds.items(),
+                                          key=lambda kv: -kv[1])))
+    log("[ssm] seconds: " + "  ".join(f"{k}={v:.2f}" for k, v in t.items()))
+    log(f"[ssm] quantize launches {quant_launches} (predicted "
+        f"vq_group_sweep and vq_em {plan['groups']} each, vq_assign 0); "
+        f"evaluation matmuls {eval_launches} (predicted {want_eval})")
+    log(f"[ssm] max_memory_allocated {peak / 2**30:.2f} GiB; phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+
+    checks = {
+        "ppl finite": math.isfinite(ppl_fp) and math.isfinite(ppl_vq),
+        "logits shape": tuple(lf.shape) == (B, S, cfg.padded_vocab),
+        "logits finite": bool(torch.isfinite(lf).all()),
+        "f32 copy: fused vs gather": (f32_diffs[0] <= FUSED_MAX_TOL
+                                      and f32_diffs[1] <= FUSED_RMS_TOL),
+        "bf16: fused vs gather within the ssm bf16 bars":
+            diffs[0] <= bars[0] and diffs[1] <= bars[1],
+        "bpv == host plan": abs(rep.achieved_bpv - plan["bpv"]) < 1e-9,
+        **quantize_launch_checks(quant_launches, plan["groups"]),
+        "keep-dense targets reported with their reasons":
+            kept == plan["dense"] and len(kept) > 0,
+        "keep-dense leaves untouched": kept_same,
+        "evaluation: one launch a packed leaf by variant as planned":
+            eval_launches["by_impl"] == want_eval
+            and eval_launches["launches"] == sum(want_eval.values()),
+        "serve: all requests finished": all(len(o) == SERVE_NEW
+                                            for o in run["out"]),
+        "serve: no paged_attention": run["launches"]["paged_attention"] == 0,
+        "serve: prefill chunks as planned":
+            run["prefill_chunks"] == len(want_serve["chunks"]),
+        "serve: vq_dequant_matmul launches == packed leaves x forwards":
+            run["launches"]["vq_dequant_matmul"]
+            == want_serve["vq_dequant_matmul"] > 0,
+        "serve: vq_dequant_matmul at M = 4": run["vq_m_counts"].get(
+            SERVE_MAX_BATCH, 0) == want_serve["at_m4"],
+        "serve: by variant as planned":
+            run["vq_impl_counts"] == want_serve["by_impl"],
+        **{f"serve, f32: teacher-forced fused decode vs {name}": within_bars(
+            tf_diffs[f"f32 {name}"])
+           for name in ("gather decode", "cache-free forward")},
+        **{f"serve, bf16: teacher-forced fused decode vs {name}":
+           tf_diffs[f"bf16 {name}"][0] <= bars[0]
+           and tf_diffs[f"bf16 {name}"][1] <= bars[1]
+           for name in ("gather decode", "cache-free forward")},
+        "serve: solo == interleaved tokens": all(solo_same),
+        "serve: preemption replayed identically": preempt["preemptions"] > 0
+            and all(preempt["tokens_equal"]),
+        "serve: prefix cache inert": prefix_inert,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise Failed(f"ssm phase checks failed: {bad}")
+    run.pop("prompts")
+    run["out"] = run["out"][:2]
+    want_serve.pop("chunks")
+    return {"launches": quant_launches, "predicted_column_groups":
+            plan["groups"], "eval_launches": eval_launches,
+            "predicted_eval": want_eval, "ppl_fp": ppl_fp, "ppl_vq": ppl_vq,
+            "recon_error": rep.total_error(),
+            "achieved_bpv": rep.achieved_bpv, "predicted_bpv": plan["bpv"],
+            "kept_dense": kept, "stage_seconds": rep.stage_seconds,
+            "seconds": t, "fused_vs_gather": diffs,
+            "fused_vs_gather_by_position": windows,
+            "f32_fused_vs_gather": f32_diffs, "sensitivity": sens,
+            "bf16_bars": bars, "serve": run,
+            "serve_predicted": want_serve, "serve_teacher_forced": tf_diffs,
+            "solo_equal": solo_same, "preemption": preempt,
+            "prefix_inert": prefix_inert, "recurrences": recurrences,
             "max_memory_allocated": peak,
             "phase_seconds": time.perf_counter() - t_phase}
 
@@ -2569,9 +3297,13 @@ def main() -> int:
     budget_res = phase_budget(torch, dev, model, calib, heldout)
     serve_res = phase_serve(torch, dev, model, qparams)
     del model, qparams
-    long_res = phase_long(torch, dev)
+    long_calib, long_heldout, long_res = phase_long(torch, dev)
     torch.cuda.empty_cache()
     moe_res = phase_moe(torch, dev)
+    torch.cuda.empty_cache()
+    vlm_res = phase_vlm(torch, dev, long_calib, long_heldout)
+    torch.cuda.empty_cache()
+    ssm_res = phase_ssm(torch, dev)
     os.makedirs(out_dir, exist_ok=True)
     out = os.path.join(out_dir, "chip_smoke.json")
     with open(out, "w") as f:
@@ -2579,7 +3311,8 @@ def main() -> int:
                    "bitwise": invariance,
                    "small": small_res, "main": main_res,
                    "budget": budget_res, "serve": serve_res, "long": long_res,
-                   "moe": moe_res}, f, indent=1, default=str)
+                   "moe": moe_res, "vlm": vlm_res, "ssm": ssm_res}, f,
+                  indent=1, default=str)
     log(f"[done] {time.perf_counter() - t_all:.1f}s; details in {out}")
     launches = dict(main_res["launches"], paged_attention=serve_res[
         "long"]["launches"]["paged_attention"],

@@ -3,8 +3,9 @@
 ``params_from_jax`` turns the numpy leaves of the reference's
 ``init_params`` tree into the port's parameter dict, unstacking the
 ``layers`` leading axis into a list of per-layer dicts (a MoE layer's
-expert stacks (E, D, F) stay stacked inside its dict, and its router stays
-f32, as the reference keeps it). ``vqlinear_from_jax`` does the same for
+expert stacks (E, D, F) stay stacked inside its dict; the xLSTM's layers
+are a list already). The leaves the reference keeps in f32 (the MoE
+router, the mLSTM gate projections) stay f32. ``vqlinear_from_jax`` does the same for
 one packed ``VQLinear`` (any object with the reference's field names, an
 expert stack's arrays with their leading E; uint32 words are reinterpreted
 as int32), and
@@ -30,31 +31,40 @@ def _tensor(a, dtype, device) -> torch.Tensor:
         device=device, dtype=dtype)
 
 
-# leaves the reference keeps in f32 whatever the model's dtype
-_F32_LEAVES = ("router",)
+# leaves the reference keeps in f32 whatever the model's dtype, by block
+# kind: the MoE router and the mLSTM's exponential-gate projections
+_F32_LEAVES = {"moe": {("ffn", "router")},
+               "mlstm": {("core", w) for w in ("w_i", "w_f", "b_i", "b_f")}}
 
 
-def _map(tree, f, key=None):
+def _map(tree, f, path=()):
     if isinstance(tree, dict):
-        return {k: _map(v, f, k) for k, v in tree.items()}
-    return f(tree, key)
+        return {k: _map(v, f, path + (k,)) for k, v in tree.items()}
+    return f(tree, path)
 
 
 def params_from_jax(np_tree: dict, cfg: ModelConfig, device=None) -> dict:
-    """Reference dense- or moe-family params (layers stacked on a leading
-    axis) -> port params (``layers`` a list of per-layer dicts) in
-    ``cfg.dtype``, the router in f32."""
+    """Reference params -> port params (``layers`` a list of per-layer
+    dicts) in ``cfg.dtype``, the leaves the reference keeps in f32 in f32.
+    The reference's ``layers`` is stacked on a leading axis (dense, moe,
+    vlm) or already a list of per-layer dicts (the xLSTM's mLSTM/sLSTM
+    mix, whose sLSTM ``r_*`` leaves are (H, hd, hd) stacks)."""
+    from repro_torch.models.transformer import block_kind
+
     dev = resolve_device(device)
 
-    def conv(a, key):
-        dtype = (torch.float32 if key in _F32_LEAVES
-                 else DTYPES[cfg.dtype])
-        return _tensor(a, dtype, dev)
+    def conv(tree, kind=None):
+        f32 = _F32_LEAVES.get(kind, ())
+        return _map(tree, lambda a, path: _tensor(
+            a, torch.float32 if path in f32 else DTYPES[cfg.dtype], dev))
 
-    out = {k: _map(v, conv, k) for k, v in np_tree.items() if k != "layers"}
-    out["layers"] = [_map(np_tree["layers"],
-                          lambda a, key, i=i: conv(a[i], key))
-                     for i in range(cfg.n_layers)]
+    out = {k: conv(v) for k, v in np_tree.items() if k != "layers"}
+    layers = np_tree["layers"]
+    if not isinstance(layers, list):
+        layers = [_map(layers, lambda a, _, i=i: a[i])
+                  for i in range(cfg.n_layers)]
+    out["layers"] = [conv(lp, block_kind(cfg, i))
+                     for i, lp in enumerate(layers)]
     return out
 
 

@@ -1,5 +1,7 @@
-"""Adapter for the transformer family: dense GQA stacks and MoE stacks
-(port of the dense and MoE parts of ``repro/core/adapters/transformer.py``).
+"""Adapter for the transformer family: dense GQA stacks, MoE stacks and the
+VLM text backbone (port of ``repro/core/adapters/transformer.py``). The
+vision tower is a stub: GPTVQ quantizes the text stack, calibrated on text
+tokens; patches enter only through the forward.
 
 Block anatomy (pre-norm residual):
 
@@ -91,7 +93,7 @@ class _DenseBlock(base.BlockAdapter):
 
 
 class TransformerAdapter(base.ModelAdapter):
-    """Families "dense" and "moe": a list of block dicts under
+    """Families "dense", "moe" and "vlm": a list of block dicts under
     params["layers"] with transformer.embed_tokens in front."""
 
     def __init__(self, model, params):

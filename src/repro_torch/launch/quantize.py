@@ -2,7 +2,9 @@
 pipeline over a model, evaluate the packed model through the fused
 VQ-dequant matmul, and save the packed checkpoint.
 
-Runs on ``cuda`` unless ``--device cpu``. The fp perplexity is taken on the
+Runs on ``cuda`` unless ``--device cpu``, for every ported family
+(``--arch`` llama2-7b, qwen3-moe-30b-a3b, phi-3-vision-4.2b (calibrated
+and evaluated on text), xlstm-125m, ...). The fp perplexity is taken on the
 dense model; the vq perplexity on the packed model after
 ``prepare_fused_tree``, so every quantized matmul goes through the
 ``vq_dequant_matmul`` kernel on the card (and, past 2048 tokens, attention
@@ -37,6 +39,7 @@ import time
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import ARCHS, SMOKE
+from repro_torch.core import adapters
 from repro_torch.core import vq_linear as vql_mod
 from repro_torch.core.bpv import PAPER_SETTINGS
 from repro_torch.core.pipeline import quantize_model
@@ -128,7 +131,8 @@ def main(argv=None):
     print(f"arch={cfg.name} recipe={recipe.name or 'custom'}{budget}"
           f"{solver} calib={tuple(calib.shape)} device={device}")
 
-    ppl_fp = perplexity(model, params, heldout)
+    extras = adapters.calib_extras(cfg, heldout)
+    ppl_fp = perplexity(model, params, heldout, batch_extra=extras)
     telemetry = Telemetry(events_out=args.events_out)
     t0 = time.time()
     qparams, rep = quantize_model(
@@ -137,7 +141,8 @@ def main(argv=None):
         progress=lambda msg: print(f"  {msg}", flush=True),
         telemetry=telemetry)
     dt = time.time() - t0
-    ppl_vq = perplexity(model, vql_mod.prepare_fused_tree(qparams), heldout)
+    ppl_vq = perplexity(model, vql_mod.prepare_fused_tree(qparams), heldout,
+                        batch_extra=extras)
     print(f"quantized in {dt:.1f}s | ppl fp={ppl_fp:.3f} vq={ppl_vq:.3f} "
           f"| recon err={rep.total_error():.4f} "
           f"| achieved {rep.achieved_bpv:.3f} bpv")

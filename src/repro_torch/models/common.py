@@ -30,9 +30,11 @@ MATMUL_DISPATCH = register_dispatch(
 # ---------------------------------------------------------------------------
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
-               dtype=torch.float32, device=None) -> torch.Tensor:
+               scale: float | None = None, dtype=torch.float32,
+               device=None) -> torch.Tensor:
+    scale = 1.0 / math.sqrt(d_in) if scale is None else scale
     w = torch.randn((d_in, d_out), generator=gen, device=device)
-    return (w * (1.0 / math.sqrt(d_in))).to(dtype)
+    return (w * scale).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype=torch.float32,

@@ -1,13 +1,15 @@
-"""Unified model API (port of ``repro/models/model_zoo.py``): the dense and
-moe families (``transformer.PORTED``); the others raise, naming the
-families still pending.
+"""Unified model API (port of ``repro/models/model_zoo.py``): the dense,
+moe, vlm and ssm (xLSTM) families (``transformer.PORTED``); hybrid and
+audio raise, naming their ROADMAP entry.
 
 ``build(cfg)`` returns a ``Model`` whose ``init_params(seed, device)`` makes
 random weights from a seed (on ``cuda`` unless ``device="cpu"``), whose
 ``init_cache(batch, max_len, dtype, paged, device)`` makes a per-layer
-cache list (dense, or paged with a ``PagedLayout``), and whose
+cache list (dense, or paged with a ``PagedLayout``; recurrent state is
+slot-resident either way), and whose
 ``forward(params, batch, cache=None, pos=0, **kw)`` takes a dict with
-``tokens`` (B, S) and returns (logits, new_cache, aux_loss).
+``tokens`` (B, S) and, for vlm, ``patches`` (B, n_image_tokens, D), and
+returns (logits, new_cache, aux_loss).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import transformer, vlm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,9 +39,15 @@ def build(cfg: ModelConfig) -> Model:
         gen = torch.Generator(device=dev).manual_seed(seed)
         return transformer.init_params(cfg, gen, device=dev)
 
-    def fwd(params, batch, cache=None, pos=0, **kw):
-        return transformer.forward(params, cfg, batch["tokens"], pos=pos,
-                                   cache=cache, **kw)
+    if cfg.family == "vlm":
+        def fwd(params, batch, cache=None, pos=0, **kw):
+            return vlm.forward(params, cfg, batch["tokens"],
+                               patches=batch.get("patches"), pos=pos,
+                               cache=cache, **kw)
+    else:  # dense / moe / ssm (xLSTM)
+        def fwd(params, batch, cache=None, pos=0, **kw):
+            return transformer.forward(params, cfg, batch["tokens"],
+                                       pos=pos, cache=cache, **kw)
 
     def init_cache(batch, max_len, dtype=torch.bfloat16, paged=None,
                    device=None):

@@ -1,17 +1,20 @@
-"""Decoder-only LM assembly, dense and MoE kinds (port of
+"""Decoder-only LM assembly: dense GQA, MoE and xLSTM block stacks (port of
 ``repro/models/transformer.py``).
 
 The reference stores homogeneous stacks with a leading layer axis and scans
 them; here ``params["layers"]`` is a list of per-layer dicts run by a Python
-loop, and a cache is a list with one ``KVCache`` or ``PagedKVCache`` per
-layer (not a slice of a stacked leaf). ``_block_apply`` densifies
-``VQLinear`` leaves through ``vq_linear.dequant_tree`` (the gather form),
-while ``FusedVQLinear`` leaves reach ``common.matmul`` /
+loop, and a cache is a list with one entry per layer (not a slice of a
+stacked leaf): a ``KVCache`` or ``PagedKVCache`` for an attention block, an
+``xlstm.MLSTMCache`` / ``SLSTMCache`` for a recurrent one, which stays
+slot-resident even when a ``PagedLayout`` is passed. ``_block_apply``
+densifies ``VQLinear`` leaves through ``vq_linear.dequant_tree`` (the
+gather form), while ``FusedVQLinear`` leaves reach ``common.matmul`` /
 ``common.expert_matmul`` (the fused kernel). A MoE block's FFN is
 ``models/moe`` (expert stacks with a leading E); its load-balancing loss is
-summed over the layers into ``forward``'s aux. xLSTM blocks are not ported
-yet (ROADMAP.md queue 1, "The other five families"): of the families,
-``PORTED`` run here and ``PENDING`` raise.
+summed over the layers into ``forward``'s aux. The vlm family runs this
+stack with patch embeddings prepended (``extra_embeds``). Of the families,
+``PORTED`` run here and ``PENDING`` raise (ROADMAP.md queue 1, "The other
+five families").
 """
 from __future__ import annotations
 
@@ -20,17 +23,24 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, common as cm, mlp, moe
+from repro_torch.models import attention, common as cm, mlp, moe, xlstm
 
-PORTED = ("dense", "moe")
-PENDING = ("vlm", "ssm", "hybrid", "audio")
+PORTED = ("dense", "moe", "vlm", "ssm")
+PENDING = ("hybrid", "audio")
 
 
 def block_kind(cfg: ModelConfig, i: int) -> str:
+    if cfg.family == "ssm" and cfg.name.startswith("xlstm"):
+        return "slstm" if i in tuple(cfg.slstm_layers) else "mlstm"
     return "moe" if cfg.family == "moe" else "dense"
 
 
 def _block_init(gen, cfg: ModelConfig, kind: str, dtype, device):
+    if kind in ("mlstm", "slstm"):
+        init = xlstm.mlstm_init if kind == "mlstm" else xlstm.slstm_init
+        return {"norm1": torch.ones((cfg.d_model,), dtype=dtype,
+                                    device=device),
+                "core": init(gen, cfg, dtype, device=device)}
     ffn = moe.init if kind == "moe" else mlp.init
     return {
         "norm1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
@@ -47,6 +57,18 @@ def _block_apply(p, cfg: ModelConfig, kind: str, x, *, pos=0, cache=None,
     from repro_torch.core import vq_linear as vql_mod
 
     p = vql_mod.dequant_tree(p, cm.DTYPES[cfg.dtype])  # no-op if not VQ
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "mlstm":
+        h, new_c = xlstm.mlstm_apply(
+            p["core"], cfg, cm.rmsnorm(x, p["norm1"], cfg.norm_eps), cache)
+        return x + h, new_c, aux
+    if kind == "slstm":
+        xin = cm.rmsnorm(x, p["norm1"], cfg.norm_eps)
+        h, new_c = xlstm.slstm_apply(p["core"], cfg, xin, cache)
+        x = x + h
+        x = x + xlstm.slstm_ffn(
+            p["core"], cfg, cm.rmsnorm(x, p["core"]["ffn_norm"], cfg.norm_eps))
+        return x, new_c, aux
     h, new_kv = attention.apply(
         p["attn"], cfg, cm.rmsnorm(x, p["norm1"], cfg.norm_eps), pos=pos,
         cache=cache, paged_impl=paged_impl)
@@ -56,16 +78,29 @@ def _block_apply(p, cfg: ModelConfig, kind: str, x, *, pos=0, cache=None,
         f, aux = moe.apply(p["ffn"], cfg, h2)
     else:
         f = mlp.apply(p["ffn"], cfg, h2)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + f, new_kv, aux
+
+
+def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                 dtype, paged, device):
+    # recurrent state is O(1) per slot: it stays slot-resident even when
+    # the attention leaves are paged
+    if kind == "mlstm":
+        return xlstm.mlstm_cache(cfg, batch, device)
+    if kind == "slstm":
+        return xlstm.slstm_cache(cfg, batch, device)
+    if paged is not None:
+        return attention.init_paged_cache(cfg, batch, max_len, paged, dtype,
+                                          device=device)
+    return attention.init_cache(cfg, batch, max_len, dtype, device=device)
 
 
 def _check_family(cfg: ModelConfig):
     if cfg.family not in PORTED:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; pending: "
-            f"{', '.join(PENDING)} (ROADMAP.md queue 1, 'The other five "
-            "families')")
+            f"{', '.join(PENDING)}; ported: {', '.join(PORTED)} (ROADMAP.md "
+            "queue 1, 'The other five families')")
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator | None,
@@ -87,20 +122,20 @@ def init_params(cfg: ModelConfig, gen: torch.Generator | None,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, paged=None, device=None) -> list:
-    """One cache per layer. ``paged``: an attention.PagedLayout — each layer
-    gets its own block pools and page table (serving); None keeps the dense
-    (B, max_len) layout."""
+    """One cache per layer. ``paged``: an attention.PagedLayout — each
+    attention layer gets its own block pools and page table (serving); None
+    keeps the dense (B, max_len) layout. Recurrent layers hold their f32
+    state either way."""
     _check_family(cfg)
-    if paged is not None:
-        return [attention.init_paged_cache(cfg, batch, max_len, paged, dtype,
-                                           device=device)
-                for _ in range(cfg.n_layers)]
-    return [attention.init_cache(cfg, batch, max_len, dtype, device=device)
-            for _ in range(cfg.n_layers)]
+    return [_block_cache(cfg, block_kind(cfg, i), batch, max_len, dtype,
+                         paged, device) for i in range(cfg.n_layers)]
 
 
-def embed_tokens(params, cfg: ModelConfig, tokens):
-    return params["embed"][tokens]  # gather
+def embed_tokens(params, cfg: ModelConfig, tokens, extra_embeds=None):
+    x = params["embed"][tokens]  # gather
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def unembed(params, cfg: ModelConfig, x):
@@ -109,11 +144,13 @@ def unembed(params, cfg: ModelConfig, x):
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, pos=0,
-            cache=None, paged_impl: str = "gather",
+            cache=None, extra_embeds=None, paged_impl: str = "gather",
             last_only: bool = False):
     """Returns (logits, new_cache, aux_loss); logits are f32, aux_loss the
-    MoE layers' summed load-balancing loss (0 for dense). ``pos`` is a scalar start position or, over paged
-    caches, a per-slot (B,) vector. ``paged_impl`` picks the paged decode
+    MoE layers' summed load-balancing loss (0 for the others).
+    ``extra_embeds`` (B, n, D) are prepended to the token embeddings (the
+    vlm's patches), so the logits cover n + S positions. ``pos`` is a
+    scalar start position or, over paged caches, a per-slot (B,) vector. ``paged_impl`` picks the paged decode
     read ("gather" | "fused", see attention._paged_apply). VQ leaves run in
     the form they arrive in (VQLinear: gather, FusedVQLinear: fused; see
     vq_linear.retag, which callers such as the engine apply once).
@@ -122,7 +159,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, pos=0,
 
     top = {k: v for k, v in params.items() if k != "layers"}
     params = {**params, **vql_mod.dequant_tree(top, cm.DTYPES[cfg.dtype])}
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, extra_embeds)
     new_cache = None if cache is None else []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer_p in enumerate(params["layers"]):

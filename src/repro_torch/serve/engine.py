@@ -72,7 +72,7 @@ def calibrate_vq_codebooks(model: Model, params, cache, *,
     from repro_torch.data.calibration import calibration_tokens
     from repro_torch.kernels import kv_quant as kvq
 
-    dev = cache[0].k.device
+    dev = params["embed"].device
     npc = -(-calib_len // page_size)
     cap = model.init_cache(1, npc * page_size, dtype=torch.float32,
                            paged=PagedLayout(npc + 1, page_size), device=dev)

@@ -96,7 +96,7 @@ def teacher_forced_logits(model: Model, params, prompt, forced, *, cache,
     with ``paged_impl``. Returns (len(forced) + 1, V) f32: row 0 after the
     prompt, row i after forced[i-1]. The drift probe of the paged path: two
     runs on the same forced tokens compare logits of identical inputs."""
-    dev = cache[0].k.device
+    dev = params["embed"].device
     tokens = torch.as_tensor(prompt, dtype=torch.long, device=dev)[None]
     rows = []
     with torch.no_grad():

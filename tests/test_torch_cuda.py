@@ -1020,3 +1020,82 @@ def test_pre_out_past_2048_launches_the_kernel(dev):
     # short sequences stay on the dense softmax: no launch
     attention.pre_out(p_gpu, cfg, x[:, :2048].to(dev))
     assert flash_attention.launches == before + 2
+
+
+# ---------------------------------------------------------------------------
+# the vlm and ssm families' shapes: Phi-3-vision's head_dim 96 (32 heads,
+# MHA) and xLSTM-125M's projection widths
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fmt", PAGE_FORMATS)
+def test_paged_attention_hd96(dev, fmt, q_dtype):
+    """The vlm serve shape: 32 heads of 96 (24 of a row's 32 lanes hold
+    dims; a vq2 row is 24 bytes), 16 pages a slot, an idle slot; bitwise
+    the same alone and in the batch."""
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_attention_plain)
+
+    q, kp, vp, table, pos_t, kw = paged_case(
+        dev, 96, B=4, H=32, KV=32, hd=96, page_size=16, n_pages=16,
+        num_blocks=65, fmt=fmt, pos=[0, 57, 255, 135], q_dtype=q_dtype)
+    y = paged_attention(q, kp, vp, table, pos_t, **kw)
+    want = paged_attention_plain(q, kp, vp, table, pos_t, **kw)
+    assert y.dtype == q_dtype and bool(torch.isfinite(y).all())
+    # f32: sums in another order; bf16: at most one bf16 ulp
+    rtol, atol = ((2e-5, 2e-5) if q_dtype == torch.float32
+                  else (2.0**-7, 1e-5))
+    torch.testing.assert_close(y.float(), want.float(), rtol=rtol, atol=atol)
+    assert torch.equal(paged_attention(q, kp, vp, table, pos_t, **kw), y)
+    for b in range(4):
+        alone = paged_attention(q[b:b + 1].contiguous(), kp, vp,
+                                table[b:b + 1].contiguous(),
+                                pos_t[b:b + 1].contiguous(), **kw)
+        assert torch.equal(alone[0], y[b]), b
+
+
+@pytest.mark.parametrize("dt,impl", [(torch.bfloat16, "tc"),
+                                     (torch.float32, "fp32")])
+def test_flash_attention_hd96(dev, dt, impl):
+    """Phi-3-vision's heads past 2048 tokens: the tensor-core body at
+    HD = 96 (shared-memory rows of 104 bf16, 6 k-steps, 12 n-tiles) within
+    one bf16 ulp of the plain version, the FP32 one at its own tolerance."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(96)
+    q, k, v = (torch.randn((1, 3072, 4, 96), generator=g, device=dev).to(dt)
+               for _ in range(3))
+    before = dict(flash_attention.launches_by_impl)
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_impl.get(impl, 0) == before.get(
+        impl, 0) + 1
+    want = flash_attention_plain(q, k, v, causal=True)
+    rtol = 1e-5 if dt == torch.float32 else 2.0**-7
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("N,K", [(1536, 768), (1536, 1536), (768, 1536),
+                                 (768, 768), (768, 1024)])
+@pytest.mark.parametrize("M,sub", [(4, 1), (64, 17)])
+def test_vq_dequant_matmul_rows_independent_xlstm(dev, N, K, M, sub):
+    """xLSTM-125M's widths (mLSTM up, q/k/v/o and down; the sLSTM's input
+    projections and its FFN's w_out) at
+    2.25bpv_2d's layout: allclose to the plain version, row m the same bits
+    whatever the other rows hold (split-K at M = 4, tensor cores at 64)."""
+    x, words, cb, _, cb_i8, cb_scale, kw = _vq_case(
+        dev, M, N, K, 2, 2, 4, 256, 0, torch.bfloat16, True)
+    run = lambda xx: vq_dequant_matmul(xx, words, cb, codebooks_i8=cb_i8,
+                                       cb_scale=cb_scale, **kw)
+    y = run(x)
+    plain_kw = {k: v for k, v in kw.items() if k != "k_c"}
+    torch.testing.assert_close(
+        y, vq_dequant_matmul_plain(x, words, cb, None, **plain_kw),
+        rtol=1e-4, atol=1e-4)
+    assert torch.equal(run(x), y)
+    assert torch.equal(run(x[:sub].contiguous()), y[:sub])
+    other = x.clone()
+    other[sub:] = -other[sub:]
+    assert torch.equal(run(other)[:sub], y[:sub])
