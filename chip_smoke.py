@@ -191,6 +191,34 @@ Phases (each prints its seconds; any failure exits non-zero):
                 f32 copy (the serve bars). Its kernels-phase rows:
                 vq_dequant_matmul at the mLSTM up projection's width (M 4
                 and 64), its rows bitwise independent.
+ 12. hybrid  — the hybrid family at Zamba2-7B's full width, depth cut to
+                12 Mamba layers in 2 groups of 6 (random weights from seed
+                0 with the LoRA B factors drawn non-zero from a numpy seed,
+                bf16; the shared attention's 32 heads of 112, Mamba2 d_inner
+                7168, state 64): the SSD scan and a decode step timed
+                alone; quantize_model at 2.25bpv_2d calibrated on the long
+                phase's 4 x 4096 tokens (the shared block's Hessians over
+                both invocations, then each Mamba layer); held: the
+                reference adapter's 28 targets, LoRA, norms, conv and scan
+                leaves untouched, vq_group_sweep and vq_em once a column
+                group (602), vq_assign never, flash_attention 2 tc and 2
+                fp32 launches in the quantize and 8 and 8 in the phase, bpv
+                exactly the plan's; fused vs gather logits on 2 x 4096
+                held-out tokens in bf16 (main's bars) and in the f32 copy,
+                with the bf16 sensitivity of W measured; main's serve run
+                (paged_attention twice a decode tick, 24 vq_dequant_matmul
+                launches a forward, exact power-of-two prefill chunks), the
+                densify of the shared block timed alone, teacher-forced
+                kernel decode vs gather decode and vs the cache-free
+                forward (bf16 at bars set from the readings, the f32 copy
+                at the serve bars), each request alone, a preemption
+                replay, a prefix cache that stays off, and 4 x 32 on int8
+                and vq2 pages. Its kernels-phase rows: vq_dequant_matmul at
+                the Mamba2 in_proj (N 14,576: a partial last tile) and
+                out_proj (M 4 and 64), in_proj's rows bitwise independent;
+                paged_attention at hd 112 every format and query dtype,
+                each slot bitwise alone and in the batch; flash_attention
+                at B 4, 4,096 tokens, 32 heads of 112 (tc and fp32).
 Then it prints the kernel JSON line, the card line and, last,
 {"ok": true, "device": {...}}. Per-shape results go to
 chiprun_out/chip_smoke.json. The profiler pass over the quantize path is
@@ -223,11 +251,14 @@ BF16_TC_FLOP_PER_S = 989e12
 # 4 rows; (N, K) per layer shape
 VQ_D, VQ_K, VQ_GROUP_COLS, VQ_ROWS_PER_BAND = 2, 16, 256, 4
 MATMUL_SHAPES = {"wq": (4096, 4096), "w1": (11008, 4096), "w2": (4096, 11008)}
-# the vlm and ssm phases' widths, held at a decode tick's and a prefill
-# chunk's rows: Phi-3-vision's w_in (d_model 3072 -> d_ff 8192) and
-# xLSTM-125M's mLSTM up projection (768 -> 1536), each at the layout
-# plan_groups gives it at 2.25bpv_2d
-FAMILY_MATMUL_SHAPES = {"phi3 w1": (8192, 3072), "xlstm up": (1536, 768)}
+# the vlm, ssm and hybrid phases' widths, held at a decode tick's and a
+# prefill chunk's rows: Phi-3-vision's w_in (d_model 3072 -> d_ff 8192),
+# xLSTM-125M's mLSTM up projection (768 -> 1536) and Zamba2-7B's Mamba2
+# in_proj (3584 -> 14,576: its last 64-row tile holds 48 rows) and out_proj
+# (7168 -> 3584), each at the layout plan_groups gives it at 2.25bpv_2d
+FAMILY_MATMUL_SHAPES = {"phi3 w1": (8192, 3072), "xlstm up": (1536, 768),
+                        "zamba in_proj": (14576, 3584),
+                        "zamba out_proj": (3584, 7168)}
 # the budget phase: the budget it starts from (raised by the step until the
 # allocator picks two settings), the settings of its extra kernel rows (a
 # d = 1 and a k = 256 point) and block 0's matrices of its method table
@@ -867,6 +898,10 @@ PAGED_SHAPES = {
     # the vlm phase's engine: Phi-3-vision heads (MHA, 32 heads of 96)
     "vlm serve": dict(B=4, H=32, KV=32, hd=96, pos=[0, 57, 111, 135],
                       n_pages=16),
+    # the hybrid phase's engine: Zamba2-7B's shared attention (MHA, 32
+    # heads of 112: 28 of a row's 32 lanes hold dims; vq2 rows of 28 B)
+    "zamba serve": dict(B=4, H=32, KV=32, hd=112, pos=[0, 57, 111, 135],
+                        n_pages=16),
 }
 PAGE_SIZE = 16
 
@@ -1037,6 +1072,10 @@ FLASH_SHAPES = {
     # patches + 3,072 text tokens a sequence
     "phi3 B=2": dict(B=2, Sq=4096, Sk=4096, H=32, KV=32, hd=96, causal=True,
                      q_offset=0),
+    # the hybrid phase's calibration: Zamba2-7B's shared attention (32
+    # heads of 112) over the long phase's 4 x 4096 tokens
+    "zamba B=4": dict(B=4, Sq=4096, Sk=4096, H=32, KV=32, hd=112,
+                      causal=True, q_offset=0),
 }
 
 
@@ -1222,7 +1261,8 @@ def phase_kernels(torch, dev) -> list[dict]:
                                  0))
     for M in (SERVE_MAX_BATCH, 512):
         rows.append(check_matmul(torch, dev, "wq", M, 0, "f32"))
-    # the vlm and ssm phases' widths at a decode tick and a prefill chunk
+    # the vlm, ssm and hybrid phases' widths at a decode tick and a prefill
+    # chunk
     for layer in FAMILY_MATMUL_SHAPES:
         for M in (SERVE_MAX_BATCH, SERVE_PREFILL_CHUNK):
             rows.append(check_matmul(torch, dev, layer, M, 0))
@@ -1232,8 +1272,10 @@ def phase_kernels(torch, dev) -> list[dict]:
             rows.append(check_expert_matmul(torch, dev, weight, M))
     invariance = {"vq_dequant_matmul": check_matmul_rows(torch, dev),
                   "vq_dequant_matmul xlstm up": check_matmul_rows(
-                      torch, dev, "xlstm up")}
-    for shape in ("long", "gqa long", "vlm serve"):
+                      torch, dev, "xlstm up"),
+                  "vq_dequant_matmul zamba in_proj": check_matmul_rows(
+                      torch, dev, "zamba in_proj")}
+    for shape in ("long", "gqa long", "vlm serve", "zamba serve"):
         invariance[f"paged_attention {shape}"] = check_paged_slots(
             torch, dev, shape)
     rows += paged_rows(torch, dev)
@@ -1462,7 +1504,8 @@ def predict_matmul_impls(fused, M: int, x_dtype, m_experts=None) -> dict:
     from repro_torch.kernels.vq_dequant_matmul import select_impl
 
     want: dict = {}
-    for lp in fused["layers"]:
+    # the layers, or the hybrid's trunk (its shared block runs densified)
+    for lp in fused["layers"] if "layers" in fused else fused["mamba"]:
         for leaf in tree_leaves(lp):
             if isinstance(leaf, FusedVQLinear):
                 p = leaf.prepared
@@ -1856,7 +1899,6 @@ def forced_logits(torch, dev, model, eng, prompt, forced, impl,
     engine's page format and length (and, for vq2, its frozen codebooks;
     a recurrent layer starts from its reset state), on the engine's params
     unless ``params`` is given."""
-    from repro_torch.models.attention import PagedKVCache
     from repro_torch.serve import paged_cache as pc
     from repro_torch.serve.serve_step import teacher_forced_logits
 
@@ -1865,9 +1907,10 @@ def forced_logits(torch, dev, model, eng, prompt, forced, impl,
     n_pages = eng.max_len // SERVE_PAGE
     cache = pc.push_page_table(
         cache, np.arange(1, n_pages + 1, dtype=np.int32)[None])
-    cache = [c._replace(k_codebook=e.k_codebook, v_codebook=e.v_codebook)
-             if isinstance(e, PagedKVCache) and e.k_codebook is not None
-             else c for c, e in zip(cache, eng.cache)]
+    cache = pc.map_paged(
+        lambda c, e: c if e.k_codebook is None else c._replace(
+            k_codebook=e.k_codebook, v_codebook=e.v_codebook),
+        cache, eng.cache)
     return teacher_forced_logits(
         model, eng.params if params is None else params, prompt, forced,
         cache=cache, paged_impl=impl)
@@ -2903,31 +2946,36 @@ def time_recurrences(torch, dev, cfg, params) -> dict:
     return out
 
 
-def predict_ssm_serve(run: dict, fused) -> dict:
-    """Launch counts of an ssm serve run from the host plan: no
-    paged_attention (no attention leaves); every packed leaf once a
-    forward, the decode ticks at M = max_batch, the prefill chunks at the
-    prompts' exact power-of-two pieces (the engine pads no recurrent
-    prompt); by variant as each leaf's layout selects at those rows."""
+def predict_ssm_serve(run: dict, fused, attn_per_tick: int = 0,
+                      tag: str = "ssm") -> dict:
+    """Launch counts of a recurrent family's serve run from the host plan:
+    ``attn_per_tick`` paged_attention launches a decode tick (the ssm has
+    no attention leaves; the hybrid one a group); every packed leaf of the
+    layers (the hybrid's trunk) once a forward, the decode ticks at M =
+    max_batch, the prefill chunks at the prompts' exact power-of-two pieces
+    (the engine pads no recurrent prompt); by variant as each leaf's layout
+    selects at those rows."""
     import torch
 
     from repro_torch.core.vq_linear import FusedVQLinear
 
     chunks = prefill_chunk_ms(run["prompts"], pad=False)
+    trunk = fused["layers"] if "layers" in fused else fused["mamba"]
     per_fwd = sum(isinstance(leaf, FusedVQLinear)
-                  for lp in fused["layers"] for leaf in tree_leaves(lp))
+                  for lp in trunk for leaf in tree_leaves(lp))
     impls: dict = {}
     for m, times in [(SERVE_MAX_BATCH, run["decode_ticks"])] + [
             (m, 1) for m in chunks]:
         for k, v in predict_matmul_impls(fused, m, torch.bfloat16).items():
             impls[k] = impls.get(k, 0) + v * times
-    want = {"paged_attention": 0,
+    want = {"paged_attention": attn_per_tick * run["decode_ticks"],
             "vq_dequant_matmul": per_fwd * (run["decode_ticks"]
                                             + len(chunks)),
             "at_m4": per_fwd * (run["decode_ticks"] + chunks.count(
                 SERVE_MAX_BATCH)), "by_impl": impls,
             "chunks": chunks, "per_forward": per_fwd}
-    log(f"[ssm] serve predicted launches: paged_attention 0; "
+    log(f"[{tag}] serve predicted launches: paged_attention "
+        f"{want['paged_attention']}; "
         f"vq_dequant_matmul = {per_fwd} x forwards = "
         f"{want['vq_dequant_matmul']}, of them {want['at_m4']} at M = "
         f"{SERVE_MAX_BATCH}; prefill chunks {len(chunks)} "
@@ -3191,6 +3239,450 @@ def phase_ssm(torch, dev) -> dict:
             "phase_seconds": time.perf_counter() - t_phase}
 
 
+# the hybrid phase: Zamba2-7B at full width, 12 of its 78 Mamba layers (2
+# groups of 6: one group would never run a second LoRA slice or a second
+# shared-attention KV stack), calibrated on the long phase's 4 x 4096
+# tokens and evaluated on 2 x 4096 held-out ones; the int8 and vq2 page
+# engines' (requests, new tokens)
+HYBRID_ARCH, HYBRID_LAYERS = "zamba2-7b", 12
+HYBRID_HELDOUT = 2
+HYBRID_QUANT_PAGES = (4, 32)
+# the LoRA B factors start at zeros (the reference's init), where a wrong
+# group slice adds nothing and goes unseen: the phase draws them from this
+# numpy seed with this std instead
+HYBRID_LORA_SEED, HYBRID_LORA_STD = 0, 0.02
+# the bf16 comparisons. Fused vs gather logits: main's bars (the first
+# reading on the H100, 0.148 max / 0.024 RMS, holds them). The served
+# path's teacher-forced kernel decode vs the gather decode and vs the
+# cache-free forward: twice the first readings (max 0.147, RMS 0.0293 vs
+# the cache-free forward; 0.102 / 0.0177 vs the gather decode, where only
+# the attention's rounding differs). The 12 Mamba layers carry a bf16
+# rounding of one step's residual stream on in their f32 state, so the
+# serve bars cannot hold in bf16; the f32 copy of the same path reads
+# 1e-5 and is held to the serve bars, and a wrong page, group slice or
+# state moves logits O(1) (PERF.md, section 6)
+HYBRID_BF16_BARS = (FUSED_MAX_TOL, FUSED_RMS_TOL)
+HYBRID_BF16_SERVE_BARS = (0.3, 0.06)
+
+
+def seed_lora_b(torch, params) -> None:
+    """Every LoRA B factor (n_groups, r, dim) drawn from
+    N(0, HYBRID_LORA_STD^2) with numpy's HYBRID_LORA_SEED, in place of
+    the reference's zeros."""
+    rng = np.random.default_rng(HYBRID_LORA_SEED)
+    for name in ("q", "k", "v"):
+        B = params["lora"][name]["B"]
+        draw = rng.standard_normal(tuple(B.shape)).astype(np.float32)
+        params["lora"][name]["B"] = torch.from_numpy(
+            draw * HYBRID_LORA_STD).to(B.device, B.dtype)
+
+
+def hybrid_targets(cfg) -> list:
+    """The reference adapter's targets in its order: the shared block's
+    q/k/v/o, then each Mamba layer's in_proj and out_proj."""
+    n_groups, per = cfg.n_layers // cfg.shared_attn_every, \
+        cfg.shared_attn_every
+    return ([f"shared.attn.{w}" for w in ("wq", "wk", "wv", "wo")]
+            + [f"mamba.{g}.{j}.mixer.{w}" for g in range(n_groups)
+               for j in range(per) for w in ("in_proj", "out_proj")])
+
+
+def hybrid_dense_leaves(params) -> dict:
+    """The leaves the quantizer leaves dense: the LoRA factors, the shared
+    norm, every layer's norm and its conv and scan parameters."""
+    out = {f"lora.{n}.{f}": params["lora"][n][f]
+           for n in ("q", "k", "v") for f in ("A", "B")}
+    out["shared.norm"] = params["shared"]["norm"]
+    for g, grp in enumerate(params["mamba"]):
+        for j, lp in enumerate(grp):
+            out[f"mamba.{g}.{j}.norm"] = lp["norm"]
+            for w in ("conv_w", "conv_b", "A_log", "dt_bias", "D_skip",
+                      "norm_scale"):
+                out[f"mamba.{g}.{j}.mixer.{w}"] = lp["mixer"][w]
+    return out
+
+
+def time_ssd(torch, dev, cfg, params) -> dict:
+    """The Mamba2 scan alone on the card (plain PyTorch, f32): the
+    chunked SSD at a 64-token prefill chunk (B = 1) and at the
+    calibration's 4 x 4096 tokens, on random inputs at Zamba2-7B's widths
+    (112 heads of 64, state 64); and one decode step of layer 0's mixer
+    up to out_proj (ssm.pre_out at B = max_batch, S = 1, its dense
+    in_proj included) from a reset cache."""
+    from repro_torch.models import ssm
+
+    _, heads, _ = ssm._dims(cfg)
+    hd, N = cfg.ssm_head_dim, cfg.ssm_state
+    A = -torch.exp(params["mamba"][0][0]["mixer"]["A_log"])
+    g = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    for B, S in ((1, SERVE_PREFILL_CHUNK), (LONG_CALIB, LONG_SEQ)):
+        xh = torch.randn((B, S, heads, hd), generator=g, device=dev)
+        Bm, Cm = (torch.randn((B, S, N), generator=g, device=dev)
+                  for _ in range(2))
+        dt = torch.nn.functional.softplus(
+            torch.randn((B, S, heads), generator=g, device=dev) - 2)
+        with torch.no_grad():
+            ms = time_ms(torch, lambda: ssm._ssd_chunked(
+                xh, Bm, Cm, dt, A, cfg.ssm_chunk), 5, 1)
+        out[f"ssd B={B} S={S}"] = ms
+        log(f"[hybrid] SSD scan at B={B} S={S}: {ms:.4f} ms a layer")
+        del xh, Bm, Cm, dt
+    lp = params["mamba"][0][0]
+    x = torch.randn((SERVE_MAX_BATCH, 1, cfg.d_model), generator=g,
+                    device=dev).to(torch.bfloat16)
+    cache = ssm.init_cache(cfg, SERVE_MAX_BATCH, device=dev)
+    with torch.no_grad():
+        ms = time_ms(torch, lambda: ssm.pre_out(lp["mixer"], cfg, x, cache))
+    out[f"decode step B={SERVE_MAX_BATCH}"] = ms
+    log(f"[hybrid] Mamba2 decode step (pre_out, dense in_proj) at "
+        f"B={SERVE_MAX_BATCH}: {ms:.4f} ms a layer")
+    return out
+
+
+def phase_hybrid(torch, dev, calib, long_heldout) -> dict:
+    """The hybrid family at Zamba2-7B's full width, 12 Mamba layers in 2
+    groups: see the module docstring."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import vq_linear as vql_mod
+    from repro_torch.core.bpv import PAPER_SETTINGS
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.kernels import vq_assign as vqa
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.vq_dequant_matmul import vq_dequant_matmul
+    from repro_torch.models import hybrid, model_zoo
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.train.loss import perplexity
+
+    t_phase = time.perf_counter()
+    cfg = ARCHS[HYBRID_ARCH].scaled(n_layers=HYBRID_LAYERS)
+    n_groups = cfg.n_layers // cfg.shared_attn_every
+    log(f"[hybrid] {cfg.name}: d_model {cfg.d_model}, shared attention "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads} kv x {cfg.hd} (LoRA rank "
+        f"{cfg.shared_attn_lora_rank}), Mamba2 d_inner "
+        f"{cfg.ssm_expand * cfg.d_model}, state {cfg.ssm_state}, head dim "
+        f"{cfg.ssm_head_dim}; {cfg.n_layers} Mamba layers in {n_groups} "
+        f"groups of {cfg.shared_attn_every}; vocab {cfg.vocab_size}, dtype "
+        f"{cfg.dtype}; calibration {tuple(calib.shape)}, heldout "
+        f"{HYBRID_HELDOUT} x {LONG_SEQ}")
+    torch.cuda.reset_peak_memory_stats()
+    t = {}
+    t0 = time.perf_counter()
+    model = model_zoo.build(cfg)
+    params = model.init_params(seed=0, device=dev)
+    seed_lora_b(torch, params)
+    heldout = long_heldout[:HYBRID_HELDOUT].contiguous()
+    torch.cuda.synchronize()
+    t["init"] = time.perf_counter() - t0
+    setting = PAPER_SETTINGS["2.25bpv_2d"]
+    recipe = QuantRecipe.uniform(setting, name="2.25bpv_2d"
+                                 ).with_quantize_overrides(
+                                     em_iters=25, codebook_update_iters=10)
+    plan = family_plan(model, params, setting)
+    targets = hybrid_targets(cfg)
+    # flash: every shared-attention invocation over > 2048 tokens. The fp
+    # evaluation, the capture of the shared block (the unquantized trunk
+    # replayed) and the fused and gather evaluations on tensor cores (bf16
+    # q, k, v); each group-entry capture on the FP32 kernel (the shared
+    # block dequantized to f32, as the reference's adapter) and the f32
+    # copy's three evaluations too
+    want_quant_flash = {"tc": n_groups, "fp32": n_groups}
+    want_flash = {"tc": 4 * n_groups, "fp32": 4 * n_groups}
+    log(f"[hybrid] host plan: {len(plan['quantized'])} targets (the "
+        f"reference adapter's {len(targets)}), {len(plan['dense'])} kept "
+        f"dense by the adapter, vq_group_sweep and vq_em {plan['groups']} "
+        f"launches each, vq_assign 0; achieved bpv {plan['bpv']:.6f}; "
+        f"flash_attention by variant {want_flash} (the quantize's "
+        f"{want_quant_flash}); {model_zoo.count_params(model) / 1e9:.3f} B "
+        "parameters")
+    parts = time_ssd(torch, dev, cfg, params)
+    dense_leaves = hybrid_dense_leaves(params)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    ppl_fp = perplexity(model, params, heldout)
+    t["ppl_fp"] = time.perf_counter() - t0
+    flash_before = dict(flash_attention.launches_by_impl)
+    t0 = time.perf_counter()
+    qparams, rep = quantize_model(
+        model, params, calib, recipe=recipe, pack=True,
+        progress=lambda m: log(f"[hybrid]   {m} "
+                               f"({time.perf_counter() - t0:.1f}s)"))
+    torch.cuda.synchronize()
+    t["quantize"] = time.perf_counter() - t0
+    quant_launches = {fn: getattr(vqa, fn).launches
+                      for fn in VQ_ENTRY_POINTS}
+    quant_flash = impl_delta(flash_before, flash_attention.launches_by_impl)
+    del params
+    quantized = [k for k, e in rep.per_target.items()
+                 if e["action"] == "quantize"]
+    packed = all(isinstance(leaf, vql_mod.VQLinear) for leaf in (
+            [qparams["shared"]["attn"][w] for w in ("wq", "wk", "wv", "wo")]
+            + [lp["mixer"][w] for grp in qparams["mamba"] for lp in grp
+               for w in ("in_proj", "out_proj")]))
+    dense_same = all(torch.equal(a, b) for a, b in zip(
+        dense_leaves.values(), hybrid_dense_leaves(qparams).values()))
+
+    fused = vql_mod.prepare_fused_tree(qparams)
+    B, S = heldout.shape
+    want_eval = predict_matmul_impls(fused, B * S, torch.bfloat16)
+    vq_dequant_matmul.launches = 0
+    vq_dequant_matmul.launches_by_impl = {}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        lf = model.forward(fused, {"tokens": heldout})[0]
+        torch.cuda.synchronize()
+        t["eval_fused"] = time.perf_counter() - t0
+        eval_launches = {"launches": vq_dequant_matmul.launches,
+                         "by_impl": dict(vq_dequant_matmul.launches_by_impl)}
+        lg = model.forward(qparams, {"tokens": heldout})[0]
+    ppl_vq = text_ppl(torch, lf, heldout)
+    diffs = logit_diff(torch, lf, lg)
+    windows = {f"{lo}-{hi}": logit_diff(torch, lf[:, lo:hi], lg[:, lo:hi])
+               for lo, hi in ((0, 64), (64, 1024), (1024, S)) if lo < S}
+    del lg
+    # the f32 copy: the same packed leaves (the fused form on the fp32
+    # variant, the gather form dequantized to f32), where no activation or
+    # W is rounded to bf16; and the model's own sensitivity to the bf16
+    # rounding of the dequantized W
+    model32 = model_zoo.build(cfg.scaled(dtype="float32"))
+    q32 = to_f32(qparams)
+    fused32 = vql_mod.prepare_fused_tree(q32)
+    with torch.no_grad():
+        lg32 = model32.forward(q32, {"tokens": heldout})[0]
+        f32_diffs = logit_diff(
+            torch, model32.forward(fused32, {"tokens": heldout})[0], lg32)
+        rounded = to_f32(vql_mod.dequant_tree(q32, torch.bfloat16))
+        sens = logit_diff(torch, model32.forward(
+            rounded, {"tokens": heldout})[0], lg32)
+        del lg32, rounded
+    flash = {"launches": flash_attention.launches,
+             "by_impl": dict(flash_attention.launches_by_impl)}
+    bars = HYBRID_BF16_BARS
+    log(f"[hybrid] bf16 fused vs gather logits {tuple(lf.shape)}: max "
+        f"|diff| {diffs[0]:.4e} (tol {bars[0]}), RMS {diffs[1]:.4e} (tol "
+        f"{bars[1]}); by positions "
+        + ", ".join(f"{k}: {v[0]:.4e} / {v[1]:.4e}"
+                    for k, v in windows.items()))
+    log(f"[hybrid] f32 copy, fused vs gather logits: max |diff| "
+        f"{f32_diffs[0]:.4e} (tol {FUSED_MAX_TOL}), RMS {f32_diffs[1]:.4e} "
+        f"(tol {FUSED_RMS_TOL})")
+    log(f"[hybrid] sensitivity: the f32 copy with the dequantized W exact "
+        f"against rounded to bf16: max {sens[0]:.4e}, RMS {sens[1]:.4e}")
+    del lf
+
+    t0 = time.perf_counter()
+    run = serve_run(torch, dev, model, qparams, 16, SERVE_REQUESTS,
+                    SERVE_NEW)
+    eng = run.pop("engine")
+    t["serve"] = time.perf_counter() - t0
+    want_serve = predict_ssm_serve(run, eng.params, n_groups, "hybrid")
+
+    # the shared block's densify alone: its four fused leaves decoded to
+    # bf16 and each group's LoRA delta added, as every forward does
+    def densify():
+        top = {k: v for k, v in eng.params.items() if k != "mamba"}
+        d = vql_mod.dequant_tree(top, torch.bfloat16, densify_fused=True)
+        for g in range(n_groups):
+            hybrid.lora_attn_params(d["shared"],
+                                    hybrid.lora_group(d["lora"], g), cfg)
+
+    with torch.no_grad():
+        densify_ms = time_ms(torch, densify)
+    itl_ms = run["itl_median_s"] * 1e3
+    log(f"[hybrid] densify of the shared block a forward: {densify_ms:.4f} "
+        f"ms, {100 * densify_ms / itl_ms:.1f}% of the median ITL "
+        f"{itl_ms:.3f} ms")
+
+    # request 0's served path, teacher-forced: the kernel decode against
+    # the gather decode and the cache-free forward, in the bf16 model and
+    # in its f32 copy (the serve bars)
+    tf_diffs, agree, _ = teacher_forced(torch, dev, model, run, eng,
+                                        "hybrid run")
+    prompt, out = run["prompts"][0], run["out"][0]
+    forced = out[:-1]
+    seq = torch.as_tensor(np.concatenate([prompt, forced]), device=dev)
+    with torch.no_grad():
+        tf_kernel = forced_logits(torch, dev, model32, eng, prompt, forced,
+                                  "fused", params=fused32)
+        tf_gather = forced_logits(torch, dev, model32, eng, prompt, forced,
+                                  "gather", params=fused32)
+        free = model32.forward(fused32, {"tokens": seq[None]})[0][0][
+            len(prompt) - 1:]
+    for name, other in (("gather decode", tf_gather),
+                        ("cache-free forward", free)):
+        d = tf_diffs[f"f32 {name}"] = logit_diff(torch, tf_kernel, other)
+        log(f"[hybrid] serve, f32 copy: teacher-forced kernel decode vs "
+            f"{name}, {tuple(tf_kernel.shape)} logits: max |diff| "
+            f"{d[0]:.4e} (tol {SERVE_MAX_TOL}), RMS {d[1]:.4e} (tol "
+            f"{SERVE_RMS_TOL})")
+    del q32, fused32, model32, tf_kernel, tf_gather, free
+
+    t0 = time.perf_counter()
+    solo = solo_tokens(torch, dev, model, qparams, run["prompts"], SERVE_NEW)
+    solo_same = [a == b for a, b in zip(solo, run["out"])]
+    log(f"[hybrid] solo vs interleaved tokens identical: {solo_same}")
+    # preemption: a pool of 6 pages a slot where a request needs up to 9;
+    # the youngest is evicted, replayed from a reset state, and every
+    # request's tokens are the unpressured run's
+    tight = Engine(model, qparams, max_batch=SERVE_MAX_BATCH,
+                   max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
+                   num_blocks=6 * SERVE_MAX_BATCH + 1,
+                   paged_attn_impl="fused", vq_matmul_impl="fused",
+                   device=dev)
+    reqs = [Request(rid=200 + i, prompt=p, max_new_tokens=SERVE_NEW)
+            for i, p in enumerate(run["prompts"])]
+    tight.run(reqs)
+    preempt = {"preemptions": tight.stats["preemptions"],
+               "tokens_equal": [r.out_tokens == o
+                                for r, o in zip(reqs, run["out"])]}
+    log(f"[hybrid] preemption replay: {preempt['preemptions']} preemptions, "
+        f"tokens equal to the unpressured run: {preempt['tokens_equal']}")
+    prefix_inert = Engine(model, qparams, max_batch=SERVE_MAX_BATCH,
+                          max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
+                          prefix_cache=True, device=dev).prefix_cache is None
+    log(f"[hybrid] prefix cache asked for and left off (slot-resident "
+        f"state): {prefix_inert}")
+    t["solo_preempt"] = time.perf_counter() - t0
+    del tight
+
+    # int8 and vq2 pages: launches held to the plan, drift against the f32
+    # pages on request 0's served tokens
+    t0 = time.perf_counter()
+    low = {}
+    n_forced = HYBRID_QUANT_PAGES[1] - 1
+    for bits in (8, "vq2"):
+        r = serve_run(torch, dev, model, qparams, bits, *HYBRID_QUANT_PAGES)
+        e = r.pop("engine")
+        r["predicted"] = predict_ssm_serve(r, e.params, n_groups,
+                                           f"hybrid kv={bits}")
+        with torch.no_grad():
+            ref = forced_logits(torch, dev, model, eng, prompt,
+                                out[:n_forced], "fused")
+            got = forced_logits(torch, dev, model, e, prompt,
+                                out[:n_forced], "fused")
+        r["drift"] = logit_diff(torch, got, ref)
+        r["finite"] = bool(torch.isfinite(got).all())
+        log(f"[hybrid] kv={bits}: teacher-forced drift vs f32 pages on "
+            f"request 0 ({n_forced + 1} steps): max {r['drift'][0]:.4e}, "
+            f"RMS {r['drift'][1]:.4e}, finite {r['finite']}; launches at "
+            f"engine load {r['load_launches']}")
+        low[str(bits)] = r
+        del e
+    t["int8_vq2"] = time.perf_counter() - t0
+    del eng
+
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[hybrid] ppl fp={ppl_fp:.3f} vq={ppl_vq:.3f} | recon err="
+        f"{rep.total_error():.4f} | achieved {rep.achieved_bpv:.6f} bpv "
+        f"(host plan {plan['bpv']:.6f})")
+    log("[hybrid] stages: " + "  ".join(
+        f"{k}={v:.2f}s" for k, v in sorted(rep.stage_seconds.items(),
+                                          key=lambda kv: -kv[1])))
+    log("[hybrid] seconds: " + "  ".join(f"{k}={v:.2f}" for k, v in t.items()))
+    log(f"[hybrid] quantize launches {quant_launches} (predicted "
+        f"vq_group_sweep and vq_em {plan['groups']} each, vq_assign 0), "
+        f"flash_attention {quant_flash} (predicted {want_quant_flash}); "
+        f"flash_attention in all {flash} (predicted {want_flash}); "
+        f"evaluation matmuls {eval_launches} (predicted {want_eval})")
+    log(f"[hybrid] max_memory_allocated {peak / 2**30:.2f} GiB; phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+
+    serve_bars = HYBRID_BF16_SERVE_BARS
+    checks = {
+        "ppl finite": math.isfinite(ppl_fp) and math.isfinite(ppl_vq),
+        "logits finite": math.isfinite(diffs[0]),
+        "targets == the reference adapter's": quantized == targets
+            == list(rep.per_target) and sorted(plan["quantized"])
+            == sorted(targets) and not plan["dense"],
+        "every target packed": packed,
+        "LoRA, norms, conv and scan leaves untouched": dense_same,
+        "bpv == host plan": abs(rep.achieved_bpv - plan["bpv"]) < 1e-9,
+        **quantize_launch_checks(quant_launches, plan["groups"]),
+        "quantize: flash_attention by variant as planned":
+            quant_flash == want_quant_flash,
+        "flash_attention launches by variant as planned":
+            flash["by_impl"] == want_flash
+            and flash["launches"] == sum(want_flash.values()),
+        "evaluation: one launch a packed trunk leaf by variant as planned":
+            eval_launches["by_impl"] == want_eval
+            and eval_launches["launches"] == sum(want_eval.values()),
+        "f32 copy: fused vs gather": (f32_diffs[0] <= FUSED_MAX_TOL
+                                      and f32_diffs[1] <= FUSED_RMS_TOL),
+        "bf16: fused vs gather": diffs[0] <= bars[0] and diffs[1] <= bars[1],
+        "serve: all requests finished": all(len(o) == SERVE_NEW
+                                            for o in run["out"]),
+        "serve: paged_attention launches == decode ticks x groups":
+            run["launches"]["paged_attention"]
+            == want_serve["paged_attention"] > 0,
+        "serve: prefill chunks as planned":
+            run["prefill_chunks"] == len(want_serve["chunks"]),
+        "serve: vq_dequant_matmul launches == packed trunk leaves x "
+        "forwards": run["launches"]["vq_dequant_matmul"]
+            == want_serve["vq_dequant_matmul"] > 0,
+        "serve: vq_dequant_matmul at M = 4": run["vq_m_counts"].get(
+            SERVE_MAX_BATCH, 0) == want_serve["at_m4"],
+        "serve: by variant as planned":
+            run["vq_impl_counts"] == want_serve["by_impl"],
+        **{f"serve, f32 copy: teacher-forced kernel decode vs {name}":
+           within_bars(tf_diffs[f"f32 {name}"])
+           for name in ("gather decode", "cache-free forward")},
+        **{f"serve, bf16: teacher-forced kernel decode vs {name}":
+           tf_diffs[name][0] <= serve_bars[0]
+           and tf_diffs[name][1] <= serve_bars[1]
+           for name in ("gather decode", "cache-free forward")},
+        "serve: solo == interleaved tokens": all(solo_same),
+        "serve: preemption replayed identically": preempt["preemptions"] > 0
+            and all(preempt["tokens_equal"]),
+        "serve: prefix cache inert": prefix_inert,
+    }
+    for bits, r in low.items():
+        w = r["predicted"]
+        checks.update({
+            f"kv={bits}: finished": all(len(o) == HYBRID_QUANT_PAGES[1]
+                                        for o in r["out"]),
+            f"kv={bits}: paged_attention launches == decode ticks x groups":
+                r["launches"]["paged_attention"] == w["paged_attention"] > 0,
+            f"kv={bits}: vq_dequant_matmul by variant as planned":
+                r["vq_impl_counts"] == w["by_impl"]
+                and r["launches"]["vq_dequant_matmul"]
+                == w["vq_dequant_matmul"],
+            f"kv={bits}: launches at engine load": r["load_launches"] == {
+                "vq_assign": 0, "vq_group_sweep": 0,
+                "vq_em": 2 * n_groups if bits == "vq2" else 0},
+            f"kv={bits}: logits finite": r["finite"],
+        })
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise Failed(f"hybrid phase checks failed: {bad}")
+    run.pop("prompts")
+    run["out"] = run["out"][:2]
+    want_serve.pop("chunks")
+    for r in low.values():
+        r.pop("prompts")
+        r["out"] = r["out"][:2]
+        r["predicted"].pop("chunks")
+    return {"launches": quant_launches, "predicted_column_groups":
+            plan["groups"], "quant_flash": quant_flash,
+            "predicted_quant_flash": want_quant_flash, "flash": flash,
+            "predicted_flash": want_flash, "eval_launches": eval_launches,
+            "predicted_eval": want_eval, "ppl_fp": ppl_fp, "ppl_vq": ppl_vq,
+            "recon_error": rep.total_error(),
+            "achieved_bpv": rep.achieved_bpv, "predicted_bpv": plan["bpv"],
+            "stage_seconds": rep.stage_seconds, "seconds": t,
+            "fused_vs_gather": diffs, "fused_vs_gather_by_position": windows,
+            "f32_fused_vs_gather": f32_diffs, "sensitivity": sens,
+            "bf16_bars": bars, "bf16_serve_bars": serve_bars, "serve": run,
+            "serve_predicted": want_serve, "serve_teacher_forced": tf_diffs,
+            "greedy_agree": agree, "solo_equal": solo_same,
+            "preemption": preempt, "prefix_inert": prefix_inert,
+            "low_bit_pages": low, "ssd_ms": parts,
+            "densify_ms": densify_ms, "itl_median_ms": itl_ms,
+            "max_memory_allocated": peak,
+            "phase_seconds": time.perf_counter() - t_phase}
+
+
 def kernel_line(rows: list[dict], launches: dict) -> dict:
     """One entry per kernel source, at the shape its path launches most:
     vq_dequant_matmul at the eval's M=512 on a 4096x4096 projection,
@@ -3304,6 +3796,8 @@ def main() -> int:
     vlm_res = phase_vlm(torch, dev, long_calib, long_heldout)
     torch.cuda.empty_cache()
     ssm_res = phase_ssm(torch, dev)
+    torch.cuda.empty_cache()
+    hybrid_res = phase_hybrid(torch, dev, long_calib, long_heldout)
     os.makedirs(out_dir, exist_ok=True)
     out = os.path.join(out_dir, "chip_smoke.json")
     with open(out, "w") as f:
@@ -3311,7 +3805,8 @@ def main() -> int:
                    "bitwise": invariance,
                    "small": small_res, "main": main_res,
                    "budget": budget_res, "serve": serve_res, "long": long_res,
-                   "moe": moe_res, "vlm": vlm_res, "ssm": ssm_res}, f,
+                   "moe": moe_res, "vlm": vlm_res, "ssm": ssm_res,
+                   "hybrid": hybrid_res}, f,
                   indent=1, default=str)
     log(f"[done] {time.perf_counter() - t_all:.1f}s; details in {out}")
     launches = dict(main_res["launches"], paged_attention=serve_res[

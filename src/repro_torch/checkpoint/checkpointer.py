@@ -28,7 +28,12 @@ reference's:
 The reference stacks homogeneous layers on a leading axis (its scan form)
 where the port keeps a list, so ``restore`` reads item i of a list from its
 own file or, when the checkpoint holds the stacked form, as row i of the
-stacked leaf.
+stacked leaf (for nested lists, such as the hybrid trunk's groups of
+layers, row [g][j]). ``save`` writes the hybrid trunk (``params["mamba"]``,
+a list of groups of layers) in the reference's layout: one stacked
+(n_groups, per, ...) leaf per array when its layers stack
+(``core/adapters/base.blocks_stackable``), the list of lists otherwise (a
+mixed recipe).
 """
 from __future__ import annotations
 
@@ -134,6 +139,20 @@ def _from_host(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 
+def _reference_layout(tree):
+    """``tree`` with a stackable hybrid trunk stacked (n_groups, per, ...),
+    as the reference's adapter finalizes and saves it."""
+    trunk = tree.get("mamba") if isinstance(tree, dict) else None
+    if not (isinstance(trunk, list) and trunk
+            and all(isinstance(g, list) for g in trunk)):
+        return tree
+    from repro_torch.core.adapters.base import blocks_stackable, stack_blocks
+
+    if not blocks_stackable([lp for grp in trunk for lp in grp]):
+        return tree
+    return dict(tree, mamba=stack_blocks([stack_blocks(g) for g in trunk]))
+
+
 class Checkpointer:
     def __init__(self, directory: str, keep: int = 3,
                  async_save: bool = False):
@@ -146,8 +165,9 @@ class Checkpointer:
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, tree: Any, metadata: dict | None = None):
+        # snapshot now, in the reference's layout
         host = [(_name(path), *_to_host(path, leaf))
-                for path, leaf in _flatten(tree)]  # snapshot now
+                for path, leaf in _flatten(_reference_layout(tree))]
         if self.async_save:
             self.wait()
             self._thread = threading.Thread(
@@ -227,20 +247,24 @@ class Checkpointer:
 
         values = {}
         for path, ref in _flatten(like):
-            name, row = _name(path), None
+            name, row = _name(path), ()
             if name not in dtypes:
-                # the reference's stacked form: drop the first list index
-                # from the path and take that row of the stacked leaf
+                # the reference's stacked form: drop the first run of list
+                # indices from the path and take that row of the stacked
+                # leaf
                 i = next((j for j, (_, seq) in enumerate(path) if seq), None)
                 if i is None:
                     raise KeyError(f"leaf {name!r} is not in {d}")
-                row = int(path[i][0][1:-1])
-                name = _name(path[:i] + path[i + 1:])
+                n = i
+                while n < len(path) and path[n][1]:
+                    n += 1
+                row = tuple(int(piece[1:-1]) for piece, _ in path[i:n])
+                name = _name(path[:i] + path[n:])
                 if name not in dtypes:
                     raise KeyError(f"leaf {_name(path)!r} (or its stacked "
                                    f"form {name!r}) is not in {d}")
             arr = load(name)
-            if row is not None:
+            if row:
                 arr = arr[row]
             values[path] = _from_host(arr, dtypes[name], ref.device)
         return _rebuild(like, values), manifest["metadata"]

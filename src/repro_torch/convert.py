@@ -4,14 +4,16 @@
 ``init_params`` tree into the port's parameter dict, unstacking the
 ``layers`` leading axis into a list of per-layer dicts (a MoE layer's
 expert stacks (E, D, F) stay stacked inside its dict; the xLSTM's layers
-are a list already). The leaves the reference keeps in f32 (the MoE
-router, the mLSTM gate projections) stay f32. ``vqlinear_from_jax`` does the same for
-one packed ``VQLinear`` (any object with the reference's field names, an
-expert stack's arrays with their leading E; uint32 words are reinterpreted
-as int32), and
-``paged_cache_from_jax`` for a reference ``PagedKVCache`` (pools, scales,
-codebooks, page table). Nothing here imports jax: callers pass numpy arrays
-(or objects ``np.asarray`` accepts).
+are a list already; the hybrid's (n_groups, per) trunk becomes a list of
+lists). The leaves the reference keeps in f32 (the MoE router, the mLSTM
+gate projections, the Mamba2 scan parameters) stay f32.
+``vqlinear_from_jax`` does the same for one packed ``VQLinear`` (any object
+with the reference's field names, an expert stack's arrays with their
+leading E, or one matrix of a stacked leaf; uint32 words are
+reinterpreted as int32), and ``paged_cache_from_jax`` for a reference
+``PagedKVCache`` (pools, scales, codebooks, page table) or
+``HybridCache``. Nothing here imports jax: callers pass numpy arrays (or
+objects ``np.asarray`` accepts).
 """
 from __future__ import annotations
 
@@ -32,9 +34,12 @@ def _tensor(a, dtype, device) -> torch.Tensor:
 
 
 # leaves the reference keeps in f32 whatever the model's dtype, by block
-# kind: the MoE router and the mLSTM's exponential-gate projections
+# kind: the MoE router, the mLSTM's exponential-gate projections and the
+# Mamba2 mixer's scan parameters
 _F32_LEAVES = {"moe": {("ffn", "router")},
-               "mlstm": {("core", w) for w in ("w_i", "w_f", "b_i", "b_f")}}
+               "mlstm": {("core", w) for w in ("w_i", "w_f", "b_i", "b_f")},
+               "mamba": {("mixer", w) for w in ("A_log", "dt_bias",
+                                                "D_skip")}}
 
 
 def _map(tree, f, path=()):
@@ -48,7 +53,10 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, device=None) -> dict:
     dicts) in ``cfg.dtype``, the leaves the reference keeps in f32 in f32.
     The reference's ``layers`` is stacked on a leading axis (dense, moe,
     vlm) or already a list of per-layer dicts (the xLSTM's mLSTM/sLSTM
-    mix, whose sLSTM ``r_*`` leaves are (H, hd, hd) stacks)."""
+    mix, whose sLSTM ``r_*`` leaves are (H, hd, hd) stacks). The hybrid's
+    ``mamba`` trunk, stacked (n_groups, per, ...) or a list of lists,
+    becomes a list of groups of layer dicts; its ``lora`` factors stay
+    stacked (n_groups, ...)."""
     from repro_torch.models.transformer import block_kind
 
     dev = resolve_device(device)
@@ -58,6 +66,16 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, device=None) -> dict:
         return _map(tree, lambda a, path: _tensor(
             a, torch.float32 if path in f32 else DTYPES[cfg.dtype], dev))
 
+    if cfg.family == "hybrid":
+        out = {k: conv(v) for k, v in np_tree.items() if k != "mamba"}
+        trunk = np_tree["mamba"]
+        n_groups = cfg.n_layers // cfg.shared_attn_every
+        if not isinstance(trunk, list):
+            trunk = [[_map(trunk, lambda a, _, g=g, j=j: a[g][j])
+                      for j in range(cfg.shared_attn_every)]
+                     for g in range(n_groups)]
+        out["mamba"] = [[conv(lp, "mamba") for lp in grp] for grp in trunk]
+        return out
     out = {k: conv(v) for k, v in np_tree.items() if k != "layers"}
     layers = np_tree["layers"]
     if not isinstance(layers, list):
@@ -68,12 +86,14 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, device=None) -> dict:
     return out
 
 
-def vqlinear_from_jax(vql, device=None) -> VQLinear:
-    """A reference ``VQLinear`` (fields as arrays) -> the port's VQLinear."""
+def vqlinear_from_jax(vql, device=None, index: tuple = ()) -> VQLinear:
+    """A reference ``VQLinear`` (fields as arrays) -> the port's VQLinear.
+    ``index`` picks one matrix of a stacked leaf, e.g. (g, j) of the
+    hybrid trunk's (n_groups, per, ...) arrays."""
     dev = resolve_device(device)
 
     def arr(name, np_dtype, torch_dtype):
-        a = np.ascontiguousarray(np.asarray(getattr(vql, name)))
+        a = np.ascontiguousarray(np.asarray(getattr(vql, name))[index])
         return torch.from_numpy(a.view(np_dtype).copy()).to(dev, torch_dtype)
 
     return VQLinear(
@@ -98,11 +118,24 @@ def _exact(a, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
 
 
-def paged_cache_from_jax(cache, device=None) -> list[PagedKVCache]:
+def paged_cache_from_jax(cache, device=None):
     """A reference ``PagedKVCache`` (fields as arrays; pools with a leading
     layer axis, as the reference's scanned stacks hold them, or a single
-    layer's) -> the port's per-layer list, bit for bit."""
+    layer's) -> the port's per-layer list, bit for bit. A reference
+    ``HybridCache`` (fields ``mamba``, an ``SSMCache`` stacked (n_groups,
+    per, B, ...), and ``attn``, a ``PagedKVCache`` stacked (n_groups, ...))
+    -> the port's ``HybridCache``: per group a ``PagedKVCache``, per layer
+    an ``SSMCache``."""
     dev = resolve_device(device)
+    if hasattr(cache, "mamba"):
+        from repro_torch.models.hybrid import HybridCache
+        from repro_torch.models.ssm import SSMCache
+
+        h, conv = (np.asarray(cache.mamba.h), np.asarray(cache.mamba.conv))
+        return HybridCache(
+            mamba=[[SSMCache(_exact(h[g, j], dev), _exact(conv[g, j], dev))
+                    for j in range(h.shape[1])] for g in range(h.shape[0])],
+            attn=paged_cache_from_jax(cache.attn, dev))
     k = np.asarray(cache.k)
     stacked = k.ndim == 5
     n_layers = k.shape[0] if stacked else 1

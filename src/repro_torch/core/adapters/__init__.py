@@ -1,8 +1,8 @@
 """Model-adapter registry (port of ``repro/core/adapters/__init__.py``):
 the GPTVQ pipeline's only entry to block anatomy. The dense, moe and vlm
-families map to ``TransformerAdapter``, ssm (xLSTM) to ``XLSTMAdapter``;
-hybrid and audio wait for ROADMAP.md queue 1, "The other five
-families"."""
+families map to ``TransformerAdapter``, ssm (xLSTM) to ``XLSTMAdapter``,
+hybrid (Zamba2) to ``HybridAdapter``; audio waits for ROADMAP.md queue 1,
+"The other five families"."""
 from __future__ import annotations
 
 from repro_torch.core.adapters.base import (  # noqa: F401 (public API)
@@ -25,6 +25,9 @@ def get_adapter(model, params) -> ModelAdapter:
     if family == "ssm":
         from repro_torch.core.adapters.recurrent import XLSTMAdapter
         return XLSTMAdapter(model, params)
+    if family == "hybrid":
+        from repro_torch.core.adapters.hybrid import HybridAdapter
+        return HybridAdapter(model, params)
     if family in transformer.PORTED:
         from repro_torch.core.adapters.transformer import TransformerAdapter
         return TransformerAdapter(model, params)

@@ -162,3 +162,102 @@ def tree_set(tree, path: tuple, value):
     out = dict(tree)
     out[path[0]] = tree_set(tree[path[0]], path[1:], value)
     return out
+
+
+# ---------------------------------------------------------------------------
+# stacking: the reference's scan form of a homogeneous block list
+# ---------------------------------------------------------------------------
+
+def _structure(tree):
+    """A tree's structure with the static fields of its VQLinear leaves and
+    the shape and dtype of every tensor: two blocks stack when theirs are
+    equal."""
+    from repro_torch.core import vq_linear as vql_mod
+
+    if isinstance(tree, dict):
+        return tuple((k, _structure(v)) for k, v in sorted(tree.items()))
+    if isinstance(tree, list):
+        return ("list",) + tuple(_structure(v) for v in tree)
+    if isinstance(tree, vql_mod.VQLinear):
+        return ("vq",) + tuple(
+            (f.name, _structure(getattr(tree, f.name))
+             if torch.is_tensor(getattr(tree, f.name))
+             else getattr(tree, f.name))
+            for f in dataclasses.fields(tree))
+    return (tuple(tree.shape), tree.dtype)
+
+
+def blocks_stackable(block_list: list) -> bool:
+    """True when every block tree has the same structure (VQLinear static
+    metadata and tensor shapes included): the reference scans such a stack.
+    Mixed recipes break this (per-layer settings diverge in (k, d, band)
+    metadata or leave some layers dense)."""
+    s0 = _structure(block_list[0])
+    return all(_structure(b) == s0 for b in block_list[1:])
+
+
+def _vq_leaves(tree, out):
+    from repro_torch.core import vq_linear as vql_mod
+
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _vq_leaves(tree[k], out)
+    elif isinstance(tree, list):
+        for v in tree:
+            _vq_leaves(v, out)
+    elif isinstance(tree, vql_mod.VQLinear):
+        out.append(tree)
+    return out
+
+
+def _replace_vq(tree, new):
+    from repro_torch.core import vq_linear as vql_mod
+
+    if isinstance(tree, dict):
+        return {k: _replace_vq(tree[k], new) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [_replace_vq(v, new) for v in tree]
+    if isinstance(tree, vql_mod.VQLinear):
+        return next(new)
+    return tree
+
+
+def unify_rules(block_list: list) -> list:
+    """When per-layer VQLinear leaves differ *only* in their ``rule``
+    provenance string (e.g. layer 0 matched a by-name rule whose action
+    equals the default), collapse the divergent rules to "mixed" so the
+    stack stays stackable; per-target provenance stays exact in
+    ``QuantizeReport.per_target`` and the checkpoint metadata."""
+    def no_rule(b):
+        return _structure(_replace_vq(b, iter(
+            dataclasses.replace(v, rule="") for v in _vq_leaves(b, []))))
+
+    if any(no_rule(b) != no_rule(block_list[0]) for b in block_list[1:]):
+        return block_list  # the trees themselves differ
+    cols = list(zip(*[_vq_leaves(b, []) for b in block_list]))
+    for i, col in enumerate(cols):
+        if len({v.rule for v in col}) > 1:
+            cols[i] = tuple(dataclasses.replace(v, rule="mixed")
+                            for v in col)
+    return [_replace_vq(b, iter(c[bi] for c in cols))
+            for bi, b in enumerate(block_list)]
+
+
+def stack_blocks(block_list: list):
+    """Stack homogeneous block trees along a new leading axis; VQLinear
+    leaves keep their static metadata and stack array by array (the
+    reference's scan form, and its checkpoint layout)."""
+    from repro_torch.core import vq_linear as vql_mod
+
+    b0 = block_list[0]
+    if isinstance(b0, dict):
+        return {k: stack_blocks([b[k] for b in block_list]) for k in b0}
+    if isinstance(b0, list):
+        return [stack_blocks([b[i] for b in block_list])
+                for i in range(len(b0))]
+    if isinstance(b0, vql_mod.VQLinear):
+        return dataclasses.replace(b0, **{
+            f.name: torch.stack([getattr(b, f.name) for b in block_list])
+            for f in dataclasses.fields(b0)
+            if torch.is_tensor(getattr(b0, f.name))})
+    return torch.stack(block_list)

@@ -176,11 +176,15 @@ def _map_leaves(tree, f):
     return f(tree)
 
 
-def dequant_tree(tree, dtype=torch.bfloat16):
+def dequant_tree(tree, dtype=torch.bfloat16, densify_fused: bool = False):
     """Replace VQLinear leaves with dense (in, out) weights (an expert
-    stack: (E, in, out)); other leaves, FusedVQLinear included (consumed at
-    the matmul sites), pass through."""
+    stack: (E, in, out)); other leaves pass through. FusedVQLinear leaves
+    (consumed at the matmul sites) pass through too unless
+    ``densify_fused``: the hybrid's shared attention block adds its LoRA
+    deltas onto the dense q/k/v (``fused_dequantize``)."""
     def f(x):
+        if isinstance(x, FusedVQLinear) and densify_fused:
+            return fused_dequantize(x, dtype).T
         if not isinstance(x, VQLinear):
             return x
         COUNTS["gather"] += 1
@@ -248,6 +252,17 @@ def prepare_fused_tree(tree):
     """VQLinear leaves -> FusedVQLinear (dense leaves untouched)."""
     return _map_leaves(
         tree, lambda x: prepare_fused(x) if isinstance(x, VQLinear) else x)
+
+
+def fused_dequantize(fvl: FusedVQLinear,
+                     dtype=torch.bfloat16) -> torch.Tensor:
+    """Dense W (r, c) from a prepped leaf: the folded codebooks and scale
+    plane decoded as ``dequantize`` decodes the raw leaf, so the two agree
+    bit for bit."""
+    return vqdm.reconstruct(
+        fvl.words, fvl.codebooks_f, fvl.scales, d=fvl.d,
+        code_bits=fvl.code_bits, rows_per_band=fvl.rows_per_band,
+        group_cols=fvl.group_cols, scale_block=fvl.scale_block).to(dtype)
 
 
 def retag(tree, impl: str | None):

@@ -60,8 +60,11 @@ def check_paged_impl(impl: str) -> str:
     return impl
 
 
-def init(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
-    D = cfg.d_model
+def init(gen, cfg: ModelConfig, dtype=torch.float32, device=None,
+         d_in: int | None = None):
+    """q/k/v project from ``d_in`` (default d_model; the hybrid's shared
+    block reads 2 * d_model), wo back to d_model."""
+    D = d_in or cfg.d_model
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     p = {
         "wq": cm.dense_init(gen, D, H * hd, dtype=dtype, device=device),

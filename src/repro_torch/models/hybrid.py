@@ -1,0 +1,159 @@
+"""Zamba2-style hybrid: a Mamba2 trunk plus one *shared* attention block
+applied every ``shared_attn_every`` layers with per-invocation LoRA deltas
+(port of ``repro/models/hybrid.py``).
+
+The shared block reads concat(hidden, initial embedding) (2 * d_model),
+projects back to d_model, and its weights are stored once: each of the
+``n_groups`` invocations adds its own low-rank (LoRA) delta to the q/k/v
+projections. ``n_layers`` counts the Mamba layers and must divide by
+``shared_attn_every``.
+
+Layout: ``params["mamba"]`` is a list of groups, each a list of layer
+dicts; ``params["lora"]`` keeps the reference's stacked (n_groups, ...)
+factors. The reference scans a homogeneous trunk (two nested
+``lax.scan``s) and loops a heterogeneous one (``_loop_groups``, a mixed
+recipe); here one Python loop runs either. A cache is a ``HybridCache``:
+per group one attention cache (``KVCache`` or ``PagedKVCache``), per layer
+one ``ssm.SSMCache``, which stays slot-resident when the attention is paged.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention, common as cm, ssm
+
+
+def _groups(cfg: ModelConfig) -> tuple[int, int]:
+    per = cfg.shared_attn_every
+    assert per > 0 and cfg.n_layers % per == 0, (cfg.n_layers, per)
+    return cfg.n_layers // per, per
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator | None,
+                device=None) -> dict:
+    dtype = cm.DTYPES[cfg.dtype]
+    n_groups, per = _groups(cfg)
+    D, H, KV, hd, r = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                       cfg.shared_attn_lora_rank)
+    kw = dict(dtype=dtype, device=device)
+    params: dict[str, Any] = {
+        "embed": cm.embed_init(gen, cfg.padded_vocab, D, **kw),
+        "final_norm": torch.ones((D,), **kw),
+        "lm_head": cm.dense_init(gen, D, cfg.padded_vocab, **kw),
+        "mamba": [[{"norm": torch.ones((D,), **kw),
+                    "mixer": ssm.init(gen, cfg, **kw)}
+                   for _ in range(per)] for _ in range(n_groups)],
+        # the shared attention block over concat(h, emb0) = 2D input
+        "shared": {"norm": torch.ones((2 * D,), **kw),
+                   "attn": attention.init(gen, cfg, d_in=2 * D, **kw)},
+        # per-invocation LoRA on q/k/v; B starts at zero, as the reference's
+        "lora": {
+            name: {"A": (torch.randn((n_groups, 2 * D, r), generator=gen,
+                                     device=device) * 0.02).to(dtype),
+                   "B": torch.zeros((n_groups, r, dim), **kw)}
+            for name, dim in (("q", H * hd), ("k", KV * hd), ("v", KV * hd))
+        },
+    }
+    return params
+
+
+class HybridCache(NamedTuple):
+    mamba: Any  # [group][layer] ssm.SSMCache
+    attn: Any   # [group] KVCache or PagedKVCache, or None (no cache)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, paged=None, device=None) -> HybridCache:
+    """The Mamba state is O(1) a slot and stays slot-resident; only the
+    shared block's K/V (one stack a group) pages when serving."""
+    n_groups, per = _groups(cfg)
+
+    def attn_cache():
+        if paged is not None:
+            return attention.init_paged_cache(cfg, batch, max_len, paged,
+                                              dtype, device=device)
+        return attention.init_cache(cfg, batch, max_len, dtype,
+                                    device=device)
+
+    return HybridCache(
+        mamba=[[ssm.init_cache(cfg, batch, device=device)
+                for _ in range(per)] for _ in range(n_groups)],
+        attn=[attn_cache() for _ in range(n_groups)])
+
+
+def lora_group(lora, g: int) -> dict:
+    """Group ``g``'s slice of the stacked "lora" tree."""
+    return {name: {k: v[g] for k, v in f.items()} for name, f in lora.items()}
+
+
+def lora_attn_params(p, lora_g, cfg: ModelConfig):
+    """Shared-attention params with one group's LoRA delta folded in.
+
+    ``lora_g`` is the per-group slice of the "lora" tree. The base weights
+    stay shared (and may arrive dequantized from VQ); the low-rank A @ B
+    delta is added densely per invocation."""
+    attn_p = dict(p["attn"])
+    for name, wname in (("q", "wq"), ("k", "wk"), ("v", "wv")):
+        attn_p[wname] = attn_p[wname] + lora_g[name]["A"] @ lora_g[name]["B"]
+    return attn_p
+
+
+def shared_attn_input(p, cfg: ModelConfig, h, emb0):
+    """The normalized concat(hidden, initial-embedding) stream entering the
+    shared block's q/k/v: the Hessian tap of its projections."""
+    return cm.rmsnorm(torch.cat([h, emb0], dim=-1), p["norm"], cfg.norm_eps)
+
+
+def _shared_attn(p, lora_g, cfg: ModelConfig, h, emb0, *, pos, kv_cache,
+                 paged_impl="gather"):
+    """One invocation of the shared block with this group's LoRA delta."""
+    xin = shared_attn_input(p, cfg, h, emb0)
+    attn_p = lora_attn_params(p, lora_g, cfg)
+    return attention.apply(attn_p, cfg, xin, pos=pos, cache=kv_cache,
+                           paged_impl=paged_impl)
+
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, pos=0,
+            cache: HybridCache | None = None, paged_impl: str = "gather",
+            last_only: bool = False):
+    """Returns (logits f32, new_cache, aux 0). The shared block must be
+    dense when it runs (the LoRA deltas are added onto its q/k/v), so VQ
+    leaves of the top tree, fused ones included, are densified here on
+    every call, as the reference does; the trunk's ``FusedVQLinear``
+    leaves stay on the ``vq_dequant_matmul`` kernel and its ``VQLinear``
+    leaves are densified layer by layer (the gather form)."""
+    from repro_torch.core import vq_linear as vql_mod
+
+    dtype = cm.DTYPES[cfg.dtype]
+    top = {k: v for k, v in params.items() if k != "mamba"}
+    params = {**params, **vql_mod.dequant_tree(top, dtype,
+                                               densify_fused=True)}
+    x = params["embed"][tokens]
+    emb0 = x  # the initial embedding, re-fed to every shared invocation
+    new_m, new_kv = [], []
+    for g, group_p in enumerate(params["mamba"]):
+        ha, kv = _shared_attn(
+            params["shared"], lora_group(params["lora"], g), cfg, x, emb0,
+            pos=pos, kv_cache=None if cache is None else cache.attn[g],
+            paged_impl=paged_impl)
+        x = x + ha
+        new_layers = []
+        for j, lp in enumerate(group_p):
+            lp = vql_mod.dequant_tree(lp, dtype)
+            y, c = ssm.apply(lp["mixer"], cfg,
+                             cm.rmsnorm(x, lp["norm"], cfg.norm_eps),
+                             None if cache is None else cache.mamba[g][j])
+            x = x + y
+            new_layers.append(c)
+        new_m.append(new_layers)
+        new_kv.append(kv)
+    if last_only:
+        x = x[:, -1:]
+    x = cm.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = cm.matmul(x, params["lm_head"]).to(torch.float32)
+    new_cache = None if cache is None else HybridCache(new_m, new_kv)
+    return logits, new_cache, torch.zeros((), dtype=torch.float32,
+                                          device=x.device)

@@ -1,12 +1,12 @@
 """Unified model API (port of ``repro/models/model_zoo.py``): the dense,
-moe, vlm and ssm (xLSTM) families (``transformer.PORTED``); hybrid and
-audio raise, naming their ROADMAP entry.
+moe, vlm, ssm (xLSTM) and hybrid (Zamba2) families (``transformer.PORTED``);
+audio raises, naming its ROADMAP entry.
 
 ``build(cfg)`` returns a ``Model`` whose ``init_params(seed, device)`` makes
 random weights from a seed (on ``cuda`` unless ``device="cpu"``), whose
 ``init_cache(batch, max_len, dtype, paged, device)`` makes a per-layer
-cache list (dense, or paged with a ``PagedLayout``; recurrent state is
-slot-resident either way), and whose
+cache list (the hybrid: a ``hybrid.HybridCache``; dense, or paged with a
+``PagedLayout``; recurrent state is slot-resident either way), and whose
 ``forward(params, batch, cache=None, pos=0, **kw)`` takes a dict with
 ``tokens`` (B, S) and, for vlm, ``patches`` (B, n_image_tokens, D), and
 returns (logits, new_cache, aux_loss).
@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer, vlm
+from repro_torch.models import hybrid, transformer, vlm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,15 +31,25 @@ class Model:
     init_cache: Callable[..., Any]
 
 
-def build(cfg: ModelConfig) -> Model:
+def _family_module(cfg: ModelConfig):
+    """The module holding the family's init_params / init_cache."""
     transformer._check_family(cfg)
+    return hybrid if cfg.family == "hybrid" else transformer
+
+
+def build(cfg: ModelConfig) -> Model:
+    mod = _family_module(cfg)
 
     def init_params(seed: int = 0, device=None):
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        return transformer.init_params(cfg, gen, device=dev)
+        return mod.init_params(cfg, gen, device=dev)
 
-    if cfg.family == "vlm":
+    if cfg.family == "hybrid":
+        def fwd(params, batch, cache=None, pos=0, **kw):
+            return hybrid.forward(params, cfg, batch["tokens"], pos=pos,
+                                  cache=cache, **kw)
+    elif cfg.family == "vlm":
         def fwd(params, batch, cache=None, pos=0, **kw):
             return vlm.forward(params, cfg, batch["tokens"],
                                patches=batch.get("patches"), pos=pos,
@@ -51,8 +61,8 @@ def build(cfg: ModelConfig) -> Model:
 
     def init_cache(batch, max_len, dtype=torch.bfloat16, paged=None,
                    device=None):
-        return transformer.init_cache(cfg, batch, max_len, dtype, paged,
-                                      device=resolve_device(device))
+        return mod.init_cache(cfg, batch, max_len, dtype, paged,
+                              device=resolve_device(device))
 
     return Model(cfg, init_params, fwd, init_cache)
 
@@ -70,5 +80,6 @@ def _leaves(tree):
 
 def count_params(model: Model) -> int:
     """Parameter count, from shapes only (no allocation: meta tensors)."""
-    shapes = transformer.init_params(model.cfg, None, device="meta")
+    shapes = _family_module(model.cfg).init_params(model.cfg, None,
+                                                    device="meta")
     return sum(t.numel() for t in _leaves(shapes))

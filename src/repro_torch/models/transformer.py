@@ -13,8 +13,8 @@ gather form), while ``FusedVQLinear`` leaves reach ``common.matmul`` /
 ``models/moe`` (expert stacks with a leading E); its load-balancing loss is
 summed over the layers into ``forward``'s aux. The vlm family runs this
 stack with patch embeddings prepended (``extra_embeds``). Of the families,
-``PORTED`` run here and ``PENDING`` raise (ROADMAP.md queue 1, "The other
-five families").
+``PORTED`` run here or, the hybrid, in ``models/hybrid``; ``PENDING``
+raise (ROADMAP.md queue 1, "The other five families").
 """
 from __future__ import annotations
 
@@ -25,8 +25,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common as cm, mlp, moe, xlstm
 
-PORTED = ("dense", "moe", "vlm", "ssm")
-PENDING = ("hybrid", "audio")
+PORTED = ("dense", "moe", "vlm", "ssm", "hybrid")
+PENDING = ("audio",)
 
 
 def block_kind(cfg: ModelConfig, i: int) -> str:

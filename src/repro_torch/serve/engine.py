@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (
-    KVQuantSpec, PagedKVCache, PagedLayout, check_paged_impl)
+    KVQuantSpec, PagedLayout, check_paged_impl)
 from repro_torch.models.model_zoo import Model
 from repro_torch.obs import COUNT_BUCKETS, Telemetry
 from repro_torch.serve import paged_cache as pc
@@ -96,9 +96,8 @@ def calibrate_vq_codebooks(model: Model, params, cache, *,
         return init_codebook(X, torch.ones_like(X), k=kvq.VQ_K,
                              iters=em_iters).to(torch.float32).contiguous()
 
-    return [dst._replace(k_codebook=fit(src.k), v_codebook=fit(src.v))
-            if isinstance(dst, PagedKVCache) else dst
-            for dst, src in zip(cache, cap)]
+    return pc.map_paged(lambda dst, src: dst._replace(
+        k_codebook=fit(src.k), v_codebook=fit(src.v)), cache, cap)
 
 
 class Engine:
@@ -208,10 +207,8 @@ class Engine:
         allocator = pc.BlockAllocator(num_blocks)
         # any cache leaf outside the PagedKVCache pools would be per-slot
         # state a page-table share cannot replay: keep prefix sharing off
-        has_slot_state = any(not isinstance(c, PagedKVCache)
-                             for c in self.cache)
         self.prefix_cache = None
-        if prefix_cache and not has_slot_state:
+        if prefix_cache and not pc.has_slot_state(self.cache):
             from repro_torch.serve.prefix_cache import PrefixCache
             self.prefix_cache = PrefixCache(allocator, page_size)
         self._pending_forks: dict = {}   # parent rid -> child Requests

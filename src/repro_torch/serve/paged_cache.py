@@ -14,8 +14,9 @@ owns the host side:
   ``init_cache`` at two batch sizes on the ``meta`` device.
 * ``push_page_table`` — puts the host page table into every layer's cache.
 
-Cache trees are lists, dicts and NamedTuples (``PagedKVCache``) of tensors
-or None; ``tree_map`` walks them.
+Cache trees are lists, dicts and NamedTuples (``PagedKVCache``,
+``hybrid.HybridCache``, recurrent states) of tensors or None; ``tree_map``
+walks them to the tensors, ``map_paged`` to the ``PagedKVCache`` nodes.
 """
 from __future__ import annotations
 
@@ -197,25 +198,52 @@ def restore_masked(old, new, axes, keep_mask: torch.Tensor):
     return tree_map(f, old, new, axes)
 
 
-def push_page_table(cache: list, table) -> list:
+def map_paged(f, tree, *rest):
+    """Map ``f`` over the ``PagedKVCache`` nodes of a cache tree (and the
+    matching nodes of ``rest``); every other leaf passes through."""
+    if isinstance(tree, PagedKVCache):
+        return f(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: map_paged(f, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_paged(f, v, *(r[i] for r in rest))
+                            for i, v in enumerate(tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_paged(f, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return tree
+
+
+def has_slot_state(cache) -> bool:
+    """True when the cache holds a tensor outside the ``PagedKVCache``
+    pools: per-slot recurrent state (the xLSTM's, the hybrid's Mamba
+    state), which a page-table share cannot replay."""
+    found = []
+    tree_map(found.append, map_paged(lambda c: None, cache))
+    return bool(found)
+
+
+def push_page_table(cache, table):
     """Put the (max_batch, n_pages) table — host array or device tensor —
-    into every layer's PagedKVCache (one int32 device tensor shared by all
-    layers); pools, scales and codebooks pass through."""
-    out = []
+    into every PagedKVCache of the cache tree (one int32 device tensor
+    shared by all layers, and by every group of the hybrid); pools, scales
+    and codebooks pass through."""
     t = None
-    for leaf in cache:
-        if isinstance(leaf, PagedKVCache):
-            if t is None:
-                dev = leaf.page_table.device
-                t = (table.to(dev, torch.int32) if torch.is_tensor(table)
-                     else torch.as_tensor(np.asarray(table, np.int32),
-                                          device=dev))
-            if t.shape != leaf.page_table.shape:
-                raise ValueError(f"page table {tuple(t.shape)} vs the "
-                                 f"cache's {tuple(leaf.page_table.shape)}")
-            leaf = leaf._replace(page_table=t)
-        out.append(leaf)
-    return out
+
+    def put(leaf):
+        nonlocal t
+        if t is None:
+            dev = leaf.page_table.device
+            t = (table.to(dev, torch.int32) if torch.is_tensor(table)
+                 else torch.as_tensor(np.asarray(table, np.int32),
+                                      device=dev))
+        if t.shape != leaf.page_table.shape:
+            raise ValueError(f"page table {tuple(t.shape)} vs the "
+                             f"cache's {tuple(leaf.page_table.shape)}")
+        return leaf._replace(page_table=t)
+
+    return map_paged(put, cache)
 
 
 # ---------------------------------------------------------------------------

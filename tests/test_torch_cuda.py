@@ -1099,3 +1099,84 @@ def test_vq_dequant_matmul_rows_independent_xlstm(dev, N, K, M, sub):
     other = x.clone()
     other[sub:] = -other[sub:]
     assert torch.equal(run(other)[:sub], y[:sub])
+
+
+# ---------------------------------------------------------------------------
+# the hybrid family's shapes: Zamba2-7B's shared attention (32 heads of 112,
+# MHA) and its Mamba2 projections (in_proj 3584 -> 14,576, out_proj 7168 ->
+# 3584)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fmt", PAGE_FORMATS)
+def test_paged_attention_hd112_zamba(dev, fmt, q_dtype):
+    """The hybrid serve shape: 32 heads of 112 (28 of a row's 32 lanes hold
+    dims; an int4 row is 56 bytes, a vq2 row 28, read 4 bytes at a time),
+    16 pages a slot, an idle slot; bitwise the same alone and in the
+    batch."""
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_attention_plain)
+
+    q, kp, vp, table, pos_t, kw = paged_case(
+        dev, 112, B=4, H=32, KV=32, hd=112, page_size=16, n_pages=16,
+        num_blocks=65, fmt=fmt, pos=[0, 57, 255, 135], q_dtype=q_dtype)
+    y = paged_attention(q, kp, vp, table, pos_t, **kw)
+    want = paged_attention_plain(q, kp, vp, table, pos_t, **kw)
+    assert y.dtype == q_dtype and bool(torch.isfinite(y).all())
+    rtol, atol = ((2e-5, 2e-5) if q_dtype == torch.float32
+                  else (2.0**-7, 1e-5))
+    torch.testing.assert_close(y.float(), want.float(), rtol=rtol, atol=atol)
+    assert torch.equal(paged_attention(q, kp, vp, table, pos_t, **kw), y)
+    for b in range(4):
+        alone = paged_attention(q[b:b + 1].contiguous(), kp, vp,
+                                table[b:b + 1].contiguous(),
+                                pos_t[b:b + 1].contiguous(), **kw)
+        assert torch.equal(alone[0], y[b]), b
+
+
+@pytest.mark.parametrize("dt,impl", [(torch.bfloat16, "tc"),
+                                     (torch.float32, "fp32")])
+def test_flash_attention_hd112_zamba(dev, dt, impl):
+    """Zamba2-7B's shared attention past 2048 tokens: the tensor-core body
+    at HD = 112 (7 k-steps, 14 n-tiles) within one bf16 ulp of the plain
+    version, the FP32 one at its own tolerance."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(112)
+    q, k, v = (torch.randn((1, 3072, 4, 112), generator=g,
+                           device=dev).to(dt) for _ in range(3))
+    before = dict(flash_attention.launches_by_impl)
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_impl.get(impl, 0) == before.get(
+        impl, 0) + 1
+    want = flash_attention_plain(q, k, v, causal=True)
+    rtol = 1e-5 if dt == torch.float32 else 2.0**-7
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("N,K", [(14576, 3584), (3584, 7168)])
+@pytest.mark.parametrize("M,sub", [(4, 1), (64, 17), (512, 17)])
+def test_vq_dequant_matmul_rows_independent_zamba(dev, N, K, M, sub):
+    """Zamba2-7B's Mamba2 in_proj (N = 14,576: the last 64-row tile holds
+    48 rows) and out_proj at 2.25bpv_2d's layout: within 1e-4 of the
+    output's largest magnitude of the plain version (the kernels phase's
+    bar: f32 sums over K = 3584-7168 products of O(1) in another order
+    differ by ~eps x K near a cancellation, so a bar relative to each
+    element would read rounding), row m the same bits whatever the other
+    rows hold (split-K at M = 4, tensor cores at 64 and 512)."""
+    x, words, cb, _, cb_i8, cb_scale, kw = _vq_case(
+        dev, M, N, K, 2, 2, 4, 256, 0, torch.bfloat16, True)
+    run = lambda xx: vq_dequant_matmul(xx, words, cb, codebooks_i8=cb_i8,
+                                       cb_scale=cb_scale, **kw)
+    y = run(x)
+    plain_kw = {k: v for k, v in kw.items() if k != "k_c"}
+    want = vq_dequant_matmul_plain(x, words, cb, None, **plain_kw)
+    assert float((y - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert torch.equal(run(x), y)
+    assert torch.equal(run(x[:sub].contiguous()), y[:sub])
+    other = x.clone()
+    other[sub:] = -other[sub:]
+    assert torch.equal(run(other)[:sub], y[:sub])

@@ -244,10 +244,11 @@ def test_checkpoint_roundtrip_both_ways(fam, tmp_path):
 @pytest.mark.parametrize("family", ["vlm", "ssm", "hybrid", "audio"])
 def test_registry_takes_vlm_and_ssm_and_refuses_the_pending(family):
     """model_zoo.build and adapters.get_adapter take vlm (the transformer
-    adapter) and ssm (the xLSTM one); hybrid and audio raise, naming their
-    ROADMAP entry (audio's calib_extras too)."""
+    adapter), ssm (the xLSTM one) and hybrid (the Zamba2 one: the shared
+    block, then n_groups x per Mamba layers); audio raises, naming its
+    ROADMAP entry (its calib_extras too)."""
     cfg = SMOKE[FAMILY_REPRESENTATIVE[family]].scaled(dtype="float32")
-    if family in ("hybrid", "audio"):
+    if family == "audio":
         with pytest.raises(NotImplementedError, match="five families"):
             model_zoo.build(cfg)
 
@@ -257,14 +258,16 @@ def test_registry_takes_vlm_and_ssm_and_refuses_the_pending(family):
         _Model.cfg = cfg
         with pytest.raises(NotImplementedError, match="five families"):
             adapters.get_adapter(_Model(), {})
-        if family == "audio":
-            with pytest.raises(NotImplementedError, match="five families"):
-                adapters.calib_extras(cfg, torch.zeros((1, 4)))
+        with pytest.raises(NotImplementedError, match="five families"):
+            adapters.calib_extras(cfg, torch.zeros((1, 4)))
         return
     model = model_zoo.build(cfg)
     adapter = adapters.get_adapter(model, model.init_params(seed=0,
                                                             device="cpu"))
-    want = "TransformerAdapter" if family == "vlm" else "XLSTMAdapter"
+    want = {"vlm": "TransformerAdapter", "ssm": "XLSTMAdapter",
+            "hybrid": "HybridAdapter"}[family]
     assert type(adapter).__name__ == want
-    assert len(adapter.blocks()) == cfg.n_layers
+    # the hybrid's n_layers counts its Mamba layers; the shared block is
+    # one block more
+    assert len(adapter.blocks()) == cfg.n_layers + (family == "hybrid")
     assert model_zoo.count_params(model) > 0

@@ -139,4 +139,4 @@ def test_left_out_options_raise():
         quantize_model(model, {}, torch.zeros((1, 4), dtype=torch.long),
                        hessian_mesh=object())
     with pytest.raises(NotImplementedError, match="five families"):
-        model_zoo.build(SMOKE["zamba2-7b"])
+        model_zoo.build(SMOKE["whisper-small"])
