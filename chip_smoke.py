@@ -14,8 +14,9 @@ Phases (each prints its seconds; any failure exits non-zero):
                 parallel) into build/repro_torch/.
   3. kernels  — each kernel against its plain PyTorch version on the card at
                 its path's shapes, with its tolerance, its time, the
-                plain version's time, one PyTorch library call's time and
-                the least time the card could take (bound), and the
+                plain version's time, one PyTorch library call's time (in
+                the path's dtype: bf16 for vq_dequant_matmul's int8
+                codebooks, the f32 call's time beside it) and the least time the card could take (bound), and the
                 variant that ran (vq_dequant_matmul: split-K at M <= 16,
                 int8 or 3-term tensor cores for bf16 x above; flash:
                 tensor cores for bf16). The card is kept busy for a second
@@ -219,6 +220,37 @@ Phases (each prints its seconds; any failure exits non-zero):
                 paged_attention at hd 112 every format and query dtype,
                 each slot bitwise alone and in the batch; flash_attention
                 at B 4, 4,096 tokens, 32 heads of 112 (tc and fp32).
+ 13. audio   — the audio family at whisper-small's full width and depth
+                (12 encoder + 12 decoder layers, 12 heads of 64, 1,500 stub
+                frames, random weights from seed 0, bf16): calibration 16 x
+                256 decoder tokens with the stub frontend's frames, heldout
+                8 x 256 with frames of their own (bf16); fp and vq
+                perplexity; quantize_model at 2.25bpv_2d (the decoder's
+                cross wk/wv on the encoder memory's Hessians); held: the
+                reference adapter's 192 targets, vq_group_sweep and vq_em
+                once a column group (792), vq_assign never, no
+                flash_attention launch in the phase, bpv exactly 2.25; the
+                fused evaluation with frames one vq_dequant_matmul launch a
+                packed leaf (72 encoder + 120 decoder, int8 tensor cores,
+                the encoder and cross wk/wv at 12,000 rows); fused vs
+                gather logits in bf16 and in the f32 copy (main's bars),
+                the bf16 sensitivity of W measured; main's serve run
+                (frames-free, as the reference's engine: the cross K/V
+                stay zero; 12 paged_attention launches and 96
+                vq_dequant_matmul launches a decode tick), the cross K/V's
+                slot_merge and restore_masked and a tick's cross-attention
+                over 1,500 keys timed alone; teacher-forced kernel decode
+                vs gather decode and vs a dense-cache prefill of the same
+                tokens (serve bars, bf16 and the f32 copy), each request
+                alone, a preemption replay, a prefix cache that stays off,
+                and 4 x 32 on int8 and vq2 pages. Its kernels-phase rows:
+                paged_attention at hd 64 (B 4, 12 heads, 16 pages) every
+                format and query dtype, each slot bitwise alone and in the
+                batch; vq_dequant_matmul at whisper's w_in and w_out at M 4,
+                64 and 12,000 beside torch.matmul on the dense bf16 W, w_in's
+                rows bitwise independent; vq_group_sweep at one group of
+                w_in (3,072 rows) and of w_out (768 rows) and vq_em over
+                such a group's 768 and 192 bands, held as main's.
 Then it prints the kernel JSON line, the card line and, last,
 {"ok": true, "device": {...}}. Per-shape results go to
 chiprun_out/chip_smoke.json. The profiler pass over the quantize path is
@@ -251,14 +283,18 @@ BF16_TC_FLOP_PER_S = 989e12
 # 4 rows; (N, K) per layer shape
 VQ_D, VQ_K, VQ_GROUP_COLS, VQ_ROWS_PER_BAND = 2, 16, 256, 4
 MATMUL_SHAPES = {"wq": (4096, 4096), "w1": (11008, 4096), "w2": (4096, 11008)}
-# the vlm, ssm and hybrid phases' widths, held at a decode tick's and a
-# prefill chunk's rows: Phi-3-vision's w_in (d_model 3072 -> d_ff 8192),
-# xLSTM-125M's mLSTM up projection (768 -> 1536) and Zamba2-7B's Mamba2
+# the vlm, ssm, hybrid and audio phases' widths, held at a decode tick's
+# and a prefill chunk's rows: Phi-3-vision's w_in (d_model 3072 -> d_ff
+# 8192), xLSTM-125M's mLSTM up projection (768 -> 1536), Zamba2-7B's Mamba2
 # in_proj (3584 -> 14,576: its last 64-row tile holds 48 rows) and out_proj
-# (7168 -> 3584), each at the layout plan_groups gives it at 2.25bpv_2d
+# (7168 -> 3584), and whisper-small's w_in (768 -> 3072) and w_out (3072 ->
+# 768), also at its encoder evaluation's rows; each at the layout
+# plan_groups gives it at 2.25bpv_2d
 FAMILY_MATMUL_SHAPES = {"phi3 w1": (8192, 3072), "xlstm up": (1536, 768),
                         "zamba in_proj": (14576, 3584),
-                        "zamba out_proj": (3584, 7168)}
+                        "zamba out_proj": (3584, 7168),
+                        "whisper w_in": (3072, 768),
+                        "whisper w_out": (768, 3072)}
 # the budget phase: the budget it starts from (raised by the step until the
 # allocator picks two settings), the settings of its extra kernel rows (a
 # d = 1 and a k = 256 point) and block 0's matrices of its method table
@@ -452,18 +488,18 @@ def sweep_layout(setting: str, r: int, c: int = 4096) -> tuple:
     return cfg.d, cfg.k, cg, rg
 
 
-def sweep_inputs(torch, dev, r: int, setting: str = "2.25bpv_2d"):
-    """One column group of a Llama-2-7B projection with r rows at
-    ``setting``, as the quantizer meets it: W (seed r), U and H from the
-    SPD Hessian of a seeded activation sample over the projection's 4096
-    input columns (the group is its first columns), the Cholesky weights,
-    scales of ones (no blockwise normalization) and each band's codebook
-    from 25 EM steps (plain version) from its Mahalanobis seed."""
+def sweep_inputs(torch, dev, r: int, setting: str = "2.25bpv_2d",
+                 K: int = 4096):
+    """One column group of a projection with r rows and K input columns
+    (Llama-2-7B's 4096 by default) at ``setting``, as the quantizer meets
+    it: W (seed r), U and H from the SPD Hessian of a seeded activation
+    sample over the K columns (the group is their first), the Cholesky
+    weights, scales of ones (no blockwise normalization) and each band's
+    codebook from 25 EM steps (plain version) from its Mahalanobis seed."""
     from repro_torch.core import hessian as hes
     from repro_torch.core.codebook import mahalanobis_init
     from repro_torch.kernels.vq_assign import vq_em_plain
 
-    K = 4096
     d, k, cg, rg = sweep_layout(setting, r, K)
     g = torch.Generator(device=dev).manual_seed(r)
     W = torch.randn((r, cg), generator=g, device=dev)
@@ -483,9 +519,10 @@ def sweep_inputs(torch, dev, r: int, setting: str = "2.25bpv_2d"):
 
 def check_sweep(torch, dev, layer: str, setting: str = "2.25bpv_2d",
                 babai: bool = False) -> dict:
-    """vq_group_sweep at one group of ``layer`` at ``setting`` against its
-    plain loop on the card: with U = I (no feedback; diagonal metric) the
-    indices are vq_assign's bits and Q = C[idx] * S bit for bit; with the
+    """vq_group_sweep at one group of ``layer`` (a MATMUL_SHAPES or
+    FAMILY_MATMUL_SHAPES projection, (rows, input columns)) at ``setting``
+    against its plain loop on the card: with U = I (no feedback; diagonal
+    metric) the indices are vq_assign's bits and Q = C[idx] * S bit for bit; with the
     real U the indices agree on >= 99% of spans and the group's error
     tr(E H E^T) is within 1%; two calls give the same bits. ``babai``: the
     kernel's metric mode, each span's full (U_PP^T U_PP)^{-1}, held to the
@@ -496,9 +533,9 @@ def check_sweep(torch, dev, layer: str, setting: str = "2.25bpv_2d",
     from repro_torch.kernels.vq_assign import (
         span_metrics, vq_assign, vq_group_sweep, vq_group_sweep_plain)
 
-    r = MATMUL_SHAPES[layer][0]
-    d, k, cg, rg = sweep_layout(setting, r)
-    W0, U, H, S, C, wgt, Hw = sweep_inputs(torch, dev, r, setting)
+    r, K = matmul_nk(layer)
+    d, k, cg, rg = sweep_layout(setting, r, K)
+    W0, U, H, S, C, wgt, Hw = sweep_inputs(torch, dev, r, setting, K)
     metric = span_metrics(U, d) if babai else None
     kw = dict(d=d, rows_per_band=rg, exact_span_solve=True, metric=metric)
     spans = cg // d
@@ -731,8 +768,15 @@ def check_matmul(torch, dev, layer: str, M: int, scale_block: int,
         x, words, cb, scales, **kw), *it)
     W = reconstruct(words, cb, scales, **kw)
     xf = x.float()
-    lib_ms = time_ms(torch, lambda: torch.matmul(xf, W.T), *it)
-    lib_dev_ms = graph_ms(torch, lambda: torch.matmul(xf, W.T), it[0])
+    # the library call: with the path's int8 codebooks what a dense bf16
+    # model runs instead, bf16 x times W rounded to bf16; with arbitrary
+    # f32 codebooks (the 3-term variant) the f32 product
+    lib_x, lib_w = (x, W.to(torch.bfloat16)) if extra else (xf, W)
+    lib = lambda: torch.matmul(lib_x, lib_w.T)
+    lib_ms = time_ms(torch, lib, *it)
+    lib_dev_ms = graph_ms(torch, lib, it[0])
+    lib_f32_ms = (lib_ms if not extra else time_ms(
+        torch, lambda: torch.matmul(xf, W.T), *it))
     # the bytes the kernel must move: x, the words, the codebooks it reads
     # (int8 and their scales, or f32), the plane, y
     cb_bytes = (extra["codebooks_i8"].numel() + extra["cb_scale"].numel() * 4
@@ -748,33 +792,35 @@ def check_matmul(torch, dev, layer: str, M: int, scale_block: int,
            "K": K, "scale_block": scale_block, "cb_form": cb_form,
            "impl": impl, "max_abs_err": err, "tol": tol, "ms": ms,
            "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-           "library_device_ms": lib_dev_ms, "bound_ms": b_ms,
+           "library_device_ms": lib_dev_ms,
+           "library_f32_ms": lib_f32_ms, "bound_ms": b_ms,
            "bound_by": b_by}
     log(f"[kernels] vq_dequant_matmul {layer} M={M} N={N} K={K} "
         f"sb={scale_block} cb={cb_form} ({impl}): max abs err {err:.2e} "
         f"(tol {tol:.2e}), max rel "
         f"{err / max(float(ref.abs().max()), 1e-30):.2e} | kernel {ms:.4f} "
         f"ms ({_fmt_ms(dev_ms)} replayed from a CUDA graph), plain "
-        f"{plain_ms:.4f} ms, torch.matmul(x, W.T) {lib_ms:.4f} ms "
-        f"({_fmt_ms(lib_dev_ms)} from a graph), bound {b_ms:.4f} ms "
-        f"({b_by})")
+        f"{plain_ms:.4f} ms, torch.matmul {lib_x.dtype} x {lib_w.dtype} "
+        f"{lib_ms:.4f} ms ({_fmt_ms(lib_dev_ms)} from a graph), f32 "
+        f"torch.matmul {lib_f32_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     if not err <= tol:
         raise Failed(f"vq_dequant_matmul {layer} M={M} sb={scale_block} "
                      f"cb={cb_form}: error {err} > {tol}")
     return row
 
 
-def check_matmul_rows(torch, dev, layer: str = "wq") -> dict:
+def check_matmul_rows(torch, dev, layer: str = "wq",
+                      cases=((4, 1), (64, 17))) -> dict:
     """Row m of y is the same bit for bit whatever the other rows of x
     hold (the engine's solo-vs-interleaved token identity rests on it),
     and two calls give the same bits. At M = 4 (split-K) y of x[:1] is
-    held to row 0; at M = 64 (tensor cores) y of x[:17], the fewest rows
-    that stay on the tensor cores, to rows 0-16: x[:1] would run split-K,
-    whose sums go in another order."""
+    held to row 0; at M = 64 and above (tensor cores) y of x[:17], the
+    fewest rows that stay on the tensor cores, to rows 0-16: x[:1] would
+    run split-K, whose sums go in another order."""
     from repro_torch.kernels.vq_dequant_matmul import vq_dequant_matmul
 
     out = {}
-    for M, sub in ((4, 1), (64, 17)):
+    for M, sub in cases:
         x, words, cb, _, extra, kw = matmul_inputs(torch, dev, layer, M, 0,
                                                    "int8")
         run = lambda xx: vq_dequant_matmul(xx, words, cb, k_c=VQ_K, **kw,
@@ -902,6 +948,10 @@ PAGED_SHAPES = {
     # heads of 112: 28 of a row's 32 lanes hold dims; vq2 rows of 28 B)
     "zamba serve": dict(B=4, H=32, KV=32, hd=112, pos=[0, 57, 111, 135],
                         n_pages=16),
+    # the audio phase's engine: whisper-small's decoder self-attention
+    # (MHA, 12 heads of 64: lanes_per_row 16, two page rows a warp)
+    "whisper serve": dict(B=4, H=12, KV=12, hd=64, pos=[0, 57, 111, 135],
+                          n_pages=16),
 }
 PAGE_SIZE = 16
 
@@ -1240,6 +1290,14 @@ def phase_kernels(torch, dev) -> list[dict]:
     for label, B, n in (("em", 1024, 512), ("em", 2752, 512),
                         ("kv vq2 fit", 32, 4096)):
         rows.append(check_em(torch, dev, label, B, n))
+    # the audio phase's: one group of whisper's 3,072-row w_in and of its
+    # 768-row w_out (the other 768-row projections' groups have its
+    # layout), and EM over such a group's bands (768 and 192 of 512 points)
+    for layer in ("whisper w_in", "whisper w_out"):
+        rows.append(check_sweep(torch, dev, layer))
+        d, k, cg, rg = sweep_layout("2.25bpv_2d", *matmul_nk(layer))
+        rows.append(check_em(torch, dev, f"em {layer}",
+                             matmul_nk(layer)[0] // rg, rg * cg // d))
     # the budget phase's settings: the babai metric at 2.25bpv_2d, then a
     # d = 1 and a k = 256 setting, each at wq's group
     for layer in ("wq", "w1"):
@@ -1261,11 +1319,13 @@ def phase_kernels(torch, dev) -> list[dict]:
                                  0))
     for M in (SERVE_MAX_BATCH, 512):
         rows.append(check_matmul(torch, dev, "wq", M, 0, "f32"))
-    # the vlm, ssm and hybrid phases' widths at a decode tick and a prefill
-    # chunk
+    # the vlm, ssm, hybrid and audio phases' widths at a decode tick and a
+    # prefill chunk; whisper's also at its encoder evaluation's rows
     for layer in FAMILY_MATMUL_SHAPES:
         for M in (SERVE_MAX_BATCH, SERVE_PREFILL_CHUNK):
             rows.append(check_matmul(torch, dev, layer, M, 0))
+    for layer in ("whisper w_in", "whisper w_out"):
+        rows.append(check_matmul(torch, dev, layer, AUDIO_ENC_ROWS, 0))
     # the moe phase's expert stacks, one launch a stack
     for weight in MOE_MATMUL_SHAPES:
         for M in MOE_SLAB_ROWS:
@@ -1274,8 +1334,12 @@ def phase_kernels(torch, dev) -> list[dict]:
                   "vq_dequant_matmul xlstm up": check_matmul_rows(
                       torch, dev, "xlstm up"),
                   "vq_dequant_matmul zamba in_proj": check_matmul_rows(
-                      torch, dev, "zamba in_proj")}
-    for shape in ("long", "gqa long", "vlm serve", "zamba serve"):
+                      torch, dev, "zamba in_proj"),
+                  "vq_dequant_matmul whisper w_in": check_matmul_rows(
+                      torch, dev, "whisper w_in",
+                      ((4, 1), (64, 17), (AUDIO_ENC_ROWS, 17)))}
+    for shape in ("long", "gqa long", "vlm serve", "zamba serve",
+                  "whisper serve"):
         invariance[f"paged_attention {shape}"] = check_paged_slots(
             torch, dev, shape)
     rows += paged_rows(torch, dev)
@@ -1496,27 +1560,37 @@ def budget_groups(params, per_target) -> int:
     return n
 
 
+def count_impls(pairs, x_dtype) -> dict:
+    """vq_dequant_matmul launches by variant for (leaf, rows) pairs: one a
+    packed leaf, at the variant its layout selects at those rows."""
+    from repro_torch.core.vq_linear import FusedVQLinear
+    from repro_torch.kernels.vq_dequant_matmul import select_impl
+
+    want: dict = {}
+    for leaf, rows in pairs:
+        if isinstance(leaf, FusedVQLinear):
+            p = leaf.prepared
+            d, k_c, _, rpb, gc, sb = p.layout
+            impl = select_impl(rows, x_dtype, d=d, k_c=k_c,
+                               rows_per_band=rpb, n_bands=p.n_bands,
+                               group_cols=gc, scale_block=sb,
+                               has_int8=p.int8_ok)
+            want[impl] = want.get(impl, 0) + 1
+    return want
+
+
 def predict_matmul_impls(fused, M: int, x_dtype, m_experts=None) -> dict:
     """vq_dequant_matmul launches by variant for one forward of M rows:
     one a packed leaf, each at the variant its layout selects (an expert
     stack: one launch at ``m_experts`` rows an expert)."""
     from repro_torch.core.vq_linear import FusedVQLinear
-    from repro_torch.kernels.vq_dequant_matmul import select_impl
 
-    want: dict = {}
     # the layers, or the hybrid's trunk (its shared block runs densified)
-    for lp in fused["layers"] if "layers" in fused else fused["mamba"]:
-        for leaf in tree_leaves(lp):
-            if isinstance(leaf, FusedVQLinear):
-                p = leaf.prepared
-                d, k_c, _, rpb, gc, sb = p.layout
-                rows = m_experts if p.n_experts else M
-                impl = select_impl(rows, x_dtype, d=d, k_c=k_c,
-                                   rows_per_band=rpb, n_bands=p.n_bands,
-                                   group_cols=gc, scale_block=sb,
-                                   has_int8=p.int8_ok)
-                want[impl] = want.get(impl, 0) + 1
-    return want
+    trunk = fused["layers"] if "layers" in fused else fused["mamba"]
+    return count_impls(
+        [(leaf, m_experts if isinstance(leaf, FusedVQLinear)
+          and leaf.prepared.n_experts else M)
+         for lp in trunk for leaf in tree_leaves(lp)], x_dtype)
 
 
 def phase_budget(torch, dev, model, calib, heldout) -> dict:
@@ -1927,11 +2001,13 @@ def predict_serve(run: dict, n_layers: int, tag: str) -> dict:
     want = {"paged_attention": run["decode_ticks"] * n_layers,
             "vq_dequant_matmul": 7 * n_layers * (run["decode_ticks"]
                                                  + run["prefill_chunks"]),
+            "at_m4": 7 * n_layers * (run["decode_ticks"]
+                                     + chunks.count(SERVE_MAX_BATCH)),
             "chunks": chunks}
     impl = {"splitk": 7 * n_layers * (run["decode_ticks"]
                                       + sum(m <= 16 for m in chunks)),
             "tc_int8": 7 * n_layers * sum(m > 16 for m in chunks)}
-    want["vq_dequant_matmul_by_impl"] = {k: v for k, v in impl.items() if v}
+    want["by_impl"] = {k: v for k, v in impl.items() if v}
     shown = chunks if len(chunks) <= 16 else (
         f"{len(chunks)} chunks, {sum(m > 16 for m in chunks)} of > 16 rows")
     log(f"[serve] {tag} predicted launches: paged_attention = decode ticks "
@@ -1940,28 +2016,28 @@ def predict_serve(run: dict, n_layers: int, tag: str) -> dict:
         f"{want['vq_dequant_matmul']}, of them "
         f"{7 * n_layers * run['decode_ticks']} at M = {SERVE_MAX_BATCH}; "
         f"prefill chunks: {shown}; by variant "
-        f"{want['vq_dequant_matmul_by_impl']}")
+        f"{want['by_impl']}")
     return want
 
 
-def serve_run_checks(run: dict, want: dict, n_layers: int, n_new: int,
-                     tag: str) -> dict:
-    """The checks of a serve run against its predicted launch counts."""
+def serve_run_checks(run: dict, want: dict, n_new: int, tag: str) -> dict:
+    """The checks of a serve run against its predicted launch counts
+    (``predict_serve``'s or ``predict_family_serve``'s)."""
     return {
         f"{tag}: all requests finished": all(len(o) == n_new
-                                             for o in run["out"]),
-        f"{tag}: paged_attention launches == decode ticks x layers":
-            run["launches"]["paged_attention"]
-            == want["paged_attention"] > 0,
-        f"{tag}: vq_dequant_matmul launches == 7 x layers x forwards":
+                                             for o in run["out"])
+            and run["decode_ticks"] > 0,
+        f"{tag}: paged_attention launches as planned":
+            run["launches"]["paged_attention"] == want["paged_attention"],
+        f"{tag}: vq_dequant_matmul launches as planned":
             run["launches"]["vq_dequant_matmul"]
             == want["vq_dequant_matmul"] > 0,
         f"{tag}: vq_dequant_matmul at M = 4": run["vq_m_counts"].get(
-            SERVE_MAX_BATCH, 0) == 7 * n_layers * run["decode_ticks"],
+            SERVE_MAX_BATCH, 0) == want["at_m4"],
         f"{tag}: prefill chunks as planned":
             run["prefill_chunks"] == len(want["chunks"]),
         f"{tag}: vq_dequant_matmul launches by variant as planned":
-            run["vq_impl_counts"] == want["vq_dequant_matmul_by_impl"],
+            run["vq_impl_counts"] == want["by_impl"],
     }
 
 
@@ -2065,9 +2141,8 @@ def phase_serve(torch, dev, model, qparams) -> dict:
     del leng
     log(f"[serve] phase {time.perf_counter() - t_phase:.1f}s")
 
-    checks = serve_run_checks(main, want, n_layers, SERVE_NEW,
-                              "256-token run")
-    checks.update(serve_run_checks(long, want_long, n_layers, LONG_SERVE_NEW,
+    checks = serve_run_checks(main, want, SERVE_NEW, "256-token run")
+    checks.update(serve_run_checks(long, want_long, LONG_SERVE_NEW,
                                    "4096-token run"))
     checks.update({
         "teacher-forced vs cache-free": within_bars(
@@ -2880,7 +2955,7 @@ def phase_vlm(torch, dev, calib, long_heldout) -> dict:
         "evaluation matmuls by variant as planned":
             eval_launches["by_impl"] == want_eval
             and eval_launches["launches"] == sum(want_eval.values()),
-        **serve_run_checks(run, want_serve, cfg.n_layers, SERVE_NEW, "serve"),
+        **serve_run_checks(run, want_serve, SERVE_NEW, "serve"),
         "serve: teacher-forced kernel vs gather decode": within_bars(
             tf_diffs["gather decode"]),
         "serve: teacher-forced kernel vs cache-free": within_bars(
@@ -2946,27 +3021,27 @@ def time_recurrences(torch, dev, cfg, params) -> dict:
     return out
 
 
-def predict_ssm_serve(run: dict, fused, attn_per_tick: int = 0,
-                      tag: str = "ssm") -> dict:
-    """Launch counts of a recurrent family's serve run from the host plan:
+def predict_family_serve(run: dict, fused, attn_per_tick: int = 0,
+                         tag: str = "ssm", impls_at=None,
+                         pad: bool = False) -> dict:
+    """Launch counts of a family's serve run from the host plan:
     ``attn_per_tick`` paged_attention launches a decode tick (the ssm has
-    no attention leaves; the hybrid one a group); every packed leaf of the
-    layers (the hybrid's trunk) once a forward, the decode ticks at M =
-    max_batch, the prefill chunks at the prompts' exact power-of-two pieces
-    (the engine pads no recurrent prompt); by variant as each leaf's layout
-    selects at those rows."""
+    no attention leaves; the hybrid one a group, audio one a decoder
+    layer); ``impls_at(m)``, the packed leaves one forward of m rows runs
+    by variant (default: every packed leaf of the layers or the hybrid's
+    trunk), once a forward, the decode ticks at M = max_batch, the prefill
+    chunks at the prompts' exact power-of-two pieces (the engine pads no
+    recurrent prompt) or, with ``pad``, at their padded buckets."""
     import torch
 
-    from repro_torch.core.vq_linear import FusedVQLinear
-
-    chunks = prefill_chunk_ms(run["prompts"], pad=False)
-    trunk = fused["layers"] if "layers" in fused else fused["mamba"]
-    per_fwd = sum(isinstance(leaf, FusedVQLinear)
-                  for lp in trunk for leaf in tree_leaves(lp))
+    if impls_at is None:
+        impls_at = lambda m: predict_matmul_impls(fused, m, torch.bfloat16)
+    chunks = prefill_chunk_ms(run["prompts"], pad=pad)
+    per_fwd = sum(impls_at(SERVE_MAX_BATCH).values())
     impls: dict = {}
     for m, times in [(SERVE_MAX_BATCH, run["decode_ticks"])] + [
             (m, 1) for m in chunks]:
-        for k, v in predict_matmul_impls(fused, m, torch.bfloat16).items():
+        for k, v in impls_at(m).items():
             impls[k] = impls.get(k, 0) + v * times
     want = {"paged_attention": attn_per_tick * run["decode_ticks"],
             "vq_dequant_matmul": per_fwd * (run["decode_ticks"]
@@ -2983,6 +3058,98 @@ def predict_ssm_serve(run: dict, fused, attn_per_tick: int = 0,
     return want
 
 
+def slot_state_serve(torch, dev, model, qparams, run: dict, eng, tag: str,
+                     predict, attn_layers: int = 0,
+                     low_pages=None) -> tuple[dict, dict]:
+    """The serve checks of a family whose cache holds slot state (ssm,
+    hybrid, audio), after ``run`` on ``eng``: the run's launches held to
+    ``predict(run, fused params, tag)``; each prompt served alone gives the
+    interleaved tokens; under a pool of 6 pages a slot where a request
+    needs up to 9, the youngest is evicted, replayed from a reset slot, and
+    every request's tokens are the unpressured run's; the prefix cache is
+    asked for and left off. With ``low_pages`` (requests, new tokens): a
+    run on int8 pages and one on vq2 pages, each held to the plan (the vq2
+    engine's load fits a K and a V codebook for each of the
+    ``attn_layers``), and request 0's served tokens teacher-forced through
+    each against the f32 pages (drift, finite). Trims the runs for the
+    JSON; returns (results, checks)."""
+    from repro_torch.serve.engine import Engine, Request
+
+    secs = {}
+    want = predict(run, eng.params, tag)
+    checks = serve_run_checks(run, want, SERVE_NEW, "serve")
+    t0 = time.perf_counter()
+    solo = solo_tokens(torch, dev, model, qparams, run["prompts"], SERVE_NEW)
+    solo_same = [a == b for a, b in zip(solo, run["out"])]
+    log(f"[{tag}] solo vs interleaved tokens identical: {solo_same}")
+    tight = Engine(model, qparams, max_batch=SERVE_MAX_BATCH,
+                   max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
+                   num_blocks=6 * SERVE_MAX_BATCH + 1,
+                   paged_attn_impl="fused", vq_matmul_impl="fused",
+                   device=dev)
+    reqs = [Request(rid=200 + i, prompt=p, max_new_tokens=SERVE_NEW)
+            for i, p in enumerate(run["prompts"])]
+    tight.run(reqs)
+    preempt = {"preemptions": tight.stats["preemptions"],
+               "tokens_equal": [r.out_tokens == o
+                                for r, o in zip(reqs, run["out"])]}
+    log(f"[{tag}] preemption replay: {preempt['preemptions']} preemptions, "
+        f"tokens equal to the unpressured run: {preempt['tokens_equal']}")
+    prefix_inert = Engine(model, qparams, max_batch=SERVE_MAX_BATCH,
+                          max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
+                          prefix_cache=True, device=dev).prefix_cache is None
+    log(f"[{tag}] prefix cache asked for and left off (slot-resident "
+        f"state): {prefix_inert}")
+    secs["solo_preempt"] = time.perf_counter() - t0
+    del tight
+    checks.update({
+        "serve: solo == interleaved tokens": all(solo_same),
+        "serve: preemption replayed identically": preempt["preemptions"] > 0
+            and all(preempt["tokens_equal"]),
+        "serve: prefix cache inert": prefix_inert})
+    res = {"serve": run, "serve_predicted": want, "solo_equal": solo_same,
+           "preemption": preempt, "prefix_inert": prefix_inert,
+           "seconds": secs}
+    if low_pages is not None:
+        t0 = time.perf_counter()
+        low = {}
+        prompt, out = run["prompts"][0], run["out"][0]
+        n_forced = low_pages[1] - 1
+        for bits in (8, "vq2"):
+            r = serve_run(torch, dev, model, qparams, bits, *low_pages)
+            e = r.pop("engine")
+            w = r["predicted"] = predict(r, e.params, f"{tag} kv={bits}")
+            with torch.no_grad():
+                ref = forced_logits(torch, dev, model, eng, prompt,
+                                    out[:n_forced], "fused")
+                got = forced_logits(torch, dev, model, e, prompt,
+                                    out[:n_forced], "fused")
+            r["drift"] = logit_diff(torch, got, ref)
+            r["finite"] = bool(torch.isfinite(got).all())
+            log(f"[{tag}] kv={bits}: teacher-forced drift vs f32 pages on "
+                f"request 0 ({n_forced + 1} steps): max "
+                f"{r['drift'][0]:.4e}, RMS {r['drift'][1]:.4e}, finite "
+                f"{r['finite']}; launches at engine load "
+                f"{r['load_launches']}")
+            checks.update({
+                **serve_run_checks(r, w, low_pages[1], f"kv={bits}"),
+                f"kv={bits}: launches at engine load": r["load_launches"]
+                    == {"vq_assign": 0, "vq_group_sweep": 0,
+                        "vq_em": 2 * attn_layers if bits == "vq2" else 0},
+                f"kv={bits}: logits finite": r["finite"]})
+            r.pop("prompts")
+            r["out"] = r["out"][:2]
+            w.pop("chunks")
+            low[str(bits)] = r
+            del e
+        res["low_bit_pages"] = low
+        secs["int8_vq2"] = time.perf_counter() - t0
+    run.pop("prompts")
+    run["out"] = run["out"][:2]
+    want.pop("chunks")
+    return res, checks
+
+
 def phase_ssm(torch, dev) -> dict:
     """The ssm family at xLSTM-125M's full width and depth: see the module
     docstring."""
@@ -2996,7 +3163,6 @@ def phase_ssm(torch, dev) -> dict:
     from repro_torch.kernels import vq_assign as vqa
     from repro_torch.kernels.vq_dequant_matmul import vq_dequant_matmul
     from repro_torch.models import model_zoo
-    from repro_torch.serve.engine import Engine, Request
     from repro_torch.train.loss import perplexity
 
     t_phase = time.perf_counter()
@@ -3103,7 +3269,6 @@ def phase_ssm(torch, dev) -> dict:
                     SERVE_NEW)
     eng = run.pop("engine")
     t["serve"] = time.perf_counter() - t0
-    want_serve = predict_ssm_serve(run, eng.params)
     prompt, out = run["prompts"][0], run["out"][0]
     forced = out[:-1]
     seq = torch.as_tensor(np.concatenate([prompt, forced]), device=dev)
@@ -3133,33 +3298,11 @@ def phase_ssm(torch, dev) -> dict:
                     f"{d[0]:.4e} (tol {tol[0]:.4e}), RMS {d[1]:.4e} (tol "
                     f"{tol[1]:.4e})")
     del q32, fused32
-    t0 = time.perf_counter()
-    solo = solo_tokens(torch, dev, model, qparams, run["prompts"], SERVE_NEW)
-    solo_same = [a == b for a, b in zip(solo, run["out"])]
-    log(f"[ssm] solo vs interleaved tokens identical: {solo_same}")
-    # preemption: a pool of 6 pages a slot where a request needs up to 9;
-    # the youngest is evicted, replayed from a reset state, and every
-    # request's tokens are the unpressured run's
-    tight = Engine(model, qparams, max_batch=SERVE_MAX_BATCH,
-                   max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
-                   num_blocks=6 * SERVE_MAX_BATCH + 1,
-                   paged_attn_impl="fused", vq_matmul_impl="fused",
-                   device=dev)
-    reqs = [Request(rid=200 + i, prompt=p, max_new_tokens=SERVE_NEW)
-            for i, p in enumerate(run["prompts"])]
-    tight.run(reqs)
-    preempt = {"preemptions": tight.stats["preemptions"],
-               "tokens_equal": [r.out_tokens == o
-                                for r, o in zip(reqs, run["out"])]}
-    log(f"[ssm] preemption replay: {preempt['preemptions']} preemptions, "
-        f"tokens equal to the unpressured run: {preempt['tokens_equal']}")
-    prefix_inert = Engine(model, qparams, max_batch=SERVE_MAX_BATCH,
-                          max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
-                          prefix_cache=True, device=dev).prefix_cache is None
-    log(f"[ssm] prefix cache asked for and left off (slot-resident state): "
-        f"{prefix_inert}")
-    t["solo_preempt"] = time.perf_counter() - t0
-    del eng, tight
+    tail, tail_checks = slot_state_serve(
+        torch, dev, model, qparams, run, eng, "ssm",
+        lambda r, f, tag: predict_family_serve(r, f, tag=tag))
+    t.update(tail.pop("seconds"))
+    del eng
 
     peak = torch.cuda.max_memory_allocated()
     log(f"[ssm] ppl fp={ppl_fp:.3f} vq={ppl_vq:.3f} | recon err="
@@ -3192,18 +3335,7 @@ def phase_ssm(torch, dev) -> dict:
         "evaluation: one launch a packed leaf by variant as planned":
             eval_launches["by_impl"] == want_eval
             and eval_launches["launches"] == sum(want_eval.values()),
-        "serve: all requests finished": all(len(o) == SERVE_NEW
-                                            for o in run["out"]),
-        "serve: no paged_attention": run["launches"]["paged_attention"] == 0,
-        "serve: prefill chunks as planned":
-            run["prefill_chunks"] == len(want_serve["chunks"]),
-        "serve: vq_dequant_matmul launches == packed leaves x forwards":
-            run["launches"]["vq_dequant_matmul"]
-            == want_serve["vq_dequant_matmul"] > 0,
-        "serve: vq_dequant_matmul at M = 4": run["vq_m_counts"].get(
-            SERVE_MAX_BATCH, 0) == want_serve["at_m4"],
-        "serve: by variant as planned":
-            run["vq_impl_counts"] == want_serve["by_impl"],
+        **tail_checks,
         **{f"serve, f32: teacher-forced fused decode vs {name}": within_bars(
             tf_diffs[f"f32 {name}"])
            for name in ("gather decode", "cache-free forward")},
@@ -3211,17 +3343,10 @@ def phase_ssm(torch, dev) -> dict:
            tf_diffs[f"bf16 {name}"][0] <= bars[0]
            and tf_diffs[f"bf16 {name}"][1] <= bars[1]
            for name in ("gather decode", "cache-free forward")},
-        "serve: solo == interleaved tokens": all(solo_same),
-        "serve: preemption replayed identically": preempt["preemptions"] > 0
-            and all(preempt["tokens_equal"]),
-        "serve: prefix cache inert": prefix_inert,
     }
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise Failed(f"ssm phase checks failed: {bad}")
-    run.pop("prompts")
-    run["out"] = run["out"][:2]
-    want_serve.pop("chunks")
     return {"launches": quant_launches, "predicted_column_groups":
             plan["groups"], "eval_launches": eval_launches,
             "predicted_eval": want_eval, "ppl_fp": ppl_fp, "ppl_vq": ppl_vq,
@@ -3231,10 +3356,8 @@ def phase_ssm(torch, dev) -> dict:
             "seconds": t, "fused_vs_gather": diffs,
             "fused_vs_gather_by_position": windows,
             "f32_fused_vs_gather": f32_diffs, "sensitivity": sens,
-            "bf16_bars": bars, "serve": run,
-            "serve_predicted": want_serve, "serve_teacher_forced": tf_diffs,
-            "solo_equal": solo_same, "preemption": preempt,
-            "prefix_inert": prefix_inert, "recurrences": recurrences,
+            "bf16_bars": bars, **tail, "serve_teacher_forced": tf_diffs,
+            "recurrences": recurrences,
             "max_memory_allocated": peak,
             "phase_seconds": time.perf_counter() - t_phase}
 
@@ -3352,7 +3475,6 @@ def phase_hybrid(torch, dev, calib, long_heldout) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.vq_dequant_matmul import vq_dequant_matmul
     from repro_torch.models import hybrid, model_zoo
-    from repro_torch.serve.engine import Engine, Request
     from repro_torch.train.loss import perplexity
 
     t_phase = time.perf_counter()
@@ -3477,7 +3599,6 @@ def phase_hybrid(torch, dev, calib, long_heldout) -> dict:
                     SERVE_NEW)
     eng = run.pop("engine")
     t["serve"] = time.perf_counter() - t0
-    want_serve = predict_ssm_serve(run, eng.params, n_groups, "hybrid")
 
     # the shared block's densify alone: its four fused leaves decoded to
     # bf16 and each group's LoRA delta added, as every forward does
@@ -3518,59 +3639,11 @@ def phase_hybrid(torch, dev, calib, long_heldout) -> dict:
             f"{d[0]:.4e} (tol {SERVE_MAX_TOL}), RMS {d[1]:.4e} (tol "
             f"{SERVE_RMS_TOL})")
     del q32, fused32, model32, tf_kernel, tf_gather, free
-
-    t0 = time.perf_counter()
-    solo = solo_tokens(torch, dev, model, qparams, run["prompts"], SERVE_NEW)
-    solo_same = [a == b for a, b in zip(solo, run["out"])]
-    log(f"[hybrid] solo vs interleaved tokens identical: {solo_same}")
-    # preemption: a pool of 6 pages a slot where a request needs up to 9;
-    # the youngest is evicted, replayed from a reset state, and every
-    # request's tokens are the unpressured run's
-    tight = Engine(model, qparams, max_batch=SERVE_MAX_BATCH,
-                   max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
-                   num_blocks=6 * SERVE_MAX_BATCH + 1,
-                   paged_attn_impl="fused", vq_matmul_impl="fused",
-                   device=dev)
-    reqs = [Request(rid=200 + i, prompt=p, max_new_tokens=SERVE_NEW)
-            for i, p in enumerate(run["prompts"])]
-    tight.run(reqs)
-    preempt = {"preemptions": tight.stats["preemptions"],
-               "tokens_equal": [r.out_tokens == o
-                                for r, o in zip(reqs, run["out"])]}
-    log(f"[hybrid] preemption replay: {preempt['preemptions']} preemptions, "
-        f"tokens equal to the unpressured run: {preempt['tokens_equal']}")
-    prefix_inert = Engine(model, qparams, max_batch=SERVE_MAX_BATCH,
-                          max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
-                          prefix_cache=True, device=dev).prefix_cache is None
-    log(f"[hybrid] prefix cache asked for and left off (slot-resident "
-        f"state): {prefix_inert}")
-    t["solo_preempt"] = time.perf_counter() - t0
-    del tight
-
-    # int8 and vq2 pages: launches held to the plan, drift against the f32
-    # pages on request 0's served tokens
-    t0 = time.perf_counter()
-    low = {}
-    n_forced = HYBRID_QUANT_PAGES[1] - 1
-    for bits in (8, "vq2"):
-        r = serve_run(torch, dev, model, qparams, bits, *HYBRID_QUANT_PAGES)
-        e = r.pop("engine")
-        r["predicted"] = predict_ssm_serve(r, e.params, n_groups,
-                                           f"hybrid kv={bits}")
-        with torch.no_grad():
-            ref = forced_logits(torch, dev, model, eng, prompt,
-                                out[:n_forced], "fused")
-            got = forced_logits(torch, dev, model, e, prompt,
-                                out[:n_forced], "fused")
-        r["drift"] = logit_diff(torch, got, ref)
-        r["finite"] = bool(torch.isfinite(got).all())
-        log(f"[hybrid] kv={bits}: teacher-forced drift vs f32 pages on "
-            f"request 0 ({n_forced + 1} steps): max {r['drift'][0]:.4e}, "
-            f"RMS {r['drift'][1]:.4e}, finite {r['finite']}; launches at "
-            f"engine load {r['load_launches']}")
-        low[str(bits)] = r
-        del e
-    t["int8_vq2"] = time.perf_counter() - t0
+    tail, tail_checks = slot_state_serve(
+        torch, dev, model, qparams, run, eng, "hybrid",
+        lambda r, f, tag: predict_family_serve(r, f, n_groups, tag),
+        n_groups, HYBRID_QUANT_PAGES)
+    t.update(tail.pop("seconds"))
     del eng
 
     peak = torch.cuda.max_memory_allocated()
@@ -3611,20 +3684,7 @@ def phase_hybrid(torch, dev, calib, long_heldout) -> dict:
         "f32 copy: fused vs gather": (f32_diffs[0] <= FUSED_MAX_TOL
                                       and f32_diffs[1] <= FUSED_RMS_TOL),
         "bf16: fused vs gather": diffs[0] <= bars[0] and diffs[1] <= bars[1],
-        "serve: all requests finished": all(len(o) == SERVE_NEW
-                                            for o in run["out"]),
-        "serve: paged_attention launches == decode ticks x groups":
-            run["launches"]["paged_attention"]
-            == want_serve["paged_attention"] > 0,
-        "serve: prefill chunks as planned":
-            run["prefill_chunks"] == len(want_serve["chunks"]),
-        "serve: vq_dequant_matmul launches == packed trunk leaves x "
-        "forwards": run["launches"]["vq_dequant_matmul"]
-            == want_serve["vq_dequant_matmul"] > 0,
-        "serve: vq_dequant_matmul at M = 4": run["vq_m_counts"].get(
-            SERVE_MAX_BATCH, 0) == want_serve["at_m4"],
-        "serve: by variant as planned":
-            run["vq_impl_counts"] == want_serve["by_impl"],
+        **tail_checks,
         **{f"serve, f32 copy: teacher-forced kernel decode vs {name}":
            within_bars(tf_diffs[f"f32 {name}"])
            for name in ("gather decode", "cache-free forward")},
@@ -3632,37 +3692,10 @@ def phase_hybrid(torch, dev, calib, long_heldout) -> dict:
            tf_diffs[name][0] <= serve_bars[0]
            and tf_diffs[name][1] <= serve_bars[1]
            for name in ("gather decode", "cache-free forward")},
-        "serve: solo == interleaved tokens": all(solo_same),
-        "serve: preemption replayed identically": preempt["preemptions"] > 0
-            and all(preempt["tokens_equal"]),
-        "serve: prefix cache inert": prefix_inert,
     }
-    for bits, r in low.items():
-        w = r["predicted"]
-        checks.update({
-            f"kv={bits}: finished": all(len(o) == HYBRID_QUANT_PAGES[1]
-                                        for o in r["out"]),
-            f"kv={bits}: paged_attention launches == decode ticks x groups":
-                r["launches"]["paged_attention"] == w["paged_attention"] > 0,
-            f"kv={bits}: vq_dequant_matmul by variant as planned":
-                r["vq_impl_counts"] == w["by_impl"]
-                and r["launches"]["vq_dequant_matmul"]
-                == w["vq_dequant_matmul"],
-            f"kv={bits}: launches at engine load": r["load_launches"] == {
-                "vq_assign": 0, "vq_group_sweep": 0,
-                "vq_em": 2 * n_groups if bits == "vq2" else 0},
-            f"kv={bits}: logits finite": r["finite"],
-        })
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise Failed(f"hybrid phase checks failed: {bad}")
-    run.pop("prompts")
-    run["out"] = run["out"][:2]
-    want_serve.pop("chunks")
-    for r in low.values():
-        r.pop("prompts")
-        r["out"] = r["out"][:2]
-        r["predicted"].pop("chunks")
     return {"launches": quant_launches, "predicted_column_groups":
             plan["groups"], "quant_flash": quant_flash,
             "predicted_quant_flash": want_quant_flash, "flash": flash,
@@ -3673,13 +3706,366 @@ def phase_hybrid(torch, dev, calib, long_heldout) -> dict:
             "stage_seconds": rep.stage_seconds, "seconds": t,
             "fused_vs_gather": diffs, "fused_vs_gather_by_position": windows,
             "f32_fused_vs_gather": f32_diffs, "sensitivity": sens,
-            "bf16_bars": bars, "bf16_serve_bars": serve_bars, "serve": run,
-            "serve_predicted": want_serve, "serve_teacher_forced": tf_diffs,
-            "greedy_agree": agree, "solo_equal": solo_same,
-            "preemption": preempt, "prefix_inert": prefix_inert,
-            "low_bit_pages": low, "ssd_ms": parts,
+            "bf16_bars": bars, "bf16_serve_bars": serve_bars, **tail,
+            "serve_teacher_forced": tf_diffs, "greedy_agree": agree,
+            "ssd_ms": parts,
             "densify_ms": densify_ms, "itl_median_ms": itl_ms,
             "max_memory_allocated": peak,
+            "phase_seconds": time.perf_counter() - t_phase}
+
+
+# the audio phase: whisper-small at full width and depth (12 encoder + 12
+# decoder layers, 12 heads of 64, 1,500 frames, tied vocab 51,865; bf16);
+# calibration and heldout (sequences, decoder tokens). The heldout frames
+# are the stub frontend's at their own chunk index, apart from the
+# calibration chunks' (0 and 1)
+AUDIO_ARCH = "whisper-small"
+AUDIO_CALIB, AUDIO_HELDOUT = (16, 256), (8, 256)
+AUDIO_HELDOUT_CHUNK = 1000
+AUDIO_QUANT_PAGES = (4, 32)
+# the encoder's rows in the heldout evaluation: 8 x 1,500 frames
+AUDIO_ENC_ROWS = AUDIO_HELDOUT[0] * 1500
+# the bf16 comparisons: main's bars for fused vs gather and the serve bars
+# for the teacher-forced decode; the f32 copy is held to the same bars
+AUDIO_BF16_BARS = (FUSED_MAX_TOL, FUSED_RMS_TOL)
+AUDIO_BF16_SERVE_BARS = (SERVE_MAX_TOL, SERVE_RMS_TOL)
+
+
+def audio_targets(cfg) -> list:
+    """The reference adapter's targets in its order: each encoder layer's
+    attn q/k/v/o and ffn w_in/w_out, then each decoder layer's self q/k/v/o,
+    cross q/k/v/o and ffn w_in/w_out."""
+    ffn = ["ffn.w_in", "ffn.w_out"]
+    enc = [f"attn.{w}" for w in ("wq", "wk", "wv", "wo")] + ffn
+    dec = ([f"self_attn.{w}" for w in ("wq", "wk", "wv", "wo")]
+           + [f"cross_attn.{w}" for w in ("wq", "wk", "wv", "wo")] + ffn)
+    return ([f"enc.{i}.{t}" for i in range(cfg.n_encoder_layers)
+             for t in enc]
+            + [f"dec.{i}.{t}" for i in range(cfg.n_layers) for t in dec])
+
+
+def audio_matmul_impls(fused, m_dec: int, m_enc: int | None,
+                       x_dtype) -> dict:
+    """vq_dequant_matmul launches by variant for one audio forward: every
+    packed decoder leaf at ``m_dec`` rows; with frames (``m_enc`` rows of
+    memory) the encoder's leaves and the decoder's cross wk/wv at
+    ``m_enc``; without (serving) neither runs."""
+    pairs = []
+    if m_enc is not None:
+        pairs += [(leaf, m_enc) for lp in fused["enc_layers"]
+                  for leaf in tree_leaves(lp)]
+    for lp in fused["dec_layers"]:
+        for name, sub in lp.items():
+            if not isinstance(sub, dict):
+                continue
+            for w, leaf in sub.items():
+                if name == "cross_attn" and w in ("wk", "wv"):
+                    if m_enc is not None:
+                        pairs.append((leaf, m_enc))
+                else:
+                    pairs.append((leaf, m_dec))
+    return count_impls(pairs, x_dtype)
+
+
+def dense_prefill_logits(torch, dev, model, params, prompt, forced):
+    """The teacher-forced rows of one dense-``KVCache`` prefill of prompt +
+    forced tokens (f32 cache, its cross K/V the zeros the engine's slots
+    hold: not ``memory=zeros``, whose projection adds the biases)."""
+    seq = np.concatenate([prompt, forced])
+    cache = model.init_cache(1, len(seq), dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        lg = model.forward(params, {"tokens": torch.as_tensor(
+            seq, device=dev)[None]}, cache=cache, pos=0)[0][0]
+    return lg[len(prompt) - 1:].float()
+
+
+def time_cross_state(torch, dev, eng, cfg) -> dict:
+    """The slot-resident cross K/V's costs on the engine after its run:
+    ``slot_merge`` as a prefill chunk runs it (every batch-axis leaf cloned,
+    the cross K/V included), ``restore_masked`` as a decode tick runs it
+    (the cross K/V come back as the same tensors and are skipped) and as
+    it would run on fresh tensors (a ``torch.where`` over them), and the
+    cross-attention of one decode tick over the 1,500 keys (every layer's
+    q projection, attention and wo, with the f32 cache's conversion to
+    bf16 the forward makes)."""
+    from repro_torch.models import encdec
+    from repro_torch.serve import paged_cache as pc
+
+    cache, axes = eng.cache, eng.axes
+    nbytes = sum(c.numel() * c.element_size()
+                 for c in cache.cross_k + cache.cross_v)
+    view = pc.slot_view_dyn(cache, axes, 0)
+    keep = torch.zeros(eng.max_batch, dtype=torch.bool, device=dev)
+    keep[0] = True
+    fresh = cache._replace(cross_k=[c.clone() for c in cache.cross_k],
+                           cross_v=[c.clone() for c in cache.cross_v])
+    x = torch.randn((eng.max_batch, 1, cfg.d_model),
+                    generator=torch.Generator(device=dev).manual_seed(5),
+                    device=dev).to(torch.bfloat16)
+
+    def cross_tick():
+        for i, lp in enumerate(eng.params["dec_layers"]):
+            encdec._cross_attend(lp["cross_attn"], cfg, x,
+                                 cache.cross_k[i].to(x.dtype),
+                                 cache.cross_v[i].to(x.dtype))
+
+    with torch.no_grad():
+        out = {"cross_kv_bytes": nbytes,
+               "slot_merge_ms": time_ms(torch, lambda: pc.slot_merge_dyn(
+                   cache, view, axes, 0)),
+               "restore_masked_ms": time_ms(torch, lambda: pc.restore_masked(
+                   cache, cache, axes, keep)),
+               "restore_masked_fresh_ms": time_ms(
+                   torch, lambda: pc.restore_masked(cache, fresh, axes,
+                                                    keep)),
+               "cross_attention_tick_ms": time_ms(torch, cross_tick)}
+    del fresh
+    log(f"[audio] cross K/V {nbytes / 1e6:.1f} MB ({cfg.n_layers} layers x "
+        f"{eng.max_batch} slots x {cfg.encoder_seq} x {cfg.n_kv_heads} x "
+        f"{cfg.hd}, K and V, f32 as the engine's cache): slot_merge per "
+        f"prefill chunk {out['slot_merge_ms']:.4f} ms, restore_masked per "
+        f"tick {out['restore_masked_ms']:.4f} ms as run (the same tensors, "
+        f"skipped) and {out['restore_masked_fresh_ms']:.4f} ms on fresh "
+        f"ones (torch.where); cross-attention over {cfg.encoder_seq} keys "
+        f"a decode tick ({cfg.n_layers} layers) "
+        f"{out['cross_attention_tick_ms']:.4f} ms")
+    return out
+
+
+def phase_audio(torch, dev) -> dict:
+    """The audio family at whisper-small's full width and depth: see the
+    module docstring."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import adapters
+    from repro_torch.core import vq_linear as vql_mod
+    from repro_torch.core.bpv import PAPER_SETTINGS
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.data.calibration import calibration_tokens
+    from repro_torch.kernels import vq_assign as vqa
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.vq_dequant_matmul import vq_dequant_matmul
+    from repro_torch.models import model_zoo
+    from repro_torch.train.loss import perplexity
+
+    t_phase = time.perf_counter()
+    cfg = ARCHS[AUDIO_ARCH]
+    log(f"[audio] {cfg.name}: {cfg.n_encoder_layers} encoder + "
+        f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads} kv x {cfg.hd}, d_ff "
+        f"{cfg.d_ff} ({cfg.activation}), {cfg.encoder_seq} frames, vocab "
+        f"{cfg.vocab_size} (tied), dtype {cfg.dtype}; calibration "
+        f"{AUDIO_CALIB}, heldout {AUDIO_HELDOUT}")
+    torch.cuda.reset_peak_memory_stats()
+    t = {}
+    t0 = time.perf_counter()
+    model = model_zoo.build(cfg)
+    params = model.init_params(seed=0, device=dev)
+    calib = calibration_tokens(cfg.vocab_size, n_sequences=AUDIO_CALIB[0],
+                               seq_len=AUDIO_CALIB[1], device=dev)
+    heldout = calibration_tokens(cfg.vocab_size,
+                                 n_sequences=AUDIO_HELDOUT[0],
+                                 seq_len=AUDIO_HELDOUT[1], seed=777,
+                                 device=dev)
+    frames32 = adapters.calib_extras(cfg, heldout,
+                                     AUDIO_HELDOUT_CHUNK)["frames"]
+    frames = frames32.to(torch.bfloat16)
+    batch = {"tokens": heldout, "frames": frames}
+    torch.cuda.synchronize()
+    t["init"] = time.perf_counter() - t0
+    setting = PAPER_SETTINGS["2.25bpv_2d"]
+    recipe = QuantRecipe.uniform(setting, name="2.25bpv_2d"
+                                 ).with_quantize_overrides(
+                                     em_iters=25, codebook_update_iters=10)
+    plan = family_plan(model, params, setting)
+    targets = audio_targets(cfg)
+    log(f"[audio] host plan: {len(plan['quantized'])} targets (the "
+        f"reference adapter's {len(targets)}), {len(plan['dense'])} kept "
+        f"dense, vq_group_sweep and vq_em {plan['groups']} launches each, "
+        f"vq_assign 0, flash_attention 0 (1,500 frames and 256 tokens stay "
+        f"under 2,048); achieved bpv {plan['bpv']:.6f}; "
+        f"{model_zoo.count_params(model) / 1e9:.4f} B parameters")
+
+    zero_counts()
+    t0 = time.perf_counter()
+    ppl_fp = perplexity(model, params, heldout, batch_extra={"frames":
+                                                             frames})
+    t["ppl_fp"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qparams, rep = quantize_model(
+        model, params, calib, recipe=recipe, pack=True,
+        progress=lambda m: log(f"[audio]   {m} "
+                               f"({time.perf_counter() - t0:.1f}s)"))
+    torch.cuda.synchronize()
+    t["quantize"] = time.perf_counter() - t0
+    quant_launches = {fn: getattr(vqa, fn).launches
+                      for fn in VQ_ENTRY_POINTS}
+    del params
+    quantized = [k for k, e in rep.per_target.items()
+                 if e["action"] == "quantize"]
+    packed = all(isinstance(adapters.tree_get(
+        qparams[f"{side}_layers"][int(i)], tuple(rest.split("."))),
+        vql_mod.VQLinear)
+        for side, i, rest in (n.split(".", 2) for n in targets))
+
+    fused = vql_mod.prepare_fused_tree(qparams)
+    B, S = heldout.shape
+    want_eval = audio_matmul_impls(fused, B * S, B * cfg.encoder_seq,
+                                   torch.bfloat16)
+    vq_dequant_matmul.launches = 0
+    vq_dequant_matmul.launches_by_impl = {}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        lf = model.forward(fused, batch)[0]
+        torch.cuda.synchronize()
+        t["eval_fused"] = time.perf_counter() - t0
+        eval_launches = {"launches": vq_dequant_matmul.launches,
+                         "by_impl": dict(vq_dequant_matmul.launches_by_impl)}
+        t0 = time.perf_counter()
+        lg = model.forward(qparams, batch)[0]
+        torch.cuda.synchronize()
+        t["eval_gather"] = time.perf_counter() - t0
+    ppl_vq = text_ppl(torch, lf, heldout)
+    diffs = logit_diff(torch, lf, lg)
+    del lg, lf
+    # the f32 copy: the same packed leaves with f32 frames (the fused form
+    # on the fp32 variant, the gather form dequantized to f32), where no
+    # activation or W is rounded to bf16; and the model's own sensitivity
+    # to the bf16 rounding of the dequantized W
+    model32 = model_zoo.build(cfg.scaled(dtype="float32"))
+    q32 = to_f32(qparams)
+    fused32 = vql_mod.prepare_fused_tree(q32)
+    batch32 = {"tokens": heldout, "frames": frames32}
+    with torch.no_grad():
+        lg32 = model32.forward(q32, batch32)[0]
+        f32_diffs = logit_diff(torch, model32.forward(fused32, batch32)[0],
+                               lg32)
+        rounded = to_f32(vql_mod.dequant_tree(q32, torch.bfloat16))
+        sens = logit_diff(torch, model32.forward(rounded, batch32)[0], lg32)
+        del lg32, rounded
+    bars = AUDIO_BF16_BARS
+    log(f"[audio] bf16 fused vs gather logits ({B}, {S}, "
+        f"{cfg.padded_vocab}): max |diff| {diffs[0]:.4e} (tol {bars[0]}), "
+        f"RMS {diffs[1]:.4e} (tol {bars[1]})")
+    log(f"[audio] f32 copy, fused vs gather logits: max |diff| "
+        f"{f32_diffs[0]:.4e} (tol {FUSED_MAX_TOL}), RMS {f32_diffs[1]:.4e} "
+        f"(tol {FUSED_RMS_TOL})")
+    log(f"[audio] sensitivity: the f32 copy with the dequantized W exact "
+        f"against rounded to bf16: max {sens[0]:.4e}, RMS {sens[1]:.4e}")
+
+    t0 = time.perf_counter()
+    run = serve_run(torch, dev, model, qparams, 16, SERVE_REQUESTS,
+                    SERVE_NEW)
+    eng = run.pop("engine")
+    t["serve"] = time.perf_counter() - t0
+    cross_zero = all(float(c.abs().max()) == 0
+                     for c in eng.cache.cross_k + eng.cache.cross_v)
+    cross = time_cross_state(torch, dev, eng, cfg)
+    itl_ms = run["itl_median_s"] * 1e3
+    log(f"[audio] cross K/V still zero after the run (no frames served): "
+        f"{cross_zero}; the cross-attention is "
+        f"{100 * cross['cross_attention_tick_ms'] / itl_ms:.1f}% of the "
+        f"median ITL {itl_ms:.3f} ms")
+
+    # request 0's served path, teacher-forced: the kernel decode against
+    # the gather decode and a dense-cache prefill of the same tokens, in
+    # the bf16 model and in its f32 copy
+    prompt, out = run["prompts"][0], run["out"][0]
+    forced = out[:-1]
+    tf_diffs = {}
+    with torch.no_grad():
+        for tag, mdl, p in (("bf16", model, eng.params),
+                            ("f32", model32, fused32)):
+            kern = forced_logits(torch, dev, mdl, eng, prompt, forced,
+                                 "fused", params=p)
+            for name, other in (
+                    ("gather decode", forced_logits(
+                        torch, dev, mdl, eng, prompt, forced, "gather",
+                        params=p)),
+                    ("dense prefill", dense_prefill_logits(
+                        torch, dev, mdl, p, prompt, forced))):
+                d = tf_diffs[f"{tag} {name}"] = logit_diff(torch, kern,
+                                                           other)
+                tol = AUDIO_BF16_SERVE_BARS if tag == "bf16" else (
+                    SERVE_MAX_TOL, SERVE_RMS_TOL)
+                log(f"[audio] serve, {tag}: teacher-forced kernel decode vs "
+                    f"{name}, {tuple(kern.shape)} logits: max |diff| "
+                    f"{d[0]:.4e} (tol {tol[0]}), RMS {d[1]:.4e} (tol "
+                    f"{tol[1]})")
+            if tag == "bf16":
+                agree = float((kern.argmax(-1).cpu()
+                               == torch.tensor(out)).float().mean())
+    del q32, fused32, model32
+    tail, tail_checks = slot_state_serve(
+        torch, dev, model, qparams, run, eng, "audio",
+        lambda r, f, tag: predict_family_serve(
+            r, f, cfg.n_layers, tag, pad=True,
+            impls_at=lambda m: audio_matmul_impls(f, m, None,
+                                                  torch.bfloat16)),
+        cfg.n_layers, AUDIO_QUANT_PAGES)
+    t.update(tail.pop("seconds"))
+    del eng
+    flash = {"launches": flash_attention.launches,
+             "by_impl": dict(flash_attention.launches_by_impl)}
+
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[audio] ppl fp={ppl_fp:.3f} vq={ppl_vq:.3f} | recon err="
+        f"{rep.total_error():.4f} | achieved {rep.achieved_bpv:.6f} bpv "
+        f"(host plan {plan['bpv']:.6f})")
+    log("[audio] stages: " + "  ".join(
+        f"{k}={v:.2f}s" for k, v in sorted(rep.stage_seconds.items(),
+                                          key=lambda kv: -kv[1])))
+    log("[audio] seconds: " + "  ".join(f"{k}={v:.2f}" for k, v in t.items()))
+    log(f"[audio] quantize launches {quant_launches} (predicted "
+        f"vq_group_sweep and vq_em {plan['groups']} each, vq_assign 0); "
+        f"flash_attention in the phase {flash} (predicted 0); evaluation "
+        f"matmuls {eval_launches} (predicted {want_eval})")
+    log(f"[audio] max_memory_allocated {peak / 2**30:.2f} GiB; phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+
+    serve_bars = AUDIO_BF16_SERVE_BARS
+    checks = {
+        "ppl finite": math.isfinite(ppl_fp) and math.isfinite(ppl_vq),
+        "logits finite": math.isfinite(diffs[0]),
+        "targets == the reference adapter's": quantized == targets
+            == list(rep.per_target) and sorted(plan["quantized"])
+            == sorted(targets) and not plan["dense"],
+        "every target packed": packed,
+        "bpv == 2.25 == host plan": rep.achieved_bpv == 2.25
+            and abs(rep.achieved_bpv - plan["bpv"]) < 1e-9,
+        **quantize_launch_checks(quant_launches, plan["groups"]),
+        "no flash_attention launch": flash["launches"] == 0,
+        "evaluation: one launch a packed leaf by variant as planned":
+            eval_launches["by_impl"] == want_eval
+            and eval_launches["launches"] == sum(want_eval.values()),
+        "f32 copy: fused vs gather": (f32_diffs[0] <= FUSED_MAX_TOL
+                                      and f32_diffs[1] <= FUSED_RMS_TOL),
+        "bf16: fused vs gather": diffs[0] <= bars[0] and diffs[1] <= bars[1],
+        **tail_checks,
+        "serve: cross K/V left at zero": cross_zero,
+        **{f"serve, f32 copy: teacher-forced kernel decode vs {name}":
+           within_bars(tf_diffs[f"f32 {name}"])
+           for name in ("gather decode", "dense prefill")},
+        **{f"serve, bf16: teacher-forced kernel decode vs {name}":
+           tf_diffs[f"bf16 {name}"][0] <= serve_bars[0]
+           and tf_diffs[f"bf16 {name}"][1] <= serve_bars[1]
+           for name in ("gather decode", "dense prefill")},
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise Failed(f"audio phase checks failed: {bad}")
+    return {"launches": quant_launches, "predicted_column_groups":
+            plan["groups"], "flash": flash, "eval_launches": eval_launches,
+            "predicted_eval": want_eval, "ppl_fp": ppl_fp, "ppl_vq": ppl_vq,
+            "recon_error": rep.total_error(),
+            "achieved_bpv": rep.achieved_bpv, "predicted_bpv": plan["bpv"],
+            "stage_seconds": rep.stage_seconds, "seconds": t,
+            "fused_vs_gather": diffs, "f32_fused_vs_gather": f32_diffs,
+            "sensitivity": sens, "bf16_bars": bars,
+            "bf16_serve_bars": serve_bars, **tail,
+            "serve_teacher_forced": tf_diffs, "greedy_agree": agree,
+            "cross_state": cross,
+            "itl_median_ms": itl_ms, "max_memory_allocated": peak,
             "phase_seconds": time.perf_counter() - t_phase}
 
 
@@ -3697,7 +4083,14 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
     flash_attention, the budget phase's method table for the babai
     sweep; and the expert-stacked vq_dequant_matmul at a Qwen3-MoE decode
     tick's w_in stack (128 experts of 32 rows), launches from the moe
-    phase's serve run."""
+    phase's serve run. The audio phase's: vq_assign.cu at its group sweep
+    over one 3,072 x 256 group of whisper's w_in, launches its quantize's
+    (the three entry points summed); paged_attention at head dim 64
+    (whisper-small's serve shape, bf16 queries over f32 pages), launches
+    from its serve run; vq_dequant_matmul at whisper's w_in over the
+    encoder evaluation's 12,000 rows, launches from its fused evaluation
+    and its serve run. library_ms is each row's own: for vq_dequant_matmul
+    at int8 codebooks a bf16 torch.matmul."""
     pick = {
         "vq_dequant_matmul": (
             "vq_dequant_matmul",
@@ -3730,6 +4123,24 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
             "vq_dequant_matmul",
             lambda r: r["shape"] == "w_in experts"
             and r["M"] == MOE_SLAB_ROWS[0],
+            "src/repro_torch/kernels/csrc/vq_dequant_matmul.cu",
+            "src/repro/kernels/vq_dequant_matmul.py:137"),
+        "vq_assign_whisper": (
+            "vq_group_sweep",
+            lambda r: r["shape"] == "whisper w_in group"
+            and r["metric"] == "diag",
+            "src/repro_torch/kernels/csrc/vq_assign.cu",
+            "src/repro/kernels/vq_assign.py:37"),
+        "paged_attention_hd64": (
+            "paged_attention",
+            lambda r: r["shape"] == "whisper serve" and r["fmt"] == "f32"
+            and r["q_dtype"] == "bfloat16",
+            "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "src/repro/kernels/paged_attention.py:128"),
+        "vq_dequant_matmul_whisper": (
+            "vq_dequant_matmul",
+            lambda r: r["shape"] == "whisper w_in"
+            and r["M"] == AUDIO_ENC_ROWS,
             "src/repro_torch/kernels/csrc/vq_dequant_matmul.cu",
             "src/repro/kernels/vq_dequant_matmul.py:137"),
     }
@@ -3798,6 +4209,8 @@ def main() -> int:
     ssm_res = phase_ssm(torch, dev)
     torch.cuda.empty_cache()
     hybrid_res = phase_hybrid(torch, dev, long_calib, long_heldout)
+    torch.cuda.empty_cache()
+    audio_res = phase_audio(torch, dev)
     os.makedirs(out_dir, exist_ok=True)
     out = os.path.join(out_dir, "chip_smoke.json")
     with open(out, "w") as f:
@@ -3806,7 +4219,7 @@ def main() -> int:
                    "small": small_res, "main": main_res,
                    "budget": budget_res, "serve": serve_res, "long": long_res,
                    "moe": moe_res, "vlm": vlm_res, "ssm": ssm_res,
-                   "hybrid": hybrid_res}, f,
+                   "hybrid": hybrid_res, "audio": audio_res}, f,
                   indent=1, default=str)
     log(f"[done] {time.perf_counter() - t_all:.1f}s; details in {out}")
     launches = dict(main_res["launches"], paged_attention=serve_res[
@@ -3814,6 +4227,13 @@ def main() -> int:
         flash_attention=long_res["launches"]["flash_attention"])
     launches["vq_assign"] = sum(main_res["launches"][fn]
                                 for fn in VQ_ENTRY_POINTS)
+    launches["vq_assign_whisper"] = sum(audio_res["launches"][fn]
+                                        for fn in VQ_ENTRY_POINTS)
+    launches["paged_attention_hd64"] = audio_res["serve"]["launches"][
+        "paged_attention"]
+    launches["vq_dequant_matmul_whisper"] = (
+        audio_res["eval_launches"]["launches"]
+        + audio_res["serve"]["launches"]["vq_dequant_matmul"])
     launches["vq_group_sweep_babai"] = budget_res["babai_launches"]
     launches["vq_dequant_matmul_experts"] = moe_res["serve"][
         "vq_experts_counts"].get(MOE_EXPERTS, 0)

@@ -5,14 +5,15 @@
 ``layers`` leading axis into a list of per-layer dicts (a MoE layer's
 expert stacks (E, D, F) stay stacked inside its dict; the xLSTM's layers
 are a list already; the hybrid's (n_groups, per) trunk becomes a list of
+lists; the audio family's ``enc_layers`` and ``dec_layers`` become two
 lists). The leaves the reference keeps in f32 (the MoE router, the mLSTM
 gate projections, the Mamba2 scan parameters) stay f32.
 ``vqlinear_from_jax`` does the same for one packed ``VQLinear`` (any object
 with the reference's field names, an expert stack's arrays with their
 leading E, or one matrix of a stacked leaf; uint32 words are
 reinterpreted as int32), and ``paged_cache_from_jax`` for a reference
-``PagedKVCache`` (pools, scales, codebooks, page table) or
-``HybridCache``. Nothing here imports jax: callers pass numpy arrays (or
+``PagedKVCache`` (pools, scales, codebooks, page table), ``HybridCache``
+or ``EncDecCache``. Nothing here imports jax: callers pass numpy arrays (or
 objects ``np.asarray`` accepts).
 """
 from __future__ import annotations
@@ -56,7 +57,8 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, device=None) -> dict:
     mix, whose sLSTM ``r_*`` leaves are (H, hd, hd) stacks). The hybrid's
     ``mamba`` trunk, stacked (n_groups, per, ...) or a list of lists,
     becomes a list of groups of layer dicts; its ``lora`` factors stay
-    stacked (n_groups, ...)."""
+    stacked (n_groups, ...). The audio family's ``enc_layers`` and
+    ``dec_layers``, stacked or lists, become lists of layer dicts."""
     from repro_torch.models.transformer import block_kind
 
     dev = resolve_device(device)
@@ -76,13 +78,21 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, device=None) -> dict:
                      for g in range(n_groups)]
         out["mamba"] = [[conv(lp, "mamba") for lp in grp] for grp in trunk]
         return out
+    def unstack(layers, n):
+        if isinstance(layers, list):
+            return layers
+        return [_map(layers, lambda a, _, i=i: a[i]) for i in range(n)]
+
+    if cfg.family == "audio":
+        stacks = {"enc_layers": cfg.n_encoder_layers,
+                  "dec_layers": cfg.n_layers}
+        out = {k: conv(v) for k, v in np_tree.items() if k not in stacks}
+        for k, n in stacks.items():
+            out[k] = [conv(lp) for lp in unstack(np_tree[k], n)]
+        return out
     out = {k: conv(v) for k, v in np_tree.items() if k != "layers"}
-    layers = np_tree["layers"]
-    if not isinstance(layers, list):
-        layers = [_map(layers, lambda a, _, i=i: a[i])
-                  for i in range(cfg.n_layers)]
-    out["layers"] = [conv(lp, block_kind(cfg, i))
-                     for i, lp in enumerate(layers)]
+    out["layers"] = [conv(lp, block_kind(cfg, i)) for i, lp in
+                     enumerate(unstack(np_tree["layers"], cfg.n_layers))]
     return out
 
 
@@ -125,8 +135,19 @@ def paged_cache_from_jax(cache, device=None):
     ``HybridCache`` (fields ``mamba``, an ``SSMCache`` stacked (n_groups,
     per, B, ...), and ``attn``, a ``PagedKVCache`` stacked (n_groups, ...))
     -> the port's ``HybridCache``: per group a ``PagedKVCache``, per layer
-    an ``SSMCache``."""
+    an ``SSMCache``. A reference ``EncDecCache`` (``self_kv`` a stacked
+    ``PagedKVCache``, ``cross_k`` / ``cross_v`` (L, B, S_enc, KV, hd)) ->
+    the port's ``EncDecCache``: per layer a ``PagedKVCache`` and a pair of
+    cross K/V tensors."""
     dev = resolve_device(device)
+    if hasattr(cache, "cross_k"):
+        from repro_torch.models.encdec import EncDecCache
+
+        ck, cv = np.asarray(cache.cross_k), np.asarray(cache.cross_v)
+        return EncDecCache(
+            self_kv=paged_cache_from_jax(cache.self_kv, dev),
+            cross_k=[_exact(a, dev) for a in ck],
+            cross_v=[_exact(a, dev) for a in cv])
     if hasattr(cache, "mamba"):
         from repro_torch.models.hybrid import HybridCache
         from repro_torch.models.ssm import SSMCache

@@ -4,7 +4,9 @@ VQ-dequant matmul, and save the packed checkpoint.
 
 Runs on ``cuda`` unless ``--device cpu``, for every ported family
 (``--arch`` llama2-7b, qwen3-moe-30b-a3b, phi-3-vision-4.2b (calibrated
-and evaluated on text), xlstm-125m, zamba2-7b, ...). The fp perplexity is
+and evaluated on text), xlstm-125m, zamba2-7b, whisper-small (calibrated
+and evaluated with the stub frontend's synthesized frames,
+``adapters.calib_extras``), ...). The fp perplexity is
 taken on the dense model; the vq perplexity on the packed model after
 ``prepare_fused_tree``, so every quantized matmul goes through the
 ``vq_dequant_matmul`` kernel on the card (and, past 2048 tokens, attention

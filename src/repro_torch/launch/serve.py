@@ -5,7 +5,10 @@ through the paged engine.
 Runs on ``cuda`` unless ``--device cpu``. The flags are the reference's;
 ``--paged-attn-impl`` and ``--vq-matmul-impl`` take "gather" or "fused"
 (the reference's "xla" and "pallas" are both "fused" here: the CUDA kernel
-on the card, its plain PyTorch version on the CPU).
+on the card, its plain PyTorch version on the CPU). Every family serves
+from tokens alone, as the reference's engine does: vlm without patches,
+audio (``--arch whisper-small``) without frames, its cross K/V left at
+the zeros its cache starts from.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
       --smoke --vq --device cpu --paged-attn-impl fused \

@@ -6,8 +6,10 @@ longer than ``FLASH_THRESHOLD`` (2048) tokens, in ``pre_out`` and in a
 dense-``KVCache`` prefill, attend through ``flash_attention``
 (kernels/flash_attention: the CUDA kernel on CUDA tensors, its plain
 version, the reference's two-level scan, on CPU tensors); shorter ones
-through ``_plain_attention``. Cross-attention is not ported yet
-(ROADMAP.md queue 1, "The other five families").
+through ``_plain_attention``. ``causal=False`` and ``use_rope=False`` give
+the whisper encoder's bidirectional attention and its decoder's un-rotated
+self-attention; ``cross_pre_out`` / ``cross_apply`` attend from x to an
+encoder memory (keys and values projected from ``memory``).
 
 Cache updates are in place: the reference's caches are functional
 (``.at[...].set`` under a donated ``jit``), while here a write goes straight
@@ -225,66 +227,110 @@ def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0):
                               causal=causal, q_offset=q_offset)
 
 
-def _project_qkv(p, cfg: ModelConfig, x):
+def _project_qkv(p, cfg: ModelConfig, x, kv_x=None):
+    """q from x; k and v from ``kv_x`` (cross-attention's memory), or from
+    x when it is None."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    kv_x = x if kv_x is None else kv_x
     q = cm.matmul(x, p["wq"])
-    k = cm.matmul(x, p["wk"])
-    v = cm.matmul(x, p["wv"])
+    k = cm.matmul(kv_x, p["wk"])
+    v = cm.matmul(kv_x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+    k = k.reshape(B, kv_x.shape[1], KV, hd)
+    v = v.reshape(B, kv_x.shape[1], KV, hd)
     if cfg.qk_norm:
         q = cm.rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = cm.rmsnorm(k, p["k_norm"], cfg.norm_eps)
     return q, k, v
 
 
-def _causal(Sq: int, Sk: int, device) -> torch.Tensor:
+def _mask(Sq: int, Sk: int, device, causal: bool = True) -> torch.Tensor:
+    """(1, 1, 1, Sq, Sk): column j <= row i when ``causal``, else all."""
+    if not causal:
+        return torch.ones((1, 1, 1, Sq, Sk), dtype=torch.bool, device=device)
     return (torch.arange(Sk, device=device)[None, :]
             <= torch.arange(Sq, device=device)[:, None])[None, None, None]
 
 
-def pre_out(p, cfg: ModelConfig, x, *, pos=0):
-    """Causal self-attention with RoPE up to (but not including) ``wo``;
-    returns (B, S, H*hd). The Hessian tap for the output projection."""
+def _rope(q, k, cfg: ModelConfig, pos_arr, use_rope: bool):
+    if not use_rope:
+        return q, k
+    return (cm.apply_rope(q, pos_arr, cfg.rope_theta),
+            cm.apply_rope(k, pos_arr, cfg.rope_theta))
+
+
+def pre_out(p, cfg: ModelConfig, x, *, pos=0, causal: bool = True,
+            use_rope: bool = True):
+    """Self-attention (causal and with RoPE unless told otherwise) up to
+    (but not including) ``wo``; returns (B, S, H*hd). The Hessian tap for
+    the output projection."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x)
     pos_arr = cm.position_ids(pos, B, S, device=x.device)
-    q = cm.apply_rope(q, pos_arr, cfg.rope_theta)
-    k = cm.apply_rope(k, pos_arr, cfg.rope_theta)
-    return _self_attention(q, k, v).reshape(B, S, -1)
+    q, k = _rope(q, k, cfg, pos_arr, use_rope)
+    return _self_attention(q, k, v, causal=causal).reshape(B, S, -1)
 
 
-def _self_attention(q, k, v):
-    """Causal attention of q over the same S positions of k/v: the flash
-    path for S > FLASH_THRESHOLD, else the dense masked softmax."""
+def _self_attention(q, k, v, *, causal: bool = True):
+    """Attention of q over the same S positions of k/v (causal, or every
+    position): the flash path for S > FLASH_THRESHOLD, else the dense
+    masked softmax."""
     S = q.shape[1]
     if S > FLASH_THRESHOLD:
-        return flash_attention(q, k, v, causal=True)
-    return _plain_attention(q, k, v, _causal(S, S, q.device))
+        return flash_attention(q, k, v, causal=causal)
+    return _plain_attention(q, k, v, _mask(S, S, q.device, causal))
+
+
+def cross_pre_out(p, cfg: ModelConfig, x, memory, *,
+                  flash_threshold: int = FLASH_THRESHOLD):
+    """Cross-attention from x (B, S, D) to ``memory`` (B, Sk, D) up to (but
+    not including) ``wo``; returns (B, S, H*hd). Past ``flash_threshold``
+    rows on either side it takes flash, which refuses an Sk the
+    reference's kv chunks do not divide (whisper's 1,500 frames), as the
+    reference does."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x, kv_x=memory)
+    Sk = memory.shape[1]
+    if max(S, Sk) > flash_threshold:
+        o = flash_attention(q, k, v, causal=False)
+    else:
+        o = _plain_attention(q, k, v, _mask(S, Sk, x.device, causal=False))
+    return o.reshape(B, S, -1)
+
+
+def cross_apply(p, cfg: ModelConfig, x, memory):
+    """Cross-attention (the whisper decoder's): keys and values from the
+    encoder memory."""
+    o = cross_pre_out(p, cfg, x, memory)
+    return cm.matmul(o, p["wo"]).to(x.dtype)
 
 
 def apply(p, cfg: ModelConfig, x: torch.Tensor, *, pos=0, cache=None,
+          causal: bool = True, use_rope: bool = True,
           paged_impl: str = "gather"):
     """Self-attention; returns (y, cache).
 
-    * no cache: causal attention over x (B, S, D).
+    * no cache: attention over x (B, S, D), causal unless ``causal=False``.
     * ``KVCache``: K/V written at [pos, pos+S) (scalar pos); S == 1 decodes
       over cache[:pos+1], S > 1 is a prefill from position 0.
     * ``PagedKVCache``: ``pos`` may be a per-slot (B,) vector; K/V go into
-      each slot's blocks through the page table (``_paged_apply``).
+      each slot's blocks through the page table (``_paged_apply``, whose
+      mask is kpos <= pos: it refuses ``causal=False``).
+    ``use_rope=False`` leaves q and k un-rotated, in the pages too.
     """
     B, S, _ = x.shape
+    if not causal and isinstance(cache, PagedKVCache):
+        raise ValueError("a PagedKVCache's mask is causal (kpos <= pos); "
+                         "causal=False has no paged path")
     if cache is None:
-        o = pre_out(p, cfg, x, pos=pos)
+        o = pre_out(p, cfg, x, pos=pos, causal=causal, use_rope=use_rope)
         return cm.matmul(o, p["wo"]).to(x.dtype), None
     q, k, v = _project_qkv(p, cfg, x)
     pos_arr = cm.position_ids(pos, B, S, device=x.device)  # (B, S)
-    q = cm.apply_rope(q, pos_arr, cfg.rope_theta)
-    k = cm.apply_rope(k, pos_arr, cfg.rope_theta)
+    q, k = _rope(q, k, cfg, pos_arr, use_rope)
 
     if isinstance(cache, PagedKVCache):
         return _paged_apply(p, cache, q, k, v, pos_arr, x.dtype,
@@ -301,7 +347,8 @@ def apply(p, cfg: ModelConfig, x: torch.Tensor, *, pos=0, cache=None,
         o = _plain_attention(q, cache.k, cache.v, valid)
     else:
         # prefill from position 0
-        o = _self_attention(q, cache.k[:, :S], cache.v[:, :S])
+        o = _self_attention(q, cache.k[:, :S], cache.v[:, :S],
+                            causal=causal)
     y = cm.matmul(o.reshape(B, S, -1), p["wo"])
     return y.to(x.dtype), cache
 

@@ -1,0 +1,218 @@
+"""Whisper-style encoder-decoder backbone (port of ``repro/models/encdec.py``).
+
+The conv/mel frontend is a stub, as in the reference: ``frames`` are
+precomputed frame embeddings (B, encoder_seq, d_model). Learned absolute
+positional embeddings on both sides, GELU MLPs, biased QKV, pre-norm. The
+encoder attends bidirectionally without RoPE; the decoder's self-attention
+is causal without RoPE, and its cross-attention reads the encoder memory.
+
+Layout: ``params["enc_layers"]`` and ``params["dec_layers"]`` are lists of
+per-layer dicts (the reference stacks them on a leading axis and scans).
+A cache is an ``EncDecCache``: per decoder layer one self-attention cache
+(``KVCache``, or ``PagedKVCache`` when serving) and one pair of cross K/V
+(B, S_enc, KV, hd) tensors, computed from the memory at a prefill with
+frames and slot-resident after that, like recurrent state.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention, common as cm, mlp
+
+
+class EncDecCache(NamedTuple):
+    self_kv: Any   # [layer] KVCache or PagedKVCache
+    cross_k: Any   # [layer] (B, S_enc, KV, hd) in the cache dtype
+    cross_v: Any
+
+
+def _enc_block_init(gen, cfg: ModelConfig, dtype, device):
+    kw = dict(dtype=dtype, device=device)
+    return {"norm1": torch.ones((cfg.d_model,), **kw),
+            "attn": attention.init(gen, cfg, dtype, device=device),
+            "norm2": torch.ones((cfg.d_model,), **kw),
+            "ffn": mlp.init(gen, cfg, dtype, device=device)}
+
+
+def _dec_block_init(gen, cfg: ModelConfig, dtype, device):
+    kw = dict(dtype=dtype, device=device)
+    return {"norm1": torch.ones((cfg.d_model,), **kw),
+            "self_attn": attention.init(gen, cfg, dtype, device=device),
+            "norm_x": torch.ones((cfg.d_model,), **kw),
+            "cross_attn": attention.init(gen, cfg, dtype, device=device),
+            "norm2": torch.ones((cfg.d_model,), **kw),
+            "ffn": mlp.init(gen, cfg, dtype, device=device)}
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator | None,
+                device=None) -> dict:
+    """Random weights; the lm head is tied to ``embed`` (whisper)."""
+    dtype = cm.DTYPES[cfg.dtype]
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "embed": cm.embed_init(gen, cfg.padded_vocab, cfg.d_model, **kw),
+        "pos_enc": cm.embed_init(gen, cfg.encoder_seq, cfg.d_model, **kw),
+        "pos_dec": cm.embed_init(gen, cfg.max_seq_len, cfg.d_model, **kw),
+        "enc_layers": [_enc_block_init(gen, cfg, dtype, device)
+                       for _ in range(cfg.n_encoder_layers)],
+        "dec_layers": [_dec_block_init(gen, cfg, dtype, device)
+                       for _ in range(cfg.n_layers)],
+        "enc_norm": torch.ones((cfg.d_model,), **kw),
+        "final_norm": torch.ones((cfg.d_model,), **kw),
+    }
+
+
+def embed_frames(params, cfg: ModelConfig, frames: torch.Tensor):
+    """Add learned positional embeddings to the (stub) frame embeddings;
+    the stream keeps the frames' dtype, as the reference's."""
+    return frames + params["pos_enc"][None, :frames.shape[1]].to(frames.dtype)
+
+
+def enc_block_apply(layer_p, cfg: ModelConfig, h):
+    """One encoder block (bidirectional attention + MLP) on (B, S_enc, D)."""
+    a, _ = attention.apply(layer_p["attn"], cfg,
+                           cm.rmsnorm(h, layer_p["norm1"], cfg.norm_eps),
+                           causal=False, use_rope=False)
+    h = h + a
+    return h + mlp.apply(layer_p["ffn"], cfg,
+                         cm.rmsnorm(h, layer_p["norm2"], cfg.norm_eps))
+
+
+def encode(params, cfg: ModelConfig, frames: torch.Tensor):
+    """frames (B, S_enc, D) -> the memory (B, S_enc, D). ``VQLinear``
+    leaves are densified layer by layer (the gather form);
+    ``FusedVQLinear`` ones reach the fused kernel."""
+    from repro_torch.core import vq_linear as vql_mod
+
+    x = embed_frames(params, cfg, frames)
+    for layer_p in params["enc_layers"]:
+        x = enc_block_apply(vql_mod.dequant_tree(layer_p, cm.DTYPES[cfg.dtype]),
+                            cfg, x)
+    return cm.rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, paged=None, device=None) -> EncDecCache:
+    """Self-attention K/V pages when serving (``paged``: a PagedLayout), a
+    dense (B, max_len) cache otherwise; the cross K/V are fixed-size
+    per-slot encoder projections and stay slot-resident either way,
+    zeroed."""
+    def self_kv():
+        if paged is not None:
+            return attention.init_paged_cache(cfg, batch, max_len, paged,
+                                              dtype, device=device)
+        return attention.init_cache(cfg, batch, max_len, dtype,
+                                    device=device)
+
+    shape = (batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.hd)
+    zeros = lambda: [torch.zeros(shape, dtype=dtype, device=device)
+                     for _ in range(cfg.n_layers)]
+    return EncDecCache(self_kv=[self_kv() for _ in range(cfg.n_layers)],
+                       cross_k=zeros(), cross_v=zeros())
+
+
+def _cross_kv(layer_p, cfg: ModelConfig, memory):
+    B, S, _ = memory.shape
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    k = cm.matmul(memory, layer_p["wk"]).reshape(B, S, KV, hd)
+    v = cm.matmul(memory, layer_p["wv"]).reshape(B, S, KV, hd)
+    if cfg.qkv_bias:
+        k = k + layer_p["bk"].reshape(KV, hd)
+        v = v + layer_p["bv"].reshape(KV, hd)
+    return k, v
+
+
+def _cross_attend(layer_p, cfg: ModelConfig, x, ck, cv):
+    """Plain all-ones-mask attention of x over the cross K/V, then wo."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    q = cm.matmul(x, layer_p["wq"]).reshape(B, S, H, hd)
+    if cfg.qkv_bias:
+        q = q + layer_p["bq"].reshape(H, hd)
+    o = attention._plain_attention(
+        q, ck, cv, attention._mask(S, ck.shape[1], x.device, causal=False))
+    return cm.matmul(o.reshape(B, S, H * hd), layer_p["wo"]).to(x.dtype)
+
+
+def dec_block_apply(layer_p, cfg: ModelConfig, h, memory):
+    """One decoder block (causal self-attention, cross-attention over
+    ``memory``, MLP) on (B, S, D): the cache-free path, which the audio
+    adapter's advance runs (core/adapters/encdec.py)."""
+    a, _ = attention.apply(layer_p["self_attn"], cfg,
+                           cm.rmsnorm(h, layer_p["norm1"], cfg.norm_eps),
+                           use_rope=False)
+    h = h + a
+    ck, cv = _cross_kv(layer_p["cross_attn"], cfg, memory)
+    h = h + _cross_attend(layer_p["cross_attn"], cfg,
+                          cm.rmsnorm(h, layer_p["norm_x"], cfg.norm_eps),
+                          ck.to(h.dtype), cv.to(h.dtype))
+    return h + mlp.apply(layer_p["ffn"], cfg,
+                         cm.rmsnorm(h, layer_p["norm2"], cfg.norm_eps))
+
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, frames=None,
+            memory=None, pos=0, cache: EncDecCache | None = None,
+            last_only: bool = False, paged_impl: str = "gather"):
+    """Decoder forward; returns (logits f32, new_cache, aux 0). Give
+    ``frames`` (prefill or evaluation: the encoder runs) or a cache whose
+    cross K/V a previous prefill filled; ``memory`` (the encoder's output)
+    stands in for frames beside a cache.
+
+    With a cache and frames or memory, the new cache holds the cross K/V
+    computed from the memory (in the cache's dtype); with a cache and
+    neither, the cache's own cross K/V are read and returned, the same
+    tensor objects (the engine's ``restore_masked`` then skips them). The
+    self-attention cache is updated in place, as ``attention.apply``
+    does."""
+    from repro_torch.core import vq_linear as vql_mod
+
+    if frames is None and cache is None:
+        raise ValueError("encdec.forward needs frames or a cache whose "
+                         "cross K/V a prefill filled")
+    dtype = cm.DTYPES[cfg.dtype]
+    top = {k: v for k, v in params.items()
+           if k not in ("enc_layers", "dec_layers")}
+    params = {**params, **vql_mod.dequant_tree(top, dtype)}
+    if frames is not None:
+        memory = encode(params, cfg, frames)
+
+    B, S = tokens.shape
+    x = params["embed"][tokens]
+    pos_ids = cm.position_ids(pos, B, S, device=x.device)
+    x = x + params["pos_dec"][pos_ids].to(x.dtype)
+    fill_cross = cache is not None and memory is not None
+    new_kv, new_ck, new_cv = [], [], []
+    for i, layer_p in enumerate(params["dec_layers"]):
+        lp = vql_mod.dequant_tree(layer_p, dtype)
+        a, kv = attention.apply(
+            lp["self_attn"], cfg, cm.rmsnorm(x, lp["norm1"], cfg.norm_eps),
+            pos=pos, cache=None if cache is None else cache.self_kv[i],
+            use_rope=False, paged_impl=paged_impl)
+        x = x + a
+        if memory is not None:
+            ck, cv = _cross_kv(lp["cross_attn"], cfg, memory)
+        else:
+            ck, cv = cache.cross_k[i], cache.cross_v[i]
+        x = x + _cross_attend(lp["cross_attn"], cfg,
+                              cm.rmsnorm(x, lp["norm_x"], cfg.norm_eps),
+                              ck.to(x.dtype), cv.to(x.dtype))
+        x = x + mlp.apply(lp["ffn"], cfg,
+                          cm.rmsnorm(x, lp["norm2"], cfg.norm_eps))
+        if cache is not None:
+            new_kv.append(kv)
+            if fill_cross:
+                ck = ck.to(cache.cross_k[i].dtype)
+                cv = cv.to(cache.cross_v[i].dtype)
+            new_ck.append(ck)
+            new_cv.append(cv)
+    if last_only:
+        x = x[:, -1:]
+    x = cm.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = cm.matmul(x, params["embed"].T).to(torch.float32)
+    new_cache = (None if cache is None
+                 else EncDecCache(new_kv, new_ck, new_cv))
+    return logits, new_cache, torch.zeros((), dtype=torch.float32,
+                                          device=x.device)

@@ -1,15 +1,17 @@
 """Unified model API (port of ``repro/models/model_zoo.py``): the dense,
-moe, vlm, ssm (xLSTM) and hybrid (Zamba2) families (``transformer.PORTED``);
-audio raises, naming its ROADMAP entry.
+moe, vlm, ssm (xLSTM), hybrid (Zamba2) and audio (whisper) families
+(``transformer.PORTED``).
 
 ``build(cfg)`` returns a ``Model`` whose ``init_params(seed, device)`` makes
 random weights from a seed (on ``cuda`` unless ``device="cpu"``), whose
 ``init_cache(batch, max_len, dtype, paged, device)`` makes a per-layer
-cache list (the hybrid: a ``hybrid.HybridCache``; dense, or paged with a
-``PagedLayout``; recurrent state is slot-resident either way), and whose
+cache list (the hybrid: a ``hybrid.HybridCache``, audio: an
+``encdec.EncDecCache``; dense, or paged with a ``PagedLayout``; recurrent
+state and cross K/V are slot-resident either way), and whose
 ``forward(params, batch, cache=None, pos=0, **kw)`` takes a dict with
-``tokens`` (B, S) and, for vlm, ``patches`` (B, n_image_tokens, D), and
-returns (logits, new_cache, aux_loss).
+``tokens`` (B, S) and, for vlm, ``patches`` (B, n_image_tokens, D), for
+audio ``frames`` (B, encoder_seq, D), and returns (logits, new_cache,
+aux_loss).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import hybrid, transformer, vlm
+from repro_torch.models import encdec, hybrid, transformer, vlm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,7 +36,7 @@ class Model:
 def _family_module(cfg: ModelConfig):
     """The module holding the family's init_params / init_cache."""
     transformer._check_family(cfg)
-    return hybrid if cfg.family == "hybrid" else transformer
+    return {"hybrid": hybrid, "audio": encdec}.get(cfg.family, transformer)
 
 
 def build(cfg: ModelConfig) -> Model:
@@ -45,7 +47,12 @@ def build(cfg: ModelConfig) -> Model:
         gen = torch.Generator(device=dev).manual_seed(seed)
         return mod.init_params(cfg, gen, device=dev)
 
-    if cfg.family == "hybrid":
+    if cfg.family == "audio":
+        def fwd(params, batch, cache=None, pos=0, **kw):
+            return encdec.forward(params, cfg, batch["tokens"],
+                                  frames=batch.get("frames"), pos=pos,
+                                  cache=cache, **kw)
+    elif cfg.family == "hybrid":
         def fwd(params, batch, cache=None, pos=0, **kw):
             return hybrid.forward(params, cfg, batch["tokens"], pos=pos,
                                   cache=cache, **kw)

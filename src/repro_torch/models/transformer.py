@@ -13,8 +13,8 @@ gather form), while ``FusedVQLinear`` leaves reach ``common.matmul`` /
 ``models/moe`` (expert stacks with a leading E); its load-balancing loss is
 summed over the layers into ``forward``'s aux. The vlm family runs this
 stack with patch embeddings prepended (``extra_embeds``). Of the families,
-``PORTED`` run here or, the hybrid, in ``models/hybrid``; ``PENDING``
-raise (ROADMAP.md queue 1, "The other five families").
+``PORTED`` run here or, the hybrid and audio, in ``models/hybrid`` and
+``models/encdec``; any other family raises.
 """
 from __future__ import annotations
 
@@ -25,8 +25,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common as cm, mlp, moe, xlstm
 
-PORTED = ("dense", "moe", "vlm", "ssm", "hybrid")
-PENDING = ("audio",)
+PORTED = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
+PENDING: tuple[str, ...] = ()
 
 
 def block_kind(cfg: ModelConfig, i: int) -> str:
@@ -98,9 +98,8 @@ def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 def _check_family(cfg: ModelConfig):
     if cfg.family not in PORTED:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; pending: "
-            f"{', '.join(PENDING)}; ported: {', '.join(PORTED)} (ROADMAP.md "
-            "queue 1, 'The other five families')")
+            f"family {cfg.family!r} is not a family of the port; ported: "
+            f"{', '.join(PORTED)}")
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator | None,

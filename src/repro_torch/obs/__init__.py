@@ -3,7 +3,9 @@ spans, JSONL event stream, per-request latency records and dispatch
 counters. The serving engine reports into it (obs/telemetry.py is the
 facade it owns); ``launch/serve.py`` exposes ``--events-out``,
 ``--metrics-out`` and ``--trace-dir``. The quantization pipeline's
-``telemetry=`` is not ported yet (ROADMAP.md queue 1).
+``telemetry=`` (core/pipeline.quantize_model) adds its stage spans and
+``quant_stage`` / ``quant_target`` events, which the quantize launcher's
+``--events-out`` and ``--metrics-out`` write.
 """
 from repro_torch.obs.dispatch import (
     register_dispatch,

@@ -12,6 +12,12 @@ vector, so interleaved greedy decode is token-identical to serving each
 request alone. The reference compiles its tick functions with ``jax.jit``
 and donates the cache; here they run eagerly and write pages in place.
 
+Slot-resident state (the recurrent families' state, the audio family's
+cross K/V, which the engine never fills: requests carry no frames, as the
+reference's) is reset from a B=1 template on admission and kept by the
+slots that do not decode in a tick; a cache that holds any keeps the
+prefix cache off.
+
 Pages may be stored low-bit (``kv_cache_bits`` 8/4, or "vq2" against
 codebooks calibrated once at construction and then frozen). Every engine
 owns an ``obs.Telemetry`` that records the request lifecycle (TTFT, ITL),

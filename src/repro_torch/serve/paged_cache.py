@@ -15,8 +15,9 @@ owns the host side:
 * ``push_page_table`` — puts the host page table into every layer's cache.
 
 Cache trees are lists, dicts and NamedTuples (``PagedKVCache``,
-``hybrid.HybridCache``, recurrent states) of tensors or None; ``tree_map``
-walks them to the tensors, ``map_paged`` to the ``PagedKVCache`` nodes.
+``hybrid.HybridCache``, ``encdec.EncDecCache``, recurrent states) of
+tensors or None; ``tree_map`` walks them to the tensors, ``map_paged`` to
+the ``PagedKVCache`` nodes.
 """
 from __future__ import annotations
 
@@ -187,7 +188,10 @@ def restore_masked(old, new, axes, keep_mask: torch.Tensor):
     """Rows of batch-axis leaves where ``keep_mask`` (B,) is True keep
     their ``old`` value. This matters for slot-resident recurrent state
     only; on the dense family the batch-axis leaves are the page tables,
-    which a decode tick does not change, so it returns ``new``."""
+    which a decode tick does not change, so it returns ``new``. A leaf
+    the forward returned as it was (``o is n``: the audio family's cross
+    K/V outside a prefill with frames) is passed through without a
+    ``torch.where``."""
     def f(o, n, a):
         if a < 0 or o is n:
             return n
@@ -217,8 +221,8 @@ def map_paged(f, tree, *rest):
 
 def has_slot_state(cache) -> bool:
     """True when the cache holds a tensor outside the ``PagedKVCache``
-    pools: per-slot recurrent state (the xLSTM's, the hybrid's Mamba
-    state), which a page-table share cannot replay."""
+    pools: per-slot state (the xLSTM's, the hybrid's Mamba state, the
+    audio family's cross K/V), which a page-table share cannot replay."""
     found = []
     tree_map(found.append, map_paged(lambda c: None, cache))
     return bool(found)

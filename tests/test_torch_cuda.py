@@ -1180,3 +1180,61 @@ def test_vq_dequant_matmul_rows_independent_zamba(dev, N, K, M, sub):
     other = x.clone()
     other[sub:] = -other[sub:]
     assert torch.equal(run(other)[:sub], y[:sub])
+
+
+# ---------------------------------------------------------------------------
+# the audio family's shapes: whisper-small's attention (12 heads of 64, MHA:
+# two page rows in a warp at lanes_per_row 16) and its MLP (w_in 768 ->
+# 3072, w_out 3072 -> 768) at the decode tick's, a prefill chunk's and the
+# encoder evaluation's rows (8 x 1,500)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fmt", PAGE_FORMATS)
+def test_paged_attention_hd64_whisper(dev, fmt, q_dtype):
+    """The audio serve shape: 12 heads of 64 over 12 kv heads (G = 1), 16
+    pages a slot, an idle slot: within the kernel's tolerance of the plain
+    version, each slot bitwise the same alone and in the batch, and from
+    call to call (the cross-unit merge of two rows a warp)."""
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_attention_plain, split_plan)
+
+    assert split_plan(16, 64, 1, 0).lanes_per_row == 16  # f32 pages
+    q, kp, vp, table, pos_t, kw = paged_case(
+        dev, 64, B=4, H=12, KV=12, hd=64, page_size=16, n_pages=16,
+        num_blocks=65, fmt=fmt, pos=[0, 57, 255, 135], q_dtype=q_dtype)
+    y = paged_attention(q, kp, vp, table, pos_t, **kw)
+    want = paged_attention_plain(q, kp, vp, table, pos_t, **kw)
+    assert y.dtype == q_dtype and bool(torch.isfinite(y).all())
+    rtol, atol = ((2e-5, 2e-5) if q_dtype == torch.float32
+                  else (2.0**-7, 1e-5))
+    torch.testing.assert_close(y.float(), want.float(), rtol=rtol, atol=atol)
+    assert torch.equal(paged_attention(q, kp, vp, table, pos_t, **kw), y)
+    for b in range(4):
+        alone = paged_attention(q[b:b + 1].contiguous(), kp, vp,
+                                table[b:b + 1].contiguous(),
+                                pos_t[b:b + 1].contiguous(), **kw)
+        assert torch.equal(alone[0], y[b]), b
+
+
+@pytest.mark.parametrize("N,K", [(3072, 768), (768, 3072)])
+@pytest.mark.parametrize("M,sub", [(4, 1), (64, 17), (12000, 17)])
+def test_vq_dequant_matmul_rows_independent_whisper(dev, N, K, M, sub):
+    """whisper-small's w_in and w_out at 2.25bpv_2d's layout (256-column
+    groups of 4 rows): within 1e-4 of the output's largest magnitude of the
+    plain version, row m the same bits whatever the other rows hold
+    (split-K at M = 4, tensor cores at 64 and at the encoder evaluation's
+    12,000)."""
+    x, words, cb, _, cb_i8, cb_scale, kw = _vq_case(
+        dev, M, N, K, 2, 2, 4, 256, 0, torch.bfloat16, True)
+    run = lambda xx: vq_dequant_matmul(xx, words, cb, codebooks_i8=cb_i8,
+                                       cb_scale=cb_scale, **kw)
+    y = run(x)
+    plain_kw = {k: v for k, v in kw.items() if k != "k_c"}
+    want = vq_dequant_matmul_plain(x, words, cb, None, **plain_kw)
+    assert float((y - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert torch.equal(run(x), y)
+    assert torch.equal(run(x[:sub].contiguous()), y[:sub])
+    other = x.clone()
+    other[sub:] = -other[sub:]
+    assert torch.equal(run(other)[:sub], y[:sub])

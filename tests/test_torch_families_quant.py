@@ -244,30 +244,28 @@ def test_checkpoint_roundtrip_both_ways(fam, tmp_path):
 @pytest.mark.parametrize("family", ["vlm", "ssm", "hybrid", "audio"])
 def test_registry_takes_vlm_and_ssm_and_refuses_the_pending(family):
     """model_zoo.build and adapters.get_adapter take vlm (the transformer
-    adapter), ssm (the xLSTM one) and hybrid (the Zamba2 one: the shared
-    block, then n_groups x per Mamba layers); audio raises, naming its
-    ROADMAP entry (its calib_extras too)."""
+    adapter), ssm (the xLSTM one), hybrid (the Zamba2 one: the shared
+    block, then n_groups x per Mamba layers) and audio (the whisper one:
+    the encoder blocks, the enc->dec transition, the decoder blocks;
+    calib_extras gives its frames). No family is pending any more."""
+    from repro_torch.models import transformer
+
+    assert transformer.PENDING == ()
     cfg = SMOKE[FAMILY_REPRESENTATIVE[family]].scaled(dtype="float32")
-    if family == "audio":
-        with pytest.raises(NotImplementedError, match="five families"):
-            model_zoo.build(cfg)
-
-        class _Model:  # get_adapter reads only the config
-            pass
-
-        _Model.cfg = cfg
-        with pytest.raises(NotImplementedError, match="five families"):
-            adapters.get_adapter(_Model(), {})
-        with pytest.raises(NotImplementedError, match="five families"):
-            adapters.calib_extras(cfg, torch.zeros((1, 4)))
-        return
     model = model_zoo.build(cfg)
     adapter = adapters.get_adapter(model, model.init_params(seed=0,
                                                             device="cpu"))
     want = {"vlm": "TransformerAdapter", "ssm": "XLSTMAdapter",
-            "hybrid": "HybridAdapter"}[family]
+            "hybrid": "HybridAdapter", "audio": "EncDecAdapter"}[family]
     assert type(adapter).__name__ == want
     # the hybrid's n_layers counts its Mamba layers; the shared block is
-    # one block more
-    assert len(adapter.blocks()) == cfg.n_layers + (family == "hybrid")
+    # one block more; audio adds its encoder layers and the transition
+    extra = {"hybrid": 1, "audio": cfg.n_encoder_layers + 1}.get(family, 0)
+    assert len(adapter.blocks()) == cfg.n_layers + extra
     assert model_zoo.count_params(model) > 0
+    extras = adapters.calib_extras(cfg, torch.zeros((1, 4),
+                                                    dtype=torch.long))
+    if family == "audio":
+        assert extras["frames"].shape == (1, cfg.encoder_seq, cfg.d_model)
+    else:
+        assert extras == {}

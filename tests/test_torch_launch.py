@@ -138,5 +138,3 @@ def test_left_out_options_raise():
     with pytest.raises(NotImplementedError, match="Multi-device and training"):
         quantize_model(model, {}, torch.zeros((1, 4), dtype=torch.long),
                        hessian_mesh=object())
-    with pytest.raises(NotImplementedError, match="five families"):
-        model_zoo.build(SMOKE["whisper-small"])
