@@ -54,6 +54,20 @@ Phases (each prints its seconds; any failure exits non-zero):
                 and one vq_group_sweep and one vq_em row at a d = 1
                 (2.125bpv_1d) and a k = 256 (4.125bpv_2d) setting at the
                 wq group's shape.
+                For the train phase: flash_attention at its microbatch (B
+                2, 4,096 tokens, 32 heads of 128) and the backward kernel
+                (flash_attention_bwd) against flash_attention_bwd_plain on
+                the same q, k, v, dout and the forward kernel's out, the
+                kernel fed the forward kernel's lse and the plain version
+                flash_attention_plain's, which the kernel's is held to
+                (rtol 1e-5 plus 1e-5 * max|lse|): the train shape in bf16
+                and f32, GQA (64 heads over 8),
+                a q_offset (Sq 512, Sk 2048), non-causal at hd 64, and f32
+                queries over bf16 keys and values; f32 within rtol 1e-4,
+                atol 1e-5 * max|g|, bf16 within one bf16 rounding of the
+                f32 plain result plus 1e-3 * max|g|; the same bits on two
+                calls; the forward's out bitwise equal with and without
+                its lse; timed beside SDPA's backward alone.
   4. small    — the whole path on the SKILL smoke config, on the card and
                 on the CPU (plain versions), held against each other.
   5. main     — the port's main path at Llama-2-7B full width with depth cut
@@ -128,7 +142,26 @@ Phases (each prints its seconds; any failure exits non-zero):
                 vq_assign never), with the restored leaves bit for bit, the
                 restored perplexity equal to the vq one and the quant
                 event counts.
-  9. moe     — the MoE family at Qwen3-MoE-30B-A3B's full width, depth cut
+  9. train   — training on one device: full-width Llama-2-7B, 2 layers,
+                bf16, on the long phase's 4 x 4096 calibration tokens in 2
+                microbatches, AdamW (lr 3e-5, warmup 1, 8 total), remat
+                True. The f32 copy's gradients through the kernels against
+                the same step with the plain flash forward and backward
+                swapped in on the card (relative Frobenius error a leaf
+                <= 1e-4, wq/wk/wv among them); 4 bf16 steps on the one
+                batch (finite loss and grad norm, loss at step 4 below
+                step 1), launches held to the plan (a step: forward 2
+                layers x 2 microbatches x 2, all tc; backward 2 x 2), step
+                seconds, tokens/s, the model FLOPs share of the bf16 peak
+                and max_memory_allocated; one step under remat="save_attn"
+                (forward 2 x 2: attention not re-run); one bf16 step's
+                gradients against the plain flash pair (<= 2e-2 a leaf);
+                4 steps at lr 3e-4, where the loss rises, through the
+                kernels and through the plain pair (steps 1-2 within 2e-2
+                of each other); last a supervised launch/train run on the
+                smoke config with a failure injected at step 3, which
+                resumes from its checkpoint to step 6.
+ 10. moe     — the MoE family at Qwen3-MoE-30B-A3B's full width, depth cut
                 to 2 layers (random weights from seed 0, bf16; 128 experts,
                 top-8, 32 query heads over 4 kv heads): calibration 16 x 256
                 tokens, fp perplexity on a heldout 8 x 256, quantize_model
@@ -152,7 +185,7 @@ Phases (each prints its seconds; any failure exits non-zero):
                 bitwise equal to 128 separate 2-D launches and the same
                 bits twice, beside torch.bmm on the dense bf16 stack; and
                 paged_attention at its serve shape (G = 8).
- 10. vlm     — the vlm family at Phi-3-vision-4.2B's full width, depth cut
+ 11. vlm     — the vlm family at Phi-3-vision-4.2B's full width, depth cut
                 to 2 layers (random weights from seed 0, bf16; MHA, 32
                 heads of 96): quantize_model at 2.25bpv_2d calibrated on
                 text only (the long phase's 4 x 4096 tokens); heldout 2
@@ -173,7 +206,7 @@ Phases (each prints its seconds; any failure exits non-zero):
                 each slot bitwise alone and in the batch; flash_attention
                 at B 2, 4,096 tokens, 32 heads of 96 (tc and fp32);
                 vq_dequant_matmul at Phi-3's w_in (M 4 and 64).
- 11. ssm     — the ssm family at xLSTM-125M's full width and depth (12
+ 12. ssm     — the ssm family at xLSTM-125M's full width and depth (12
                 layers, sLSTM at 3 and 9, tied vocab 50,304; bf16):
                 calibration 16 x 256, heldout 8 x 256; the two recurrences
                 timed alone at a decode tick and a 64-token chunk;
@@ -192,7 +225,7 @@ Phases (each prints its seconds; any failure exits non-zero):
                 f32 copy (the serve bars). Its kernels-phase rows:
                 vq_dequant_matmul at the mLSTM up projection's width (M 4
                 and 64), its rows bitwise independent.
- 12. hybrid  — the hybrid family at Zamba2-7B's full width, depth cut to
+ 13. hybrid  — the hybrid family at Zamba2-7B's full width, depth cut to
                 12 Mamba layers in 2 groups of 6 (random weights from seed
                 0 with the LoRA B factors drawn non-zero from a numpy seed,
                 bf16; the shared attention's 32 heads of 112, Mamba2 d_inner
@@ -220,7 +253,7 @@ Phases (each prints its seconds; any failure exits non-zero):
                 paged_attention at hd 112 every format and query dtype,
                 each slot bitwise alone and in the batch; flash_attention
                 at B 4, 4,096 tokens, 32 heads of 112 (tc and fp32).
- 13. audio   — the audio family at whisper-small's full width and depth
+ 14. audio   — the audio family at whisper-small's full width and depth
                 (12 encoder + 12 decoder layers, 12 heads of 64, 1,500 stub
                 frames, random weights from seed 0, bf16): calibration 16 x
                 256 decoder tokens with the stub frontend's frames, heldout
@@ -258,6 +291,7 @@ chiprun_out/chip_smoke.json. The profiler pass over the quantize path is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1126,7 +1160,161 @@ FLASH_SHAPES = {
     # heads of 112) over the long phase's 4 x 4096 tokens
     "zamba B=4": dict(B=4, Sq=4096, Sk=4096, H=32, KV=32, hd=112,
                       causal=True, q_offset=0),
+    # the train phase's microbatch: 2 x 4096 tokens of Llama-2-7B
+    "llama B=2": dict(B=2, Sq=4096, Sk=4096, H=32, KV=32, hd=128,
+                      causal=True, q_offset=0),
 }
+
+# flash attention's backward: the train phase's microbatch (bf16 and f32),
+# GQA with Qwen2-72B's heads, a q_offset, non-causal at hd 64, and f32
+# queries over bf16 keys and values; (shape, q dtype, kv dtype)
+FLASH_BWD_SHAPES = {
+    "train": dict(B=2, Sq=4096, Sk=4096, H=32, KV=32, hd=128, causal=True,
+                  q_offset=0),
+    "gqa": dict(B=1, Sq=4096, Sk=4096, H=64, KV=8, hd=128, causal=True,
+                q_offset=0),
+    "q_offset": dict(B=2, Sq=512, Sk=2048, H=8, KV=2, hd=128, causal=True,
+                     q_offset=1536),
+    "non-causal": dict(B=2, Sq=512, Sk=2048, H=8, KV=8, hd=64,
+                       causal=False, q_offset=0),
+}
+FLASH_BWD_ROWS = (("train", "bfloat16", "bfloat16"),
+                  ("train", "float32", "float32"),
+                  ("gqa", "bfloat16", "bfloat16"),
+                  ("q_offset", "bfloat16", "bfloat16"),
+                  ("non-causal", "bfloat16", "bfloat16"),
+                  ("q_offset", "float32", "bfloat16"))
+
+
+def flash_pairs(sh: dict) -> int:
+    """Unmasked (row, column) pairs of one (batch, head)."""
+    Sq, Sk, off = sh["Sq"], sh["Sk"], sh["q_offset"]
+    if sh["causal"]:
+        return sum(min(Sk, off + i + 1) for i in range(Sq))
+    return Sq * Sk
+
+
+def check_flash_bwd(torch, dev, shape: str, q_name: str,
+                    kv_name: str) -> dict:
+    """The forward kernel's lse against flash_attention_plain's (f32 on
+    the upcast values); the backward kernel, fed the kernel's out and lse,
+    against flash_attention_bwd_plain fed the same out and the plain lse
+    (f32 on the upcast values), so a wrong lse shows in both checks; the
+    same bits on two calls; the forward's out bitwise equal with and
+    without its lse; timed beside the plain version and SDPA's backward
+    alone."""
+    from repro_torch.kernels.flash_attention import (
+        _launch_forward, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain)
+
+    sh = FLASH_BWD_SHAPES[shape]
+    B, Sq, Sk, H, KV, hd = (sh[n] for n in ("B", "Sq", "Sk", "H", "KV", "hd"))
+    causal, off = sh["causal"], sh["q_offset"]
+    q_dt, kv_dt = getattr(torch, q_name), getattr(torch, kv_name)
+    g = torch.Generator(device=dev).manual_seed(Sq + Sk + H + hd + 1)
+    q = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(q_dt)
+    k = torch.randn((B, Sk, KV, hd), generator=g, device=dev).to(kv_dt)
+    v = torch.randn((B, Sk, KV, hd), generator=g, device=dev).to(kv_dt)
+    dout = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(q_dt)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    out = _launch_forward(q, k, v, causal, off, lse)
+    out_bitwise = bool(torch.equal(out, _launch_forward(q, k, v, causal,
+                                                        off)))
+    _, ref_lse = flash_attention_plain(q.float(), k.float(), v.float(),
+                                       causal=causal, q_offset=off,
+                                       with_lse=True)
+    # lse: rtol 1e-5 plus 1e-5 * max|lse| (a row's lse is its first
+    # score alone, which may lie near 0); an error d scales the row's P,
+    # and so its gradients, by exp(-d)
+    lse_d = (lse - ref_lse).abs()
+    lse_err = float(lse_d.max())
+    lse_ok = bool((lse_d <= 1e-5 * ref_lse.abs()
+                   + 1e-5 * float(ref_lse.abs().max())).all())
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
+                              q_offset=off)
+    again = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
+                                q_offset=off)
+    torch.cuda.synchronize()
+    launched = flash_attention_bwd.launches - before
+    same_bits = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+    del again
+    want = flash_attention_bwd_plain(
+        q.float(), k.float(), v.float(), out.float(), dout.float(), ref_lse,
+        causal=causal, q_offset=off)
+    del ref_lse
+    # f32: rtol 1e-4, atol 1e-5 * max|g| (the kernel sums rows in 64-row
+    # tiles, the plain version in 512 x 1024 chunks); bf16: one bf16
+    # rounding of the f32 result plus 1e-3 * max|g|
+    err, ok = 0.0, True
+    for a, w in zip(got, want):
+        scale = float(w.abs().max())
+        d = (a.float() - w).abs()
+        err = max(err, float(d.max()))
+        if a.dtype == torch.float32:
+            ok = ok and bool((d <= 1e-4 * w.abs() + 1e-5 * scale).all())
+        else:
+            ok = ok and bool((d <= 2.0**-8 * w.abs() + 1e-3 * scale).all())
+        ok = ok and bool(torch.isfinite(a).all())
+    del want
+    big = B * H * Sq * Sk > 2**30
+    iters, warm = (5, 1) if big else (20, 3)
+
+    def run():
+        return flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
+                                   q_offset=off)
+
+    ms = time_ms(torch, run, iters, warm)
+    dev_ms = graph_ms(torch, run, iters)
+    plain_ms = time_ms(torch, lambda: flash_attention_bwd_plain(
+        q, k, v, out, dout, lse, causal=causal, q_offset=off), iters, warm)
+    # library yardstick: SDPA's backward alone (its forward outside the
+    # timing) on the same values, in q's dtype for all three
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).to(q_dt).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    mask = None
+    if causal and off:
+        mask = (torch.arange(Sk, device=dev)[None, :]
+                <= off + torch.arange(Sq, device=dev)[:, None])
+    o_lib = sdpa(qt, kt, vt, attn_mask=mask, is_causal=causal and not off,
+                 enable_gqa=KV != H)
+    do_lib = dout.transpose(1, 2)
+    lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), do_lib, retain_graph=True), iters, warm)
+    del o_lib
+    # bound: 2.5 times the forward's operations (five products against
+    # two) under the forward row's convention: bf16 at the tensor-core
+    # peak with p.v's three terms, f32 at the FP32 peak; bytes: q, k, v,
+    # out, dout, lse read once, dq, dk, dv written once
+    flops = 4.0 * hd * flash_pairs(sh) * B * H
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (q, k, v, out, dout, lse, *got))
+    if q_dt == torch.bfloat16 and kv_dt == torch.bfloat16:
+        b_ms, b_by = bound_ms(nbytes, 2.5 * 2 * flops, BF16_TC_FLOP_PER_S)
+    else:
+        b_ms, b_by = bound_ms(nbytes, 2.5 * flops)
+    row = {"name": "flash_attention_bwd", "shape": shape, **sh,
+           "dtype": q_name, "kv_dtype": kv_name, "impl": "fp32",
+           "max_abs_err": err, "lse_max_abs_err": lse_err,
+           "same_bits": same_bits,
+           "out_bitwise_with_lse": out_bitwise, "launches_per_call": launched,
+           "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "flops": 2.5 * flops}
+    log(f"[kernels] flash_attention_bwd {shape} q {q_name} kv {kv_name} "
+        f"B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} causal={causal} "
+        f"q_offset={off}: lse max abs err {lse_err:.2e}, max abs err "
+        f"{err:.2e}, same bits {same_bits}, "
+        f"out bitwise with lse {out_bitwise} | kernel {ms:.4f} ms (device "
+        f"{_fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, sdpa backward "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    if not (ok and lse_ok and same_bits and out_bitwise and launched == 2):
+        raise Failed(f"flash_attention_bwd {shape} {q_name}/{kv_name}: ok "
+                     f"{ok} (err {err}), lse ok {lse_ok} (err {lse_err}), "
+                     f"same bits {same_bits}, out bitwise {out_bitwise}, "
+                     f"launches {launched}")
+    return row
 
 
 def attention_p_terms(torch, q, k, v, *, causal: bool, q_offset: int,
@@ -1346,6 +1534,8 @@ def phase_kernels(torch, dev) -> list[dict]:
     for shape in FLASH_SHAPES:
         for dt in (torch.bfloat16, torch.float32):
             rows.append(check_flash(torch, dev, shape, dt))
+    for shape, q_name, kv_name in FLASH_BWD_ROWS:
+        rows.append(check_flash_bwd(torch, dev, shape, q_name, kv_name))
     log(f"[kernels] {len(rows)} checks passed in "
         f"{time.perf_counter() - t0:.1f}s")
     return rows, invariance
@@ -2348,6 +2538,326 @@ def phase_long(torch, dev) -> dict:
             "max_memory_allocated": peak}
 
 
+# the train phase: full-width Llama-2-7B (2 layers, bf16) on the long
+# phase's 4 x 4096 calibration tokens, 2 microbatches of 2 x 4096
+TRAIN_STEPS, TRAIN_MICROBATCHES = 4, 2
+# lr 3e-5: at 3e-4 the random full-width model's loss rises after Adam's
+# first step (10.92 -> 24.49 -> 13.26 -> 11.82 on these tokens; at 3e-5
+# 10.92 -> 9.99 -> 8.65 -> 8.69; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md,
+# section 6)
+TRAIN_OPT = dict(lr=3e-5, warmup_steps=1, total_steps=8)
+TRAIN_GRAD_RTOL = 1e-4  # relative Frobenius error a leaf, f32 copy
+# the same in bf16 (kernels vs the plain flash pair, both in the model's
+# bf16): about five bf16 roundings (2^-8 each); a missing or wrong
+# attention gradient moves a leaf O(1)
+TRAIN_GRAD_RTOL_BF16 = 2e-2
+# the witness at the lr the loss rises at: the same steps through the
+# kernels and through the plain flash pair; steps 1 and 2 (from the same
+# params, then after one sign-like Adam step) within this relative
+# difference of the loss, steps 3-4 recorded
+TRAIN_LR_HIGH = 3e-4
+TRAIN_LOSS_RTOL_HIGH = 2e-2
+
+
+class plain_flash_hook:
+    """Within the context ``models/attention.flash_attention`` runs the
+    plain forward (with its log-sum-exp) and the plain backward on the
+    card, through an autograd Function of their own: the train phase's
+    reference for the gradients through the kernels."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.models import attention
+
+        class PlainFlashFn(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, q, k, v, causal, q_offset):
+                out, lse = fa.flash_attention_plain(
+                    q, k, v, causal=causal, q_offset=q_offset, with_lse=True)
+                ctx.save_for_backward(q, k, v, out, lse)
+                ctx.causal, ctx.q_offset = causal, q_offset
+                return out
+
+            @staticmethod
+            def backward(ctx, dout):
+                q, k, v, out, lse = ctx.saved_tensors
+                return (*fa.flash_attention_bwd_plain(
+                    q, k, v, out, dout.contiguous(), lse, causal=ctx.causal,
+                    q_offset=ctx.q_offset), None, None)
+
+        self.attention, self.real = attention, attention.flash_attention
+        attention.flash_attention = (
+            lambda q, k, v, *, causal, q_offset=0: PlainFlashFn.apply(
+                q.contiguous(), k.contiguous(), v.contiguous(), causal,
+                q_offset))
+        return self
+
+    def __exit__(self, *exc):
+        self.attention.flash_attention = self.real
+
+
+def train_counts() -> dict:
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd)
+
+    return {"flash_attention": flash_attention.launches,
+            "flash_attention_bwd": flash_attention_bwd.launches,
+            "flash_attention_by_impl": dict(flash_attention.launches_by_impl),
+            "flash_attention_bwd_by_impl": dict(
+                flash_attention_bwd.launches_by_impl)}
+
+
+def train_model_flops(cfg, params, tokens: int, seq: int) -> float:
+    """Model FLOPs of one step (no recompute counted): 6 a matmul
+    parameter a token (every layer matrix and the head; the embedding is
+    a gather) plus the causal attention's products, 4 * hd a visible
+    (row, column) pair a head and layer forward, three times that with
+    the backward."""
+    n_matmul = sum(t.numel() for lp in params["layers"]
+                   for sub in (lp["attn"], lp["ffn"]) for t in sub.values()
+                   if t.dim() == 2)
+    n_matmul += (params["embed"] if cfg.tie_embeddings
+                 else params["lm_head"]).numel()
+    pairs = seq * (seq + 1) // 2
+    attn = 3 * 4.0 * cfg.hd * pairs * cfg.n_heads * cfg.n_layers
+    return 6.0 * n_matmul * tokens + attn * tokens / seq
+
+
+def phase_train(torch, dev, tokens) -> dict:
+    """Train full-width Llama-2-7B (2 layers) at 4 x 4096 tokens through
+    the flash kernels: the f32 copy's gradients against the plain flash
+    forward and backward; 4 bf16 steps (finite, falling loss; launches
+    as planned; step time, tokens/s, model FLOPs share, peak memory); one
+    step under remat="save_attn"; one bf16 step's gradients against the
+    plain flash pair; 4 steps at lr 3e-4 through the kernels and through
+    the plain pair; a supervised launcher run with a failure injected."""
+    import shutil
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model_zoo
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import (
+        TrainState, loss_and_grads, make_train_step)
+
+    cfg = ARCHS["llama2-7b"].scaled(n_layers=2)
+    B, S = tokens.shape
+    mb = TRAIN_MICROBATCHES
+    log(f"[train] {cfg.name}: d_model {cfg.d_model}, heads {cfg.n_heads} x "
+        f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, layers "
+        f"{cfg.n_layers}, dtype {cfg.dtype}; batch {B} x {S} tokens in {mb} "
+        f"microbatches; {TRAIN_OPT}")
+    batch = {"tokens": tokens}
+    t = {}
+    res = {}
+
+    # 1. gradients in the f32 copy: kernels vs the plain flash pair
+    t0 = time.perf_counter()
+    model = model_zoo.build(cfg)
+    params = model.init_params(seed=0, device=dev)
+    model32 = model_zoo.build(cfg.scaled(dtype="float32"))
+    params32 = to_f32(params)
+    zero_counts()
+    g_kernel, m_kernel = loss_and_grads(model32, params32, batch,
+                                        microbatches=mb, remat=True)
+    torch.cuda.synchronize()
+    counts32 = train_counts()
+    with plain_flash_hook():
+        g_plain, m_plain = loss_and_grads(model32, params32, batch,
+                                          microbatches=mb, remat=True)
+    torch.cuda.synchronize()
+    names, rel = [], []
+    for name, a, b in zip(_leaf_names(g_plain), opt.tree_leaves(g_kernel),
+                          opt.tree_leaves(g_plain)):
+        names.append(name)
+        rel.append(float((a - b).norm() / b.norm().clamp(min=1e-30)))
+    worst = max(zip(rel, names))
+    attn_rel = {n: r for n, r in zip(names, rel)
+                if n.rsplit(".", 1)[-1] in ("wq", "wk", "wv")}
+    t["grad_check"] = time.perf_counter() - t0
+    log(f"[train] f32 copy: loss kernels {float(m_kernel['loss']):.6f}, "
+        f"plain {float(m_plain['loss']):.6f}; relative Frobenius error a "
+        f"leaf, worst {worst[0]:.2e} ({worst[1]}), wq/wk/wv "
+        + ", ".join(f"{n} {r:.2e}" for n, r in attn_rel.items())
+        + f"; launches {counts32}")
+    del g_kernel, g_plain, params32, model32
+    torch.cuda.empty_cache()
+
+    # 2. four bf16 steps on the same batch
+    ocfg = opt.OptConfig(**TRAIN_OPT)
+    state = TrainState(params, opt.init(params, ocfg))
+    del params
+    step = make_train_step(model, ocfg, microbatches=mb, remat=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, gnorms, secs = [], [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+    counts = train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    flops = train_model_flops(cfg, state.params, B * S, S)
+    steady = _median(secs[1:])
+    log(f"[train] bf16 steps: loss {losses}, grad norm {gnorms}, seconds "
+        f"{[round(x, 4) for x in secs]}; launches {counts}")
+    log(f"[train] {steady:.4f} s a step (median of steps 2-{TRAIN_STEPS}), "
+        f"{B * S / steady:.1f} tokens/s, model FLOPs {flops / 1e12:.2f} T a "
+        f"step = {flops / steady / BF16_TC_FLOP_PER_S:.4f} of the bf16 peak; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB")
+
+    # 3. one step under remat="save_attn": attention is not re-run
+    step_sa = make_train_step(model, ocfg, microbatches=mb,
+                              remat="save_attn")
+    zero_counts()
+    t0 = time.perf_counter()
+    state_sa, m_sa = step_sa(state, batch)
+    torch.cuda.synchronize()
+    t["save_attn_step"] = time.perf_counter() - t0
+    counts_sa = train_counts()
+    log(f"[train] save_attn step: loss {float(m_sa['loss']):.6f}, "
+        f"{t['save_attn_step']:.4f} s; launches {counts_sa}")
+    del state_sa, state, step, step_sa
+    torch.cuda.empty_cache()
+
+    # 4. one bf16 step's gradients: kernels (tc forward with its lse, the
+    # backward fed it) vs the plain flash pair, both in bf16
+    t0 = time.perf_counter()
+    params = model.init_params(seed=0, device=dev)
+    g_kernel, _ = loss_and_grads(model, params, batch, microbatches=mb,
+                                 remat=True)
+    with plain_flash_hook():
+        g_plain, _ = loss_and_grads(model, params, batch, microbatches=mb,
+                                    remat=True)
+    torch.cuda.synchronize()
+    rel16 = [float((a - b).norm() / b.norm().clamp(min=1e-30))
+             for a, b in zip(opt.tree_leaves(g_kernel),
+                             opt.tree_leaves(g_plain))]
+    worst16 = max(zip(rel16, names))
+    t["grad_check_bf16"] = time.perf_counter() - t0
+    log(f"[train] bf16 gradients, kernels vs the plain flash pair: "
+        f"relative Frobenius error a leaf, worst {worst16[0]:.2e} "
+        f"({worst16[1]}), wq/wk/wv "
+        + ", ".join(f"{n} {r:.2e}" for n, r in zip(names, rel16)
+                    if n.rsplit(".", 1)[-1] in ("wq", "wk", "wv")))
+    del g_kernel, g_plain
+    torch.cuda.empty_cache()
+
+    # 5. at lr 3e-4, 4 bf16 steps through the kernels and through the
+    # plain flash pair: whether the loss's rise is Adam's or the kernels'
+    t0 = time.perf_counter()
+    ocfg_hi = opt.OptConfig(**dict(TRAIN_OPT, lr=TRAIN_LR_HIGH))
+
+    def high_lr_losses(ctx) -> list:
+        st = TrainState(params, opt.init(params, ocfg_hi))
+        stp = make_train_step(model, ocfg_hi, microbatches=mb, remat=True)
+        out = []
+        with ctx:
+            for _ in range(TRAIN_STEPS):
+                st, m = stp(st, batch)
+                out.append(float(m["loss"]))
+        return out
+
+    hi_kernel = high_lr_losses(contextlib.nullcontext())
+    torch.cuda.empty_cache()
+    hi_plain = high_lr_losses(plain_flash_hook())
+    del params
+    torch.cuda.empty_cache()
+    hi_rel = [abs(a - b) / abs(b) for a, b in zip(hi_kernel, hi_plain)]
+    t["high_lr"] = time.perf_counter() - t0
+    log(f"[train] lr {TRAIN_LR_HIGH}: loss through the kernels {hi_kernel}, "
+        f"through the plain flash pair {hi_plain}; relative difference a "
+        f"step {[f'{x:.2e}' for x in hi_rel]}")
+
+    # 6. the launcher on a smoke config, a failure injected at step 3
+    ck_dir = os.path.join(ROOT, "build", "repro_torch", "train_ckpt")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    fails = []
+
+    def fail_once(i):
+        if i == 3 and not fails:
+            fails.append(i)
+            raise RuntimeError("injected failure")
+
+    t0 = time.perf_counter()
+    sup = launch_train.run(launch_train.parse_args([
+        "--arch", "llama2-7b", "--smoke", "--device", dev.type, "--steps", "6",
+        "--global-batch", "4", "--seq-len", "64", "--microbatches", "2",
+        "--checkpoint-every", "2", "--ckpt-dir", ck_dir]),
+        before_step=fail_once)
+    t["launcher"] = time.perf_counter() - t0
+    sup_step = int(sup.final_state.opt.step)
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    log(f"[train] launcher: {sup.steps_done} steps, {sup.restarts} "
+        f"restarts, final step {sup_step}, {t['launcher']:.1f}s")
+
+    L = cfg.n_layers
+    want = {"flash_attention": TRAIN_STEPS * L * mb * 2,
+            "flash_attention_bwd": TRAIN_STEPS * L * mb,
+            "flash_attention_by_impl": {"tc": TRAIN_STEPS * L * mb * 2},
+            "flash_attention_bwd_by_impl": {"fp32": TRAIN_STEPS * L * mb}}
+    want32 = {"flash_attention": L * mb * 2, "flash_attention_bwd": L * mb,
+              "flash_attention_by_impl": {"fp32": L * mb * 2},
+              "flash_attention_bwd_by_impl": {"fp32": L * mb}}
+    want_sa = {"flash_attention": L * mb, "flash_attention_bwd": L * mb,
+               "flash_attention_by_impl": {"tc": L * mb},
+               "flash_attention_bwd_by_impl": {"fp32": L * mb}}
+    checks = {
+        "f32 gradients within 1e-4 of the plain flash pair":
+            worst[0] <= TRAIN_GRAD_RTOL,
+        "wq, wk, wv checked": len(attn_rel) == 3 * L,
+        "f32 launches as planned": counts32 == want32,
+        "bf16 gradients within 2e-2 of the plain flash pair":
+            worst16[0] <= TRAIN_GRAD_RTOL_BF16,
+        "lr 3e-4: steps 1-2 through the kernels match the plain pair":
+            max(hi_rel[:2]) <= TRAIN_LOSS_RTOL_HIGH,
+        "loss finite": all(math.isfinite(x) for x in losses),
+        "grad norm finite": all(math.isfinite(x) for x in gnorms),
+        "loss falls": losses[-1] < losses[0],
+        "launches as planned": counts == want,
+        "save_attn launches as planned": counts_sa == want_sa,
+        "save_attn loss finite": math.isfinite(float(m_sa["loss"])),
+        "launcher resumed to the last step":
+            (sup.steps_done, sup.restarts, sup_step) == (6, 1, 6),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise Failed(f"train phase checks failed: {bad}")
+    res.update({
+        "grad_rel_frobenius": dict(zip(names, rel)), "grad_worst": worst,
+        "grad_rel_frobenius_bf16": dict(zip(names, rel16)),
+        "grad_worst_bf16": worst16, "high_lr": {
+            "lr": TRAIN_LR_HIGH, "losses_kernels": hi_kernel,
+            "losses_plain": hi_plain, "relative_difference": hi_rel},
+        "launches_f32": counts32, "losses": losses, "grad_norms": gnorms,
+        "step_seconds": secs, "seconds_per_step": steady,
+        "tokens_per_s": B * S / steady, "model_flops_per_step": flops,
+        "mfu_bf16": flops / steady / BF16_TC_FLOP_PER_S,
+        "max_memory_allocated": peak, "launches": counts,
+        "launches_save_attn": counts_sa, "predicted": {
+            "remat": want, "f32": want32, "save_attn": want_sa},
+        "launcher": {"steps_done": sup.steps_done,
+                     "restarts": sup.restarts, "final_step": sup_step},
+        "seconds": t})
+    return res
+
+
+def _leaf_names(tree, prefix="") -> list:
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in _leaf_names(v, f"{prefix}.{k}")]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}[{i}]")]
+    return [prefix]
+
+
 class route_hook:
     """Within the context every ``models/moe.route`` call's expert ids are
     recorded (the list ``as`` binds); with ``replay`` (an earlier
@@ -2727,15 +3237,18 @@ def family_plan(model, params, setting) -> dict:
 def zero_counts() -> None:
     """Every kernel wrapper's launch counts to 0."""
     from repro_torch.kernels import vq_assign as vqa
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd)
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.vq_dequant_matmul import vq_dequant_matmul
 
     for fn in VQ_ENTRY_POINTS:
         getattr(vqa, fn).launches = 0
-    for fn in (flash_attention, paged_attention, vq_dequant_matmul):
+    for fn in (flash_attention, flash_attention_bwd, paged_attention,
+               vq_dequant_matmul):
         fn.launches = 0
     flash_attention.launches_by_impl = {}
+    flash_attention_bwd.launches_by_impl = {}
     vq_dequant_matmul.launches_by_impl = {}
     vq_dequant_matmul.launches_by_m = {}
     vq_dequant_matmul.launches_by_experts = {}
@@ -4089,8 +4602,12 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
     (whisper-small's serve shape, bf16 queries over f32 pages), launches
     from its serve run; vq_dequant_matmul at whisper's w_in over the
     encoder evaluation's 12,000 rows, launches from its fused evaluation
-    and its serve run. library_ms is each row's own: for vq_dequant_matmul
-    at int8 codebooks a bf16 torch.matmul."""
+    and its serve run. The train phase's: flash_attention at its
+    microbatch (B=2, 32 heads of 128, 4096 tokens, bf16; launches the 4
+    steps' forwards) and flash_attention_bwd at the same shape (launches
+    the 4 steps' backwards; library_ms SDPA's backward alone). library_ms
+    is each row's own: for vq_dequant_matmul at int8 codebooks a bf16
+    torch.matmul."""
     pick = {
         "vq_dequant_matmul": (
             "vq_dequant_matmul",
@@ -4143,6 +4660,16 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
             and r["M"] == AUDIO_ENC_ROWS,
             "src/repro_torch/kernels/csrc/vq_dequant_matmul.cu",
             "src/repro/kernels/vq_dequant_matmul.py:137"),
+        "flash_attention_train": (
+            "flash_attention",
+            lambda r: r["shape"] == "llama B=2" and r["dtype"] == "bfloat16",
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:68"),
+        "flash_attention_bwd": (
+            "flash_attention_bwd",
+            lambda r: r["shape"] == "train" and r["dtype"] == "bfloat16",
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:68"),
     }
     out = []
     for name, (row_name, sel, source, replaces) in pick.items():
@@ -4202,6 +4729,10 @@ def main() -> int:
     del model, qparams
     long_calib, long_heldout, long_res = phase_long(torch, dev)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_res = phase_train(torch, dev, long_calib)
+    log(f"[train] phase {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
     moe_res = phase_moe(torch, dev)
     torch.cuda.empty_cache()
     vlm_res = phase_vlm(torch, dev, long_calib, long_heldout)
@@ -4218,7 +4749,7 @@ def main() -> int:
                    "bitwise": invariance,
                    "small": small_res, "main": main_res,
                    "budget": budget_res, "serve": serve_res, "long": long_res,
-                   "moe": moe_res, "vlm": vlm_res, "ssm": ssm_res,
+                   "train": train_res, "moe": moe_res, "vlm": vlm_res, "ssm": ssm_res,
                    "hybrid": hybrid_res, "audio": audio_res}, f,
                   indent=1, default=str)
     log(f"[done] {time.perf_counter() - t_all:.1f}s; details in {out}")
@@ -4237,6 +4768,10 @@ def main() -> int:
     launches["vq_group_sweep_babai"] = budget_res["babai_launches"]
     launches["vq_dequant_matmul_experts"] = moe_res["serve"][
         "vq_experts_counts"].get(MOE_EXPERTS, 0)
+    launches["flash_attention_train"] = train_res["launches"][
+        "flash_attention"]
+    launches["flash_attention_bwd"] = train_res["launches"][
+        "flash_attention_bwd"]
     print(json.dumps(kernel_line(rows, launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

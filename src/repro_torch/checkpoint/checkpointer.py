@@ -12,10 +12,11 @@ caller's ``metadata``. A leaf's file name is the reference's: its
 directory renamed into place when complete, so a crashed writer never
 leaves a partial step.
 
-Leaves are torch tensors; containers are dicts, lists and dataclasses
-(``VQLinear``): a dataclass field holding a tensor is a leaf, any other
-field is static and comes back from ``like`` on restore, as in the
-reference. Dtypes on disk are the
+Leaves are torch tensors; containers are dicts, lists, NamedTuples (a
+``TrainState`` and its ``AdamWState``: every field, as ``.field``, the
+scalar step a 0-dim leaf) and dataclasses (``VQLinear``): a dataclass
+field holding a tensor is a leaf, any other field is static and comes back
+from ``like`` on restore, as in the reference. Dtypes on disk are the
 reference's:
 
 * bfloat16 leaves are raw 2-byte records (numpy descr ``'<V2'``, manifest
@@ -65,14 +66,16 @@ def _children(node):
         return [(f"[{k!r}]", node[k], False) for k in sorted(node)]
     if isinstance(node, list):
         return [(f"[{i}]", c, True) for i, c in enumerate(node)]
+    if isinstance(node, tuple) and hasattr(node, "_fields"):  # NamedTuple
+        return [(f".{f}", getattr(node, f), False) for f in node._fields]
     if dataclasses.is_dataclass(node) and not isinstance(node, type):
         return [(f".{f.name}", getattr(node, f.name), False)
                 for f in dataclasses.fields(node)
                 if isinstance(getattr(node, f.name), torch.Tensor)]
     if isinstance(node, torch.Tensor):
         return None
-    raise TypeError(f"checkpoint trees hold dicts, lists, dataclasses and "
-                    f"tensors, not {type(node).__name__}")
+    raise TypeError(f"checkpoint trees hold dicts, lists, NamedTuples, "
+                    f"dataclasses and tensors, not {type(node).__name__}")
 
 
 def _flatten(tree, path=()):
@@ -102,6 +105,8 @@ def _rebuild(like, values, path=()):
         return {k: new[f"[{k!r}]"] for k in like}
     if isinstance(like, list):
         return [new[f"[{i}]"] for i in range(len(like))]
+    if isinstance(like, tuple):  # NamedTuple
+        return type(like)(**{f: new[f".{f}"] for f in like._fields})
     return dataclasses.replace(like, **{p[1:]: v for p, v in new.items()})
 
 

@@ -13,7 +13,9 @@ with the reference's field names, an expert stack's arrays with their
 leading E, or one matrix of a stacked leaf; uint32 words are
 reinterpreted as int32), and ``paged_cache_from_jax`` for a reference
 ``PagedKVCache`` (pools, scales, codebooks, page table), ``HybridCache``
-or ``EncDecCache``. Nothing here imports jax: callers pass numpy arrays (or
+or ``EncDecCache``, and ``train_state_from_jax`` for a reference
+``TrainState`` (params, AdamW moments, master copy, step). Nothing here
+imports jax: callers pass numpy arrays (or
 objects ``np.asarray`` accepts).
 """
 from __future__ import annotations
@@ -49,7 +51,8 @@ def _map(tree, f, path=()):
     return f(tree, path)
 
 
-def params_from_jax(np_tree: dict, cfg: ModelConfig, device=None) -> dict:
+def params_from_jax(np_tree: dict, cfg: ModelConfig, device=None,
+                    keep_dtype: bool = False) -> dict:
     """Reference params -> port params (``layers`` a list of per-layer
     dicts) in ``cfg.dtype``, the leaves the reference keeps in f32 in f32.
     The reference's ``layers`` is stacked on a leading axis (dense, moe,
@@ -58,15 +61,23 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, device=None) -> dict:
     ``mamba`` trunk, stacked (n_groups, per, ...) or a list of lists,
     becomes a list of groups of layer dicts; its ``lora`` factors stay
     stacked (n_groups, ...). The audio family's ``enc_layers`` and
-    ``dec_layers``, stacked or lists, become lists of layer dicts."""
+    ``dec_layers``, stacked or lists, become lists of layer dicts.
+    ``keep_dtype`` keeps each leaf's own dtype (f32 or bf16) instead: an
+    optimizer state's moments and master copy."""
     from repro_torch.models.transformer import block_kind
 
     dev = resolve_device(device)
 
+    def leaf_dtype(a, path, f32):
+        if keep_dtype:
+            name = np.asarray(a).dtype.name
+            return torch.bfloat16 if name == "bfloat16" else torch.float32
+        return torch.float32 if path in f32 else DTYPES[cfg.dtype]
+
     def conv(tree, kind=None):
         f32 = _F32_LEAVES.get(kind, ())
         return _map(tree, lambda a, path: _tensor(
-            a, torch.float32 if path in f32 else DTYPES[cfg.dtype], dev))
+            a, leaf_dtype(a, path, f32), dev))
 
     if cfg.family == "hybrid":
         out = {k: conv(v) for k, v in np_tree.items() if k != "mamba"}
@@ -94,6 +105,26 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, device=None) -> dict:
     out["layers"] = [conv(lp, block_kind(cfg, i)) for i, lp in
                      enumerate(unstack(np_tree["layers"], cfg.n_layers))]
     return out
+
+
+def train_state_from_jax(np_state, cfg: ModelConfig, device=None):
+    """A reference ``TrainState`` (leaves as numpy arrays; fields
+    ``params`` and ``opt``, an ``AdamWState`` of ``step``, ``m``, ``v``,
+    ``master``) -> the port's ``TrainState``: params as
+    ``params_from_jax``, m, v and master leaf for leaf in their own dtypes
+    (f32, or bf16 moments), the step a 0-dim int32 tensor."""
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.train_step import TrainState
+
+    dev = resolve_device(device)
+    o = np_state.opt
+    trees = {name: params_from_jax(getattr(o, name), cfg, dev,
+                                   keep_dtype=True)
+             for name in ("m", "v", "master")}
+    step = torch.tensor(int(np.asarray(o.step)), dtype=torch.int32,
+                        device=dev)
+    return TrainState(params=params_from_jax(np_state.params, cfg, dev),
+                      opt=AdamWState(step=step, **trees))
 
 
 def vqlinear_from_jax(vql, device=None, index: tuple = ()) -> VQLinear:

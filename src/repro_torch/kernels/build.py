@@ -37,8 +37,11 @@ _ENTRY = {
         "vq_em_launch": [_P]},
     "vq_dequant_matmul": {"vq_dequant_matmul_launch": [_P]},
     "paged_attention": {"paged_attention_launch": [_P]},
-    "flash_attention": {"flash_attention_launch":
-                        [_P, _I, _P, _P, _I, _P] + [_I] * 9 + [_P]},
+    "flash_attention": {
+        "flash_attention_launch": [_P, _I, _P, _P, _I, _P, _P] + [_I] * 9
+        + [_P],
+        "flash_attention_bwd_launch": [_P, _I, _P, _P, _I] + [_P] * 7
+        + [_I] * 8 + [_P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -47,6 +47,19 @@
 //   shuffles. P goes through shared memory (reusing K's buffer) to the P.V
 //   product. Shared memory ~100 KB, so two CTAs share an SM.
 //
+// Either variant also writes, when given a pointer, each row's log-sum-exp
+// lse = m + log(max(l, 1e-30)) as f32 (B, H, Sq), for the backward; without
+// one the launch and its output bits are unchanged.
+//
+// Backward (flash_attention_bwd_launch; no TPU kernel: the reference's
+// Pallas kernel has no VJP and the reference differentiates its XLA scan,
+// models/attention.py::flash_attention, so this is the card's counterpart
+// of that autodiff): dq, dk, dv from q, k, v, out, dout and lse, f32
+// scores and sums on the FP32 CUDA cores for every dtype (see the section
+// "backward" below). Bound: operations, 2.5 times the forward's (five
+// products against two) at the FP32 peak; this first version recomputes
+// the scores in both of its passes (seven products).
+//
 // Both: query head h reads kv head h/G, so GQA needs no head expansion.
 // Causal: kv tiles wholly above the diagonal (first column > q_offset +
 // the block's last row) are never loaded; inside a tile the mask sets the
@@ -91,8 +104,9 @@ template <typename QT, typename KT>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
                        const KT* __restrict__ v, QT* __restrict__ out,
-                       int Sq, int Sk, int H, int KV, int hd, int causal,
-                       int q_offset, float scale) {
+                       float* __restrict__ lse, int Sq, int Sk, int H,
+                       int KV, int hd, int causal, int q_offset,
+                       float scale) {
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);  // [kHdMax][kStride]: Q^T
   float* kt = qt + kHdMax * kStride;            // [kHdMax][kStride]: K^T,
@@ -260,13 +274,15 @@ flash_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
       const int col = (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
       if (col < hd) store(dst + col, o[i][j] * inv_l);
     }
+    if (lse != nullptr && tx == 0)
+      lse[(size_t)bh * Sq + q0 + r] = m[i] + logf(fmaxf(l[i], 1e-30f));
   }
 }
 
 template <typename QT, typename KT>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int H, int KV, int hd, int causal, int q_offset,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Sq, int Sk, int H, int KV, int hd,
+           int causal, int q_offset, cudaStream_t stream) {
   auto kern = flash_attention_kernel<QT, KT>;
   const size_t smem = kSmemFloats * sizeof(float);
   static int granted[64];
@@ -275,8 +291,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   flash_attention_kernel<QT, KT><<<grid, kThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(k),
-      static_cast<const KT*>(v), static_cast<QT*>(out), Sq, Sk, H, KV, hd,
-      causal, q_offset, 1.0f / sqrtf((float)hd));
+      static_cast<const KT*>(v), static_cast<QT*>(out), lse, Sq, Sk, H, KV,
+      hd, causal, q_offset, 1.0f / sqrtf((float)hd));
   return (int)cudaGetLastError();
 }
 
@@ -296,8 +312,9 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
-                __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H,
-                int KV, int causal, int q_offset, float scale) {
+                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                int Sq, int Sk, int H, int KV, int causal, int q_offset,
+                float scale) {
   constexpr int LD = HD + 8;            // bf16 row stride in shared memory
   constexpr int NKS = HD / 16;          // k-steps of q.k
   constexpr int NHT = HD / 8;           // output n-tiles
@@ -481,12 +498,14 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     for (int j = 0; j < NHT; ++j)
       *reinterpret_cast<uint32_t*>(dst + j * 8 + 2 * q4) =
           mma::pack_bf16(o[j][2 * r] / den, o[j][2 * r + 1] / den);
+    if (lse != nullptr && q4 == 0)
+      lse[(size_t)bh * Sq + q0 + row] = m_r[r] + logf(den);
   }
 }
 
 template <int HD>
 int launch_tc_hd(const void* q, const void* k, const void* v, void* out,
-                 int B, int Sq, int Sk, int H, int KV, int causal,
+                 float* lse, int B, int Sq, int Sk, int H, int KV, int causal,
                  int q_offset, cudaStream_t stream) {
   auto kern = flash_tc_kernel<HD>;
   const size_t smem = tc_smem_bytes<HD>();
@@ -498,18 +517,19 @@ int launch_tc_hd(const void* q, const void* k, const void* v, void* out,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV, causal, q_offset,
-      1.0f / sqrtf((float)HD));
+      static_cast<__nv_bfloat16*>(out), lse, Sq, Sk, H, KV, causal,
+      q_offset, 1.0f / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
 
-int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
-              int Sq, int Sk, int H, int KV, int hd, int causal,
-              int q_offset, cudaStream_t s) {
+int launch_tc(const void* q, const void* k, const void* v, void* out,
+              float* lse, int B, int Sq, int Sk, int H, int KV, int hd,
+              int causal, int q_offset, cudaStream_t s) {
   switch (hd) {
-#define FLASH_TC_HD(n) \
-  case n:              \
-    return launch_tc_hd<n>(q, k, v, out, B, Sq, Sk, H, KV, causal, q_offset, s);
+#define FLASH_TC_HD(n)                                                   \
+  case n:                                                                \
+    return launch_tc_hd<n>(q, k, v, out, lse, B, Sq, Sk, H, KV, causal, \
+                           q_offset, s);
     FLASH_TC_HD(16) FLASH_TC_HD(32) FLASH_TC_HD(48) FLASH_TC_HD(64)
     FLASH_TC_HD(80) FLASH_TC_HD(96) FLASH_TC_HD(112) FLASH_TC_HD(128)
 #undef FLASH_TC_HD
@@ -518,37 +538,420 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
   }
 }
 
+// ---------------------------------------------------------------------------
+// backward (FP32 CUDA cores, every dtype): three launches a call
+// ---------------------------------------------------------------------------
+//
+// With P = exp(scale * Q K^T - lse) (masked entries 0) and
+// D = rowsum(dO o O):  dV = P^T dO,  dS = P o (dO V^T - D),
+// dK = scale * dS^T Q,  dQ = scale * dS K.
+//   1. delta: D per (b, h, row) from the saved output, a warp a row.
+//   2. dkdv:  one CTA per (b, kv head, 64 kv rows) keeps K^T and V^T in
+//             shared memory and walks the G query heads of its kv head and
+//             every query tile that can see its rows, in order, summing
+//             dK and dV in registers (an 8 x 8 tile each a thread).
+//   3. dq:    one CTA per (b, head, 64 query rows) keeps Q^T and dO^T and
+//             walks the kv tiles its rows can see, summing dQ.
+// Each output element is summed by one thread in a fixed order: no atomics,
+// the same bits on every call. Tiles are the forward fp32 kernel's (64
+// rows, 128 threads as 8 row groups x 16 column lanes); the products over
+// the head dim read transposed f32 tiles ([d][row], row stride kStride),
+// the products over tile rows a [row][d] copy and the P^T / dS^T buffer.
+
+constexpr int kDeltaRows = 4;  // rows of the delta pass a CTA (a warp each)
+constexpr size_t kTileT = (size_t)kHdMax * kStride;  // a transposed tile
+constexpr size_t kTileR = (size_t)kBQ * kHdMax;      // a row-major tile
+constexpr size_t kBufP = (size_t)kBQ * kStride;      // P^T / dS^T
+// dkdv: K^T, V^T, Q^T, dO^T, Q, dO, P^T, lse, D;  dq: Q^T, dO^T, K^T, V^T,
+// K, dS^T, lse, D
+constexpr size_t kDkdvSmemFloats = 4 * kTileT + 2 * kTileR + kBufP + 2 * kBQ;
+constexpr size_t kDqSmemFloats = 4 * kTileT + kTileR + kBufP + 2 * kBQ;
+
+template <typename QT>
+__global__ void __launch_bounds__(32 * kDeltaRows)
+flash_bwd_delta_kernel(const QT* __restrict__ out,
+                       const QT* __restrict__ dout, float* __restrict__ delta,
+                       int rows, int Sq, int H, int hd) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kDeltaRows + (threadIdx.x >> 5);  // (b,i,h)
+  if (r >= rows) return;
+  const QT* o = out + (size_t)r * hd;
+  const QT* d = dout + (size_t)r * hd;
+  float acc = 0.f;
+  for (int e = lane; e < hd; e += 32)
+    acc = fmaf(to_f32(d[e]), to_f32(o[e]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int h = r % H, bi = r / H;
+    delta[((size_t)(bi / Sq) * H + h) * Sq + bi % Sq] = acc;
+  }
+}
+
+// the first n rows (row stride `stride` elements) of src into dst_t[d][r]
+// as f32 (rows n..kBQ-1 zero) and, with dst_r, into dst_r[r][d] as well
+template <typename T>
+__device__ __forceinline__ void load_tile(float* dst_t, float* dst_r,
+                                          const T* src, size_t stride, int n,
+                                          int hd) {
+  for (int e = threadIdx.x; e < kBQ * hd; e += kThreads) {
+    const int r = e / hd, d = e - r * hd;
+    const float val = r < n ? to_f32(src[(size_t)r * stride + d]) : 0.f;
+    dst_t[d * kStride + r] = val;
+    if (dst_r != nullptr) dst_r[r * kHdMax + d] = val;
+  }
+}
+
+// s[i][j] = sum_{d < hd} xt[d][ty*8 + i] * yt[d][tx*4 + j]
+__device__ __forceinline__ void dot_tile(const float* xt, const float* yt,
+                                         int hd, int ty, int tx,
+                                         float (&s)[kRows][kSCols]) {
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < kSCols; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < hd; ++d) {
+    const float4 xa = *reinterpret_cast<const float4*>(
+        &xt[d * kStride + ty * kRows]);
+    const float4 xb = *reinterpret_cast<const float4*>(
+        &xt[d * kStride + ty * kRows + 4]);
+    const float4 yy = *reinterpret_cast<const float4*>(
+        &yt[d * kStride + tx * kSCols]);
+    const float xv[kRows] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+    const float yv[kSCols] = {yy.x, yy.y, yy.z, yy.w};
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kSCols; ++j) s[i][j] = fmaf(xv[i], yv[j], s[i][j]);
+  }
+}
+
+// o[i][j] += sum_{c < n} pt[c][ty*8 + i] * m[c][col j], col j = tx*4 + j
+// (j < 4) or 64 + tx*4 + j - 4
+__device__ __forceinline__ void acc_tile(const float* pt, const float* m,
+                                         int n, int ty, int tx,
+                                         float (&o)[kRows][kOCols]) {
+#pragma unroll 4
+  for (int c = 0; c < n; ++c) {
+    const float4 pa = *reinterpret_cast<const float4*>(
+        &pt[c * kStride + ty * kRows]);
+    const float4 pb = *reinterpret_cast<const float4*>(
+        &pt[c * kStride + ty * kRows + 4]);
+    const float4 ma = *reinterpret_cast<const float4*>(
+        &m[c * kHdMax + tx * 4]);
+    const float4 mb = *reinterpret_cast<const float4*>(
+        &m[c * kHdMax + 64 + tx * 4]);
+    const float pv[kRows] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+    const float mv[kOCols] = {ma.x, ma.y, ma.z, ma.w, mb.x, mb.y, mb.z, mb.w};
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kOCols; ++j) o[i][j] = fmaf(pv[i], mv[j], o[i][j]);
+  }
+}
+
+// s[i][j] (rows ty*8 + i, columns tx*4 + j) into buf[column][row]
+__device__ __forceinline__ void store_t(float* buf, int ty, int tx,
+                                        const float (&s)[kRows][kSCols]) {
+#pragma unroll
+  for (int j = 0; j < kSCols; ++j) {
+    float* dst = &buf[(tx * kSCols + j) * kStride + ty * kRows];
+    *reinterpret_cast<float4*>(dst) =
+        make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    *reinterpret_cast<float4*>(dst + 4) =
+        make_float4(s[4][j], s[5][j], s[6][j], s[7][j]);
+  }
+}
+
+// rows ty*8 + i < n of o (times `mul`) into dst + row * stride, columns < hd
+template <typename T>
+__device__ __forceinline__ void store_rows(T* dst, size_t stride, int n,
+                                           int hd, int ty, int tx, float mul,
+                                           const float (&o)[kRows][kOCols]) {
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = ty * kRows + i;
+    if (r >= n) continue;
+#pragma unroll
+    for (int j = 0; j < kOCols; ++j) {
+      const int col = (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
+      if (col < hd) store(dst + (size_t)r * stride + col, o[i][j] * mul);
+    }
+  }
+}
+
+template <typename QT, typename KT>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
+                      const KT* __restrict__ v, const QT* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, KT* __restrict__ dk,
+                      KT* __restrict__ dv, int Sq, int Sk, int H, int KV,
+                      int hd, int causal, int q_offset, float scale) {
+  extern __shared__ float4 bwd_smem4[];
+  float* kt = reinterpret_cast<float*>(bwd_smem4);  // K^T
+  float* vt = kt + kTileT;                           // V^T
+  float* qt = vt + kTileT;                           // Q^T (query tile)
+  float* ot = qt + kTileT;                           // dO^T
+  float* qr = ot + kTileT;                           // Q [row][d]
+  float* orow = qr + kTileR;                         // dO [row][d]
+  float* pt = orow + kTileR;                         // P^T, then dS^T
+  float* ls = pt + kBufP;                            // lse of the tile
+  float* dl = ls + kBQ;                              // D of the tile
+
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int b = blockIdx.x / KV, kh = blockIdx.x % KV, G = H / KV;
+  // causal: the first kv blocks see the most query tiles; they go first
+  const int k0 = blockIdx.y * kBK;
+  const int k_rows = min(kBK, Sk - k0);
+  const size_t kv_off = ((size_t)b * Sk + k0) * KV * hd + (size_t)kh * hd;
+  load_tile<KT>(kt, nullptr, k + kv_off, (size_t)KV * hd, k_rows, hd);
+  load_tile<KT>(vt, nullptr, v + kv_off, (size_t)KV * hd, k_rows, hd);
+
+  float dk_acc[kRows][kOCols], dv_acc[kRows][kOCols];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < kOCols; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+
+  // causal: query tiles wholly before k0 (every row's last visible column
+  // < k0) contribute nothing
+  const int t0 = causal ? max(0, k0 - q_offset) / kBQ : 0;
+  const int n_qt = (Sq + kBQ - 1) / kBQ;
+  for (int g = 0; g < G; ++g) {
+    const int h = kh * G + g;
+    const float* lse_h = lse + ((size_t)b * H + h) * Sq;
+    const float* d_h = delta + ((size_t)b * H + h) * Sq;
+    for (int t = t0; t < n_qt; ++t) {
+      const int q0 = t * kBQ;
+      const int q_rows = min(kBQ, Sq - q0);
+      const size_t q_off = (((size_t)b * Sq + q0) * H + h) * hd;
+      __syncthreads();  // the previous tile's reads are done
+      load_tile<QT>(qt, qr, q + q_off, (size_t)H * hd, q_rows, hd);
+      load_tile<QT>(ot, orow, dout + q_off, (size_t)H * hd, q_rows, hd);
+      if (tid < kBQ) {
+        ls[tid] = tid < q_rows ? lse_h[q0 + tid] : 0.f;
+        dl[tid] = tid < q_rows ? d_h[q0 + tid] : 0.f;
+      }
+      __syncthreads();
+
+      // P^T: kv rows ty*8 + i, query columns tx*4 + j
+      float s[kRows][kSCols];
+      dot_tile(kt, qt, hd, ty, tx, s);
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kSCols; ++j) {
+          const int r = ty * kRows + i, c = tx * kSCols + j;
+          const bool live = r < k_rows && c < q_rows &&
+                            (!causal || k0 + r <= q_offset + q0 + c);
+          s[i][j] = live ? expf(s[i][j] * scale - ls[c]) : 0.f;
+        }
+      store_t(pt, ty, tx, s);
+      __syncthreads();
+      acc_tile(pt, orow, q_rows, ty, tx, dv_acc);  // dV += P^T dO
+      float dp[kRows][kSCols];
+      dot_tile(vt, ot, hd, ty, tx, dp);            // (dO V^T)^T
+      __syncthreads();  // every thread is done reading P^T
+#pragma unroll
+      for (int j = 0; j < kSCols; ++j) {
+        const int c = tx * kSCols + j;
+        float* col = &pt[c * kStride + ty * kRows];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) col[i] = col[i] * (dp[i][j] - dl[c]);
+      }
+      __syncthreads();
+      acc_tile(pt, qr, q_rows, ty, tx, dk_acc);    // dK += dS^T Q
+    }
+  }
+  store_rows<KT>(dk + kv_off, (size_t)KV * hd, k_rows, hd, ty, tx, scale,
+                 dk_acc);
+  store_rows<KT>(dv + kv_off, (size_t)KV * hd, k_rows, hd, ty, tx, 1.f,
+                 dv_acc);
+}
+
+template <typename QT, typename KT>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
+                    const KT* __restrict__ v, const QT* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, QT* __restrict__ dq,
+                    int Sq, int Sk, int H, int KV, int hd, int causal,
+                    int q_offset, float scale) {
+  extern __shared__ float4 bwd_smem4[];
+  float* qt = reinterpret_cast<float*>(bwd_smem4);  // Q^T
+  float* ot = qt + kTileT;                           // dO^T
+  float* kt = ot + kTileT;                           // K^T (kv tile)
+  float* vt = kt + kTileT;                           // V^T
+  float* kr = vt + kTileT;                           // K [row][d]
+  float* pt = kr + kTileR;                           // dS^T
+  float* ls = pt + kBufP;
+  float* dl = ls + kBQ;
+
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H, kh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heavy blocks first
+  const int q_rows = min(kBQ, Sq - q0);
+  const size_t q_off = (((size_t)b * Sq + q0) * H + h) * hd;
+  load_tile<QT>(qt, nullptr, q + q_off, (size_t)H * hd, q_rows, hd);
+  load_tile<QT>(ot, nullptr, dout + q_off, (size_t)H * hd, q_rows, hd);
+  if (tid < kBQ) {
+    ls[tid] = tid < q_rows ? lse[(size_t)bh * Sq + q0 + tid] : 0.f;
+    dl[tid] = tid < q_rows ? delta[(size_t)bh * Sq + q0 + tid] : 0.f;
+  }
+
+  float dq_acc[kRows][kOCols];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < kOCols; ++j) dq_acc[i][j] = 0.f;
+
+  int n_tiles = (Sk + kBK - 1) / kBK;
+  if (causal) n_tiles = min(n_tiles, (q_offset + q0 + q_rows - 1) / kBK + 1);
+  const KT* kb = k + (size_t)b * Sk * KV * hd + (size_t)kh * hd;
+  const KT* vb = v + (size_t)b * Sk * KV * hd + (size_t)kh * hd;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kBK;
+    const int k_rows = min(kBK, Sk - k0);
+    __syncthreads();  // the previous tile's reads are done
+    load_tile<KT>(kt, kr, kb + (size_t)k0 * KV * hd, (size_t)KV * hd,
+                  k_rows, hd);
+    load_tile<KT>(vt, nullptr, vb + (size_t)k0 * KV * hd, (size_t)KV * hd,
+                  k_rows, hd);
+    __syncthreads();
+
+    // query rows ty*8 + i, kv columns tx*4 + j
+    float s[kRows][kSCols], dp[kRows][kSCols];
+    dot_tile(qt, kt, hd, ty, tx, s);
+    dot_tile(ot, vt, hd, ty, tx, dp);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kSCols; ++j) {
+        const int r = ty * kRows + i, c = tx * kSCols + j;
+        const bool live = r < q_rows && c < k_rows &&
+                          (!causal || k0 + c <= q_offset + q0 + r);
+        const float p = live ? expf(s[i][j] * scale - ls[r]) : 0.f;
+        s[i][j] = p * (dp[i][j] - dl[r]);
+      }
+    store_t(pt, ty, tx, s);
+    __syncthreads();
+    acc_tile(pt, kr, k_rows, ty, tx, dq_acc);  // dQ += dS K
+  }
+  store_rows<QT>(dq + q_off, (size_t)H * hd, q_rows, hd, ty, tx, scale,
+                 dq_acc);
+}
+
+template <typename QT, typename KT>
+int launch_bwd(const void* q, const void* k, const void* v, const void* out,
+               const void* dout, const float* lse, float* delta, void* dq,
+               void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
+               int hd, int causal, int q_offset, cudaStream_t stream) {
+  const float scale = 1.0f / sqrtf((float)hd);
+  const int rows = B * Sq * H;
+  flash_bwd_delta_kernel<QT><<<(rows + kDeltaRows - 1) / kDeltaRows,
+                               32 * kDeltaRows, 0, stream>>>(
+      static_cast<const QT*>(out), static_cast<const QT*>(dout), delta, rows,
+      Sq, H, hd);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  auto dkdv = flash_bwd_dkdv_kernel<QT, KT>;
+  const size_t smem_kv = kDkdvSmemFloats * sizeof(float);
+  static int granted_kv[64];
+  e = mma::allow_smem(dkdv, smem_kv, granted_kv);
+  if (e != cudaSuccess) return (int)e;
+  dkdv<<<dim3(B * KV, (Sk + kBK - 1) / kBK), kThreads, smem_kv, stream>>>(
+      static_cast<const QT*>(q), static_cast<const KT*>(k),
+      static_cast<const KT*>(v), static_cast<const QT*>(dout), lse, delta,
+      static_cast<KT*>(dk), static_cast<KT*>(dv), Sq, Sk, H, KV, hd, causal,
+      q_offset, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  auto dqk = flash_bwd_dq_kernel<QT, KT>;
+  const size_t smem_q = kDqSmemFloats * sizeof(float);
+  static int granted_q[64];
+  e = mma::allow_smem(dqk, smem_q, granted_q);
+  if (e != cudaSuccess) return (int)e;
+  dqk<<<dim3(B * H, (Sq + kBQ - 1) / kBQ), kThreads, smem_q, stream>>>(
+      static_cast<const QT*>(q), static_cast<const KT*>(k),
+      static_cast<const KT*>(v), static_cast<const QT*>(dout), lse, delta,
+      static_cast<QT*>(dq), Sq, Sk, H, KV, hd, causal, q_offset, scale);
+  return (int)cudaGetLastError();
+}
+
+bool bad_shape(int B, int Sq, int Sk, int H, int KV, int hd, int q_offset) {
+  return B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0 || hd < 4 ||
+         hd > kHdMax || hd % 4 != 0 || q_offset < 0 ||
+         (Sq + kBQ - 1) / kBQ > 65535 || (Sk + kBK - 1) / kBK > 65535;
+}
+
 }  // namespace
 
 // q_is_bf16 / kv_is_bf16: 0 -> float32, 1 -> bfloat16 (out has q's type).
 // variant: 0 fp32, 1 tc (the wrapper's names; tc needs bf16 q and k/v and
-// hd % 16 == 0). All tensors contiguous in the layouts above. Returns
-// cudaGetLastError() after the launch (or the error that refused it).
+// hd % 16 == 0). lse: null, or (B, H, Sq) f32 that receives each row's
+// m + log(l) (the backward's input); out is the same bits either way. All
+// tensors contiguous in the layouts above. Returns cudaGetLastError()
+// after the launch (or the error that refused it).
 extern "C" int flash_attention_launch(const void* q, int q_is_bf16,
                                       const void* k, const void* v,
-                                      int kv_is_bf16, void* out, int B,
-                                      int Sq, int Sk, int H, int KV, int hd,
-                                      int causal, int q_offset, int variant,
-                                      void* stream) {
-  if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0 || hd < 4 ||
-      hd > kHdMax || hd % 4 != 0 || q_offset < 0 ||
-      (Sq + kBQ - 1) / kBQ > 65535 || variant < 0 || variant > 1)
+                                      int kv_is_bf16, void* out, float* lse,
+                                      int B, int Sq, int Sk, int H, int KV,
+                                      int hd, int causal, int q_offset,
+                                      int variant, void* stream) {
+  if (bad_shape(B, Sq, Sk, H, KV, hd, q_offset) || variant < 0 ||
+      variant > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (variant == 1) {
     if (!q_is_bf16 || !kv_is_bf16 || hd % 16 != 0)
       return (int)cudaErrorInvalidValue;
-    return launch_tc(q, k, v, out, B, Sq, Sk, H, KV, hd, causal, q_offset, s);
+    return launch_tc(q, k, v, out, lse, B, Sq, Sk, H, KV, hd, causal,
+                     q_offset, s);
   }
   if (q_is_bf16 && kv_is_bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, out, B, Sq, Sk, H,
-                                                KV, hd, causal, q_offset, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, out, lse, B, Sq, Sk,
+                                                H, KV, hd, causal, q_offset,
+                                                s);
   if (q_is_bf16)
-    return launch<__nv_bfloat16, float>(q, k, v, out, B, Sq, Sk, H, KV, hd,
-                                        causal, q_offset, s);
+    return launch<__nv_bfloat16, float>(q, k, v, out, lse, B, Sq, Sk, H, KV,
+                                        hd, causal, q_offset, s);
   if (kv_is_bf16)
-    return launch<float, __nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, KV, hd,
-                                        causal, q_offset, s);
-  return launch<float, float>(q, k, v, out, B, Sq, Sk, H, KV, hd, causal,
-                              q_offset, s);
+    return launch<float, __nv_bfloat16>(q, k, v, out, lse, B, Sq, Sk, H, KV,
+                                        hd, causal, q_offset, s);
+  return launch<float, float>(q, k, v, out, lse, B, Sq, Sk, H, KV, hd,
+                              causal, q_offset, s);
+}
+
+// The backward: q, out, dout and dq in q's type; k, v, dk and dv in k's;
+// lse (B, H, Sq) f32 from the forward; delta (B, H, Sq) f32 scratch. Three
+// launches (delta, dkdv, dq) on the stream; returns the first error.
+extern "C" int flash_attention_bwd_launch(
+    const void* q, int q_is_bf16, const void* k, const void* v,
+    int kv_is_bf16, const void* out, const void* dout, const float* lse,
+    float* delta, void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H,
+    int KV, int hd, int causal, int q_offset, void* stream) {
+  if (bad_shape(B, Sq, Sk, H, KV, hd, q_offset) || lse == nullptr ||
+      delta == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (q_is_bf16 && kv_is_bf16)
+    return launch_bwd<__nv_bfloat16, __nv_bfloat16>(
+        q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, hd,
+        causal, q_offset, s);
+  if (q_is_bf16)
+    return launch_bwd<__nv_bfloat16, float>(q, k, v, out, dout, lse, delta,
+                                            dq, dk, dv, B, Sq, Sk, H, KV, hd,
+                                            causal, q_offset, s);
+  if (kv_is_bf16)
+    return launch_bwd<float, __nv_bfloat16>(q, k, v, out, dout, lse, delta,
+                                            dq, dk, dv, B, Sq, Sk, H, KV, hd,
+                                            causal, q_offset, s);
+  return launch_bwd<float, float>(q, k, v, out, dout, lse, delta, dq, dk, dv,
+                                  B, Sq, Sk, H, KV, hd, causal, q_offset, s);
 }

@@ -20,6 +20,16 @@ q's rows at absolute positions in the kv range). Scores, probabilities and
 the accumulator are f32; unlike the short-sequence path
 (``models/attention._plain_attention``) the probabilities are not rounded
 to v's dtype before the value contraction.
+
+Gradients: when autograd records (grad mode on and an input requiring
+grad) ``flash_attention`` goes through ``FlashAttentionFn``, whose forward
+launches the kernel with its log-sum-exp output and whose backward launches
+the backward kernel (``flash_attention_bwd``: dq in q's dtype, dk and dv in
+k's, f32 sums on the FP32 CUDA cores, three launches counted once in
+``flash_attention_bwd.launches``). On CPU tensors the same Function runs
+``flash_attention_plain`` and ``flash_attention_bwd_plain``. The reference
+has no backward kernel: it differentiates its XLA scan, and the backward is
+held against ``jax.grad`` of that scan.
 """
 from __future__ import annotations
 
@@ -53,11 +63,13 @@ def _scale(hd: int) -> float:
     return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
 
 
-def flash_attention_plain(q, k, v, *, causal: bool, q_offset: int = 0):
+def flash_attention_plain(q, k, v, *, causal: bool, q_offset: int = 0,
+                          with_lse: bool = False):
     """Plain version: the reference's two-level scan with online softmax,
     query chunks of 512 rows and kv chunks of 1024 (skipping kv chunks
     wholly above the diagonal when there are at least 8, as the reference
-    does; the result is the same either way)."""
+    does; the result is the same either way). ``with_lse`` also returns
+    each row's log-sum-exp m + log(max(l, 1e-30)), f32 (B, H, Sq)."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -68,7 +80,7 @@ def flash_attention_plain(q, k, v, *, causal: bool, q_offset: int = 0):
     qh = q.reshape(B, nq, Tq, KV, G, hd).permute(1, 0, 3, 4, 2, 5)
     kh = k.reshape(B, nk, Ts, KV, hd).permute(1, 0, 3, 2, 4)
     vh = v.reshape(B, nk, Ts, KV, hd).permute(1, 0, 3, 2, 4)
-    outs = []
+    outs, lses = [], []
     for qi in range(nq):
         qb = qh[qi].to(torch.float32)  # (B, KV, G, Tq, hd)
         q_pos = q_offset + qi * Tq + torch.arange(Tq, device=dev)
@@ -91,9 +103,16 @@ def flash_attention_plain(q, k, v, *, causal: bool, q_offset: int = 0):
             acc = acc * alpha[..., None] + torch.einsum(
                 "bkgqs,bksh->bkgqh", p, vh[ki].to(torch.float32))
             m = m_new
-        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+        den = torch.clamp(l, min=1e-30)
+        outs.append(acc / den[..., None])
+        lses.append(m + torch.log(den))
     out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(B, Sq, H, hd)
-    return out.to(q.dtype)
+    out = out.to(q.dtype).contiguous()
+    if not with_lse:
+        return out
+    # (nq, B, KV, G, Tq) -> (B, H, Sq)
+    lse = torch.stack(lses).permute(1, 2, 3, 0, 4).reshape(B, H, Sq)
+    return out, lse.contiguous()
 
 
 def _check(q, k, v, q_offset) -> None:
@@ -133,29 +152,166 @@ def _check(q, k, v, q_offset) -> None:
                              f"{dt} tensor on {q.device}")
 
 
-def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0):
-    """Flash attention; the CUDA kernel on CUDA tensors, the plain version
-    on CPU tensors. Inputs are checked on every device, so CPU callers
-    meet the kernel's contract too."""
-    _check(q, k, v, q_offset)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     q_offset=q_offset)
+def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, causal: bool,
+                              q_offset: int = 0):
+    """Plain version of the backward, in the kernel's formulation: with
+    P = exp(scale q.k - lse) and D = rowsum(dout * out) (on the saved
+    out), dv = P^T dout, dS = P (dout v^T - D), dq = scale dS k and
+    dk = scale dS^T q, in f32 over the reference's 512-row query and
+    1024-row kv chunks (kv chunks wholly above the diagonal skipped). dk
+    and dv sum the G query heads of their kv head. Returns (dq, dk, dv) in
+    q's, k's and k's dtypes."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    Tq, Ts = min(Q_CHUNK, Sq), min(KV_CHUNK, Sk)
+    nq, nk = Sq // Tq, Sk // Ts
+    scale = _scale(hd)
+    dev = q.device
+    f32 = torch.float32
+
+    def q_chunks(t):  # (B, Sq, H, hd) -> (nq, B, KV, G, Tq, hd)
+        return t.reshape(B, nq, Tq, KV, G, hd).permute(1, 0, 3, 4, 2, 5)
+
+    qh, doh = q_chunks(q), q_chunks(dout)
+    kh = k.reshape(B, nk, Ts, KV, hd).permute(1, 0, 3, 2, 4)
+    vh = v.reshape(B, nk, Ts, KV, hd).permute(1, 0, 3, 2, 4)
+    lse_h = lse.reshape(B, KV, G, nq, Tq).permute(3, 0, 1, 2, 4)
+    delta = (dout.to(f32) * out.to(f32)).sum(dim=-1)  # (B, Sq, H)
+    delta_h = delta.reshape(B, nq, Tq, KV, G).permute(1, 0, 3, 4, 2)
+    dk = torch.zeros((nk, B, KV, Ts, hd), dtype=f32, device=dev)
+    dv = torch.zeros((nk, B, KV, Ts, hd), dtype=f32, device=dev)
+    dqs = []
+    for qi in range(nq):
+        qb, dob = qh[qi].to(f32), doh[qi].to(f32)  # (B, KV, G, Tq, hd)
+        lse_b, d_b = lse_h[qi][..., None], delta_h[qi][..., None]
+        q_pos = q_offset + qi * Tq + torch.arange(Tq, device=dev)
+        dq = torch.zeros((B, KV, G, Tq, hd), dtype=f32, device=dev)
+        for ki in range(nk):
+            if causal and ki * Ts > q_offset + qi * Tq + Tq - 1:
+                continue  # wholly masked chunk
+            kb, vb = kh[ki].to(f32), vh[ki].to(f32)  # (B, KV, Ts, hd)
+            s = torch.einsum("bkgqh,bksh->bkgqs", qb, kb) * scale
+            if causal:
+                k_pos = ki * Ts + torch.arange(Ts, device=dev)
+                msk = k_pos[None, :] <= q_pos[:, None]
+                s = torch.where(msk, s, torch.full_like(s, NEG_INF))
+            p = torch.exp(s - lse_b)
+            dv[ki] += torch.einsum("bkgqs,bkgqh->bksh", p, dob)
+            ds = p * (torch.einsum("bkgqh,bksh->bkgqs", dob, vb) - d_b)
+            dq += torch.einsum("bkgqs,bksh->bkgqh", ds, kb)
+            dk[ki] += torch.einsum("bkgqs,bkgqh->bksh", ds, qb)
+        dqs.append(dq * scale)
+    dq = torch.stack(dqs).permute(1, 0, 4, 2, 3, 5).reshape(B, Sq, H, hd)
+
+    def kv_out(t):  # (nk, B, KV, Ts, hd) -> (B, Sk, KV, hd)
+        return t.permute(1, 0, 3, 2, 4).reshape(B, Sk, KV, hd).to(
+            k.dtype).contiguous()
+
+    return dq.to(q.dtype).contiguous(), kv_out(dk * scale), kv_out(dv)
+
+
+def _launch_forward(q, k, v, causal: bool, q_offset: int, lse=None):
+    """One launch of the forward kernel on checked CUDA tensors; ``lse``
+    (B, H, Sq) f32, when given, receives each row's log-sum-exp."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     impl = select_impl(q, k, v)
     fn = build.load("flash_attention").flash_attention_launch
     rc = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
-            v.data_ptr(), int(k.dtype == torch.bfloat16), out.data_ptr(), B,
-            Sq, Sk, H, KV, hd, int(bool(causal)), q_offset,
-            _IMPL_CODE[impl],
+            v.data_ptr(), int(k.dtype == torch.bfloat16), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, Sq, Sk, H, KV, hd,
+            int(bool(causal)), q_offset, _IMPL_CODE[impl],
             build.current_stream(q.device))
     build.check(rc, f"flash_attention ({impl})")
     flash_attention.launches += 1
     by_impl = flash_attention.launches_by_impl
     by_impl[impl] = by_impl.get(impl, 0) + 1
     return out
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool,
+                        q_offset: int = 0):
+    """(dq, dk, dv) of flash attention: the backward kernel on CUDA
+    tensors (three launches: D, then dk/dv, then dq; one count), the plain
+    version on CPU tensors. ``out`` and ``lse`` are the forward's; every
+    tensor is checked on every device."""
+    _check(q, k, v, q_offset)
+    B, Sq, H, hd = q.shape
+    for name, t, shape, dt in (("out", out, q.shape, q.dtype),
+                               ("dout", dout, q.shape, q.dtype),
+                               ("lse", lse, (B, H, Sq), torch.float32)):
+        if (tuple(t.shape) != tuple(shape) or t.dtype != dt
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"flash_attention_bwd: {name} must be a "
+                             f"contiguous {dt} tensor of shape "
+                             f"{tuple(shape)} on {q.device}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, dout, lse,
+                                         causal=causal, q_offset=q_offset)
+    Sk, KV = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    fn = build.load("flash_attention").flash_attention_bwd_launch
+    rc = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
+            v.data_ptr(), int(k.dtype == torch.bfloat16), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KV, hd,
+            int(bool(causal)), q_offset, build.current_stream(q.device))
+    build.check(rc, "flash_attention_bwd (fp32)")
+    flash_attention_bwd.launches += 1
+    by_impl = flash_attention_bwd.launches_by_impl
+    by_impl["fp32"] = by_impl.get("fp32", 0) + 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_impl = {}  # variant -> launches
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable flash attention over checked inputs: the forward
+    kernel with its log-sum-exp, and the backward kernel (CUDA tensors), or
+    the two plain versions (CPU tensors). Saves q, k, v, out and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_offset: int):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, causal=causal,
+                                             q_offset=q_offset, with_lse=True)
+        else:
+            B, Sq, H, _ = q.shape
+            lse = torch.empty((B, H, Sq), dtype=torch.float32,
+                              device=q.device)
+            out = _launch_forward(q, k, v, causal, q_offset, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.q_offset = causal, q_offset
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
+                                         lse, causal=ctx.causal,
+                                         q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0):
+    """Flash attention; the CUDA kernel on CUDA tensors, the plain version
+    on CPU tensors. Inputs are checked on every device, so CPU callers
+    meet the kernel's contract too. When autograd records (grad mode on
+    and an input requiring grad) the call always goes through
+    ``FlashAttentionFn``, so the output carries its gradient on every
+    device."""
+    _check(q, k, v, q_offset)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal, q_offset)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     q_offset=q_offset)
+    return _launch_forward(q, k, v, causal, q_offset)
 
 
 flash_attention.launches = 0

@@ -262,16 +262,32 @@ def _rope(q, k, cfg: ModelConfig, pos_arr, use_rope: bool):
             cm.apply_rope(k, pos_arr, cfg.rope_theta))
 
 
+def project(p, cfg: ModelConfig, x, *, pos=0, use_rope: bool = True):
+    """Self-attention's q (B, S, H, hd), k and v (B, S, KV, hd) of x, q and
+    k rotated from ``pos`` unless ``use_rope=False``."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x)
+    pos_arr = cm.position_ids(pos, B, S, device=x.device)
+    q, k = _rope(q, k, cfg, pos_arr, use_rope)
+    return q, k, v
+
+
 def pre_out(p, cfg: ModelConfig, x, *, pos=0, causal: bool = True,
             use_rope: bool = True):
     """Self-attention (causal and with RoPE unless told otherwise) up to
     (but not including) ``wo``; returns (B, S, H*hd). The Hessian tap for
     the output projection."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x)
-    pos_arr = cm.position_ids(pos, B, S, device=x.device)
-    q, k = _rope(q, k, cfg, pos_arr, use_rope)
+    q, k, v = project(p, cfg, x, pos=pos, use_rope=use_rope)
     return _self_attention(q, k, v, causal=causal).reshape(B, S, -1)
+
+
+def attend(p, q, k, v, out_dtype, *, causal: bool = True):
+    """The cache-free rest of self-attention after ``project``: attention
+    of q over k/v and ``wo``; returns (B, S, D) in ``out_dtype``."""
+    B, S = q.shape[:2]
+    o = _self_attention(q, k, v, causal=causal).reshape(B, S, -1)
+    return cm.matmul(o, p["wo"]).to(out_dtype)
 
 
 def _self_attention(q, k, v, *, causal: bool = True):
@@ -325,14 +341,12 @@ def apply(p, cfg: ModelConfig, x: torch.Tensor, *, pos=0, cache=None,
     if not causal and isinstance(cache, PagedKVCache):
         raise ValueError("a PagedKVCache's mask is causal (kpos <= pos); "
                          "causal=False has no paged path")
+    q, k, v = project(p, cfg, x, pos=pos, use_rope=use_rope)
     if cache is None:
-        o = pre_out(p, cfg, x, pos=pos, causal=causal, use_rope=use_rope)
-        return cm.matmul(o, p["wo"]).to(x.dtype), None
-    q, k, v = _project_qkv(p, cfg, x)
-    pos_arr = cm.position_ids(pos, B, S, device=x.device)  # (B, S)
-    q, k = _rope(q, k, cfg, pos_arr, use_rope)
+        return attend(p, q, k, v, x.dtype, causal=causal), None
 
     if isinstance(cache, PagedKVCache):
+        pos_arr = cm.position_ids(pos, B, S, device=x.device)  # (B, S)
         return _paged_apply(p, cache, q, k, v, pos_arr, x.dtype,
                             impl=paged_impl)
 

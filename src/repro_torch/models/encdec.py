@@ -155,7 +155,8 @@ def dec_block_apply(layer_p, cfg: ModelConfig, h, memory):
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, frames=None,
             memory=None, pos=0, cache: EncDecCache | None = None,
-            last_only: bool = False, paged_impl: str = "gather"):
+            last_only: bool = False, paged_impl: str = "gather",
+            remat=None):
     """Decoder forward; returns (logits f32, new_cache, aux 0). Give
     ``frames`` (prefill or evaluation: the encoder runs) or a cache whose
     cross K/V a previous prefill filled; ``memory`` (the encoder's output)
@@ -168,6 +169,8 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, frames=None,
     self-attention cache is updated in place, as ``attention.apply``
     does."""
     from repro_torch.core import vq_linear as vql_mod
+
+    cm.check_no_remat(remat)
 
     if frames is None and cache is None:
         raise ValueError("encdec.forward needs frames or a cache whose "

@@ -118,7 +118,7 @@ def _shared_attn(p, lora_g, cfg: ModelConfig, h, emb0, *, pos, kv_cache,
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, pos=0,
             cache: HybridCache | None = None, paged_impl: str = "gather",
-            last_only: bool = False):
+            last_only: bool = False, remat=None):
     """Returns (logits f32, new_cache, aux 0). The shared block must be
     dense when it runs (the LoRA deltas are added onto its q/k/v), so VQ
     leaves of the top tree, fused ones included, are densified here on
@@ -126,6 +126,8 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, pos=0,
     leaves stay on the ``vq_dequant_matmul`` kernel and its ``VQLinear``
     leaves are densified layer by layer (the gather form)."""
     from repro_torch.core import vq_linear as vql_mod
+
+    cm.check_no_remat(remat)
 
     dtype = cm.DTYPES[cfg.dtype]
     top = {k: v for k, v in params.items() if k != "mamba"}

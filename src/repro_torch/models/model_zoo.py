@@ -11,7 +11,10 @@ state and cross K/V are slot-resident either way), and whose
 ``forward(params, batch, cache=None, pos=0, **kw)`` takes a dict with
 ``tokens`` (B, S) and, for vlm, ``patches`` (B, n_image_tokens, D), for
 audio ``frames`` (B, encoder_seq, D), and returns (logits, new_cache,
-aux_loss).
+aux_loss). ``remat=`` (the reference's ``True`` / ``False`` /
+``"save_attn"``) passes through to the family's forward: the train step's
+checkpointing for dense, moe, vlm and ssm; the hybrid and audio forwards
+refuse it under autograd (not trained by the port yet).
 """
 from __future__ import annotations
 

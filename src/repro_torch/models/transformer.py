@@ -35,6 +35,13 @@ def block_kind(cfg: ModelConfig, i: int) -> str:
     return "moe" if cfg.family == "moe" else "dense"
 
 
+def homogeneous(cfg: ModelConfig) -> bool:
+    """Whether the reference stacks (and scans) the layers: every block of
+    one kind, dense or moe."""
+    kinds = {block_kind(cfg, i) for i in range(cfg.n_layers)}
+    return len(kinds) == 1 and next(iter(kinds)) in ("dense", "moe")
+
+
 def _block_init(gen, cfg: ModelConfig, kind: str, dtype, device):
     if kind in ("mlstm", "slstm"):
         init = xlstm.mlstm_init if kind == "mlstm" else xlstm.slstm_init
@@ -51,9 +58,15 @@ def _block_init(gen, cfg: ModelConfig, kind: str, dtype, device):
 
 
 def _block_apply(p, cfg: ModelConfig, kind: str, x, *, pos=0, cache=None,
-                 paged_impl="gather"):
+                 paged_impl="gather", save_attn: bool = False):
     """One pre-norm residual block; VQLinear leaves are densified first.
-    Returns (x, new_cache, aux_loss)."""
+    Returns (x, new_cache, aux_loss). ``save_attn`` (``remat="save_attn"``,
+    cache-free, dense or moe): the head (norm1, q/k/v, RoPE) and the tail
+    (residual, norm2, FFN) are checkpointed around the attention and
+    ``wo``, whose residuals autograd keeps, so a backward re-runs the head
+    and the tail but not the attention."""
+    from torch.utils.checkpoint import checkpoint
+
     from repro_torch.core import vq_linear as vql_mod
 
     p = vql_mod.dequant_tree(p, cm.DTYPES[cfg.dtype])  # no-op if not VQ
@@ -69,16 +82,30 @@ def _block_apply(p, cfg: ModelConfig, kind: str, x, *, pos=0, cache=None,
         x = x + xlstm.slstm_ffn(
             p["core"], cfg, cm.rmsnorm(x, p["core"]["ffn_norm"], cfg.norm_eps))
         return x, new_c, aux
+
+    def tail(x, h):
+        x = x + h
+        h2 = cm.rmsnorm(x, p["norm2"], cfg.norm_eps)
+        if kind == "moe":
+            f, aux = moe.apply(p["ffn"], cfg, h2)
+        else:
+            f, aux = mlp.apply(p["ffn"], cfg, h2), torch.zeros(
+                (), dtype=torch.float32, device=x.device)
+        return x + f, aux
+
+    if save_attn:
+        q, k, v = checkpoint(
+            lambda x: attention.project(p["attn"], cfg, cm.rmsnorm(
+                x, p["norm1"], cfg.norm_eps), pos=pos), x,
+            use_reentrant=False)
+        h = attention.attend(p["attn"], q, k, v, x.dtype)
+        x, aux = checkpoint(tail, x, h, use_reentrant=False)
+        return x, None, aux
     h, new_kv = attention.apply(
         p["attn"], cfg, cm.rmsnorm(x, p["norm1"], cfg.norm_eps), pos=pos,
         cache=cache, paged_impl=paged_impl)
-    x = x + h
-    h2 = cm.rmsnorm(x, p["norm2"], cfg.norm_eps)
-    if kind == "moe":
-        f, aux = moe.apply(p["ffn"], cfg, h2)
-    else:
-        f = mlp.apply(p["ffn"], cfg, h2)
-    return x + f, new_kv, aux
+    x, aux = tail(x, h)
+    return x, new_kv, aux
 
 
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
@@ -144,7 +171,7 @@ def unembed(params, cfg: ModelConfig, x):
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, pos=0,
             cache=None, extra_embeds=None, paged_impl: str = "gather",
-            last_only: bool = False):
+            last_only: bool = False, remat=False):
     """Returns (logits, new_cache, aux_loss); logits are f32, aux_loss the
     MoE layers' summed load-balancing loss (0 for the others).
     ``extra_embeds`` (B, n, D) are prepended to the token embeddings (the
@@ -153,7 +180,20 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, pos=0,
     read ("gather" | "fused", see attention._paged_apply). VQ leaves run in
     the form they arrive in (VQLinear: gather, FusedVQLinear: fused; see
     vq_linear.retag, which callers such as the engine apply once).
-    ``last_only`` keeps only the last position's logits."""
+    ``last_only`` keeps only the last position's logits.
+
+    ``remat`` (the reference's: ``True``, ``False`` or ``"save_attn"``)
+    matters only where autograd records a cache-free forward: ``True``
+    checkpoints each block (``torch.utils.checkpoint``, non-reentrant), so
+    the backward re-runs it; ``"save_attn"`` checkpoints a dense or moe
+    block around its attention (``_block_apply(save_attn=True)``), so the
+    backward does not re-run attention. A stack the reference keeps as a
+    list of layers (the xLSTM) takes a plain per-layer checkpoint for any
+    truthy ``remat``, as the reference's layer loop does. The default is
+    ``False`` here (eager evaluation keeps nothing for a backward); the
+    train step passes its own."""
+    from torch.utils.checkpoint import checkpoint
+
     from repro_torch.core import vq_linear as vql_mod
 
     top = {k: v for k, v in params.items() if k != "layers"}
@@ -161,13 +201,24 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, pos=0,
     x = embed_tokens(params, cfg, tokens, extra_embeds)
     new_cache = None if cache is None else []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = remat if cache is None and torch.is_grad_enabled() else False
     for i, layer_p in enumerate(params["layers"]):
-        x, new_c, a = _block_apply(
-            layer_p, cfg, block_kind(cfg, i), x, pos=pos,
-            cache=None if cache is None else cache[i], paged_impl=paged_impl)
+        kind = block_kind(cfg, i)
+        if remat == "save_attn" and homogeneous(cfg):
+            x, _, a = _block_apply(layer_p, cfg, kind, x, pos=pos,
+                                   save_attn=True)
+        elif remat:
+            x, _, a = checkpoint(
+                lambda h, _p=layer_p, _k=kind: _block_apply(
+                    _p, cfg, _k, h, pos=pos), x, use_reentrant=False)
+        else:
+            x, new_c, a = _block_apply(
+                layer_p, cfg, kind, x, pos=pos,
+                cache=None if cache is None else cache[i],
+                paged_impl=paged_impl)
+            if cache is not None:
+                new_cache.append(new_c)
         aux = aux + a
-        if cache is not None:
-            new_cache.append(new_c)
     if last_only:
         x = x[:, -1:]
     x = cm.rmsnorm(x, params["final_norm"], cfg.norm_eps)

@@ -1238,3 +1238,172 @@ def test_vq_dequant_matmul_rows_independent_whisper(dev, N, K, M, sub):
     other = x.clone()
     other[sub:] = -other[sub:]
     assert torch.equal(run(other)[:sub], y[:sub])
+
+
+# ---------------------------------------------------------------------------
+# flash attention's backward (training past 2048 tokens): the backward
+# kernel against its plain version on the same q, k, v, out, dout and lse
+# (the forward kernel's), every dtype pair, GQA, q_offset, ragged tiles;
+# `-k flash_bwd` runs these alone
+# ---------------------------------------------------------------------------
+
+def _flash_bwd_inputs(dev, B, Sq, Sk, H, KV, hd, causal, q_offset, q_dt,
+                      kv_dt, seed=0):
+    from repro_torch.kernels.flash_attention import _launch_forward
+
+    g = torch.Generator(device=dev).manual_seed(seed + Sq + Sk + hd + H)
+    q = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(q_dt)
+    k = torch.randn((B, Sk, KV, hd), generator=g, device=dev).to(kv_dt)
+    v = torch.randn((B, Sk, KV, hd), generator=g, device=dev).to(kv_dt)
+    dout = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(q_dt)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    out = _launch_forward(q, k, v, causal, q_offset, lse)
+    return q, k, v, out, dout, lse
+
+
+def _within_bwd_bars(got, want):
+    """f32: rtol 1e-4, atol 1e-5 * max|g|; bf16: one bf16 rounding of the
+    f32 plain result (2^-8 of it) plus 1e-3 * max|g|."""
+    scale = float(want.abs().max())
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * scale)
+    else:
+        err = (got.float() - want).abs()
+        assert bool((err <= 2.0**-8 * want.abs() + 1e-3 * scale).all()), (
+            float(err.max()), scale)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,q_offset", [
+    (2, 256, 256, 8, 4, 64, True, 0),      # GQA
+    (2, 256, 256, 4, 4, 128, False, 0),    # hd 128, non-causal
+    (1, 64, 192, 4, 2, 32, True, 128),     # q_offset
+    (1, 100, 900, 4, 1, 112, False, 0),    # ragged tiles, G = 4
+    (1, 200, 200, 2, 1, 96, True, 0),      # ragged causal
+    (1, 512, 2048, 8, 1, 128, True, 1536),  # q_offset, G = 8
+    (1, 1, 64, 4, 2, 16, True, 63),        # one row
+    (1, 128, 128, 2, 2, 36, True, 0),      # hd not a multiple of 16
+])
+@pytest.mark.parametrize("q_dt,kv_dt", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+def test_flash_bwd_matches_plain(dev, B, Sq, Sk, H, KV, hd, causal,
+                                 q_offset, q_dt, kv_dt):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+
+    q, k, v, out, dout, lse = _flash_bwd_inputs(
+        dev, B, Sq, Sk, H, KV, hd, causal, q_offset, q_dt, kv_dt)
+    before = flash_attention_bwd.launches
+    by_impl = dict(flash_attention_bwd.launches_by_impl)
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
+                                     q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    assert flash_attention_bwd.launches_by_impl["fp32"] == by_impl.get(
+        "fp32", 0) + 1
+    assert (dq.dtype, dk.dtype, dv.dtype) == (q_dt, kv_dt, kv_dt)
+    # the f32 plain result on the same (upcast) values
+    want = flash_attention_bwd_plain(
+        q.float(), k.float(), v.float(), out.float(), dout.float(), lse,
+        causal=causal, q_offset=q_offset)
+    for got, w in zip((dq, dk, dv), want):
+        assert bool(torch.isfinite(got).all())
+        _within_bwd_bars(got, w)
+
+
+@pytest.mark.parametrize("q_dt", [torch.float32, torch.bfloat16])
+def test_flash_bwd_same_bits_twice(dev, q_dt):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    args = _flash_bwd_inputs(dev, 2, 512, 512, 8, 2, 128, True, 0, q_dt,
+                             q_dt)
+    a = flash_attention_bwd(*args, causal=True)
+    b = flash_attention_bwd(*args, causal=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dt,hd,impl", [
+    (torch.bfloat16, 128, "tc"), (torch.bfloat16, 36, "fp32"),
+    (torch.float32, 64, "fp32")])
+def test_flash_bwd_forward_lse_keeps_out_bits(dev, dt, hd, impl):
+    """The forward with its log-sum-exp output writes the same out as
+    without it, and the lse is the plain scan's m + log(l)."""
+    from repro_torch.kernels.flash_attention import (
+        _launch_forward, flash_attention, flash_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(hd)
+    q, k, v = (torch.randn((2, 320, 4, hd), generator=g, device=dev).to(dt)
+               for _ in range(3))
+    before = dict(flash_attention.launches_by_impl)
+    lse = torch.empty((2, 4, 320), dtype=torch.float32, device=dev)
+    with_lse = _launch_forward(q, k, v, True, 0, lse)
+    without = _launch_forward(q, k, v, True, 0)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_impl[impl] == before.get(impl, 0) + 2
+    assert torch.equal(with_lse, without)
+    _, want = flash_attention_plain(q, k, v, causal=True, with_lse=True)
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_bwd_function_gradients_f32(dev):
+    """FlashAttentionFn on the card (forward kernel with lse, backward
+    kernel) against autograd through the plain scan, in f32."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    B, S, H, KV, hd = 1, 3072, 4, 2, 64
+    q0 = torch.randn((B, S, H, hd), generator=g, device=dev)
+    k0 = torch.randn((B, S, KV, hd), generator=g, device=dev)
+    v0 = torch.randn((B, S, KV, hd), generator=g, device=dev)
+    w = torch.randn((B, S, H, hd), generator=g, device=dev)
+    grads = []
+    for fn in (flash_attention, flash_attention_plain):
+        q, k, v = (t.clone().requires_grad_(True) for t in (q0, k0, v0))
+        before = (flash_attention.launches, flash_attention_bwd.launches)
+        out = fn(q, k, v, causal=True)
+        (out * w).sum().backward()
+        torch.cuda.synchronize()
+        launched = (flash_attention.launches - before[0],
+                    flash_attention_bwd.launches - before[1])
+        assert launched == ((1, 1) if fn is flash_attention else (0, 0))
+        if fn is flash_attention:
+            assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+        grads.append((q.grad, k.grad, v.grad))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+def test_flash_bwd_rejects_what_the_kernel_does_not_take(dev):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    q, k, v, out, dout, lse = _flash_bwd_inputs(
+        dev, 1, 64, 64, 4, 2, 32, True, 0, torch.float32, torch.float32)
+    before = flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, v, out, dout, lse[:, :2].contiguous(),
+                            causal=True)
+    with pytest.raises(ValueError, match="dout"):
+        flash_attention_bwd(q, k, v, out, dout.to(torch.bfloat16), lse,
+                            causal=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_bwd(*(torch.zeros((1, 64, 2, 256), device=dev)
+                              for _ in range(5)),
+                            torch.zeros((1, 2, 64), device=dev), causal=True)
+    assert flash_attention_bwd.launches == before
+
+
+def test_synthetic_stream_draws_on_the_card(dev):
+    """A stream on the card draws there, and a restored stream repeats its
+    batches bit for bit."""
+    from repro_torch.data.synthetic import SyntheticStream
+
+    a = SyntheticStream(512, seq_len=64, global_batch=4, seed=3, device=dev)
+    first = [a.next() for _ in range(3)]
+    assert first[0].device.type == "cuda"
+    assert first[0].shape == (4, 64) and int(first[0].max()) < 512
+    a.restore({"step": 1, "seed": 3})
+    assert torch.equal(a.next(), first[1]) and torch.equal(a.next(),
+                                                           first[2])
