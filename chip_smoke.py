@@ -296,6 +296,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -428,6 +429,24 @@ def graph_ms(torch, fn, iters: int = 20):
         return None
 
 
+def kernel_device_ms(torch, fn, iters: int = 2) -> dict:
+    """Device ms a call of each kernel that one call of ``fn`` launches
+    once, by kernel name, from torch.profiler over ``iters`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = re.sub(r"^void ", "", name).split("(")[0]
+            out[name] = e.device_time_total / iters / 1000
+    return out
+
+
 def _fmt_ms(t) -> str:
     return "n/a" if t is None else f"{t:.4f} ms"
 
@@ -453,17 +472,33 @@ def phase_device(torch):
     return dev, name, smi
 
 
+def kernel_label(mangled: str) -> str:
+    """The innermost name of an Itanium-mangled kernel and its integer
+    template argument, where it has one: 'flash_bwd_dq_tc_kernel<128>'.
+    The name's components are length-prefixed; nvcc puts the kernels in
+    an anonymous namespace whose component ends in a hex hash."""
+    i, name = (3 if mangled.startswith("_ZN") else 2), mangled
+    while m := re.match(r"\d+", mangled[i:]):
+        n, i = int(m.group()), i + m.end()
+        name, i = mangled[i:i + n], i + n
+    arg = re.match(r"ILi(\d+)E", mangled[i:])
+    return name + (f"<{arg.group(1)}>" if arg else "")
+
+
 def phase_build():
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
     report = build.build_all(force=True)
     for name, rep in report.items():
-        used = [ln.strip() for ln in rep["ptxas"].splitlines()
-                if "Used" in ln or "spill" in ln]
         log(f"[build] {name}.cu {rep['seconds']:.1f}s")
-        for ln in used:
-            log(f"[build]   {ln}")
+        kernel = "?"
+        for ln in rep["ptxas"].splitlines():
+            entry = re.search(r"Compiling entry function '([^']+)'", ln)
+            if entry:
+                kernel = kernel_label(entry.group(1))
+            elif "Used" in ln or "spill" in ln:
+                log(f"[build]   {kernel}: {ln.strip()}")
     log(f"[build] all kernels built in {time.perf_counter() - t0:.1f}s")
 
 
@@ -1166,8 +1201,10 @@ FLASH_SHAPES = {
 }
 
 # flash attention's backward: the train phase's microbatch (bf16 and f32),
-# GQA with Qwen2-72B's heads, a q_offset, non-causal at hd 64, and f32
-# queries over bf16 keys and values; (shape, q dtype, kv dtype)
+# GQA with Qwen2-72B's heads, a q_offset, non-causal at hd 64, f32 queries
+# over bf16 keys and values, and Zamba2-7B's shared attention (32 heads of
+# 112: a head dim not a power of two at full length); (shape, q dtype, kv
+# dtype)
 FLASH_BWD_SHAPES = {
     "train": dict(B=2, Sq=4096, Sk=4096, H=32, KV=32, hd=128, causal=True,
                   q_offset=0),
@@ -1177,13 +1214,24 @@ FLASH_BWD_SHAPES = {
                      q_offset=1536),
     "non-causal": dict(B=2, Sq=512, Sk=2048, H=8, KV=8, hd=64,
                        causal=False, q_offset=0),
+    "zamba": dict(B=1, Sq=4096, Sk=4096, H=32, KV=32, hd=112, causal=True,
+                  q_offset=0),
 }
 FLASH_BWD_ROWS = (("train", "bfloat16", "bfloat16"),
                   ("train", "float32", "float32"),
                   ("gqa", "bfloat16", "bfloat16"),
                   ("q_offset", "bfloat16", "bfloat16"),
                   ("non-causal", "bfloat16", "bfloat16"),
-                  ("q_offset", "float32", "bfloat16"))
+                  ("q_offset", "float32", "bfloat16"),
+                  ("zamba", "bfloat16", "bfloat16"))
+
+
+def flash_bwd_rule(q_name: str, kv_name: str, hd: int) -> str:
+    """The backward variant the wrapper must pick for 16-byte aligned
+    inputs: tc for bf16 q, k, v with a head dim that is a multiple of 16,
+    fp32 otherwise."""
+    bf16 = q_name == kv_name == "bfloat16"
+    return "tc" if bf16 and hd % 16 == 0 else "fp32"
 
 
 def flash_pairs(sh: dict) -> int:
@@ -1231,12 +1279,16 @@ def check_flash_bwd(torch, dev, shape: str, q_name: str,
     lse_ok = bool((lse_d <= 1e-5 * ref_lse.abs()
                    + 1e-5 * float(ref_lse.abs().max())).all())
     before = flash_attention_bwd.launches
+    before_impl = dict(flash_attention_bwd.launches_by_impl)
     got = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
                               q_offset=off)
     again = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
                                 q_offset=off)
     torch.cuda.synchronize()
     launched = flash_attention_bwd.launches - before
+    by_impl = impl_delta(before_impl, flash_attention_bwd.launches_by_impl)
+    (impl,) = by_impl if len(by_impl) == 1 else (None,)
+    impl_ok = impl == flash_bwd_rule(q_name, kv_name, hd)
     same_bits = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
     del again
     want = flash_attention_bwd_plain(
@@ -1257,6 +1309,14 @@ def check_flash_bwd(torch, dev, shape: str, q_name: str,
             ok = ok and bool((d <= 2.0**-8 * w.abs() + 1e-3 * scale).all())
         ok = ok and bool(torch.isfinite(a).all())
     del want
+    # the train row: the lo terms of P and dS show (the fp32 launch here
+    # comes after the launch count above)
+    terms = None
+    if shape == "train" and impl == "tc":
+        terms = bwd_term_counts(torch, q, k, v, out, dout, lse, got)
+        log(f"[kernels] flash_attention_bwd {shape}: bf16 dq, dk, dv off "
+            f"bf16(plain) {terms}")
+    terms_ok = terms is None or bwd_terms_match(terms)
     big = B * H * Sq * Sk > 2**30
     iters, warm = (5, 1) if big else (20, 3)
 
@@ -1266,6 +1326,8 @@ def check_flash_bwd(torch, dev, shape: str, q_name: str,
 
     ms = time_ms(torch, run, iters, warm)
     dev_ms = graph_ms(torch, run, iters)
+    # the D pre-pass, the dk/dv pass and the dq pass apart
+    passes = kernel_device_ms(torch, run)
     plain_ms = time_ms(torch, lambda: flash_attention_bwd_plain(
         q, k, v, out, dout, lse, causal=causal, q_offset=off), iters, warm)
     # library yardstick: SDPA's backward alone (its forward outside the
@@ -1283,38 +1345,58 @@ def check_flash_bwd(torch, dev, shape: str, q_name: str,
     lib_ms = time_ms(torch, lambda: torch.autograd.grad(
         o_lib, (qt, kt, vt), do_lib, retain_graph=True), iters, warm)
     del o_lib
-    # bound: 2.5 times the forward's operations (five products against
-    # two) under the forward row's convention: bf16 at the tensor-core
-    # peak with p.v's three terms, f32 at the FP32 peak; bytes: q, k, v,
-    # out, dout, lse read once, dq, dk, dv written once
+    # bound: the five products the function needs (S, dP, dV, dK, dQ:
+    # 2.5 times the forward's two), bf16 q, k, v at the tensor-core peak,
+    # f32 or mixed at the FP32 peak; bytes: q, k, v, out, dout, lse read
+    # once, dq, dk, dv written once. bf16 rows also give the time of the
+    # ten product-units the tc design issues (P and dS in two terms, S and
+    # dP again in the dq pass) at the same peak
     flops = 4.0 * hd * flash_pairs(sh) * B * H
     nbytes = sum(t.numel() * t.element_size()
                  for t in (q, k, v, out, dout, lse, *got))
+    issued_ms = None
     if q_dt == torch.bfloat16 and kv_dt == torch.bfloat16:
-        b_ms, b_by = bound_ms(nbytes, 2.5 * 2 * flops, BF16_TC_FLOP_PER_S)
+        b_ms, b_by = bound_ms(nbytes, 2.5 * flops, BF16_TC_FLOP_PER_S)
+        issued_ms = bound_ms(nbytes, 2.5 * 2 * flops, BF16_TC_FLOP_PER_S)[0]
     else:
         b_ms, b_by = bound_ms(nbytes, 2.5 * flops)
     row = {"name": "flash_attention_bwd", "shape": shape, **sh,
-           "dtype": q_name, "kv_dtype": kv_name, "impl": "fp32",
+           "dtype": q_name, "kv_dtype": kv_name, "impl": impl,
            "max_abs_err": err, "lse_max_abs_err": lse_err,
            "same_bits": same_bits,
            "out_bitwise_with_lse": out_bitwise, "launches_per_call": launched,
-           "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-           "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-           "flops": 2.5 * flops}
+           "ms": ms, "device_ms": dev_ms, "passes_ms": passes,
+           "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "bound_issued_ms": issued_ms,
+           "flops": 2.5 * flops, "off_plain": terms}
     log(f"[kernels] flash_attention_bwd {shape} q {q_name} kv {kv_name} "
-        f"B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} causal={causal} "
+        f"({impl}) B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} causal={causal} "
         f"q_offset={off}: lse max abs err {lse_err:.2e}, max abs err "
         f"{err:.2e}, same bits {same_bits}, "
         f"out bitwise with lse {out_bitwise} | kernel {ms:.4f} ms (device "
         f"{_fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, sdpa backward "
-        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    if not (ok and lse_ok and same_bits and out_bitwise and launched == 2):
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), issued units "
+        f"{_fmt_ms(issued_ms)}; passes "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in passes.items()))
+    if not (ok and lse_ok and same_bits and out_bitwise and launched == 2
+            and impl_ok and terms_ok):
         raise Failed(f"flash_attention_bwd {shape} {q_name}/{kv_name}: ok "
                      f"{ok} (err {err}), lse ok {lse_ok} (err {lse_err}), "
+                     f"terms {terms}, "
                      f"same bits {same_bits}, out bitwise {out_bitwise}, "
-                     f"launches {launched}")
+                     f"launches {launched} by variant {by_impl} (the rule: "
+                     f"{flash_bwd_rule(q_name, kv_name, hd)})")
     return row
+
+
+def bf16_terms(torch, x, terms: int):
+    """f32 x cut to the sum of its first ``terms`` bf16 terms (1: bf16(x);
+    2: hi + bf16(x - hi), the tensor-core backward's split)."""
+    cut, rest = torch.zeros_like(x), x
+    for _ in range(terms):
+        t = rest.to(torch.bfloat16).float()
+        cut, rest = cut + t, rest - t
+    return cut
 
 
 def attention_p_terms(torch, q, k, v, *, causal: bool, q_offset: int,
@@ -1344,12 +1426,8 @@ def attention_p_terms(torch, q, k, v, *, causal: bool, q_offset: int,
                 s = s.masked_fill(~live, -1e30)
             p = torch.exp(s - s.amax(dim=-1, keepdim=True))
             l = p.sum(dim=-1, keepdim=True)
-            cut, rest = torch.zeros_like(p), p
-            for _ in range(terms):
-                t = rest.to(torch.bfloat16).float()
-                cut, rest = cut + t, rest - t
-            out[b][:, heads] = ((cut @ vb) / l.clamp(min=1e-30)).transpose(
-                0, 1)
+            out[b][:, heads] = ((bf16_terms(torch, p, terms) @ vb)
+                                / l.clamp(min=1e-30)).transpose(0, 1)
     return out
 
 
@@ -1378,6 +1456,66 @@ def terms_match(c: dict) -> bool:
     term of p shows in the outputs."""
     return (c["tc"] <= 1.5 * c["fp32"] + 16 and 10 * c["tc"] <= c["p1_only"]
             and 2 * c["tc"] <= c["p1_p2"])
+
+
+def bwd_cut_terms(torch, q, k, v, out, dout, lse, terms: int) -> list:
+    """The f32 backward (causal from row 0, H = KV) with P and dS each cut
+    to ``terms`` bf16 terms where they enter dV = P^T dO, dK = scale dS^T Q
+    and dQ = scale dS K: one term is the control for a tensor-core kernel
+    that dropped the lo terms, two the arithmetic the tc kernel is
+    designed to. Returns (dq, dk, dv) f32, a (batch, head) at a time."""
+    from repro_torch.kernels.flash_attention import _scale
+
+    B, S, H, hd = q.shape
+    scale = _scale(hd)
+    masked = torch.ones((S, S), dtype=torch.bool, device=q.device).triu(1)
+    grads = [torch.empty(q.shape, device=q.device) for _ in range(3)]
+    for b in range(B):
+        for h in range(H):
+            qh, kh, vh, oh, doh = (t[b, :, h].float()
+                                   for t in (q, k, v, out, dout))
+            p = torch.exp((qh @ kh.T) * scale - lse[b, h][:, None])
+            p = p.masked_fill(masked, 0.0)
+            ds = p * (doh @ vh.T - (doh * oh).sum(dim=-1, keepdim=True))
+            p, ds = bf16_terms(torch, p, terms), bf16_terms(torch, ds, terms)
+            for g, val in zip(grads, (scale * ds @ kh, scale * ds.T @ qh,
+                                      p.T @ doh)):
+                g[b, :, h] = val
+    return grads
+
+
+def bwd_term_counts(torch, q, k, v, out, dout, lse, got) -> dict:
+    """How many bf16 dq, dk, dv differ from bf16 of the plain backward's,
+    every one fed the kernel's lse: the tc kernel's (``got``), the fp32
+    kernel's on the same values (q, out and dout upcast), and the one- and
+    two-term controls of ``bwd_cut_terms``."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+
+    ref = [w.to(torch.bfloat16) for w in flash_attention_bwd_plain(
+        q.float(), k.float(), v.float(), out.float(), dout.float(), lse,
+        causal=True)]
+
+    def off(grads):
+        return sum(int((g.to(torch.bfloat16) != r).sum())
+                   for g, r in zip(grads, ref))
+
+    counts = {"elements": sum(r.numel() for r in ref), "tc": off(got),
+              "fp32": off(flash_attention_bwd(
+                  q.float(), k, v, out.float(), dout.float(), lse,
+                  causal=True))}
+    for n in (1, 2):
+        counts[f"{n}_term"] = off(bwd_cut_terms(torch, q, k, v, out, dout,
+                                                lse, n))
+    return counts
+
+
+def bwd_terms_match(c: dict) -> bool:
+    """The tc kernel moves about as few outputs off bf16(plain) as the
+    two-term control (within 1.5x: its tiles sum in another order) and at
+    most a tenth of what the one-term control moves: the lo terms of P
+    and dS show in the outputs."""
+    return c["tc"] <= 1.5 * c["2_term"] + 16 and 10 * c["tc"] <= c["1_term"]
 
 
 def check_flash(torch, dev, shape: str, dtype) -> dict:
@@ -2801,13 +2939,13 @@ def phase_train(torch, dev, tokens) -> dict:
     want = {"flash_attention": TRAIN_STEPS * L * mb * 2,
             "flash_attention_bwd": TRAIN_STEPS * L * mb,
             "flash_attention_by_impl": {"tc": TRAIN_STEPS * L * mb * 2},
-            "flash_attention_bwd_by_impl": {"fp32": TRAIN_STEPS * L * mb}}
+            "flash_attention_bwd_by_impl": {"tc": TRAIN_STEPS * L * mb}}
     want32 = {"flash_attention": L * mb * 2, "flash_attention_bwd": L * mb,
               "flash_attention_by_impl": {"fp32": L * mb * 2},
               "flash_attention_bwd_by_impl": {"fp32": L * mb}}
     want_sa = {"flash_attention": L * mb, "flash_attention_bwd": L * mb,
                "flash_attention_by_impl": {"tc": L * mb},
-               "flash_attention_bwd_by_impl": {"fp32": L * mb}}
+               "flash_attention_bwd_by_impl": {"tc": L * mb}}
     checks = {
         "f32 gradients within 1e-4 of the plain flash pair":
             worst[0] <= TRAIN_GRAD_RTOL,
@@ -4604,8 +4742,10 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
     encoder evaluation's 12,000 rows, launches from its fused evaluation
     and its serve run. The train phase's: flash_attention at its
     microbatch (B=2, 32 heads of 128, 4096 tokens, bf16; launches the 4
-    steps' forwards) and flash_attention_bwd at the same shape (launches
-    the 4 steps' backwards; library_ms SDPA's backward alone). library_ms
+    steps' forwards) and flash_attention_bwd at the same shape, once per
+    variant: tc in bf16 (launches the 4 steps' backwards) and fp32 in f32
+    (launches the f32 gradient check's; library_ms SDPA's backward alone
+    in the row's dtype). library_ms
     is each row's own: for vq_dequant_matmul at int8 codebooks a bf16
     torch.matmul."""
     pick = {
@@ -4667,7 +4807,12 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
             "src/repro/kernels/flash_attention.py:68"),
         "flash_attention_bwd": (
             "flash_attention_bwd",
-            lambda r: r["shape"] == "train" and r["dtype"] == "bfloat16",
+            lambda r: r["shape"] == "train" and r["impl"] == "tc",
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:68"),
+        "flash_attention_bwd_fp32": (
+            "flash_attention_bwd",
+            lambda r: r["shape"] == "train" and r["impl"] == "fp32",
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:68"),
     }
@@ -4680,6 +4825,8 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"]})
+        if r.get("bound_issued_ms") is not None:
+            out[-1]["bound_issued_ms"] = r["bound_issued_ms"]
     return {"kernels": out}
 
 
@@ -4771,7 +4918,9 @@ def main() -> int:
     launches["flash_attention_train"] = train_res["launches"][
         "flash_attention"]
     launches["flash_attention_bwd"] = train_res["launches"][
-        "flash_attention_bwd"]
+        "flash_attention_bwd_by_impl"]["tc"]
+    launches["flash_attention_bwd_fp32"] = train_res["launches_f32"][
+        "flash_attention_bwd_by_impl"]["fp32"]
     print(json.dumps(kernel_line(rows, launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

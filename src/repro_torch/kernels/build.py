@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -41,7 +42,7 @@ _ENTRY = {
         "flash_attention_launch": [_P, _I, _P, _P, _I, _P, _P] + [_I] * 9
         + [_P],
         "flash_attention_bwd_launch": [_P, _I, _P, _P, _I] + [_P] * 7
-        + [_I] * 8 + [_P]},
+        + [_I] * 9 + [_P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -74,8 +75,9 @@ def _stale(name: str) -> bool:
 def build_all(names=SOURCES, force: bool = False) -> dict[str, dict]:
     """Compile every stale (or, with ``force``, every) source in parallel.
 
-    Returns {name: {"seconds": wall seconds, "ptxas": compiler report}};
-    raises RuntimeError with nvcc's output when a build fails."""
+    Returns {name: {"seconds": wall seconds until that file's nvcc ended,
+    "ptxas": compiler report}}; raises RuntimeError with nvcc's output
+    when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = [n for n in names if force or _stale(n)]
     exe = nvcc() if todo else None
@@ -86,11 +88,19 @@ def build_all(names=SOURCES, force: bool = False) -> dict[str, dict]:
         cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+
+    def finish(proc):  # each file's own end, not the order of the waits
+        out, _ = proc.communicate()
+        return out, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max(1, len(procs))) as pool:
+        ended = dict(zip(procs, pool.map(finish, [p for _, p in
+                                                  procs.values()])))
     report = {}
     failed = []
     for n, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        report[n] = {"seconds": time.perf_counter() - t0, "ptxas": out}
+        out, seconds = ended[n]
+        report[n] = {"seconds": seconds, "ptxas": out}
         if proc.returncode != 0:
             failed.append(f"--- {n}.cu (exit {proc.returncode})\n{out}")
             tmp.unlink(missing_ok=True)

@@ -54,11 +54,28 @@
 // Backward (flash_attention_bwd_launch; no TPU kernel: the reference's
 // Pallas kernel has no VJP and the reference differentiates its XLA scan,
 // models/attention.py::flash_attention, so this is the card's counterpart
-// of that autodiff): dq, dk, dv from q, k, v, out, dout and lse, f32
-// scores and sums on the FP32 CUDA cores for every dtype (see the section
-// "backward" below). Bound: operations, 2.5 times the forward's (five
-// products against two) at the FP32 peak; this first version recomputes
-// the scores in both of its passes (seven products).
+// of that autodiff): dq, dk, dv from q, k, v, out, dout and lse, in three
+// launches (D, a dk/dv pass, a dq pass), each output element summed by one
+// thread in a fixed order: no atomics, the same bits on every call. Two
+// variants, picked by the wrapper under the forward's rule (dout 16-byte
+// aligned as well; out is read only by the D pre-pass, element by element):
+// tc (see "backward, tc"): every product on bf16 tensor cores with f32
+//   sums, P and dS split into two bf16 terms. Bound: operations, the five
+//   products the function needs (S, dP, dV, dK, dQ; a product is 2 * hd
+//   FLOPs an unmasked pair) at 989 TFLOP/s: 0.69 ms at the train shape
+//   (B 2, S 4096, 32 heads of 128, causal). The design issues ten such
+//   product-units: S, dP, 2 x dV, 2 x dK in the dk/dv pass and S, dP,
+//   2 x dQ in the dq pass, so at the peak it would take twice the bound,
+//   1.39 ms. The
+//   second terms of P and dS keep the outputs within one bf16 rounding of
+//   the exact gradients; the dq pass recomputes S and dP (25% more
+//   tensor-core work than a fused dq) so that no CTA shares an output: a
+//   per-CTA partial dq summed by a second pass would write and read back
+//   ~4.3 GB at that shape.
+// fp32 (see "backward"): f32 scores and sums on the FP32 CUDA cores, for
+//   f32 or mixed inputs and head dims not a multiple of 16. Bound:
+//   operations, 2.5 times the forward's (five products against two) at the
+//   FP32 peak; it computes seven (the scores in both passes).
 //
 // Both: query head h reads kv head h/G, so GQA needs no head expansion.
 // Causal: kv tiles wholly above the diagonal (first column > q_offset +
@@ -300,7 +317,23 @@ int launch(const void* q, const void* k, const void* v, void* out,
 // tc: bf16 q, k, v on tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int kTcBQ = 64, kTcBKV = 64, kTcThreads = 128;
+constexpr int kTcRows = 64;  // rows of every tc tile in shared memory
+constexpr int kTcBQ = kTcRows, kTcBKV = kTcRows, kTcThreads = 128;
+
+// rows [0, n) of a (rows, HD) bf16 block with row stride `stride` elements
+// into dst[64][HD + 8] by cp.async (not committed); rows n..63 zero-filled
+template <int HD>
+__device__ __forceinline__ void tile_async(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           size_t stride, int n) {
+  constexpr int CPR = HD / 8, LD = HD + 8;
+  for (int i = threadIdx.x; i < kTcRows * CPR; i += kTcThreads) {
+    const int r = i / CPR, c = (i % CPR) * 8;
+    const bool ok = r < n;
+    mma::cp_async16(dst + r * LD + c, ok ? src + (size_t)r * stride + c : src,
+                    ok ? 16 : 0);
+  }
+}
 
 template <int HD>
 constexpr size_t tc_smem_bytes() {  // Q, then K and V double buffered
@@ -319,7 +352,6 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int NKS = HD / 16;          // k-steps of q.k
   constexpr int NHT = HD / 8;           // output n-tiles
   constexpr int NST = kTcBKV / 8;       // score n-tiles
-  constexpr int CPR = HD / 8;           // 16-byte chunks a row
   extern __shared__ float4 tc_smem4[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tc_smem4);
   __nv_bfloat16* ks = qs + kTcBQ * LD;        // [2][kTcBKV][LD]
@@ -336,23 +368,13 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kb = k + (size_t)b * Sk * kv_row + (size_t)kh * HD;
   const __nv_bfloat16* vb = v + (size_t)b * Sk * kv_row + (size_t)kh * HD;
 
-  for (int i = tid; i < kTcBQ * CPR; i += kTcThreads) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    const bool ok = r < q_rows;
-    mma::cp_async16(qs + r * LD + c,
-                    ok ? q + (((size_t)b * Sq + q0 + r) * H + h) * HD + c : q,
-                    ok ? 16 : 0);
-  }
+  tile_async<HD>(qs, q + (((size_t)b * Sq + q0) * H + h) * HD,
+                 (size_t)H * HD, q_rows);
   auto load_kv = [&](int t, int buf) {
     const int k0 = t * kTcBKV;
-    for (int i = tid; i < kTcBKV * CPR; i += kTcThreads) {
-      const int r = i / CPR, c = (i % CPR) * 8;
-      const bool ok = k0 + r < Sk;
-      const size_t off = (size_t)(k0 + r) * kv_row + c;
-      const size_t dst = ((size_t)buf * kTcBKV + r) * LD + c;
-      mma::cp_async16(ks + dst, ok ? kb + off : kb, ok ? 16 : 0);
-      mma::cp_async16(vs + dst, ok ? vb + off : vb, ok ? 16 : 0);
-    }
+    const size_t off = (size_t)k0 * kv_row, dst = (size_t)buf * kTcBKV * LD;
+    tile_async<HD>(ks + dst, kb + off, kv_row, Sk - k0);
+    tile_async<HD>(vs + dst, vb + off, kv_row, Sk - k0);
     mma::cp_async_commit();
   };
 
@@ -539,7 +561,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// backward (FP32 CUDA cores, every dtype): three launches a call
+// backward, fp32 (FP32 CUDA cores, any dtype pair): three launches a call
 // ---------------------------------------------------------------------------
 //
 // With P = exp(scale * Q K^T - lse) (masked entries 0) and
@@ -845,18 +867,24 @@ flash_bwd_dq_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
                  dq_acc);
 }
 
+template <typename QT>
+cudaError_t launch_delta(const void* out, const void* dout, float* delta,
+                         int B, int Sq, int H, int hd, cudaStream_t stream) {
+  const int rows = B * Sq * H;
+  flash_bwd_delta_kernel<QT><<<(rows + kDeltaRows - 1) / kDeltaRows,
+                               32 * kDeltaRows, 0, stream>>>(
+      static_cast<const QT*>(out), static_cast<const QT*>(dout), delta, rows,
+      Sq, H, hd);
+  return cudaGetLastError();
+}
+
 template <typename QT, typename KT>
 int launch_bwd(const void* q, const void* k, const void* v, const void* out,
                const void* dout, const float* lse, float* delta, void* dq,
                void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
                int hd, int causal, int q_offset, cudaStream_t stream) {
   const float scale = 1.0f / sqrtf((float)hd);
-  const int rows = B * Sq * H;
-  flash_bwd_delta_kernel<QT><<<(rows + kDeltaRows - 1) / kDeltaRows,
-                               32 * kDeltaRows, 0, stream>>>(
-      static_cast<const QT*>(out), static_cast<const QT*>(dout), delta, rows,
-      Sq, H, hd);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = launch_delta<QT>(out, dout, delta, B, Sq, H, hd, stream);
   if (e != cudaSuccess) return (int)e;
 
   auto dkdv = flash_bwd_dkdv_kernel<QT, KT>;
@@ -882,6 +910,420 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
       static_cast<const KT*>(v), static_cast<const QT*>(dout), lse, delta,
       static_cast<QT*>(dq), Sq, Sk, H, KV, hd, causal, q_offset, scale);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// backward, tc: bf16 q, k, v, out and dout on tensor cores
+// ---------------------------------------------------------------------------
+//
+// The same three launches and the same formulation as the fp32 backward,
+// every product on mma.sync m16n8k16 (bf16 operands, f32 sums), 4 warps a
+// CTA, 64-row tiles as bf16 in shared memory (row stride HD + 8: ldmatrix
+// without bank conflicts), loaded with zero-filled cp.async16.
+//   dkdv: a CTA per (b, kv head, 64 kv rows), each warp 16 kv rows. K and
+//         V stay resident; the CTA walks its G query heads and every query
+//         tile that can see its rows, in order, with the Q and dO tiles (and
+//         their lse and D) double buffered. A tile costs S^T = K Q^T, then
+//         P^T = exp(scale S^T - lse[col]) in f32 registers, dP^T = V dO^T,
+//         dS^T = P^T o (dP^T - D[col]), dV += P^T dO and dK += dS^T Q: the
+//         C layout of S^T and dP^T is the A layout of the last two, so P^T
+//         and dS^T never leave registers.
+//   dq:   a CTA per (b, head, 64 query rows), heavy blocks first, the
+//         forward tc kernel's shape: Q and dO resident, K and V tiles
+//         double buffered; a tile costs S = Q K^T, dP = dO V^T,
+//         dS = P o (dP - D[row]) and dQ += dS K.
+// P and dS enter their products as two bf16 terms, hi = bf16(x) and
+// lo = bf16(x - hi) (mma::split2): 16 significand bits, within 2^-17 |x|
+// of x, against the outputs' own bf16 rounding (up to 2^-8). Each tile's
+// products are summed in a fresh fragment and added to the running dK,
+// dV, dQ in f32, as the forward adds P V: the tensor cores' accumulator
+// truncates, and summed straight into the running fragments (512 steps
+// over 4096 rows) its bias moves half as many bf16 outputs again off
+// bf16(plain) as the same two-term arithmetic in f32 does (the card test
+// test_flash_bwd_tensor_cores_keep_the_low_terms counts them).
+// Scores, exponentials, lse, D and every sum are f32.
+// Registers bound the tile shape at HD 128: dK and dV are 2 x 64 f32 a
+// thread, S^T and dP^T 2 x 32, the split terms of P^T or dS^T 32 more, so
+// every A fragment is read from shared memory at its use (8 ldmatrix.x4 a
+// product for the warp's 16 rows) instead of held: K and V in the dk/dv
+// pass, Q and dO in the dq pass.
+
+template <int HD>
+__host__ __device__ constexpr size_t tc_bwd_tile() {  // a 64-row tile, bf16s
+  return (size_t)kTcRows * (HD + 8);
+}
+
+// acc[j] = A . B^T for the warp's 16 rows of A (a: its first row) against
+// the 64 rows of B (n-tile j: B's rows 8j .. 8j+7), summed over HD; both
+// row-major [row][HD + 8] in shared memory
+template <int HD>
+__device__ __forceinline__ void mma_abt(float (&acc)[8][4],
+                                        const __nv_bfloat16* a,
+                                        const __nv_bfloat16* b, int lane) {
+  constexpr int LD = HD + 8;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t af[4];
+    mma::ldsm_x4(af, a + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t r[4];
+      mma::ldsm_x4(r, b + ((2 * np + (lane >> 4)) * 8 + (lane & 7)) * LD +
+                          kk * 16 + ((lane >> 3) & 1) * 8);
+      mma::mma_bf16(acc[2 * np], af, r[0], r[1]);
+      mma::mma_bf16(acc[2 * np + 1], af, r[2], r[3]);
+    }
+  }
+}
+
+// the warp's 16 x 64 f32 tile x in the C layout (x[j]: columns 8j .. 8j+7)
+// as A fragments, two bf16 terms a 16-column k-step: xa[kk][0] the hi
+// terms, xa[kk][1] the lo ones (slots a0 .. a3)
+__device__ __forceinline__ void split_frags(const float (&x)[8][4],
+                                            uint32_t (&xa)[4][2][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        mma::split2(x[2 * kk + half][rr * 2], x[2 * kk + half][rr * 2 + 1],
+                    xa[kk][0][half * 2 + rr], xa[kk][1][half * 2 + rr]);
+}
+
+// acc[j] += X . M[:, 8j .. 8j+7] for X split by split_frags and M [64][HD
+// + 8] row-major in shared memory, read transposed. Each pair of n-tiles
+// sums the tile's 64 rows on the tensor cores in a fresh fragment (a
+// k-step's lo product before its hi one), then adds it to acc in f32
+template <int HD>
+__device__ __forceinline__ void mma_xm(float (&acc)[HD / 8][4],
+                                       const uint32_t (&xa)[4][2][4],
+                                       const __nv_bfloat16* m, int lane) {
+  constexpr int LD = HD + 8;
+#pragma unroll
+  for (int hp = 0; hp < HD / 16; ++hp) {
+    float part[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t r[4];
+      mma::ldsm_x4_t(r, m + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
+                                LD + (2 * hp + (lane >> 4)) * 8);
+#pragma unroll
+      for (int term = 1; term >= 0; --term) {
+        mma::mma_bf16(part[0], xa[kk][term], r[0], r[1]);
+        mma::mma_bf16(part[1], xa[kk][term], r[2], r[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[2 * hp + j][e] += part[j][e];
+  }
+}
+
+// the warp's rows g4 and g4 + 8 of acc (times `mul`) as bf16 into
+// dst + row * stride, rows below n only
+template <int HD>
+__device__ __forceinline__ void store_frag(__nv_bfloat16* dst, size_t stride,
+                                           int row0, int n, float mul,
+                                           const float (&acc)[HD / 8][4],
+                                           int lane) {
+  const int g4 = lane >> 2, q4 = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g4 + r * 8;
+    if (row >= n) continue;
+    __nv_bfloat16* p = dst + (size_t)row * stride + 2 * q4;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(p + j * 8) =
+          mma::pack_bf16(acc[j][2 * r] * mul, acc[j][2 * r + 1] * mul);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int Sq, int Sk,
+                         int H, int KV, int causal, int q_offset,
+                         float scale) {
+  constexpr int LD = HD + 8, NHT = HD / 8;
+  constexpr size_t T = tc_bwd_tile<HD>();
+  extern __shared__ float4 bwd_tc_smem4[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(bwd_tc_smem4);
+  __nv_bfloat16* vs = ks + T;
+  __nv_bfloat16* qs = vs + T;      // [2] query tiles
+  __nv_bfloat16* os = qs + 2 * T;  // [2] dO tiles
+  float* ls = reinterpret_cast<float*>(os + 2 * T);  // [2][64] lse
+  float* dls = ls + 2 * kTcRows;                   // [2][64] D
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g4 = lane >> 2, q4 = lane & 3;
+  const int b = blockIdx.x / KV, kh = blockIdx.x % KV, G = H / KV;
+  // causal: the first kv blocks see the most query tiles; they go first
+  const int k0 = blockIdx.y * kTcRows;
+  const int k_rows = min(kTcRows, Sk - k0);
+  const size_t kv_stride = (size_t)KV * HD, q_stride = (size_t)H * HD;
+  const size_t kv_off = ((size_t)b * Sk + k0) * kv_stride + (size_t)kh * HD;
+  tile_async<HD>(ks, k + kv_off, kv_stride, k_rows);
+  tile_async<HD>(vs, v + kv_off, kv_stride, k_rows);
+  mma::cp_async_commit();
+
+  // causal: query tiles wholly before k0 contribute nothing
+  const int t0 = causal ? max(0, k0 - q_offset) / kTcRows : 0;
+  const int per_head = max(0, (Sq + kTcRows - 1) / kTcRows - t0);
+  const int n_it = G * per_head;
+  auto load_q = [&](int it, int buf) {
+    const int h = kh * G + it / per_head;
+    const int q0 = (t0 + it % per_head) * kTcRows;
+    const int rows = min(kTcRows, Sq - q0);
+    const size_t off = (((size_t)b * Sq + q0) * H + h) * HD;
+    tile_async<HD>(qs + buf * T, q + off, q_stride, rows);
+    tile_async<HD>(os + buf * T, dout + off, q_stride, rows);
+    if (tid < kTcRows) {
+      const bool ok = tid < rows;
+      const size_t r = ((size_t)b * H + h) * Sq + q0 + (ok ? tid : 0);
+      mma::cp_async4(ls + buf * kTcRows + tid, lse + r, ok ? 4 : 0);
+      mma::cp_async4(dls + buf * kTcRows + tid, delta + r, ok ? 4 : 0);
+    }
+    mma::cp_async_commit();
+  };
+  if (n_it > 0) load_q(0, 0);
+
+  float dka[NHT][4], dva[NHT][4];
+#pragma unroll
+  for (int j = 0; j < NHT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+  const int row_a = k0 + warp * 16 + g4;  // this thread's first kv row
+  const __nv_bfloat16* kw = ks + warp * 16 * LD;
+  const __nv_bfloat16* vw = vs + warp * 16 * LD;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int cur = it & 1;
+    if (it + 1 < n_it) {
+      load_q(it + 1, cur ^ 1);
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();  // tile it (and K, V) in shared memory
+    const __nv_bfloat16* qt = qs + cur * T;
+    const __nv_bfloat16* ot = os + cur * T;
+    const float* lt = ls + cur * kTcRows;
+    const float* dt = dls + cur * kTcRows;
+    const int q0 = (t0 + it % per_head) * kTcRows;
+    const bool need_mask = k0 + kTcRows > Sk || q0 + kTcRows > Sq ||
+                           (causal && k0 + kTcRows - 1 > q_offset + q0);
+
+    float p[8][4];  // S^T, then P^T: kv rows x the tile's query columns
+    mma_abt<HD>(p, kw, qt, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lt + j * 8 + 2 * q4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = expf(p[j][e] * scale - ((e & 1) ? l2.y : l2.x));
+        if (need_mask) {
+          const int c = q0 + j * 8 + 2 * q4 + (e & 1);
+          const int r = row_a + (e >> 1) * 8;
+          if (r >= Sk || c >= Sq || (causal && r > q_offset + c)) x = 0.f;
+        }
+        p[j][e] = x;
+      }
+    }
+    float ds[8][4];  // dP^T, then dS^T
+    mma_abt<HD>(ds, vw, ot, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(dt + j * 8 + 2 * q4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ds[j][e] = p[j][e] * (ds[j][e] - ((e & 1) ? d2.y : d2.x));
+    }
+    uint32_t xa[4][2][4];
+    split_frags(p, xa);
+    mma_xm<HD>(dva, xa, ot, lane);  // dV += P^T dO
+    split_frags(ds, xa);
+    mma_xm<HD>(dka, xa, qt, lane);  // dK += dS^T Q
+    __syncthreads();  // every warp is done with buffer cur before its refill
+  }
+  mma::cp_async_wait<0>();  // K and V's copies when no tile was walked
+
+  store_frag<HD>(dk + kv_off, kv_stride, warp * 16, k_rows, scale, dka, lane);
+  store_frag<HD>(dv + kv_off, kv_stride, warp * 16, k_rows, 1.f, dva, lane);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int H,
+                       int KV, int causal, int q_offset, float scale) {
+  constexpr int LD = HD + 8, NHT = HD / 8;
+  constexpr size_t T = tc_bwd_tile<HD>();
+  extern __shared__ float4 bwd_tc_smem4[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(bwd_tc_smem4);
+  __nv_bfloat16* os = qs + T;      // dO
+  __nv_bfloat16* ks = os + T;      // [2] K tiles
+  __nv_bfloat16* vs = ks + 2 * T;  // [2] V tiles
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g4 = lane >> 2, q4 = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H, kh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcRows;  // heavy first
+  const int q_rows = min(kTcRows, Sq - q0);
+  const size_t kv_stride = (size_t)KV * HD, q_stride = (size_t)H * HD;
+  const size_t q_off = (((size_t)b * Sq + q0) * H + h) * HD;
+  const __nv_bfloat16* kb = k + (size_t)b * Sk * kv_stride + (size_t)kh * HD;
+  const __nv_bfloat16* vb = v + (size_t)b * Sk * kv_stride + (size_t)kh * HD;
+  tile_async<HD>(qs, q + q_off, q_stride, q_rows);
+  tile_async<HD>(os, dout + q_off, q_stride, q_rows);
+  auto load_kv = [&](int t, int buf) {
+    const size_t off = (size_t)t * kTcRows * kv_stride;
+    tile_async<HD>(ks + buf * T, kb + off, kv_stride, Sk - t * kTcRows);
+    tile_async<HD>(vs + buf * T, vb + off, kv_stride, Sk - t * kTcRows);
+    mma::cp_async_commit();
+  };
+  int n_tiles = (Sk + kTcRows - 1) / kTcRows;
+  if (causal)
+    n_tiles = min(n_tiles, (q_offset + q0 + q_rows - 1) / kTcRows + 1);
+  load_kv(0, 0);  // Q's and dO's copies join the first group
+
+  // lse and D of this thread's rows g4 and g4 + 8 (0 past Sq)
+  float l_r[2], d_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + g4 + r * 8;
+    const bool ok = row < q_rows;
+    l_r[r] = ok ? lse[(size_t)bh * Sq + q0 + row] : 0.f;
+    d_r[r] = ok ? delta[(size_t)bh * Sq + q0 + row] : 0.f;
+  }
+  float dqa[NHT][4];
+#pragma unroll
+  for (int j = 0; j < NHT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[j][e] = 0.f;
+  const int row_a = q_offset + q0 + warp * 16 + g4;  // absolute position
+  const __nv_bfloat16* qw = qs + warp * 16 * LD;
+  const __nv_bfloat16* ow = os + warp * 16 * LD;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int cur = t & 1;
+    if (t + 1 < n_tiles) {
+      load_kv(t + 1, cur ^ 1);
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();  // tile t (and Q, dO) in shared memory
+    const __nv_bfloat16* kt = ks + cur * T;
+    const __nv_bfloat16* vt = vs + cur * T;
+
+    float p[8][4];  // S, then P
+    mma_abt<HD>(p, qw, kt, lane);
+    const int k0 = t * kTcRows;
+    const bool need_mask = k0 + kTcRows > Sk ||
+                           (causal && k0 + kTcRows - 1 > q_offset + q0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = expf(p[j][e] * scale - l_r[e >> 1]);
+        if (need_mask) {
+          const int col = k0 + j * 8 + 2 * q4 + (e & 1);
+          if (col >= Sk || (causal && col > row_a + (e >> 1) * 8)) x = 0.f;
+        }
+        p[j][e] = x;
+      }
+    float ds[8][4];  // dP, then dS
+    mma_abt<HD>(ds, ow, vt, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ds[j][e] = p[j][e] * (ds[j][e] - d_r[e >> 1]);
+    uint32_t xa[4][2][4];
+    split_frags(ds, xa);
+    mma_xm<HD>(dqa, xa, kt, lane);  // dQ += dS K
+    __syncthreads();  // every warp is done with buffer cur before its refill
+  }
+
+  store_frag<HD>(dq + q_off, q_stride, warp * 16, q_rows, scale, dqa, lane);
+}
+
+template <int HD>
+int launch_bwd_tc_hd(const void* q, const void* k, const void* v,
+                     const void* out, const void* dout, const float* lse,
+                     float* delta, void* dq, void* dk, void* dv, int B,
+                     int Sq, int Sk, int H, int KV, int causal, int q_offset,
+                     cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  const float scale = 1.0f / sqrtf((float)HD);
+  cudaError_t e =
+      launch_delta<bf>(out, dout, delta, B, Sq, H, HD, stream);
+  if (e != cudaSuccess) return (int)e;
+
+  auto dkdv = flash_bwd_dkdv_tc_kernel<HD>;
+  const size_t smem_kv = 6 * tc_bwd_tile<HD>() * sizeof(bf) +
+                         4 * kTcRows * sizeof(float);
+  static int granted_kv[64];
+  e = mma::allow_smem(dkdv, smem_kv, granted_kv);
+  if (e != cudaSuccess) return (int)e;
+  dkdv<<<dim3(B * KV, (Sk + kTcRows - 1) / kTcRows), kTcThreads,
+         smem_kv, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k),
+      static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, delta,
+      static_cast<bf*>(dk), static_cast<bf*>(dv), Sq, Sk, H, KV, causal,
+      q_offset, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  auto dqk = flash_bwd_dq_tc_kernel<HD>;
+  const size_t smem_q = 6 * tc_bwd_tile<HD>() * sizeof(bf);
+  static int granted_q[64];
+  e = mma::allow_smem(dqk, smem_q, granted_q);
+  if (e != cudaSuccess) return (int)e;
+  dqk<<<dim3(B * H, (Sq + kTcRows - 1) / kTcRows), kTcThreads, smem_q,
+        stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k),
+      static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, delta,
+      static_cast<bf*>(dq), Sq, Sk, H, KV, causal, q_offset, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd_tc(const void* q, const void* k, const void* v,
+                  const void* out, const void* dout, const float* lse,
+                  float* delta, void* dq, void* dk, void* dv, int B, int Sq,
+                  int Sk, int H, int KV, int hd, int causal, int q_offset,
+                  cudaStream_t s) {
+  switch (hd) {
+#define FLASH_BWD_TC_HD(n)                                                 \
+  case n:                                                                  \
+    return launch_bwd_tc_hd<n>(q, k, v, out, dout, lse, delta, dq, dk, dv, \
+                               B, Sq, Sk, H, KV, causal, q_offset, s);
+    FLASH_BWD_TC_HD(16) FLASH_BWD_TC_HD(32) FLASH_BWD_TC_HD(48)
+    FLASH_BWD_TC_HD(64) FLASH_BWD_TC_HD(80) FLASH_BWD_TC_HD(96)
+    FLASH_BWD_TC_HD(112) FLASH_BWD_TC_HD(128)
+#undef FLASH_BWD_TC_HD
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 bool bad_shape(int B, int Sq, int Sk, int H, int KV, int hd, int q_offset) {
@@ -929,17 +1371,25 @@ extern "C" int flash_attention_launch(const void* q, int q_is_bf16,
 }
 
 // The backward: q, out, dout and dq in q's type; k, v, dk and dv in k's;
-// lse (B, H, Sq) f32 from the forward; delta (B, H, Sq) f32 scratch. Three
-// launches (delta, dkdv, dq) on the stream; returns the first error.
+// lse (B, H, Sq) f32 from the forward; delta (B, H, Sq) f32 scratch.
+// variant: 0 fp32, 1 tc (bf16 q and k/v, hd % 16 == 0; q, k, v and dout
+// 16-byte aligned). Three launches (delta, dkdv, dq) on the stream;
+// returns the first error.
 extern "C" int flash_attention_bwd_launch(
     const void* q, int q_is_bf16, const void* k, const void* v,
     int kv_is_bf16, const void* out, const void* dout, const float* lse,
     float* delta, void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H,
-    int KV, int hd, int causal, int q_offset, void* stream) {
+    int KV, int hd, int causal, int q_offset, int variant, void* stream) {
   if (bad_shape(B, Sq, Sk, H, KV, hd, q_offset) || lse == nullptr ||
-      delta == nullptr)
+      delta == nullptr || variant < 0 || variant > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (variant == 1) {
+    if (!q_is_bf16 || !kv_is_bf16 || hd % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    return launch_bwd_tc(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq,
+                         Sk, H, KV, hd, causal, q_offset, s);
+  }
   if (q_is_bf16 && kv_is_bf16)
     return launch_bwd<__nv_bfloat16, __nv_bfloat16>(
         q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, hd,

@@ -10,7 +10,7 @@
 //   C (16 x 8, f32): c0, c1 = (row group, cols 2q, 2q+1), c2, c3 = row + 8.
 // The C layout of one product is the A layout of the next (two adjacent
 // n-tiles of C make one 16-wide k-step of A), which flash attention uses
-// to keep P in registers.
+// to keep P (and, in its backward, dS) in registers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -107,6 +107,17 @@ __device__ __forceinline__ void split3(float v, float& t0, float& t1,
   const float r = v - t0;
   t1 = __bfloat162float(__float2bfloat16_rn(r));
   t2 = r - t1;  // exact in bf16
+}
+
+// v0, v1 as two bf16x2 words of A-fragment slots: hi = bf16(v), lo =
+// bf16(v - hi) (v - hi is exact in f32). The two terms carry 16
+// significand bits: hi + lo is within 2^-17 |v| of v
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(v0 - hf.x, v1 - hf.y);
 }
 
 }  // namespace mma

@@ -25,11 +25,16 @@ Gradients: when autograd records (grad mode on and an input requiring
 grad) ``flash_attention`` goes through ``FlashAttentionFn``, whose forward
 launches the kernel with its log-sum-exp output and whose backward launches
 the backward kernel (``flash_attention_bwd``: dq in q's dtype, dk and dv in
-k's, f32 sums on the FP32 CUDA cores, three launches counted once in
-``flash_attention_bwd.launches``). On CPU tensors the same Function runs
-``flash_attention_plain`` and ``flash_attention_bwd_plain``. The reference
-has no backward kernel: it differentiates its XLA scan, and the backward is
-held against ``jax.grad`` of that scan.
+k's, three launches counted once in ``flash_attention_bwd.launches`` and
+once under the variant in ``flash_attention_bwd.launches_by_impl``). Its
+variants follow the forward's rule (``select_bwd_impl``; dout 16-byte
+aligned as well): ``tc`` runs every product on bf16 tensor cores
+with f32 sums, p and dS split into two bf16 terms; ``fp32`` (f32 or mixed
+dtypes, other head dims) runs on the FP32 CUDA cores. On CPU tensors the
+same Function runs ``flash_attention_plain`` and
+``flash_attention_bwd_plain``. The reference has no backward kernel: it
+differentiates its XLA scan, and the backward is held against ``jax.grad``
+of that scan.
 """
 from __future__ import annotations
 
@@ -53,6 +58,17 @@ def select_impl(q, k, v) -> str:
     hd = q.shape[-1]
     if (all(t.dtype == torch.bfloat16 and t.data_ptr() % 16 == 0
             for t in (q, k, v)) and hd % 16 == 0):
+        return "tc"
+    return "fp32"
+
+
+def select_bwd_impl(q, k, v, dout) -> str:
+    """The backward kernel's variant for these (checked) inputs, dout in
+    q's dtype: ``select_impl``'s rule, with dout 16-byte aligned as well
+    (the tc passes read q, k, v and dout with 16-byte ``cp.async``; out
+    is read only by the D pre-pass, element by element, in either
+    variant)."""
+    if select_impl(q, k, v) == "tc" and dout.data_ptr() % 16 == 0:
         return "tc"
     return "fp32"
 
@@ -234,9 +250,10 @@ def _launch_forward(q, k, v, causal: bool, q_offset: int, lse=None):
 def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool,
                         q_offset: int = 0):
     """(dq, dk, dv) of flash attention: the backward kernel on CUDA
-    tensors (three launches: D, then dk/dv, then dq; one count), the plain
-    version on CPU tensors. ``out`` and ``lse`` are the forward's; every
-    tensor is checked on every device."""
+    tensors (its variant by ``select_bwd_impl``; three launches: D, then
+    dk/dv, then dq; one count, under the variant in ``launches_by_impl``),
+    the plain version on CPU tensors. ``out`` and ``lse`` are the
+    forward's; every tensor is checked on every device."""
     _check(q, k, v, q_offset)
     B, Sq, H, hd = q.shape
     for name, t, shape, dt in (("out", out, q.shape, q.dtype),
@@ -253,16 +270,18 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool,
     Sk, KV = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    impl = select_bwd_impl(q, k, v, dout)
     fn = build.load("flash_attention").flash_attention_bwd_launch
     rc = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
             v.data_ptr(), int(k.dtype == torch.bfloat16), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KV, hd,
-            int(bool(causal)), q_offset, build.current_stream(q.device))
-    build.check(rc, "flash_attention_bwd (fp32)")
+            int(bool(causal)), q_offset, _IMPL_CODE[impl],
+            build.current_stream(q.device))
+    build.check(rc, f"flash_attention_bwd ({impl})")
     flash_attention_bwd.launches += 1
     by_impl = flash_attention_bwd.launches_by_impl
-    by_impl["fp32"] = by_impl.get("fp32", 0) + 1
+    by_impl[impl] = by_impl.get(impl, 0) + 1
     return dq, dk, dv
 
 

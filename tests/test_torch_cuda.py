@@ -1261,6 +1261,21 @@ def _flash_bwd_inputs(dev, B, Sq, Sk, H, KV, hd, causal, q_offset, q_dt,
     return q, k, v, out, dout, lse
 
 
+def _bwd_rule(q_dt, kv_dt, hd):
+    """The backward's variant for aligned inputs: tc for bf16 q, k, v with
+    a head dim that is a multiple of 16, fp32 otherwise."""
+    both_bf16 = q_dt == kv_dt == torch.bfloat16
+    return "tc" if both_bf16 and hd % 16 == 0 else "fp32"
+
+
+def _bwd_impl_delta(before):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    return {n: c - before.get(n, 0)
+            for n, c in flash_attention_bwd.launches_by_impl.items()
+            if c != before.get(n, 0)}
+
+
 def _within_bwd_bars(got, want):
     """f32: rtol 1e-4, atol 1e-5 * max|g|; bf16: one bf16 rounding of the
     f32 plain result (2^-8 of it) plus 1e-3 * max|g|."""
@@ -1299,8 +1314,7 @@ def test_flash_bwd_matches_plain(dev, B, Sq, Sk, H, KV, hd, causal,
                                      q_offset=q_offset)
     torch.cuda.synchronize()
     assert flash_attention_bwd.launches == before + 1
-    assert flash_attention_bwd.launches_by_impl["fp32"] == by_impl.get(
-        "fp32", 0) + 1
+    assert _bwd_impl_delta(by_impl) == {_bwd_rule(q_dt, kv_dt, hd): 1}
     assert (dq.dtype, dk.dtype, dv.dtype) == (q_dt, kv_dt, kv_dt)
     # the f32 plain result on the same (upcast) values
     want = flash_attention_bwd_plain(
@@ -1317,10 +1331,127 @@ def test_flash_bwd_same_bits_twice(dev, q_dt):
 
     args = _flash_bwd_inputs(dev, 2, 512, 512, 8, 2, 128, True, 0, q_dt,
                              q_dt)
+    by_impl = dict(flash_attention_bwd.launches_by_impl)
     a = flash_attention_bwd(*args, causal=True)
     b = flash_attention_bwd(*args, causal=True)
     torch.cuda.synchronize()
+    assert _bwd_impl_delta(by_impl) == {_bwd_rule(q_dt, q_dt, 128): 2}
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("q_dt,kv_dt,hd,misaligned,impl", [
+    (torch.bfloat16, torch.bfloat16, 64, None, "tc"),
+    (torch.bfloat16, torch.bfloat16, 128, None, "tc"),
+    (torch.bfloat16, torch.bfloat16, 36, None, "fp32"),  # hd % 16 != 0
+    (torch.float32, torch.float32, 64, None, "fp32"),
+    (torch.bfloat16, torch.float32, 64, None, "fp32"),
+    (torch.float32, torch.bfloat16, 64, None, "fp32"),
+    (torch.bfloat16, torch.bfloat16, 64, "dout", "fp32"),  # 2 bytes off
+    (torch.bfloat16, torch.bfloat16, 64, "out", "tc"),  # read by D only
+])
+def test_flash_bwd_variant_by_dtype_and_head_dim(dev, q_dt, kv_dt, hd,
+                                                 misaligned, impl):
+    """One call launches the variant the rule picks (a dout off 16-byte
+    alignment takes fp32, an out off it does not), and either meets the
+    bars."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+
+    q, k, v, out, dout, lse = _flash_bwd_inputs(
+        dev, 1, 192, 192, 4, 2, hd, True, 0, q_dt, kv_dt)
+    if misaligned:
+        t = {"out": out, "dout": dout}[misaligned]
+        buf = torch.empty(t.numel() + 1, dtype=q_dt, device=dev)
+        buf[1:].copy_(t.reshape(-1))
+        t = buf[1:].view(t.shape)
+        assert t.is_contiguous() and t.data_ptr() % 16 != 0
+        if misaligned == "out":
+            out = t
+        else:
+            dout = t
+    by_impl = dict(flash_attention_bwd.launches_by_impl)
+    got = flash_attention_bwd(q, k, v, out, dout, lse, causal=True)
+    torch.cuda.synchronize()
+    assert _bwd_impl_delta(by_impl) == {impl: 1}
+    want = flash_attention_bwd_plain(
+        q.float(), k.float(), v.float(), out.float(), dout.float(), lse,
+        causal=True)
+    for g, w in zip(got, want):
+        _within_bwd_bars(g, w)
+
+
+def _bf16_terms(x, terms: int):
+    """x cut to the sum of its first ``terms`` bf16 terms (1: bf16(x); 2:
+    hi + bf16(x - hi), the tensor-core backward's split)."""
+    cut, rest = torch.zeros_like(x), x
+    for _ in range(terms):
+        t = rest.to(torch.bfloat16).float()
+        cut, rest = cut + t, rest - t
+    return cut
+
+
+def _bwd_cut_terms(q, k, v, out, dout, lse, terms: int):
+    """The f32 backward (causal, B 1, H = KV) with P and dS each cut to
+    ``terms`` bf16 terms where they enter dV = P^T dO, dK = scale dS^T Q
+    and dQ = scale dS K: one term is the control for a tensor-core kernel
+    that dropped the lo terms, two the arithmetic the tc kernel is
+    designed to. Returns (dq, dk, dv) f32."""
+    from repro_torch.kernels.flash_attention import _scale
+
+    S, H, hd = q.shape[1], q.shape[2], q.shape[3]
+    scale = _scale(hd)
+    masked = torch.ones((S, S), dtype=torch.bool, device=q.device).triu(1)
+    grads = [torch.empty((1, S, H, hd), device=q.device) for _ in range(3)]
+    for h in range(H):
+        qh, kh, vh, oh, doh = (t[0, :, h].float() for t in (q, k, v, out,
+                                                             dout))
+        s = (qh @ kh.T) * scale
+        p = torch.exp(s - lse[0, h][:, None]).masked_fill(masked, 0.0)
+        d = (doh * oh).sum(dim=-1, keepdim=True)
+        ds = p * (doh @ vh.T - d)
+        p, ds = _bf16_terms(p, terms), _bf16_terms(ds, terms)
+        for g, val in zip(grads, (scale * ds @ kh, scale * ds.T @ qh,
+                                  p.T @ doh)):
+            g[0, :, h] = val
+    return grads
+
+
+def test_flash_bwd_tensor_cores_keep_the_low_terms(dev):
+    """The tc backward's products carry both bf16 terms of P and dS: about
+    as few of its bf16 dq, dk, dv differ from bf16(plain) as of the f32
+    control that cuts P and dS to the same two terms (its tile sums add
+    no error of their own), far fewer than of a control that cuts them to
+    one term (2^-8 of each against 2^-16). The fp32 variant on the same
+    values, exact in P and dS, moves fewer still."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+
+    S, H, hd = 4096, 4, 128
+    q, k, v, out, dout, lse = _flash_bwd_inputs(
+        dev, 1, S, S, H, H, hd, True, 0, torch.bfloat16, torch.bfloat16,
+        seed=7)
+    by_impl = dict(flash_attention_bwd.launches_by_impl)
+    tc = flash_attention_bwd(q, k, v, out, dout, lse, causal=True)
+    fp32 = flash_attention_bwd(q.float(), k, v, out.float(), dout.float(),
+                               lse, causal=True)
+    torch.cuda.synchronize()
+    assert _bwd_impl_delta(by_impl) == {"tc": 1, "fp32": 1}
+    ref = [w.to(torch.bfloat16) for w in flash_attention_bwd_plain(
+        q.float(), k.float(), v.float(), out.float(), dout.float(), lse,
+        causal=True)]
+
+    def n_off(grads):
+        return sum(int((g.to(torch.bfloat16) != r).sum())
+                   for g, r in zip(grads, ref))
+
+    n = {"tc": n_off(tc), "fp32": n_off(fp32)}
+    for terms in (1, 2):
+        n[terms] = n_off(_bwd_cut_terms(q, k, v, out, dout, lse, terms))
+    print(f"bf16 dq, dk, dv off bf16(plain), of {3 * q.numel()}: tc "
+          f"{n['tc']}, fp32 {n['fp32']}, one term {n[1]}, two terms {n[2]}")
+    assert n["tc"] <= 1.5 * n[2] + 16 and n["fp32"] <= n[2], n
+    # the lo terms show: without them many more outputs move
+    assert 10 * n["tc"] <= n[1], n
 
 
 @pytest.mark.parametrize("dt,hd,impl", [

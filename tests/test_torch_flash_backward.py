@@ -165,3 +165,62 @@ def test_backward_checks_its_inputs():
     with pytest.raises(ValueError, match="out"):
         fa.flash_attention_bwd(q, q, q, q.to(torch.bfloat16), q, lse,
                                causal=True)
+
+
+def _bwd_args(q_dt, kv_dt, hd, misaligned=None):
+    """Zeros of the backward's shapes (B 1, Sq = Sk = 128, H 4, KV 2);
+    the tensor named by ``misaligned`` ("out" or "dout") one element into
+    a larger buffer."""
+    def q_like(name):
+        off = int(name == misaligned)
+        n = 128 * 4 * hd
+        return torch.zeros(n + off, dtype=q_dt)[off:].view((1, 128, 4, hd))
+
+    q, out, dout = q_like("q"), q_like("out"), q_like("dout")
+    k, v = (torch.zeros((1, 128, 2, hd), dtype=kv_dt) for _ in range(2))
+    lse = torch.zeros((1, 4, 128))
+    return q, k, v, out, dout, lse
+
+
+@pytest.mark.parametrize("q_dt,kv_dt,hd,misaligned,impl", [
+    (torch.bfloat16, torch.bfloat16, 64, None, "tc"),
+    (torch.bfloat16, torch.bfloat16, 128, None, "tc"),
+    (torch.bfloat16, torch.bfloat16, 36, None, "fp32"),  # hd % 16 != 0
+    (torch.float32, torch.float32, 64, None, "fp32"),
+    (torch.bfloat16, torch.float32, 64, None, "fp32"),
+    (torch.float32, torch.bfloat16, 64, None, "fp32"),
+    (torch.bfloat16, torch.bfloat16, 64, "dout", "fp32"),  # 2 bytes off
+    (torch.bfloat16, torch.bfloat16, 64, "out", "tc"),  # read by D only
+])
+def test_backward_variant_rule(q_dt, kv_dt, hd, misaligned, impl):
+    """The backward's variant follows the forward's rule (q, k, v bf16 and
+    16-byte aligned, hd a multiple of 16), with dout 16-byte aligned as
+    well; out's alignment does not matter (only the D pre-pass reads it,
+    element by element). The rule reads the inputs only, so it holds on
+    CPU tensors."""
+    q, k, v, out, dout, lse = _bwd_args(q_dt, kv_dt, hd, misaligned)
+    for name, t in (("out", out), ("dout", dout)):
+        assert t.is_contiguous()
+        assert (t.data_ptr() % 16 != 0) == (name == misaligned)
+    assert fa.select_bwd_impl(q, k, v, dout) == impl
+
+
+def test_backward_on_the_cpu_runs_the_plain_version():
+    """A CPU call runs flash_attention_bwd_plain, bit for bit, and touches
+    neither launch count, for inputs that would pick either variant on
+    the card."""
+    rng = np.random.default_rng(3)
+    for dt, hd in ((torch.bfloat16, 64), (torch.float32, 36)):
+        q, k, v, dout = (torch.from_numpy(rng.standard_normal(
+            (1, 256, 2, hd)).astype(np.float32)).to(dt) for _ in range(4))
+        out, lse = fa.flash_attention_plain(q, k, v, causal=True,
+                                            with_lse=True)
+        launches = fa.flash_attention_bwd.launches
+        by_impl = dict(fa.flash_attention_bwd.launches_by_impl)
+        got = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=True)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, dout, lse,
+                                            causal=True)
+        assert fa.flash_attention_bwd.launches == launches
+        assert fa.flash_attention_bwd.launches_by_impl == by_impl
+        for a, b in zip(got, want):
+            assert a.dtype == dt and torch.equal(a, b)
