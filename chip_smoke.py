@@ -85,6 +85,24 @@ Phases (each prints its seconds; any failure exits non-zero):
                 Then
                 teacher-forced logits of the fused form against the
                 dequant_tree (gather) form.
+  5b. mesh    — the data axis of the mesh. (a) NCCL at world size 1 on
+                the card (launch.mesh.make_host_mesh): accumulate_sharded
+                against accumulate and accumulate_diag on main's
+                4096-column activations (2 x 512 rows; bitwise reported),
+                and main's quantize under hessian_mesh= against main's
+                packed payload (sha256, equal), launches as main's. (b)
+                2 ranks over gloo on the one card (NCCL refuses two ranks
+                on one device): this script under torchrun as
+                ``chip_smoke.py mesh-worker <dir>``, each rank running
+                main's quantize with the Hessians captured over the data
+                axis: every tap's merged sum after every call within 1e-5
+                of max|H| of the single-device sum of the same
+                activations, the two ranks' payloads bitwise equal, bpv
+                exactly 2.25, each target's tr(E H E^T) within 1% of
+                main's, vq_group_sweep and vq_em 278 times a rank and
+                vq_assign never, and main's fused-vs-gather evaluation at
+                main's bars (14 tc_int8 launches a rank). Prints each
+                part's backend and world size.
   6. budget   — the budgeted path at the same full width: fresh weights
                 (seed 0), main's tokens, quantize_model at budget_bpv 2.5
                 (raised by 0.25 until the allocator picks two settings)
@@ -161,6 +179,34 @@ Phases (each prints its seconds; any failure exits non-zero):
                 of each other); last a supervised launch/train run on the
                 smoke config with a failure injected at step 3, which
                 resumes from its checkpoint to step 6.
+  9b. train_families — training the hybrid and audio families on one
+                device: Zamba2-7B at the hybrid phase's width and depth (12
+                Mamba layers in 2 groups, LoRA B drawn non-zero) on the long
+                phase's 4 x 4096 tokens, and whisper-small at full width and
+                depth (q/k/v biases drawn non-zero) on 4 x 448 decoder
+                tokens with 4 x 1,500 stub frames; 2 microbatches, remat
+                True (a checkpointed hybrid group; checkpointed audio
+                layers), train's AdamW (lr 3e-5). For each: the f32 copy's
+                gradients through the kernels against the plain flash pair
+                (<= 1e-4 a leaf, the hybrid's shared wq/wk/wv and LoRA A/B
+                among them; its Mamba scan's per-head A_log, dt_bias and
+                D_skip <= 3.3e-4, beside a control: the plain pair at
+                other chunk sizes), remat=True against remat=False in the
+                f32 copy (<= 1e-6; the hybrid at one 4096-token sequence),
+                one bf16 step's gradients: the kernels no further from
+                the f32 copy's gradients than the plain bf16 path (1.25x a
+                leaf, 2x on the scan leaves) and, an outer guard, against
+                the plain pair (audio <= 2e-2, the hybrid <= 7.8e-2), 4
+                bf16 steps (finite loss and grad norm, loss at step 4
+                below step 1; seconds a step, tokens/s, model FLOPs share
+                of the bf16 peak, max_memory_allocated), and flash
+                launches by variant held to the host plan (the hybrid:
+                forward with its lse twice and backward once a group and
+                microbatch, tc in bf16 and fp32 in the f32 copy; audio:
+                none, its attention stays under 2048 tokens). Its kernels-
+                phase rows: flash_attention with its lse and the tc
+                backward at the hybrid's microbatch (B 2, 4,096 tokens, 32
+                heads of 112).
  10. moe     — the MoE family at Qwen3-MoE-30B-A3B's full width, depth cut
                 to 2 layers (random weights from seed 0, bf16; 128 experts,
                 top-8, 32 query heads over 4 kv heads): calibration 16 x 256
@@ -288,6 +334,11 @@ Then it prints the kernel JSON line, the card line and, last,
 {"ok": true, "device": {...}}. Per-shape results go to
 chiprun_out/chip_smoke.json. The profiler pass over the quantize path is
 ``python -m repro_torch.launch.profile_quantize``.
+
+Run as ``chip_smoke.py mesh-worker <dir>`` under torchrun, it is one rank
+of the mesh phase's part (b) and writes ``<dir>/rank<r>.json``. Run as
+``chip_smoke.py grad-readings SEED ...``, it takes the hybrid train cell's
+gradient readings alone at those seeds (``grad_readings``).
 """
 from __future__ import annotations
 
@@ -1198,7 +1249,14 @@ FLASH_SHAPES = {
     # the train phase's microbatch: 2 x 4096 tokens of Llama-2-7B
     "llama B=2": dict(B=2, Sq=4096, Sk=4096, H=32, KV=32, hd=128,
                       causal=True, q_offset=0),
+    # the train_families phase's hybrid microbatch: Zamba2-7B's shared
+    # attention over 2 x 4096 tokens
+    "zamba B=2": dict(B=2, Sq=4096, Sk=4096, H=32, KV=32, hd=112,
+                      causal=True, q_offset=0),
 }
+# shapes whose forward also runs with its log-sum-exp output (the launch a
+# train step makes under autograd), bf16: check_flash_lse
+FLASH_LSE_SHAPES = ("zamba B=2",)
 
 # flash attention's backward: the train phase's microbatch (bf16 and f32),
 # GQA with Qwen2-72B's heads, a q_offset, non-causal at hd 64, f32 queries
@@ -1216,6 +1274,9 @@ FLASH_BWD_SHAPES = {
                        causal=False, q_offset=0),
     "zamba": dict(B=1, Sq=4096, Sk=4096, H=32, KV=32, hd=112, causal=True,
                   q_offset=0),
+    # the train_families phase's hybrid microbatch
+    "zamba train": dict(B=2, Sq=4096, Sk=4096, H=32, KV=32, hd=112,
+                        causal=True, q_offset=0),
 }
 FLASH_BWD_ROWS = (("train", "bfloat16", "bfloat16"),
                   ("train", "float32", "float32"),
@@ -1223,7 +1284,8 @@ FLASH_BWD_ROWS = (("train", "bfloat16", "bfloat16"),
                   ("q_offset", "bfloat16", "bfloat16"),
                   ("non-causal", "bfloat16", "bfloat16"),
                   ("q_offset", "float32", "bfloat16"),
-                  ("zamba", "bfloat16", "bfloat16"))
+                  ("zamba", "bfloat16", "bfloat16"),
+                  ("zamba train", "bfloat16", "bfloat16"))
 
 
 def flash_bwd_rule(q_name: str, kv_name: str, hd: int) -> str:
@@ -1567,35 +1629,100 @@ def check_flash(torch, dev, shape: str, dtype) -> dict:
         enable_gqa=KV != H), iters, warm)
     # the work these inputs need: every unmasked (row, column) pair costs
     # 2 * hd FLOPs of q.k and 2 * hd of p.v per head; each input read once,
-    # the output written once. With bf16 q, k, v, q.k is exact on bf16
-    # tensor cores with an f32 sum, and so is p.v with the f32 p split
-    # into three bf16 terms (p = p1 + p2 + p3 exactly): the ops take
-    # (flops/2 + 3 flops/2) at the bf16 tensor-core peak. f32 inputs run
-    # at the FP32 peak
+    # the output written once. bf16 q, k, v bound at the bf16 tensor-core
+    # peak, f32 at the FP32 peak. bf16 rows also give the time of what the
+    # tc design issues: p.v with the f32 p split into three bf16 terms
+    # (flops/2 + 3 flops/2) at the same peak
     if causal:
         pairs = sum(min(Sk, off + i + 1) for i in range(Sq))
     else:
         pairs = Sq * Sk
     flops = 4.0 * hd * pairs * B * H
     nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size()
-    t_bytes = nbytes / HBM_BYTES_PER_S
+    issued_ms = None
     if dtype == torch.bfloat16:
-        b_ms, b_by = bound_ms(nbytes, 2 * flops, BF16_TC_FLOP_PER_S)
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
+        issued_ms = bound_ms(nbytes, 2 * flops, BF16_TC_FLOP_PER_S)[0]
     else:
         b_ms, b_by = bound_ms(nbytes, flops)
     row = {"name": "flash_attention", "shape": shape, **sh,
            "dtype": str(dtype).replace("torch.", ""), "impl": impl,
            "max_abs_err": err, "rtol": rtol, "atol": atol, "ms": ms,
            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
-           "bound_by": b_by, "flops": flops, "off_plain": terms}
+           "bound_by": b_by, "bound_issued_ms": issued_ms, "flops": flops,
+           "off_plain": terms}
     log(f"[kernels] flash_attention {shape} {row['dtype']} ({impl}) B={B} "
         f"Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} causal={causal} "
         f"q_offset={off}: max abs err {err:.2e} (rtol {rtol:.1e}, atol "
         f"{atol:.0e}) | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), issued units "
+        f"{_fmt_ms(issued_ms)}")
     if not ok:
         raise Failed(f"flash_attention {shape} {dtype}: error {err} outside "
                      f"rtol {rtol}, atol {atol}")
+    return row
+
+
+def check_flash_lse(torch, dev, shape: str) -> dict:
+    """The forward kernel with its log-sum-exp output, as a train step
+    launches it under autograd, in bf16: out bitwise the launch without
+    the lse and within one bf16 ulp of flash_attention_plain's, the lse at
+    rtol 1e-5 plus 1e-5 * max|lse| of the plain forward's; timed beside
+    the plain forward with its lse and SDPA's forward."""
+    from repro_torch.kernels.flash_attention import (
+        _launch_forward, flash_attention_plain)
+
+    sh = FLASH_SHAPES[shape]
+    B, Sq, Sk, H, KV, hd = (sh[n] for n in ("B", "Sq", "Sk", "H", "KV", "hd"))
+    causal, off = sh["causal"], sh["q_offset"]
+    g = torch.Generator(device=dev).manual_seed(Sq + Sk + H + hd)
+    q, k, v = (torch.randn(shp, generator=g, device=dev).to(torch.bfloat16)
+               for shp in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd)))
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    out = _launch_forward(q, k, v, causal, off, lse)
+    out_bitwise = bool(torch.equal(out, _launch_forward(q, k, v, causal,
+                                                        off)))
+    ref, ref_lse = flash_attention_plain(q, k, v, causal=causal,
+                                         q_offset=off, with_lse=True)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    out_ok = bool(torch.allclose(out.float(), ref.float(), rtol=2.0**-7,
+                                 atol=1e-5))
+    lse_d = (lse - ref_lse).abs()
+    lse_err = float(lse_d.max())
+    lse_ok = bool((lse_d <= 1e-5 * ref_lse.abs()
+                   + 1e-5 * float(ref_lse.abs().max())).all())
+    del ref, ref_lse
+    ms = time_ms(torch, lambda: _launch_forward(q, k, v, causal, off, lse),
+                 5, 1)
+    plain_ms = time_ms(torch, lambda: flash_attention_plain(
+        q, k, v, causal=causal, q_offset=off, with_lse=True), 5, 1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                         enable_gqa=KV != H), 5, 1)
+    # bound as check_flash's bf16 rows, the lse written too
+    flops = 4.0 * hd * flash_pairs(sh) * B * H
+    nbytes = ((q.numel() + k.numel() + v.numel() + out.numel())
+              * q.element_size() + lse.numel() * lse.element_size())
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
+    issued_ms = bound_ms(nbytes, 2 * flops, BF16_TC_FLOP_PER_S)[0]
+    row = {"name": "flash_attention_lse", "shape": shape, **sh,
+           "dtype": "bfloat16", "impl": "tc", "max_abs_err": err,
+           "lse_max_abs_err": lse_err, "out_bitwise_with_lse": out_bitwise,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "bound_issued_ms": issued_ms,
+           "flops": flops}
+    log(f"[kernels] flash_attention with lse {shape} bfloat16 B={B} Sq={Sq} "
+        f"Sk={Sk} H={H} KV={KV} hd={hd}: max abs err {err:.2e}, lse max "
+        f"abs err {lse_err:.2e}, out bitwise without lse {out_bitwise} | "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by}), issued units "
+        f"{_fmt_ms(issued_ms)}")
+    if not (out_ok and lse_ok and out_bitwise):
+        raise Failed(f"flash_attention with lse {shape}: out ok {out_ok} "
+                     f"(err {err}), lse ok {lse_ok} (err {lse_err}), out "
+                     f"bitwise {out_bitwise}")
     return row
 
 
@@ -1672,6 +1799,8 @@ def phase_kernels(torch, dev) -> list[dict]:
     for shape in FLASH_SHAPES:
         for dt in (torch.bfloat16, torch.float32):
             rows.append(check_flash(torch, dev, shape, dt))
+    for shape in FLASH_LSE_SHAPES:
+        rows.append(check_flash_lse(torch, dev, shape))
     for shape, q_name, kv_name in FLASH_BWD_ROWS:
         rows.append(check_flash_bwd(torch, dev, shape, q_name, kv_name))
     log(f"[kernels] {len(rows)} checks passed in "
@@ -1746,16 +1875,40 @@ def phase_small(torch, dev) -> dict:
     return {"code_agreement": agree, "worst_error_ratio": worst}
 
 
+def main_recipe():
+    """The main phase's quantize: 2.25bpv_2d, 25 EM and 10 codebook-update
+    iterations."""
+    from repro_torch.core.bpv import PAPER_SETTINGS
+    from repro_torch.core.recipe import QuantRecipe
+
+    return QuantRecipe.uniform(
+        PAPER_SETTINGS["2.25bpv_2d"], name="2.25bpv_2d"
+    ).with_quantize_overrides(em_iters=25, codebook_update_iters=10)
+
+
+def main_inputs(torch, dev):
+    """The main phase's model (full-width Llama-2-7B, 2 layers, seed 0),
+    calibration 16 x 64 and heldout 8 x 64 tokens."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.calibration import calibration_tokens
+    from repro_torch.models import model_zoo
+
+    cfg = ARCHS["llama2-7b"].scaled(n_layers=2)
+    model = model_zoo.build(cfg)
+    params = model.init_params(seed=0, device=dev)
+    calib = calibration_tokens(cfg.vocab_size, n_sequences=16, seq_len=64,
+                               device=dev)
+    heldout = calibration_tokens(cfg.vocab_size, n_sequences=8, seq_len=64,
+                                 seed=777, device=dev)
+    return model, params, calib, heldout
+
+
 def phase_main(torch, dev) -> dict:
     from repro_torch.configs import ARCHS
     from repro_torch.core import vq_linear as vql_mod
-    from repro_torch.core.bpv import PAPER_SETTINGS
     from repro_torch.core.pipeline import quantize_model
-    from repro_torch.core.recipe import QuantRecipe
-    from repro_torch.data.calibration import calibration_tokens
     from repro_torch.kernels import vq_assign as vqa
     from repro_torch.kernels.vq_dequant_matmul import vq_dequant_matmul
-    from repro_torch.models import model_zoo
     from repro_torch.train.loss import perplexity
 
     cfg = ARCHS["llama2-7b"].scaled(n_layers=2)
@@ -1765,17 +1918,10 @@ def phase_main(torch, dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t = {}
     t0 = time.perf_counter()
-    model = model_zoo.build(cfg)
-    params = model.init_params(seed=0, device=dev)
-    calib = calibration_tokens(cfg.vocab_size, n_sequences=16, seq_len=64,
-                               device=dev)
-    heldout = calibration_tokens(cfg.vocab_size, n_sequences=8, seq_len=64,
-                                 seed=777, device=dev)
+    model, params, calib, heldout = main_inputs(torch, dev)
     torch.cuda.synchronize()
     t["init"] = time.perf_counter() - t0
-    recipe = QuantRecipe.uniform(
-        PAPER_SETTINGS["2.25bpv_2d"], name="2.25bpv_2d"
-    ).with_quantize_overrides(em_iters=25, codebook_update_iters=10)
+    recipe = main_recipe()
 
     n_groups = predict_groups(cfg)
     log(f"[main] predicted quantize launches: vq_group_sweep {n_groups}, "
@@ -2701,7 +2847,12 @@ class plain_flash_hook:
     """Within the context ``models/attention.flash_attention`` runs the
     plain forward (with its log-sum-exp) and the plain backward on the
     card, through an autograd Function of their own: the train phase's
-    reference for the gradients through the kernels."""
+    reference for the gradients through the kernels. ``chunks`` (query,
+    kv) replaces the plain version's chunk sizes within the context: the
+    same function with its f32 sums in another order."""
+
+    def __init__(self, chunks=None):
+        self.chunks = chunks
 
     def __enter__(self):
         import torch
@@ -2726,6 +2877,9 @@ class plain_flash_hook:
                     q_offset=ctx.q_offset), None, None)
 
         self.attention, self.real = attention, attention.flash_attention
+        self.fa, self.real_chunks = fa, (fa.Q_CHUNK, fa.KV_CHUNK)
+        if self.chunks is not None:
+            fa.Q_CHUNK, fa.KV_CHUNK = self.chunks
         attention.flash_attention = (
             lambda q, k, v, *, causal, q_offset=0: PlainFlashFn.apply(
                 q.contiguous(), k.contiguous(), v.contiguous(), causal,
@@ -2734,6 +2888,7 @@ class plain_flash_hook:
 
     def __exit__(self, *exc):
         self.attention.flash_attention = self.real
+        self.fa.Q_CHUNK, self.fa.KV_CHUNK = self.real_chunks
 
 
 def train_counts() -> dict:
@@ -4039,11 +4194,11 @@ HYBRID_BF16_BARS = (FUSED_MAX_TOL, FUSED_RMS_TOL)
 HYBRID_BF16_SERVE_BARS = (0.3, 0.06)
 
 
-def seed_lora_b(torch, params) -> None:
+def seed_lora_b(torch, params, seed: int = HYBRID_LORA_SEED) -> None:
     """Every LoRA B factor (n_groups, r, dim) drawn from
-    N(0, HYBRID_LORA_STD^2) with numpy's HYBRID_LORA_SEED, in place of
-    the reference's zeros."""
-    rng = np.random.default_rng(HYBRID_LORA_SEED)
+    N(0, HYBRID_LORA_STD^2) with numpy's ``seed``, in place of the
+    reference's zeros."""
+    rng = np.random.default_rng(seed)
     for name in ("q", "k", "v"):
         B = params["lora"][name]["B"]
         draw = rng.standard_normal(tuple(B.shape)).astype(np.float32)
@@ -4720,6 +4875,742 @@ def phase_audio(torch, dev) -> dict:
             "phase_seconds": time.perf_counter() - t_phase}
 
 
+# the train_families phase: the hybrid at the hybrid phase's width and
+# depth on the long phase's 4 x 4096 tokens, whisper-small at full width
+# and depth on 4 x 448 decoder tokens (its published text context) with 4
+# x 1,500 stub frames; 2 microbatches, remat True, train's optimizer
+TRAIN_FAMILY_AUDIO_TOKENS = (4, 448)
+# remat=True against remat=False in the f32 copy: the backward re-runs the
+# same ops on the same inputs (bitwise expected). The hybrid's comparison
+# runs at one 4096-token sequence: its un-checkpointed f32 forward keeps
+# every Mamba layer's chunked scan (about 2.5 GB a layer and sequence)
+TRAIN_REMAT_RTOL = 1e-6
+# the Mamba2 scan's per-head leaves: their gradients sum over every
+# position of every sequence with cancellation, so the f32 kernels'
+# reordered sums move them far more, relatively, than any matrix: held at
+# 1.77x the largest of nine readings (this phase's inputs and
+# ``grad_readings`` at seeds 0-7: 1.65-1.87e-4 on A_log leaves; NVIDIA
+# H100 80GB HBM3, 700.00 W; PERF.md, section 2), every other leaf at the
+# train phase's 1e-4. The f32 check also reports a control: the plain
+# pair itself at other chunk sizes, a reordered f32 sum (1.48-1.89e-4 on
+# the same leaves)
+TRAIN_SCAN_LEAVES = ("A_log", "dt_bias", "D_skip")
+TRAIN_SCAN_GRAD_RTOL = 3.3e-4
+TRAIN_CONTROL_CHUNKS = (256, 256)
+# bf16: the hybrid's 12 Mamba layers carry a bf16 rounding on through
+# their f32 state, so the plain bf16 path itself lies 1-6e-2 from the f32
+# copy's gradients. The kernels are held to add no error of their own
+# beyond bf16's: their distance to the f32 copy's gradients (the plain
+# pair) within TRAIN_BF16_VS_F32_RATIO times the plain bf16 path's, a
+# leaf (nine readings, as above: at most 1.109x); on the scan leaves,
+# where both distances are a cancelling sum's rounding noise, within
+# TRAIN_BF16_VS_F32_RATIO_SCAN (1.11-1.61x). Behind that, an outer guard,
+# kernels vs the plain pair a leaf: the train phase's 2e-2 for audio, for
+# the hybrid 1.76x the largest reading (4.42e-2 on a dt_bias; 2.62e-2 the
+# largest off the scan leaves, on the LoRA q.A)
+TRAIN_FAMILY_GRAD_RTOL_BF16 = {"hybrid": 7.8e-2, "audio": 2e-2}
+TRAIN_BF16_VS_F32_RATIO = 1.25
+TRAIN_BF16_VS_F32_RATIO_SCAN = 2.0
+# the audio family's q/k/v biases start at zeros (the reference's init),
+# where a bias on the wrong side goes unseen: drawn like the hybrid's
+# LoRA B factors instead
+AUDIO_BIAS_SEED, AUDIO_BIAS_STD = 0, 0.02
+
+
+def seed_qkv_biases(torch, params) -> None:
+    """Every q/k/v bias of the encoder's attention and the decoder's self-
+    and cross-attention drawn from N(0, AUDIO_BIAS_STD^2) with numpy's
+    AUDIO_BIAS_SEED."""
+    rng = np.random.default_rng(AUDIO_BIAS_SEED)
+    attns = ([lp["attn"] for lp in params["enc_layers"]]
+             + [lp[k] for lp in params["dec_layers"]
+                for k in ("self_attn", "cross_attn")])
+    for attn in attns:
+        for b in ("bq", "bk", "bv"):
+            t = attn[b]
+            draw = rng.standard_normal(tuple(t.shape)).astype(np.float32)
+            attn[b] = torch.from_numpy(draw * AUDIO_BIAS_STD).to(t.device,
+                                                                 t.dtype)
+
+
+def family_train_flops(cfg, params, B: int, S: int) -> float:
+    """Model FLOPs of one step (no recompute counted): 6 a matmul
+    parameter a token that passes it, plus attention's products, 4 * hd a
+    visible (row, column) pair a head forward, three times that with the
+    backward. Hybrid: each Mamba layer's in_proj and out_proj over every
+    token, the shared q/k/v/o once a group, the head; the SSD scan's own
+    products and the conv are not counted. Audio: the encoder's matrices
+    over the frames, the decoder's over the tokens, the cross K/V
+    projections over the frames, the tied head over the tokens; attention
+    full in the encoder, causal in the decoder, tokens x frames across."""
+    def mats(tree) -> int:
+        return sum(t.numel() for t in tree.values() if t.dim() == 2)
+
+    if cfg.family == "hybrid":
+        n_groups = len(params["mamba"])
+        mm = sum(lp["mixer"]["in_proj"].numel()
+                 + lp["mixer"]["out_proj"].numel()
+                 for group in params["mamba"] for lp in group)
+        mm += n_groups * mats(params["shared"]["attn"])
+        mm += params["lm_head"].numel()
+        attn = (3 * 4.0 * cfg.hd * cfg.n_heads * n_groups * B
+                * S * (S + 1) // 2)
+        return 6.0 * mm * B * S + attn
+    F = cfg.encoder_seq
+    enc = sum(mats(lp["attn"]) + mats(lp["ffn"])
+              for lp in params["enc_layers"])
+    dec = sum(mats(lp["self_attn"]) + mats(lp["ffn"])
+              + lp["cross_attn"]["wq"].numel()
+              + lp["cross_attn"]["wo"].numel()
+              for lp in params["dec_layers"])
+    cross_kv = sum(lp["cross_attn"]["wk"].numel()
+                   + lp["cross_attn"]["wv"].numel()
+                   for lp in params["dec_layers"])
+    mm = (enc + cross_kv) * B * F + (dec + params["embed"].numel()) * B * S
+    pairs = (cfg.n_encoder_layers * F * F
+             + cfg.n_layers * (S * (S + 1) // 2 + S * F))
+    return 6.0 * mm + 3 * 4.0 * cfg.hd * cfg.n_heads * B * pairs
+
+
+def rel_frobenius(torch, ga, gb, names) -> tuple[dict, tuple]:
+    """Per-leaf relative Frobenius error of ``ga`` against ``gb`` and the
+    worst (error, leaf)."""
+    from repro_torch.train import optimizer as opt
+
+    rel = {n: float((a.float() - b.float()).norm()
+                    / b.float().norm().clamp(min=1e-30))
+           for n, a, b in zip(names, opt.tree_leaves(ga),
+                              opt.tree_leaves(gb))}
+    return rel, max((r, n) for n, r in rel.items())
+
+
+def f32_grad_readings(torch, model32, params32, batch32: dict,
+                      names) -> tuple:
+    """The f32 copy's gradients through the kernels against the plain
+    flash pair swapped in, a leaf, split into the scan's per-head leaves
+    and the rest; beside them the control, the plain pair at
+    TRAIN_CONTROL_CHUNKS against its own. Returns the kernels' and the
+    plain pair's gradients and the readings."""
+    from repro_torch.train.train_step import loss_and_grads
+
+    mb = TRAIN_MICROBATCHES
+    zero_counts()
+    g_k, m_k = loss_and_grads(model32, params32, batch32, microbatches=mb,
+                              remat=True)
+    torch.cuda.synchronize()
+    counts = train_counts()
+    with plain_flash_hook():
+        g_p, m_p = loss_and_grads(model32, params32, batch32,
+                                  microbatches=mb, remat=True)
+    torch.cuda.synchronize()
+    rel, worst = rel_frobenius(torch, g_k, g_p, names)
+    with plain_flash_hook(chunks=TRAIN_CONTROL_CHUNKS):
+        g_c, _ = loss_and_grads(model32, params32, batch32,
+                                microbatches=mb, remat=True)
+    rel_c, worst_c = rel_frobenius(torch, g_c, g_p, names)
+    del g_c
+    scan = {n for n in names if n.rsplit(".", 1)[-1] in TRAIN_SCAN_LEAVES}
+    worst_m = max((r, n) for n, r in rel.items() if n not in scan)
+    worst_s = max(((r, n) for n, r in rel.items() if n in scan),
+                  default=(0.0, None))
+    return g_k, g_p, {
+        "loss_kernels": float(m_k["loss"]), "loss_plain": float(m_p["loss"]),
+        "rel": rel, "worst": worst, "worst_m": worst_m, "worst_s": worst_s,
+        "rel_c": rel_c, "worst_c": worst_c, "counts": counts}
+
+
+def bf16_grad_readings(torch, model, params, batch16: dict, names,
+                       g_f32) -> dict:
+    """One bf16 step's gradients through the kernels against the plain
+    flash pair, a leaf; and each path's distance to the f32 copy's
+    gradients ``g_f32``, with the worst ratio of the kernels' distance
+    over the plain path's, the scan's per-head leaves apart."""
+    from repro_torch.train.train_step import loss_and_grads
+
+    mb = TRAIN_MICROBATCHES
+    g_k, _ = loss_and_grads(model, params, batch16, microbatches=mb,
+                            remat=True)
+    with plain_flash_hook():
+        g_p, _ = loss_and_grads(model, params, batch16, microbatches=mb,
+                                remat=True)
+    torch.cuda.synchronize()
+    rel16, worst16 = rel_frobenius(torch, g_k, g_p, names)
+    k_f32, _ = rel_frobenius(torch, g_k, g_f32, names)
+    p_f32, _ = rel_frobenius(torch, g_p, g_f32, names)
+    del g_k, g_p
+    scan = {n for n in names if n.rsplit(".", 1)[-1] in TRAIN_SCAN_LEAVES}
+    ratios = {n: (k_f32[n] / p_f32[n] if p_f32[n] > 0 else
+                  float(k_f32[n] > 0)) for n in names}
+    ratio = max((r, n) for n, r in ratios.items() if n not in scan)
+    ratio_scan = max(((r, n) for n, r in ratios.items() if n in scan),
+                     default=(0.0, None))
+    worst16_m = max((r, n) for n, r in rel16.items() if n not in scan)
+    return {"rel16": rel16, "worst16": worst16, "worst16_m": worst16_m,
+            "k_f32": k_f32, "p_f32": p_f32, "ratio": ratio,
+            "ratio_scan": ratio_scan}
+
+
+def train_family(torch, dev, fam: str, cfg, batch16: dict,
+                 batch32: dict, remat_rows: int, seed_fn) -> dict:
+    """One family's training checks (see phase_train_families)."""
+    from repro_torch.models import model_zoo
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import (
+        TrainState, loss_and_grads, make_train_step)
+
+    mb = TRAIN_MICROBATCHES
+    B, S = batch16["tokens"].shape
+    # shared-attention invocations a forward (none for audio)
+    n_attn = (cfg.n_layers // cfg.shared_attn_every
+              if cfg.family == "hybrid" else 0)
+    t, res = {}, {}
+    model = model_zoo.build(cfg)
+    params = model.init_params(seed=0, device=dev)
+    seed_fn(torch, params)
+    names = _leaf_names(params)
+
+    # 1. the f32 copy: kernels vs the plain flash pair, remat vs none
+    t0 = time.perf_counter()
+    model32 = model_zoo.build(cfg.scaled(dtype="float32"))
+    params32 = to_f32(params)
+    g_k, g_f32, f32 = f32_grad_readings(torch, model32, params32, batch32,
+                                        names)
+    rel, worst, rel_c, worst_c, worst_m, worst_s, counts32 = (
+        f32[k] for k in ("rel", "worst", "rel_c", "worst_c", "worst_m",
+                         "worst_s", "counts"))
+    t["grad_check"] = time.perf_counter() - t0
+    log(f"[train_families] {fam} f32 copy: loss kernels "
+        f"{f32['loss_kernels']:.6f}, plain {f32['loss_plain']:.6f}; "
+        f"relative Frobenius error a leaf, worst {worst_m[0]:.2e} "
+        f"({worst_m[1]}), scan leaves {worst_s[0]:.2e} ({worst_s[1]}); "
+        f"the plain pair at chunks {TRAIN_CONTROL_CHUNKS} vs its own: worst "
+        f"{worst_c[0]:.2e} ({worst_c[1]})"
+        + (f", on {worst_s[1]} {rel_c[worst_s[1]]:.2e}" if worst_s[1]
+           else "") + f"; launches {counts32}")
+    t0 = time.perf_counter()
+    part = {k: x[:remat_rows] for k, x in batch32.items()}
+    n_mb = min(mb, remat_rows)
+    if remat_rows < B:
+        g_k, _ = loss_and_grads(model32, params32, part, microbatches=n_mb,
+                                remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    g_n, _ = loss_and_grads(model32, params32, part, microbatches=n_mb,
+                            remat=False)
+    torch.cuda.synchronize()
+    counts_n = train_counts()
+    peak_n = torch.cuda.max_memory_allocated()
+    rel_r, worst_r = rel_frobenius(torch, g_k, g_n, names)
+    bitwise_r = all(bool(torch.equal(a, b)) for a, b in zip(
+        opt.tree_leaves(g_k), opt.tree_leaves(g_n)))
+    t["remat_check"] = time.perf_counter() - t0
+    log(f"[train_families] {fam} f32 copy, remat=True vs remat=False on "
+        f"{remat_rows} x {S} tokens: worst {worst_r[0]:.2e} ({worst_r[1]}), "
+        f"bitwise {bitwise_r}; remat=False launches {counts_n}, "
+        f"max_memory_allocated {peak_n / 2**30:.2f} GiB")
+    del g_k, g_n, params32, model32, part
+    torch.cuda.empty_cache()
+
+    # 2. one bf16 step's gradients: kernels vs the plain flash pair
+    t0 = time.perf_counter()
+    b16 = bf16_grad_readings(torch, model, params, batch16, names, g_f32)
+    rel16, worst16, k_f32, p_f32, ratio, ratio_s = (
+        b16[k] for k in ("rel16", "worst16", "k_f32", "p_f32", "ratio",
+                         "ratio_scan"))
+    del g_f32
+    torch.cuda.empty_cache()
+    t["grad_check_bf16"] = time.perf_counter() - t0
+    bar16 = TRAIN_FAMILY_GRAD_RTOL_BF16[fam]
+    log(f"[train_families] {fam} bf16 gradients against the f32 copy's, "
+        f"the kernels over the plain bf16 path: worst {ratio[0]:.3f}x "
+        f"({ratio[1]}: {k_f32[ratio[1]]:.2e} vs {p_f32[ratio[1]]:.2e}; bar "
+        f"{TRAIN_BF16_VS_F32_RATIO}x), scan leaves {ratio_s[0]:.3f}x "
+        f"({ratio_s[1]}; bar {TRAIN_BF16_VS_F32_RATIO_SCAN}x); kernels vs "
+        f"the plain flash pair: worst {worst16[0]:.2e} ({worst16[1]}; outer "
+        f"bar {bar16})")
+
+    # 3. four bf16 steps on the one batch
+    ocfg = opt.OptConfig(**TRAIN_OPT)
+    state = TrainState(params, opt.init(params, ocfg))
+    del params
+    step = make_train_step(model, ocfg, microbatches=mb, remat=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, gnorms, secs = [], [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch16)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+    counts = train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    flops = family_train_flops(cfg, state.params, B, S)
+    steady = _median(secs[1:])
+    tokens = B * S
+    log(f"[train_families] {fam} bf16 steps: loss {losses}, grad norm "
+        f"{gnorms}, seconds {[round(x, 4) for x in secs]}; launches "
+        f"{counts}")
+    log(f"[train_families] {fam} {steady:.4f} s a step (median of steps "
+        f"2-{TRAIN_STEPS}), {tokens / steady:.1f} tokens/s, model FLOPs "
+        f"{flops / 1e12:.2f} T a step = "
+        f"{flops / steady / BF16_TC_FLOP_PER_S:.4f} of the bf16 peak; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    del state, step
+    torch.cuda.empty_cache()
+
+    # the host plan: S past 2048 sends each shared-attention invocation
+    # through the flash pair (forward with its lse twice under remat, once
+    # without; one backward), a group and microbatch
+    flash = S > 2048
+    n_fwd, n_bwd = n_attn * mb * 2, n_attn * mb
+
+    def plan(impl, fwd, bwd):
+        if not flash:
+            return {"flash_attention": 0, "flash_attention_bwd": 0,
+                    "flash_attention_by_impl": {},
+                    "flash_attention_bwd_by_impl": {}}
+        return {"flash_attention": fwd, "flash_attention_bwd": bwd,
+                "flash_attention_by_impl": {impl: fwd},
+                "flash_attention_bwd_by_impl": {impl: bwd}}
+
+    n_mb_r = min(mb, remat_rows)
+    want = plan("tc", TRAIN_STEPS * n_fwd, TRAIN_STEPS * n_bwd)
+    want32 = plan("fp32", n_fwd, n_bwd)
+    want_n = plan("fp32", n_attn * n_mb_r, n_attn * n_mb_r)
+    checked = [n for n in names if n.rsplit(".", 1)[-1] in ("wq", "wk", "wv")
+               or ".lora." in n]
+    checks = {
+        "f32 gradients within 1e-4 of the plain flash pair":
+            worst_m[0] <= TRAIN_GRAD_RTOL,
+        "f32 scan leaves within 3.3e-4": worst_s[0] <= TRAIN_SCAN_GRAD_RTOL,
+        "remat=True equals remat=False": worst_r[0] <= TRAIN_REMAT_RTOL,
+        "bf16 kernels no further from the f32 gradients than the plain "
+        f"pair ({TRAIN_BF16_VS_F32_RATIO}x)":
+            ratio[0] <= TRAIN_BF16_VS_F32_RATIO,
+        "the same on the scan leaves "
+        f"({TRAIN_BF16_VS_F32_RATIO_SCAN}x)":
+            ratio_s[0] <= TRAIN_BF16_VS_F32_RATIO_SCAN,
+        f"bf16 gradients within {bar16} of the plain flash pair":
+            worst16[0] <= bar16,
+        "loss finite": all(math.isfinite(x) for x in losses),
+        "grad norm finite": all(math.isfinite(x) for x in gnorms),
+        "loss falls": losses[-1] < losses[0],
+        "f32 launches as planned": counts32 == want32,
+        "remat=False launches as planned": counts_n == want_n,
+        "launches as planned": counts == want,
+    }
+    if fam == "hybrid":
+        checks["shared wq/wk/wv and LoRA A/B checked"] = (
+            {n for n in checked if n.startswith(".shared.")}
+            == {".shared.attn.wq", ".shared.attn.wk", ".shared.attn.wv"}
+            and len([n for n in checked if ".lora." in n]) == 6)
+    res.update({
+        "checks": checks, "grad_rel_frobenius": rel, "grad_worst": worst,
+        "grad_worst_matrices": worst_m, "grad_worst_scan": worst_s,
+        "grad_rel_frobenius_control": rel_c, "grad_worst_control": worst_c,
+        "grad_rel_frobenius_bf16": rel16,
+        "grad_bf16_vs_f32": {"kernels": k_f32, "plain": p_f32,
+                             "worst_ratio": ratio,
+                             "worst_ratio_scan": ratio_s},
+        "grad_checked": {n: rel[n] for n in checked},
+        "remat_rel_frobenius_worst": worst_r, "remat_bitwise": bitwise_r,
+        "remat_rows": remat_rows, "remat_false_peak": peak_n,
+        "grad_worst_bf16": worst16, "losses": losses, "grad_norms": gnorms,
+        "step_seconds": secs, "seconds_per_step": steady,
+        "tokens_per_s": tokens / steady, "model_flops_per_step": flops,
+        "mfu_bf16": flops / steady / BF16_TC_FLOP_PER_S,
+        "max_memory_allocated": peak, "launches": counts,
+        "launches_f32": counts32, "launches_remat_false": counts_n,
+        "predicted": {"remat": want, "f32": want32, "remat_false": want_n},
+        "seconds": t})
+    log(f"[train_families] {fam} checked leaves {len(checked)}: worst "
+        f"{max((rel[n], n) for n in checked) if checked else None}; "
+        f"predicted launches {want} (f32 {want32}, remat=False {want_n})")
+    return res
+
+
+def phase_train_families(torch, dev, long_calib) -> dict:
+    """Train the hybrid and audio families on one device: Zamba2-7B at
+    the hybrid phase's width and depth (12 Mamba layers in 2 groups, LoRA
+    B drawn non-zero) on the long phase's 4 x 4096 tokens, and
+    whisper-small at full width and depth (q/k/v biases drawn non-zero)
+    on 4 x 448 tokens with 4 x 1,500 stub frames; 2 microbatches, remat
+    True, AdamW at train's lr 3e-5. Each family: the f32 copy's gradients
+    through the kernels against the plain flash pair (<= 1e-4 a leaf; the
+    scan's per-head leaves <= 3.3e-4); remat=True against remat=False (<=
+    1e-6); one bf16 step's gradients against the f32 copy's (the kernels
+    within 1.25x of the plain bf16 path's distance, 2x on the scan leaves)
+    and, an outer guard, against the plain pair (audio 2e-2, hybrid
+    7.8e-2); 4 bf16 steps (finite, falling loss;
+    step seconds, tokens/s, model FLOPs share, peak memory); flash
+    launches by variant held to the host plan."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import adapters
+
+    t_phase = time.perf_counter()
+    res = {}
+    cfg_h = ARCHS[HYBRID_ARCH].scaled(n_layers=HYBRID_LAYERS)
+    log(f"[train_families] hybrid {cfg_h.name}: d_model {cfg_h.d_model}, "
+        f"shared attention {cfg_h.n_heads} x {cfg_h.hd}, {cfg_h.n_layers} "
+        f"Mamba layers in {cfg_h.n_layers // cfg_h.shared_attn_every} "
+        f"groups; batch "
+        f"{tuple(long_calib.shape)} in {TRAIN_MICROBATCHES} microbatches; "
+        f"{TRAIN_OPT}")
+    batch = {"tokens": long_calib}
+    res["hybrid"] = train_family(torch, dev, "hybrid", cfg_h, batch, batch,
+                                 1, seed_lora_b)
+    torch.cuda.empty_cache()
+
+    cfg_a = ARCHS[AUDIO_ARCH]
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg_a.vocab_size, TRAIN_FAMILY_AUDIO_TOKENS)).to(dev)
+    frames = adapters.calib_extras(cfg_a, toks)["frames"]
+    log(f"[train_families] audio {cfg_a.name}: {cfg_a.n_encoder_layers} + "
+        f"{cfg_a.n_layers} layers, d_model {cfg_a.d_model}; batch "
+        f"{tuple(toks.shape)} tokens with {tuple(frames.shape)} frames in "
+        f"{TRAIN_MICROBATCHES} microbatches; {TRAIN_OPT}")
+    res["audio"] = train_family(
+        torch, dev, "audio", cfg_a,
+        {"tokens": toks, "frames": frames.to(torch.bfloat16)},
+        {"tokens": toks, "frames": frames.float()},
+        TRAIN_FAMILY_AUDIO_TOKENS[0], seed_qkv_biases)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[train_families] phase {res['seconds']:.1f}s")
+    bad = [f"{fam}: {k}" for fam in ("hybrid", "audio")
+           for k, ok in res[fam]["checks"].items() if not ok]
+    if bad:
+        raise Failed(f"train_families checks failed: {bad}")
+    return res
+
+
+def grad_readings(seeds: list) -> int:
+    """``chip_smoke.py grad-readings SEED ...``: the hybrid train cell's
+    gradient readings alone (``f32_grad_readings``, then
+    ``bf16_grad_readings``) at other seeds than the train_families
+    phase's 0: the init params, the LoRA B draw and the 4 x 4096 tokens
+    each from the seed. The bars TRAIN_SCAN_GRAD_RTOL,
+    TRAIN_BF16_VS_F32_RATIO and the hybrid's outer bf16 bar are set from
+    these readings and the phase's. One line a seed; all in
+    chiprun_out/grad_readings.json."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.calibration import calibration_tokens
+    from repro_torch.models import model_zoo
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    phase_build()
+    dev = torch.device("cuda")
+    cfg = ARCHS[HYBRID_ARCH].scaled(n_layers=HYBRID_LAYERS)
+    model, model32 = (model_zoo.build(cfg),
+                      model_zoo.build(cfg.scaled(dtype="float32")))
+    out = []
+    for seed in seeds:
+        t0 = time.perf_counter()
+        params = model.init_params(seed=seed, device=dev)
+        seed_lora_b(torch, params, seed)
+        names = _leaf_names(params)
+        batch = {"tokens": calibration_tokens(
+            cfg.vocab_size, n_sequences=LONG_CALIB, seq_len=LONG_SEQ,
+            seed=seed, device=dev)}
+        g_k, g_f32, f32 = f32_grad_readings(torch, model32, to_f32(params),
+                                            batch, names)
+        del g_k
+        b16 = bf16_grad_readings(torch, model, params, batch, names, g_f32)
+        del g_f32, params
+        torch.cuda.empty_cache()
+        ratio, ratio_s = b16["ratio"], b16["ratio_scan"]
+        row = {"seed": seed, "f32_worst_matrices": f32["worst_m"],
+               "f32_worst_scan": f32["worst_s"],
+               "f32_control_worst": f32["worst_c"],
+               "bf16_worst": b16["worst16"],
+               "bf16_worst_matrices": b16["worst16_m"],
+               "bf16_vs_f32_ratio": ratio,
+               "bf16_vs_f32_ratio_scan": ratio_s,
+               "bf16_ratio_leaves": {n: (b16["k_f32"][n], b16["p_f32"][n])
+                                     for n in (ratio[1], ratio_s[1])},
+               "seconds": time.perf_counter() - t0}
+        print(json.dumps(row), flush=True)
+        row.update({"f32_rel": f32["rel"], "f32_rel_control": f32["rel_c"],
+                    "bf16_rel": b16["rel16"], "bf16_kernels_vs_f32":
+                    b16["k_f32"], "bf16_plain_vs_f32": b16["p_f32"]})
+        out.append(row)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "grad_readings.json"),
+              "w") as f:
+        json.dump(out, f, indent=1)
+    return 0
+
+
+# the mesh phase: 2 ranks on the one card (gloo: NCCL refuses two ranks
+# on one device), each a process of this script under torchrun
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 300
+# the merged Hessians against the same activations' single-device sum:
+# within this share of max|H| (f32 sums of 512 and 1,024 rows in another
+# order)
+MESH_H_RTOL = 1e-5
+# per-target tr(E H E^T) against the single-device run: the merged H's
+# last bits flip near-tie assignments, which feed the error forward
+MESH_ERR_RTOL = 0.01
+
+
+def payload_digest(tree) -> str:
+    """sha256 of every tensor of a packed tree, the fields of its VQLinear
+    leaves included, in order."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.core.vq_linear import VQLinear
+
+    h = hashlib.sha256()
+    for leaf in tree_leaves(tree):
+        parts = ([getattr(leaf, f.name) for f in dataclasses.fields(leaf)]
+                 if isinstance(leaf, VQLinear) else [leaf])
+        for t in parts:
+            if torch.is_tensor(t):
+                h.update(t.detach().contiguous().view(torch.uint8).cpu()
+                         .numpy().tobytes())
+    return h.hexdigest()
+
+
+def eval_fused_vs_gather(torch, model, qparams, heldout) -> dict:
+    """Main's evaluation of a packed model: the fused form's logits (every
+    packed leaf through vq_dequant_matmul) against the gather form's, at
+    main's bars, and the launches by variant."""
+    from repro_torch.core import vq_linear as vql_mod
+    from repro_torch.kernels.vq_dequant_matmul import vq_dequant_matmul
+
+    vq_dequant_matmul.launches_by_impl = {}
+    with torch.no_grad():
+        lf = model.forward(vql_mod.prepare_fused_tree(qparams),
+                           {"tokens": heldout})[0]
+        impls = dict(vq_dequant_matmul.launches_by_impl)
+        lg = model.forward(qparams, {"tokens": heldout})[0]
+    d = (lf - lg).float()
+    max_d, rms_d = float(d.abs().max()), float(d.pow(2).mean().sqrt())
+    return {"max": max_d, "rms": rms_d, "impls": impls,
+            "finite": bool(torch.isfinite(lf).all()),
+            "ok": max_d <= FUSED_MAX_TOL and rms_d <= FUSED_RMS_TOL}
+
+
+def mesh_worker(out_dir: str) -> int:
+    """One rank of the mesh phase's part (b), under ``torchrun
+    --nproc-per-node 2``: main's quantize with the Hessians captured over
+    the 2-rank data axis (gloo, both ranks on the one card), each tap's
+    merged sum held after every call against the single-device sum of the
+    same activations, the launches counted, the packed payload hashed and
+    main's fused evaluation run; written to ``out_dir/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import hessian as hes
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.kernels import vq_assign as vqa
+    from repro_torch.launch.quantize import hessian_mesh
+
+    t0 = time.perf_counter()
+    mesh, dev = hessian_mesh(MESH_RANKS, torch.device("cuda"))
+    rank = dist.get_rank()
+    model, params, calib, heldout = main_inputs(torch, dev)
+    real, shadows, worst = hes.accumulate_sharded, {}, [0.0]
+
+    def witnessed(state, x, mesh, axis="data"):
+        # a tap's first call starts from an empty state
+        key = state.H.data_ptr()
+        sh = (hes.init_hessian(state.H.shape[0], device=x.device)
+              if state.n == 0 else shadows[key])
+        shadows[key] = hes.accumulate(sh, x)
+        new = real(state, x, mesh, axis)
+        want = shadows[key].H
+        worst[0] = max(worst[0], float((new.H - want).abs().max()
+                                       / want.abs().max()))
+        return new
+
+    hes.accumulate_sharded = witnessed
+    zero_counts()
+    t1 = time.perf_counter()
+    try:
+        qparams, rep = quantize_model(model, params, calib,
+                                      recipe=main_recipe(),
+                                      hessian_mesh=mesh, pack=True)
+    finally:
+        hes.accumulate_sharded = real
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t1
+    launches = {fn: getattr(vqa, fn).launches for fn in VQ_ENTRY_POINTS}
+    shadows.clear()
+    ev = eval_fused_vs_gather(torch, model, qparams, heldout)
+    res = {"rank": rank, "world": dist.get_world_size(),
+           "backend": dist.get_backend(), "device": str(dev),
+           "hessian_worst_rel": worst[0], "launches": launches,
+           "achieved_bpv": rep.achieved_bpv,
+           "errors": {k: e["error"] for k, e in rep.per_target.items()},
+           "payload_sha256": payload_digest(qparams), "eval": ev,
+           "quantize_s": t_quant, "seconds": time.perf_counter() - t0}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_mesh_ranks(out_dir: str) -> float:
+    """``chip_smoke.py mesh-worker`` on MESH_RANKS ranks under torchrun
+    (its own session: on a timeout every rank is killed with it)."""
+    import signal
+
+    os.makedirs(out_dir, exist_ok=True)
+    for f in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, f))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc-per-node={MESH_RANKS}", os.path.abspath(__file__),
+         "mesh-worker", out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=MESH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise Failed(f"mesh ranks did not end within {MESH_TIMEOUT_S} s")
+    for line in out.splitlines():
+        if line.startswith(("hessian mesh:", "[build]")) or "Error" in line:
+            log(f"[mesh]   {line}")
+    if proc.returncode != 0:
+        log(out[-6000:])
+        raise Failed(f"mesh ranks exited {proc.returncode}")
+    return time.perf_counter() - t0
+
+
+def phase_mesh(torch, dev, main_res, main_qparams) -> dict:
+    """The data axis of the mesh: (a) NCCL at world size 1 on the card
+    (accumulate_sharded against accumulate and accumulate_diag on main's
+    4096-column activations; main's quantize under
+    ``hessian_mesh=make_host_mesh()`` against main's packed payload); (b)
+    2 ranks over gloo on the one card (mesh_worker), held to main's
+    single-device run."""
+    import torch.distributed as dist
+
+    from repro_torch.core import hessian as hes
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.kernels import vq_assign as vqa
+    from repro_torch.launch import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    t = {}
+    model, params, calib, heldout = main_inputs(torch, dev)
+    n_groups = main_res["predicted_column_groups"]
+
+    # (a) world 1, NCCL
+    mesh = mesh_lib.make_host_mesh("cuda")
+    backend_a, world_a = dist.get_backend(), dist.get_world_size()
+    log(f"[mesh] (a) backend {backend_a}, world size {world_a}, mesh "
+        f"{mesh.mesh_dim_names} {tuple(mesh.shape)}")
+    xs = [params["embed"][calib[i:i + 8]] for i in (0, 8)]  # (8, 64, 4096)
+    c = xs[0].shape[-1]
+    full, full_s = hes.init_hessian(c, device=dev), hes.init_hessian(
+        c, device=dev)
+    diag, diag_s = hes.init_diag_hessian(c, device=dev), \
+        hes.init_diag_hessian(c, device=dev)
+    for x in xs:
+        full, diag = hes.accumulate(full, x), hes.accumulate_diag(diag, x)
+        full_s = hes.accumulate_sharded(full_s, x, mesh)
+        diag_s = hes.accumulate_sharded(diag_s, x, mesh)
+    torch.cuda.synchronize()
+    acc = {"full_bitwise": bool(torch.equal(full.H, full_s.H)),
+           "diag_bitwise": bool(torch.equal(diag.diag, diag_s.diag)),
+           "full_max_rel": float((full.H - full_s.H).abs().max()
+                                 / full.H.abs().max()),
+           "diag_max_rel": float((diag.diag - diag_s.diag).abs().max()
+                                 / diag.diag.abs().max()),
+           "n": (full_s.n, diag_s.n)}
+    log(f"[mesh] (a) accumulate_sharded vs accumulate on 2 x 512 rows of "
+        f"{c} columns: full bitwise {acc['full_bitwise']} (max rel "
+        f"{acc['full_max_rel']:.2e}), diag bitwise {acc['diag_bitwise']} "
+        f"(max rel {acc['diag_max_rel']:.2e}), n {acc['n']}")
+    del full, full_s, diag, diag_s, xs
+    zero_counts()
+    t0 = time.perf_counter()
+    q_a, rep_a = quantize_model(model, params, calib, recipe=main_recipe(),
+                                hessian_mesh=mesh, pack=True)
+    torch.cuda.synchronize()
+    t["quantize_world1"] = time.perf_counter() - t0
+    launches_a = {fn: getattr(vqa, fn).launches for fn in VQ_ENTRY_POINTS}
+    digest_a, digest_main = payload_digest(q_a), payload_digest(main_qparams)
+    log(f"[mesh] (a) quantize on the host mesh: {t['quantize_world1']:.2f}s"
+        f", launches {launches_a}, payload equal to main's "
+        f"{digest_a == digest_main}, bpv {rep_a.achieved_bpv}")
+    del q_a
+    dist.destroy_process_group()
+    del model, params
+    torch.cuda.empty_cache()
+
+    # (b) 2 ranks over gloo on the one card
+    out_dir = os.path.join(ROOT, "build", "repro_torch", "mesh_ranks")
+    t["ranks"] = run_mesh_ranks(out_dir)
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    main_err = {k: e["error"] for k, e in main_res["per_target"].items()}
+    err_rel = max(abs(rk["errors"][k] - main_err[k]) / main_err[k]
+                  for rk in ranks for k in main_err)
+    for rk in ranks:
+        log(f"[mesh] (b) rank {rk['rank']} of {rk['world']}: backend "
+            f"{rk['backend']}, {rk['device']}; merged H vs single-device "
+            f"worst {rk['hessian_worst_rel']:.2e} of max|H| (tol "
+            f"{MESH_H_RTOL}); launches {rk['launches']}; bpv "
+            f"{rk['achieved_bpv']}; quantize {rk['quantize_s']:.2f}s of "
+            f"{rk['seconds']:.2f}s; fused vs gather max "
+            f"{rk['eval']['max']:.4e} RMS {rk['eval']['rms']:.4e} "
+            f"{rk['eval']['impls']}")
+    log(f"[mesh] (b) payloads equal across ranks "
+        f"{len({rk['payload_sha256'] for rk in ranks}) == 1}; worst "
+        f"per-target error vs main's single-device run {err_rel:.2e} (tol "
+        f"{MESH_ERR_RTOL}); ranks {t['ranks']:.1f}s")
+    want_impl = {"tc_int8": 7 * 2}
+    checks = {
+        "(a) NCCL at world 1": (backend_a, world_a) == ("nccl", 1),
+        "(a) n exact": acc["n"] == (1024, 1024),
+        "(a) payload equal to main's": digest_a == digest_main,
+        "(a) bpv 2.25": rep_a.achieved_bpv == 2.25,
+        **{f"(a) {k}": ok for k, ok in quantize_launch_checks(
+            launches_a, n_groups).items()},
+        "(b) gloo, 2 ranks": all((rk["backend"], rk["world"])
+                                 == ("gloo", MESH_RANKS) for rk in ranks),
+        "(b) merged H within 1e-5 of max|H|": all(
+            rk["hessian_worst_rel"] <= MESH_H_RTOL for rk in ranks),
+        "(b) payloads equal across ranks":
+            len({rk["payload_sha256"] for rk in ranks}) == 1,
+        "(b) bpv 2.25": all(rk["achieved_bpv"] == 2.25 for rk in ranks),
+        "(b) errors within 1% of main's": err_rel <= MESH_ERR_RTOL,
+        "(b) launches": all(all(quantize_launch_checks(
+            rk["launches"], n_groups).values()) for rk in ranks),
+        "(b) fused vs gather at main's bars": all(
+            rk["eval"]["ok"] and rk["eval"]["finite"]
+            and rk["eval"]["impls"] == want_impl for rk in ranks),
+    }
+    t["phase"] = time.perf_counter() - t_phase
+    log(f"[mesh] phase {t['phase']:.1f}s")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise Failed(f"mesh phase checks failed: {bad}")
+    return {"a": {"backend": backend_a, "world": world_a,
+                  "accumulate": acc, "launches": launches_a,
+                  "payload_equal_main": digest_a == digest_main},
+            "b": ranks, "error_rel_vs_main": err_rel, "seconds": t}
+
+
 def kernel_line(rows: list[dict], launches: dict) -> dict:
     """One entry per kernel source, at the shape its path launches most:
     vq_dequant_matmul at the eval's M=512 on a 4096x4096 projection,
@@ -4745,7 +5636,11 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
     steps' forwards) and flash_attention_bwd at the same shape, once per
     variant: tc in bf16 (launches the 4 steps' backwards) and fp32 in f32
     (launches the f32 gradient check's; library_ms SDPA's backward alone
-    in the row's dtype). library_ms
+    in the row's dtype). The train_families phase's: flash_attention
+    with its log-sum-exp output at the hybrid's microbatch (B=2, 32 heads
+    of 112, 4096 tokens, bf16; launches the 4 hybrid steps' forwards) and
+    flash_attention_bwd's tc variant at the same shape (launches their
+    backwards). library_ms
     is each row's own: for vq_dequant_matmul at int8 codebooks a bf16
     torch.matmul."""
     pick = {
@@ -4815,6 +5710,16 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
             lambda r: r["shape"] == "train" and r["impl"] == "fp32",
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:68"),
+        "flash_attention_train_hd112": (
+            "flash_attention_lse",
+            lambda r: r["shape"] == "zamba B=2",
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:68"),
+        "flash_attention_bwd_hd112": (
+            "flash_attention_bwd",
+            lambda r: r["shape"] == "zamba train" and r["impl"] == "tc",
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:68"),
     }
     out = []
     for name, (row_name, sel, source, replaces) in pick.items():
@@ -4853,6 +5758,10 @@ def paged_rows(torch, dev) -> list[dict]:
 
 def main() -> int:
     out_dir = os.path.join(ROOT, "chiprun_out")
+    if sys.argv[1:2] == ["mesh-worker"]:
+        return mesh_worker(sys.argv[2])
+    if sys.argv[1:2] == ["grad-readings"]:
+        return grad_readings([int(a) for a in sys.argv[2:]])
 
     if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
         print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
@@ -4871,6 +5780,7 @@ def main() -> int:
     rows, invariance = phase_kernels(torch, dev)
     small_res = phase_small(torch, dev)
     main_res, model, qparams, (calib, heldout) = phase_main(torch, dev)
+    mesh_res = phase_mesh(torch, dev, main_res, qparams)
     budget_res = phase_budget(torch, dev, model, calib, heldout)
     serve_res = phase_serve(torch, dev, model, qparams)
     del model, qparams
@@ -4879,6 +5789,8 @@ def main() -> int:
     t0 = time.perf_counter()
     train_res = phase_train(torch, dev, long_calib)
     log(f"[train] phase {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    train_families_res = phase_train_families(torch, dev, long_calib)
     torch.cuda.empty_cache()
     moe_res = phase_moe(torch, dev)
     torch.cuda.empty_cache()
@@ -4896,7 +5808,9 @@ def main() -> int:
                    "bitwise": invariance,
                    "small": small_res, "main": main_res,
                    "budget": budget_res, "serve": serve_res, "long": long_res,
-                   "train": train_res, "moe": moe_res, "vlm": vlm_res, "ssm": ssm_res,
+                   "train": train_res,
+                   "train_families": train_families_res, "mesh": mesh_res,
+                   "moe": moe_res, "vlm": vlm_res, "ssm": ssm_res,
                    "hybrid": hybrid_res, "audio": audio_res}, f,
                   indent=1, default=str)
     log(f"[done] {time.perf_counter() - t_all:.1f}s; details in {out}")
@@ -4921,6 +5835,11 @@ def main() -> int:
         "flash_attention_bwd_by_impl"]["tc"]
     launches["flash_attention_bwd_fp32"] = train_res["launches_f32"][
         "flash_attention_bwd_by_impl"]["fp32"]
+    hybrid_train = train_families_res["hybrid"]["launches"]
+    launches["flash_attention_train_hd112"] = hybrid_train[
+        "flash_attention_by_impl"]["tc"]
+    launches["flash_attention_bwd_hd112"] = hybrid_train[
+        "flash_attention_bwd_by_impl"]["tc"]
     print(json.dumps(kernel_line(rows, launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

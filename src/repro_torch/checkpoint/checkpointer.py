@@ -235,7 +235,9 @@ class Checkpointer:
 
     def restore(self, like: Any, step: int | None = None) -> tuple[Any, dict]:
         """Restore into the structure of ``like`` (each leaf on the device
-        of ``like``'s leaf); returns (tree, metadata)."""
+        of ``like``'s leaf); returns (tree, metadata). The reference's
+        ``shardings=`` (leaves placed on a mesh) waits for ROADMAP.md
+        queue 1, "The model axis"."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint found in {self.dir}")

@@ -13,6 +13,7 @@ from repro_torch.core.adapters.base import (  # noqa: F401 (public API)
     acc_tap,
     diag_capture,
     diag_capture_active,
+    hessian_mesh,
     tree_get,
     tree_set,
 )

@@ -15,8 +15,10 @@
 Inside ``diag_capture()`` every tap accumulates an O(c)
 ``DiagHessianState`` instead of the (c, c) Hessian (a per-expert tap,
 through ``acc_expert_tap``, an (E, c) stack): the budget pre-pass reads
-diag(H) only. The reference's mesh-sharded accumulation is not
-ported yet (ROADMAP.md queue 1, "Multi-device and training").
+diag(H) only. Inside ``hessian_mesh(mesh, axis)`` every tap accumulates
+through ``hessian.accumulate_sharded``: each rank of the mesh axis takes a
+block of the calibration rows and one all-reduce a call merges them
+(per-expert taps stay local, as the reference's).
 """
 from __future__ import annotations
 
@@ -106,7 +108,7 @@ class ModelAdapter:
         raise NotImplementedError
 
 
-_capture_mode = {"diag_only": False}
+_capture_mode = {"diag_only": False, "mesh": None, "axis": "data"}
 
 
 @contextlib.contextmanager
@@ -124,6 +126,19 @@ def diag_capture_active() -> bool:
     return _capture_mode["diag_only"]
 
 
+@contextlib.contextmanager
+def hessian_mesh(mesh, axis: str = "data"):
+    """Within this context, acc_tap shards calibration rows over the mesh
+    axis (a ``torch.distributed`` ``DeviceMesh``) and all-reduces the
+    ranks' partial Hessians."""
+    prev = (_capture_mode["mesh"], _capture_mode["axis"])
+    _capture_mode["mesh"], _capture_mode["axis"] = mesh, axis
+    try:
+        yield
+    finally:
+        _capture_mode["mesh"], _capture_mode["axis"] = prev
+
+
 def acc_tap(taps: dict, name: str, x: torch.Tensor) -> dict:
     """Accumulate activations ``x`` (..., c) into the named Hessian tap."""
     state = taps.get(name)
@@ -133,7 +148,11 @@ def acc_tap(taps: dict, name: str, x: torch.Tensor) -> dict:
                  if _capture_mode["diag_only"]
                  else hes.init_hessian(c, device=x.device))
     taps = dict(taps)
-    if isinstance(state, hes.DiagHessianState):
+    mesh = _capture_mode["mesh"]
+    if mesh is not None:
+        taps[name] = hes.accumulate_sharded(state, x, mesh,
+                                            _capture_mode["axis"])
+    elif isinstance(state, hes.DiagHessianState):
         taps[name] = hes.accumulate_diag(state, x)
     else:
         taps[name] = hes.accumulate(state, x)

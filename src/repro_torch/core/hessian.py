@@ -6,16 +6,16 @@ The per-layer objective Hessian of ``||W X - Ŵ X||_F^2`` w.r.t. a row of W is
 adds into the state's matrix in place (one (c, c) buffer per tap instead of
 a new one per chunk). ``DiagHessianState`` + ``accumulate_diag`` keep only
 ``sum_i x_i^2`` per column: the budget pre-pass reads ``diag(H)`` alone, so
-it never materializes (c, c). The mesh-sharded variant of the reference is
-not ported yet (ROADMAP.md queue 1, "Multi-device and training").
+it never materializes (c, c). ``accumulate_sharded`` is the data-parallel
+form over a ``torch.distributed`` ``DeviceMesh`` axis: each rank forms the
+partial sum of its block of calibration rows and one all-reduce merges
+them.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
-
-from repro_torch.pending import not_ported
 
 
 class HessianState(NamedTuple):
@@ -96,5 +96,46 @@ def cholesky_diag_weights(U: torch.Tensor) -> torch.Tensor:
     return 1.0 / torch.clamp(d * d, min=1e-20)
 
 
-accumulate_sharded = not_ported("hessian.accumulate_sharded",
-                                "Multi-device and training")
+def _shard_rows(x: torch.Tensor, c: int, n_dev: int, index: int):
+    """Flatten to (rows, c) f32, zero-pad the rows to a multiple of
+    ``n_dev`` and return block ``index`` of ``n_dev`` contiguous ones and
+    the true row count. Zero rows add nothing to ``X^T X``, so ``n`` stays
+    exact."""
+    xf = x.reshape(-1, c).to(torch.float32)
+    rows = xf.shape[0]
+    pad = (-rows) % n_dev
+    if pad:
+        xf = torch.cat([xf, xf.new_zeros((pad, c))])
+    per = xf.shape[0] // n_dev
+    return xf[index * per:(index + 1) * per], rows
+
+
+def accumulate_sharded(state, x: torch.Tensor, mesh, axis: str = "data"):
+    """Data-parallel ``accumulate`` / ``accumulate_diag`` over ``mesh``'s
+    ``axis`` (a ``torch.distributed`` ``DeviceMesh``). Every rank holds
+    the whole ``x``, as the reference's in-process mesh does, and takes
+    its own contiguous block of the (zero-padded) rows; it forms the
+    block's ``X^T X`` (or its diagonal) in f32, rank 0 on top of the
+    running sum and the others from zero, and one ``all_reduce`` (SUM)
+    over the axis's group leaves the new sum on every rank. Takes a
+    ``HessianState`` (updated in place, as ``accumulate``) or a
+    ``DiagHessianState`` and returns the same kind. At one rank the
+    arithmetic is ``accumulate``'s; across ranks the sum's order differs,
+    so it matches the single-device sum to rounding."""
+    import torch.distributed as dist
+
+    group = mesh.get_group(axis)
+    n_dev = mesh.size(mesh.mesh_dim_names.index(axis))
+    index = mesh.get_local_rank(axis)
+    if isinstance(state, DiagHessianState):
+        xl, rows = _shard_rows(x, state.diag.shape[0], n_dev, index)
+        part = torch.sum(xl * xl, dim=0)
+        total = state.diag + part if index == 0 else part
+        dist.all_reduce(total, group=group)
+        return DiagHessianState(total, state.n + rows)
+    xl, rows = _shard_rows(x, state.H.shape[0], n_dev, index)
+    if index != 0:
+        state.H.zero_()
+    state.H.addmm_(xl.T, xl)
+    dist.all_reduce(state.H, group=group)
+    return HessianState(state.H, state.n + rows)

@@ -31,8 +31,12 @@ block) quantize expert by expert, each with its own routed-token Hessian
 the budget pre-pass scores a stack by its experts' mean diagonal Hessian
 and the allocator gives all E matrices one setting.
 
-Not ported yet: mesh-sharded Hessian capture (ROADMAP.md queue 1,
-"Multi-device and training"); ``hessian_mesh=`` raises.
+Distribution: with ``hessian_mesh=`` (a ``torch.distributed``
+``DeviceMesh``) the Hessian capture (the budget pre-pass and pass 1) runs
+data-parallel: every rank holds the whole calibration set, takes its
+block of each tap's rows and one all-reduce a tap call merges the partial
+sums (``hessian.accumulate_sharded``). The quantizer stays layer-local
+and runs on every rank on the same merged Hessians.
 """
 from __future__ import annotations
 
@@ -230,15 +234,15 @@ def _budget_prepass(adapter, chunks, plan, progress, mesh=None,
     materialized. Installs the original params and advances, on a fresh
     blocks() list so the real sweep starts clean. Returns (diag, missed):
     ``missed`` maps target names whose Hessian could not be collected to a
-    reason string. ``mesh`` (sharded capture) is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded capture is not ported yet (ROADMAP.md queue 1, "
-            "'Multi-device and training')")
+    reason string. With ``mesh``, the taps accumulate sharded over its
+    ``mesh_axis``."""
     states = [adapter.calib_state(c, ci) for ci, c in enumerate(chunks)]
     diag: dict[str, torch.Tensor] = {}
     missed: dict[str, str] = {}
-    with adapters.diag_capture():
+    with contextlib.ExitStack() as capture:
+        capture.enter_context(adapters.diag_capture())
+        if mesh is not None:
+            capture.enter_context(adapters.hessian_mesh(mesh, mesh_axis))
         for blk in adapter.blocks():
             eligible = [
                 spec for spec in blk.targets()
@@ -349,7 +353,7 @@ def quantize_model(
     recipe: QuantRecipe | None = None,  # declarative per-target rules
     budget_bpv: float | None = None,    # Hessian-budgeted mixed precision
     budget_scorer: str = "closed_form",  # or "refit" (validation oracle)
-    hessian_mesh=None,         # not ported yet: raises when set
+    hessian_mesh=None,         # a DeviceMesh: data-parallel capture
     hessian_mesh_axis: str = "data",
     pack: bool = False,        # True -> VQLinear leaves (serving format)
     chunk: int = 8,            # calibration sequences per forward chunk
@@ -369,11 +373,13 @@ def quantize_model(
     per-target application of the resolved action, (3) advancing the
     activations through the quantized block. Runs on the device of
     ``params``. ``telemetry`` (an ``obs.Telemetry``) adds the stage spans
-    and the ``quant_stage`` / ``quant_target`` events."""
-    if hessian_mesh is not None:
-        raise NotImplementedError(
-            "hessian_mesh= is not ported yet (ROADMAP.md queue 1, "
-            "'Multi-device and training')")
+    and the ``quant_stage`` / ``quant_target`` events.
+
+    With ``hessian_mesh`` set, Hessian accumulation (the budget pre-pass
+    and pass 1) shards calibration rows across the mesh's
+    ``hessian_mesh_axis`` ranks and merges the partial sums with one
+    all-reduce a tap call; every rank then quantizes on the same merged
+    Hessians."""
     legacy = recipe is None
     if not legacy and (method != "gptvq" or cfg is not None):
         raise ValueError(
@@ -427,7 +433,9 @@ def quantize_model(
     report_warnings: list[str] = []
     if budget_bpv is not None:
         with _stage("budget_prepass"):
-            diag, missed = _budget_prepass(adapter, chunks, plan, progress)
+            diag, missed = _budget_prepass(
+                adapter, chunks, plan, progress, mesh=hessian_mesh,
+                mesh_axis=hessian_mesh_axis)
         with _stage("budget_allocate"):
             plan, report_warnings = _allocate(
                 blocks, plan, diag, missed, budget_bpv, progress,
@@ -449,7 +457,11 @@ def quantize_model(
             if resolved[spec.name].needs_hessian and spec.tap is not None)
         taps: dict = {}
         if needed:
-            with _stage("hessian_capture", blk.name):
+            with _stage("hessian_capture", blk.name), \
+                    contextlib.ExitStack() as capture:
+                if hessian_mesh is not None:
+                    capture.enter_context(adapters.hessian_mesh(
+                        hessian_mesh, hessian_mesh_axis))
                 for st in states:
                     taps = blk.capture(st, taps, needed)
 

@@ -29,8 +29,16 @@ recipe and the per-target map.
   PYTHONPATH=src python -m repro_torch.launch.quantize --arch llama2-7b \
       --smoke --device cpu --budget-bpv 2.5 --solver babai --out /tmp/ck
 
-Not ported yet: the mesh flag (ROADMAP.md queue 1, "Multi-device and
-training").
+``--hessian-mesh N`` captures the Hessians data-parallel over N ranks
+(``pipeline.quantize_model(hessian_mesh=)``): run it under ``torchrun
+--nproc-per-node N``, whose world must hold N ranks. The backend follows
+``launch.mesh.world_backend``'s rule and is printed: NCCL when each rank
+has a card of its own (rank r on ``cuda:r``), gloo when ranks share one
+card or run on the CPU. Every rank quantizes; only rank 0 writes the
+checkpoint, the events and the metrics.
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.quantize \
+      --arch llama2-7b --smoke --device cpu --hessian-mesh 2 --out /tmp/ck
 """
 from __future__ import annotations
 
@@ -48,6 +56,7 @@ from repro_torch.core.pipeline import quantize_model
 from repro_torch.core.recipe import PRESET_RECIPES, QuantRecipe, get_recipe
 from repro_torch.data.calibration import calibration_tokens, shard_for_worker
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import model_zoo
 from repro_torch.obs import Telemetry
 from repro_torch.train.loss import perplexity
@@ -78,6 +87,10 @@ def main(argv=None):
                          "gptq (paper default), babai (full conditional "
                          "span metric), cd (+coordinate-descent "
                          "refinement)")
+    ap.add_argument("--hessian-mesh", type=int, default=0,
+                    help="shard Hessian accumulation data-parallel over "
+                         "this many ranks (under torchrun --nproc-per-node "
+                         "N; 0 = one process)")
     ap.add_argument("--sequences", type=int, default=16)
     ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--em-iters", type=int, default=None,
@@ -99,6 +112,43 @@ def main(argv=None):
                          "here")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+    mesh = None
+    if args.hessian_mesh > 1:
+        mesh, device = hessian_mesh(args.hessian_mesh, device)
+    try:
+        return run(args, device, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def hessian_mesh(n: int, device):
+    """The launched world (``torchrun``, ``n`` ranks) as a ``(data,
+    model)`` mesh of n x 1, and this rank's device."""
+    import torch
+    import torch.distributed as dist
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != n:
+        raise ValueError(f"--hessian-mesh {n} runs under torchrun "
+                         f"--nproc-per-node {n}; this world has {world} "
+                         "rank(s)")
+    if device.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    mesh = mesh_lib.make_production_mesh(device_type=device.type)
+    print(f"hessian mesh: rank {dist.get_rank()} of {n}, backend "
+          f"{dist.get_backend()}, device {device}", flush=True)
+    return mesh, device
+
+
+def run(args, device, mesh):
+    """Quantize, evaluate and save as ``args`` say; with ``mesh``, the
+    Hessians are captured over its data axis and only rank 0 writes."""
+    writer = mesh is None or mesh.get_rank() == 0
 
     cfg = (SMOKE if args.smoke else ARCHS)[args.arch]
     if args.smoke:
@@ -135,13 +185,13 @@ def main(argv=None):
 
     extras = adapters.calib_extras(cfg, heldout)
     ppl_fp = perplexity(model, params, heldout, batch_extra=extras)
-    telemetry = Telemetry(events_out=args.events_out)
+    telemetry = Telemetry(events_out=args.events_out if writer else None)
     t0 = time.time()
     qparams, rep = quantize_model(
         model, params, calib, recipe=recipe, budget_bpv=args.budget_bpv,
-        budget_scorer=args.budget_scorer, pack=True,
-        progress=lambda msg: print(f"  {msg}", flush=True),
-        telemetry=telemetry)
+        budget_scorer=args.budget_scorer, hessian_mesh=mesh, pack=True,
+        progress=(lambda msg: print(f"  {msg}", flush=True)) if writer
+        else None, telemetry=telemetry)
     dt = time.time() - t0
     ppl_vq = perplexity(model, vql_mod.prepare_fused_tree(qparams), heldout,
                         batch_extra=extras)
@@ -157,7 +207,7 @@ def main(argv=None):
         print(f"  stages: {parts}")
     for w in rep.warnings:
         print(f"  WARNING: {w}")
-    if args.metrics_out:
+    if args.metrics_out and writer:
         telemetry.write_metrics(args.metrics_out)
         print(f"  metrics snapshot -> {args.metrics_out}")
     telemetry.close()
@@ -167,6 +217,8 @@ def main(argv=None):
         print(f"  kept dense ({len(dense)}): {', '.join(dense[:6])}"
               + (" ..." if len(dense) > 6 else ""))
 
+    if not writer:
+        return rep, ppl_fp, ppl_vq
     ck = Checkpointer(args.out, keep=1)
     ck.save(0, qparams, metadata={
         "arch": cfg.name, "recipe": rep.recipe,

@@ -18,7 +18,12 @@ back to the restored step, so a resumed run sees the batches an
 uninterrupted one would have seen (the reference's stream keeps running
 past the failed step).
 
-Not ported yet (ROADMAP.md queue 1, "Multi-device and training"): a mesh
+The stream draws tokens only, as the reference's does: every family but
+audio trains here (``--arch zamba2-7b`` included); whisper's forward needs
+frames and refuses (``encdec.forward``'s ``ValueError``), as the
+reference's asserts.
+
+Not ported yet (ROADMAP.md queue 1, "The model axis"): a mesh
 (``--model-parallel`` > 1) and the multi-host start (``COORDINATOR_ADDRESS``).
 """
 from __future__ import annotations
@@ -41,7 +46,7 @@ from repro_torch.runtime.straggler import StragglerMonitor
 from repro_torch.train import optimizer as opt
 from repro_torch.train.train_step import init_state, make_train_step
 
-_MESH_ENTRY = "Multi-device and training"
+_MESH_ENTRY = "The model axis"
 
 
 def parse_args(argv=None):

@@ -100,17 +100,6 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     return ((x * torch.rsqrt(var + eps)) * scale.to(torch.float32)).to(dt)
 
 
-def check_no_remat(remat) -> None:
-    """The hybrid and audio forwards take the reference's ``remat`` but are
-    not trained by the port yet: where autograd records, asking for it
-    raises."""
-    if remat is not None and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "training this family (forward with remat= under autograd) is "
-            "not ported yet (ROADMAP.md queue 1, 'Training: hybrid and "
-            "audio')")
-
-
 # ---------------------------------------------------------------------------
 # rotary embeddings
 # ---------------------------------------------------------------------------

@@ -81,16 +81,25 @@ def enc_block_apply(layer_p, cfg: ModelConfig, h):
                          cm.rmsnorm(h, layer_p["norm2"], cfg.norm_eps))
 
 
-def encode(params, cfg: ModelConfig, frames: torch.Tensor):
+def encode(params, cfg: ModelConfig, frames: torch.Tensor, remat=False):
     """frames (B, S_enc, D) -> the memory (B, S_enc, D). ``VQLinear``
     leaves are densified layer by layer (the gather form);
-    ``FusedVQLinear`` ones reach the fused kernel."""
+    ``FusedVQLinear`` ones reach the fused kernel. ``remat`` (truthy)
+    checkpoints each layer where autograd records, as the reference's
+    ``jax.checkpoint`` of its layer body."""
+    from torch.utils.checkpoint import checkpoint
+
     from repro_torch.core import vq_linear as vql_mod
 
+    def body(h, layer_p):
+        return enc_block_apply(
+            vql_mod.dequant_tree(layer_p, cm.DTYPES[cfg.dtype]), cfg, h)
+
+    remat = remat and torch.is_grad_enabled()
     x = embed_frames(params, cfg, frames)
     for layer_p in params["enc_layers"]:
-        x = enc_block_apply(vql_mod.dequant_tree(layer_p, cm.DTYPES[cfg.dtype]),
-                            cfg, x)
+        x = (checkpoint(body, x, layer_p, use_reentrant=False) if remat
+             else body(x, layer_p))
     return cm.rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -156,7 +165,7 @@ def dec_block_apply(layer_p, cfg: ModelConfig, h, memory):
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, frames=None,
             memory=None, pos=0, cache: EncDecCache | None = None,
             last_only: bool = False, paged_impl: str = "gather",
-            remat=None):
+            remat=False):
     """Decoder forward; returns (logits f32, new_cache, aux 0). Give
     ``frames`` (prefill or evaluation: the encoder runs) or a cache whose
     cross K/V a previous prefill filled; ``memory`` (the encoder's output)
@@ -167,10 +176,15 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, frames=None,
     neither, the cache's own cross K/V are read and returned, the same
     tensor objects (the engine's ``restore_masked`` then skips them). The
     self-attention cache is updated in place, as ``attention.apply``
-    does."""
-    from repro_torch.core import vq_linear as vql_mod
+    does.
 
-    cm.check_no_remat(remat)
+    ``remat`` (truthy) checkpoints each encoder and each decoder layer
+    where autograd records a cache-free forward, as the reference's
+    ``jax.checkpoint`` of its layer bodies does (non-reentrant
+    ``torch.utils.checkpoint``; the backward re-runs the layer)."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.core import vq_linear as vql_mod
 
     if frames is None and cache is None:
         raise ValueError("encdec.forward needs frames or a cache whose "
@@ -179,8 +193,9 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, frames=None,
     top = {k: v for k, v in params.items()
            if k not in ("enc_layers", "dec_layers")}
     params = {**params, **vql_mod.dequant_tree(top, dtype)}
+    remat = remat if cache is None and torch.is_grad_enabled() else False
     if frames is not None:
-        memory = encode(params, cfg, frames)
+        memory = encode(params, cfg, frames, remat)
 
     B, S = tokens.shape
     x = params["embed"][tokens]
@@ -189,6 +204,12 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, frames=None,
     fill_cross = cache is not None and memory is not None
     new_kv, new_ck, new_cv = [], [], []
     for i, layer_p in enumerate(params["dec_layers"]):
+        if remat:
+            x = checkpoint(
+                lambda h, p, m: dec_block_apply(
+                    vql_mod.dequant_tree(p, dtype), cfg, h, m),
+                x, layer_p, memory, use_reentrant=False)
+            continue
         lp = vql_mod.dequant_tree(layer_p, dtype)
         a, kv = attention.apply(
             lp["self_attn"], cfg, cm.rmsnorm(x, lp["norm1"], cfg.norm_eps),

@@ -118,16 +118,22 @@ def _shared_attn(p, lora_g, cfg: ModelConfig, h, emb0, *, pos, kv_cache,
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, pos=0,
             cache: HybridCache | None = None, paged_impl: str = "gather",
-            last_only: bool = False, remat=None):
+            last_only: bool = False, remat=False):
     """Returns (logits f32, new_cache, aux 0). The shared block must be
     dense when it runs (the LoRA deltas are added onto its q/k/v), so VQ
     leaves of the top tree, fused ones included, are densified here on
     every call, as the reference does; the trunk's ``FusedVQLinear``
     leaves stay on the ``vq_dequant_matmul`` kernel and its ``VQLinear``
-    leaves are densified layer by layer (the gather form)."""
-    from repro_torch.core import vq_linear as vql_mod
+    leaves are densified layer by layer (the gather form).
 
-    cm.check_no_remat(remat)
+    ``remat`` (truthy) checkpoints each group, the shared block's
+    invocation with its LoRA densify and the group's Mamba layers, as the
+    reference's ``jax.checkpoint`` of its group body does; it matters only
+    where autograd records a cache-free forward
+    (``torch.utils.checkpoint``, non-reentrant)."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.core import vq_linear as vql_mod
 
     dtype = cm.DTYPES[cfg.dtype]
     top = {k: v for k, v in params.items() if k != "mamba"}
@@ -135,21 +141,31 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, pos=0,
                                                densify_fused=True)}
     x = params["embed"][tokens]
     emb0 = x  # the initial embedding, re-fed to every shared invocation
-    new_m, new_kv = [], []
-    for g, group_p in enumerate(params["mamba"]):
+    remat = remat if cache is None and torch.is_grad_enabled() else False
+
+    def one_group(h, g, group_p):
         ha, kv = _shared_attn(
-            params["shared"], lora_group(params["lora"], g), cfg, x, emb0,
+            params["shared"], lora_group(params["lora"], g), cfg, h, emb0,
             pos=pos, kv_cache=None if cache is None else cache.attn[g],
             paged_impl=paged_impl)
-        x = x + ha
+        h = h + ha
         new_layers = []
         for j, lp in enumerate(group_p):
             lp = vql_mod.dequant_tree(lp, dtype)
             y, c = ssm.apply(lp["mixer"], cfg,
-                             cm.rmsnorm(x, lp["norm"], cfg.norm_eps),
+                             cm.rmsnorm(h, lp["norm"], cfg.norm_eps),
                              None if cache is None else cache.mamba[g][j])
-            x = x + y
+            h = h + y
             new_layers.append(c)
+        return h, new_layers, kv
+
+    new_m, new_kv = [], []
+    for g, group_p in enumerate(params["mamba"]):
+        if remat:
+            x = checkpoint(lambda h, _g=g, _p=group_p: one_group(h, _g, _p)[0],
+                           x, use_reentrant=False)
+            continue
+        x, new_layers, kv = one_group(x, g, group_p)
         new_m.append(new_layers)
         new_kv.append(kv)
     if last_only:

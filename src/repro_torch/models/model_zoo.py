@@ -13,8 +13,8 @@ state and cross K/V are slot-resident either way), and whose
 audio ``frames`` (B, encoder_seq, D), and returns (logits, new_cache,
 aux_loss). ``remat=`` (the reference's ``True`` / ``False`` /
 ``"save_attn"``) passes through to the family's forward: the train step's
-checkpointing for dense, moe, vlm and ssm; the hybrid and audio forwards
-refuse it under autograd (not trained by the port yet).
+checkpointing (a block of dense, moe, vlm and ssm; a hybrid group; an
+audio encoder or decoder layer).
 """
 from __future__ import annotations
 

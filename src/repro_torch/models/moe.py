@@ -23,7 +23,7 @@ so a caller can replace ``moe.route``, e.g. to replay one forward's expert
 choices in another.
 
 The reference's shard_map expert-parallel path (``_apply_ep``) is not
-ported: it waits for ROADMAP.md queue 1, "Multi-device and training", and
+ported: it waits for ROADMAP.md queue 1, "The model axis", and
 ``apply`` never reaches it without a mesh.
 """
 from __future__ import annotations

@@ -2,7 +2,8 @@
 
 Each raises ``NotImplementedError`` naming the ROADMAP.md queue entry that
 will port it, so a caller learns where the work stands instead of meeting
-an ``AttributeError``.
+an ``AttributeError``. What is left (``optimizer.state_specs``,
+``elastic.reshard``) waits for queue 1, "The model axis".
 """
 from __future__ import annotations
 

@@ -9,11 +9,13 @@ two steps from one state (the tests do).
 
 Weight decay follows the reference's rank rule, ``p.ndim >= 2``, on the
 reference's ranks. The reference stacks a homogeneous (dense, moe) model's
-layers on a leading axis, so there every per-layer leaf, norm scales
-included, has rank >= 2 and is decayed; the port keeps layers in a list,
-where the same norm scale is 1-D. ``decay_mask`` gives the reference's
-answer for the port's tree, and ``update`` applies it: its caller says
-with ``stacked_layers`` whether the reference stacks the model's layers.
+layers on a leading axis, the hybrid's Mamba trunk on two (groups,
+layers) and the audio family's encoder and decoder layers on one, so there
+every per-layer leaf, norm scales and biases included, has rank >= 2 and
+is decayed; the port keeps layers in lists, where the same norm scale is
+1-D. ``decay_mask`` gives the reference's answer for the port's tree, and
+``update`` applies it: its caller says with ``stacked_layers`` whether the
+reference stacks the model's layer lists (``STACKS``).
 """
 from __future__ import annotations
 
@@ -112,16 +114,21 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
+# the top-level keys of the layer lists the reference stacks: a homogeneous
+# dense or moe model's "layers", the hybrid's "mamba" trunk, audio's two
+STACKS = ("layers", "mamba", "enc_layers", "dec_layers")
+
+
 def decay_mask(params, stacked_layers: bool):
     """Whether the reference decays each leaf: rank >= 2 in its tree. With
-    ``stacked_layers`` (the reference stacks the model's ``layers``: a
-    homogeneous dense or moe stack) a leaf under ``params["layers"]`` has
-    one more axis there than here."""
+    ``stacked_layers`` (the reference stacks the model's layer lists) a
+    leaf under one of ``STACKS`` has at least one more axis there than
+    here."""
     def mask(tree, extra):
         return tree_unflatten(tree, [p.dim() + extra >= 2
                                      for p in tree_leaves(tree)])
 
-    return {k: mask(v, 1 if stacked_layers and k == "layers" else 0)
+    return {k: mask(v, 1 if stacked_layers and k in STACKS else 0)
             for k, v in params.items()}
 
 
@@ -167,4 +174,4 @@ def update(cfg: OptConfig, grads, state: AdamWState, param_dtype=None, *,
 
 
 state_specs = not_ported("repro.train.optimizer.state_specs",
-                         "Multi-device and training")
+                         "The model axis")

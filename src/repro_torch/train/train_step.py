@@ -5,8 +5,11 @@ The reference scans its microbatches inside one jitted step; here a Python
 loop takes each microbatch's gradient with ``torch.autograd.grad`` and
 adds it to an accumulator, ``(g.float() / microbatches).to(acc_dtype)``,
 as the reference does, so the live activation set is one microbatch deep.
-``remat`` goes to the model's forward (``True``: each block checkpointed;
-``"save_attn"``: checkpointed around the attention, which is not re-run).
+``remat`` goes to the model's forward (``True``: each block checkpointed,
+the hybrid's each group, audio's each encoder and decoder layer;
+``"save_attn"``: a dense or moe block checkpointed around the attention,
+which is not re-run). Every leaf of the batch (``tokens``, and audio's
+``frames``) is split by microbatch along its first axis.
 The loss is the reference's: ``ce + aux`` on the last S positions' logits
 in f32, with the metrics averaged over the microbatches.
 """
@@ -79,7 +82,9 @@ def make_train_step(model: Model, opt_cfg: opt.OptConfig,
     """Returns train_step(state, batch) -> (state, metrics). The state it
     is given is left as it was."""
     param_dtype = cm.DTYPES[model.cfg.dtype]
-    stacked = homogeneous(model.cfg)  # the reference stacks these layers
+    # whether the reference stacks the layer lists (optimizer.decay_mask)
+    stacked = (model.cfg.family in ("hybrid", "audio")
+               or homogeneous(model.cfg))
 
     def train_step(state: TrainState, batch):
         grads, metrics = loss_and_grads(

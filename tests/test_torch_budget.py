@@ -441,8 +441,8 @@ def test_tap_miss_warns_and_falls_back_to_weight_variance(ref_models,
     params = params_from_jax(ref_models["params"], cfg, device="cpu")
     real = pl._budget_prepass
 
-    def drop_one(adapter, chunks, plan, progress):
-        diag, missed = real(adapter, chunks, plan, progress)
+    def drop_one(adapter, chunks, plan, progress, **mesh_kw):
+        diag, missed = real(adapter, chunks, plan, progress, **mesh_kw)
         diag.pop("layers.0.attn.wq", None)
         missed["layers.0.attn.wq"] = "tap 'attn_in' never fired"
         return diag, missed

@@ -1538,3 +1538,34 @@ def test_synthetic_stream_draws_on_the_card(dev):
     a.restore({"step": 1, "seed": 3})
     assert torch.equal(a.next(), first[1]) and torch.equal(a.next(),
                                                            first[2])
+
+
+def test_flash_fwd_lse_and_bwd_hd112_zamba_train(dev):
+    """Zamba2-7B's shared attention in its train step (a microbatch of 2 x
+    4096 tokens, 32 heads over 32 of head dim 112, bf16): the forward
+    kernel's log-sum-exp against the plain forward's (rtol 1e-5 plus 1e-5
+    * max|lse|), its out bitwise the same with and without the lse, and
+    the tc backward fed it against the f32 plain backward at the
+    backward's bars (``_within_bwd_bars``)."""
+    from repro_torch.kernels.flash_attention import (
+        _launch_forward, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain)
+
+    B, S, H, hd, dt = 2, 4096, 32, 112, torch.bfloat16
+    before = dict(flash_attention_bwd.launches_by_impl)
+    q, k, v, out, dout, lse = _flash_bwd_inputs(
+        dev, B, S, S, H, H, hd, True, 0, dt, dt)
+    assert torch.equal(out, _launch_forward(q, k, v, True, 0))
+    _, lse_plain = flash_attention_plain(q, k, v, causal=True, with_lse=True)
+    torch.testing.assert_close(
+        lse, lse_plain.float(), rtol=1e-5,
+        atol=1e-5 * float(lse_plain.abs().max()))
+    got = flash_attention_bwd(q, k, v, out, dout, lse, causal=True)
+    torch.cuda.synchronize()
+    assert _bwd_impl_delta(before) == {"tc": 1}
+    want = flash_attention_bwd_plain(
+        q.float(), k.float(), v.float(), out.float(), dout.float(), lse,
+        causal=True)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        _within_bwd_bars(g, w)

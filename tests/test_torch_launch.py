@@ -16,7 +16,6 @@ import torch
 import repro_torch
 from repro_torch.configs import SMOKE
 from repro_torch.convert import params_from_jax
-from repro_torch.core.pipeline import quantize_model
 from repro_torch.data.calibration import calibration_tokens
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
@@ -123,18 +122,10 @@ def test_every_kernel_source_has_a_wrapper():
 
 
 @pytest.mark.parametrize("module,name", [
-    ("core.hessian", "accumulate_sharded")])
+    ("runtime.elastic", "reshard")])
 def test_left_out_functions_name_their_roadmap_entry(module, name):
     import importlib
 
     fn = getattr(importlib.import_module(f"repro_torch.{module}"), name)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         fn()
-
-
-def test_left_out_options_raise():
-    cfg = SMOKE["llama2-7b"].scaled(dtype="float32", n_layers=1)
-    model = model_zoo.build(cfg)
-    with pytest.raises(NotImplementedError, match="Multi-device and training"):
-        quantize_model(model, {}, torch.zeros((1, 4), dtype=torch.long),
-                       hessian_mesh=object())

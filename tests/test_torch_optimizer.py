@@ -182,7 +182,7 @@ def test_weight_decay_by_reference_rank():
 
 
 def test_state_specs_is_a_mesh_function_not_ported():
-    with pytest.raises(NotImplementedError, match="Multi-device and training"):
+    with pytest.raises(NotImplementedError, match="The model axis"):
         opt.state_specs({})
 
 

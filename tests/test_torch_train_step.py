@@ -57,37 +57,49 @@ def tokens_for(vocab: int, rows: int, seq: int, seed: int) -> np.ndarray:
 
 
 def reference_run(arch: str, kw: dict, microbatches_list, seq: int = SEQ,
-                  steps: int = STEPS, jit_steps=(1, 2), ocfg=OCFG) -> dict:
+                  steps: int = STEPS, jit_steps=(1, 2), ocfg=OCFG,
+                  seed_params=None, extras=None) -> dict:
     """The reference's numbers for one config, as numpy: its init state;
     per microbatch count (global batch MB_ROWS * microbatches, so every
     microbatch has one shape and one compiled gradient) the accumulated
     gradient and metrics of step 1, taken as its train step takes them,
     and, for the counts in ``jit_steps``, ``make_train_step``'s metrics
-    and params after each of ``steps`` steps (optimizer ``ocfg``)."""
+    and params after each of ``steps`` steps (optimizer ``ocfg``).
+    ``seed_params`` rewrites the init params before the optimizer state is
+    made from them; ``extras(cfg, rows, seed)`` gives a batch's leaves
+    beside its tokens (numpy), split by microbatch as the tokens are."""
     cfg = JSMOKE[arch].scaled(**kw)
     model = jzoo.build(cfg)
     j_ocfg = jopt.OptConfig(**ocfg)
     state = j_init_state(model, jax.random.PRNGKey(0), j_ocfg)
+    if seed_params is not None:
+        params = seed_params(state.params)
+        state = state._replace(params=params, opt=jopt.init(params, j_ocfg))
 
     def loss_fn(params, mb):
-        logits, _, aux = model.forward(params, {"tokens": mb}, remat=True)
-        S = mb.shape[1]
+        logits, _, aux = model.forward(params, mb, remat=True)
+        S = mb["tokens"].shape[1]
         ce, metrics = jloss.next_token_loss(
-            logits[:, -S:, :].astype(jnp.float32), mb)
+            logits[:, -S:, :].astype(jnp.float32), mb["tokens"])
         return ce + aux, metrics
 
     vg = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
     out = {"cfg": cfg, "state": np_tree(state), "grads": {}, "metrics": {},
-           "steps": {}, "tokens": {}, "ocfg": ocfg}
+           "steps": {}, "tokens": {}, "extras": {}, "ocfg": ocfg}
     for n_mb in microbatches_list:
-        batches = [tokens_for(cfg.vocab_size, MB_ROWS * n_mb, seq, 10 * n_mb
-                              + i) for i in range(steps)]
-        out["tokens"][n_mb] = batches
+        rows = MB_ROWS * n_mb
+        batches = [tokens_for(cfg.vocab_size, rows, seq, 10 * n_mb + i)
+                   for i in range(steps)]
+        more = [{} if extras is None else extras(cfg, rows, 10 * n_mb + i)
+                for i in range(steps)]
+        out["tokens"][n_mb], out["extras"][n_mb] = batches, more
         acc = jax.tree.map(jnp.zeros_like, state.params)
         mets = {"loss": 0.0, "nll": 0.0, "ppl_proxy": 0.0}
         for i in range(n_mb):
-            (l, m), g = vg(state.params, jnp.asarray(
-                batches[0][i * MB_ROWS:(i + 1) * MB_ROWS]))
+            rs = slice(i * MB_ROWS, (i + 1) * MB_ROWS)
+            (l, m), g = vg(state.params, {
+                "tokens": jnp.asarray(batches[0][rs]),
+                **{k: jnp.asarray(x[rs]) for k, x in more[0].items()}})
             acc = jax.tree.map(lambda a, x: a + x / n_mb, acc, g)
             for k, x in dict(m, loss=l).items():
                 mets[k] = mets[k] + float(x) / n_mb
@@ -97,11 +109,19 @@ def reference_run(arch: str, kw: dict, microbatches_list, seq: int = SEQ,
             step = jax.jit(j_make_train_step(model, j_ocfg,
                                              microbatches=n_mb))
             st, trace = state, []
-            for b in batches:
-                st, m = step(st, {"tokens": jnp.asarray(b)})
+            for b, e in zip(batches, more):
+                st, m = step(st, {"tokens": jnp.asarray(b),
+                                  **{k: jnp.asarray(x) for k, x in e.items()}})
                 trace.append({k: float(v) for k, v in m.items()})
             out["steps"][n_mb] = (trace, np_tree(st.params))
     return out
+
+
+def port_batch(ref: dict, n_mb: int, i: int) -> dict:
+    """Step ``i``'s batch of ``reference_run`` as the port's tensors."""
+    return {"tokens": torch.from_numpy(ref["tokens"][n_mb][i]).long(),
+            **{k: torch.from_numpy(x)
+               for k, x in ref["extras"][n_mb][i].items()}}
 
 
 def leaves(tree) -> list:
@@ -122,9 +142,11 @@ def port_model(arch: str, kw: dict):
     return cfg, model_zoo.build(cfg)
 
 
-def check_grads(port_grads, ref_np_grads, cfg, atol_frac: float = 1e-6):
+def check_grads(port_grads, ref_np_grads, cfg, atol_frac: float = 1e-6,
+                leaf_atol_frac: dict | None = None):
     """Each leaf within rtol 1e-4 and atol ``atol_frac`` * max|g| of the
-    leaf, and within 1e-5 relative Frobenius. A leaf whose gradient is
+    leaf (a leaf whose last name part is a key of ``leaf_atol_frac``: that
+    fraction), and within 1e-5 relative Frobenius. A leaf whose gradient is
     zero but for rounding (the xLSTM's input-gate biases b_i: the
     stabilized exponential gate cancels a shift of its pre-activation;
     ~1e-9 against a tree max of ~1) is held instead to 1e-8 of the tree's
@@ -133,7 +155,8 @@ def check_grads(port_grads, ref_np_grads, cfg, atol_frac: float = 1e-6):
     assert names(port_grads) == names(want)
     floor = 1e-8 * max(float(w.abs().max()) for w in leaves(want))
     for name, g, w in zip(names(want), leaves(port_grads), leaves(want)):
-        atol = max(atol_frac * float(w.abs().max()), floor)
+        frac = (leaf_atol_frac or {}).get(name.rsplit(".", 1)[-1], atol_frac)
+        atol = max(frac * float(w.abs().max()), floor)
         torch.testing.assert_close(g, w, rtol=1e-4, atol=atol,
                                    msg=lambda m: f"{name}: {m}")
         assert (float((g - w).norm()) <= 1e-5 * float(w.norm())
@@ -146,37 +169,39 @@ def check_metrics(got: dict, want: dict):
 
 
 def check_grads_case(ref: dict, arch: str, kw: dict, n_mb: int, remat,
-                     atol_frac: float = 1e-6):
+                     atol_frac: float = 1e-6,
+                     leaf_atol_frac: dict | None = None):
     cfg, model = port_model(arch, kw)
     state = train_state_from_jax(ref["state"], cfg, "cpu")
-    toks = torch.from_numpy(ref["tokens"][n_mb][0]).long()
-    grads, metrics = loss_and_grads(model, state.params, {"tokens": toks},
+    grads, metrics = loss_and_grads(model, state.params,
+                                    port_batch(ref, n_mb, 0),
                                     microbatches=n_mb, remat=remat)
     check_metrics(metrics, ref["metrics"][n_mb])
-    check_grads(grads, ref["grads"][n_mb], cfg, atol_frac)
+    check_grads(grads, ref["grads"][n_mb], cfg, atol_frac, leaf_atol_frac)
 
 
-def check_steps_case(ref: dict, arch: str, kw: dict, n_mb: int, remat):
+def check_steps_case(ref: dict, arch: str, kw: dict, n_mb: int, remat,
+                     off_per_mille: int = 1):
     cfg, model = port_model(arch, kw)
     state = train_state_from_jax(ref["state"], cfg, "cpu")
     step = make_train_step(model, opt.OptConfig(**ref["ocfg"]),
                            microbatches=n_mb, remat=remat)
     trace_want, params_want = ref["steps"][n_mb]
-    for toks, want in zip(ref["tokens"][n_mb], trace_want):
-        state, metrics = step(state, {"tokens": torch.from_numpy(toks).long()})
+    for i, want in enumerate(trace_want):
+        state, metrics = step(state, port_batch(ref, n_mb, i))
         check_metrics(metrics, {k: want[k] for k in
                                 ("loss", "nll", "ppl_proxy", "lr")})
         np.testing.assert_allclose(float(metrics["grad_norm"]),
                                    want["grad_norm"], rtol=1e-4)
     grads = params_from_jax(ref["grads"][n_mb], cfg, "cpu", keep_dtype=True)
     check_params(state.params, params_from_jax(params_want, cfg, "cpu"),
-                 ref["ocfg"]["lr"], grads)
+                 ref["ocfg"]["lr"], grads, off_per_mille)
 
 
-def check_params(got, want, lr: float, grads):
+def check_params(got, want, lr: float, grads, off_per_mille: int = 1):
     """The params after the steps: each leaf's RMS difference within
-    5e-3 * lr, and every element within 1e-2 * lr but for at most 1 in
-    1,000 of the tree's elements. Adam divides the clipped gradient by its
+    5e-3 * lr, and every element within 1e-2 * lr but for at most
+    ``off_per_mille`` in 1,000 of the tree's elements. Adam divides the clipped gradient by its
     own magnitude plus eps = 1e-8, so an element whose gradient is a few
     1e-8 after clipping (a sum that cancels to rounding noise, where the
     packages' f32 sums differ by ~10%) moves by up to ~0.1 lr more or less
@@ -193,7 +218,7 @@ def check_params(got, want, lr: float, grads):
         n_all += d.numel()
         if float(g.abs().max()) > floor:
             assert float(d.pow(2).mean().sqrt()) <= 5e-3 * lr, name
-    assert n_off <= n_all // 1000, (n_off, n_all)
+    assert n_off * 1000 <= n_all * off_per_mille, (n_off, n_all)
 
 
 @pytest.fixture(scope="module")
