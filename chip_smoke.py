@@ -207,6 +207,28 @@ Phases (each prints its seconds; any failure exits non-zero):
                 phase rows: flash_attention with its lse and the tc
                 backward at the hybrid's microbatch (B 2, 4,096 tokens, 32
                 heads of 112).
+  9c. model_axis — the mesh's model axis: 2 ranks over gloo on the one
+                card (this script under torchrun as ``chip_smoke.py
+                model-axis-worker <dir>``), a (data 1, model 2) mesh.
+                (a) full-width 2-layer Llama-2-7B on the train phase's
+                tokens (2 microbatches, remat): the f32 copy's loss and
+                gradients on the mesh, gathered, against the single
+                device's (rank 0; <= 1e-4 a leaf), 4 bf16 steps (losses
+                within 2e-2 of the train phase's, falling; flash
+                launches a rank 8 tc forwards with lse and 4 tc
+                backwards a step; seconds, tokens/s, peak memory a
+                rank); (b) the step-2 state saved sharded (whole
+                arrays), restored with shardings= bit for bit on both
+                ranks, step 3 from it bit for bit, and restored again in
+                this process (world 1, NCCL), each leaf's shard
+                checksums equal to the ranks'; (c) full-width 2-layer
+                Qwen3-MoE (64 experts a rank): a forward and backward of
+                2 x 2048 tokens (one _apply_ep call a layer), and layer
+                0's experts alone on seeded f32 inputs against
+                _apply_ep_plain at tp 2: keep masks equal, pairs dropped,
+                y, aux and the gradients <= 1e-4. Its kernels-phase
+                rows: the flash pair at a rank's heads (B 2, 4,096
+                tokens, 16 heads of 128).
  10. moe     — the MoE family at Qwen3-MoE-30B-A3B's full width, depth cut
                 to 2 layers (random weights from seed 0, bf16; 128 experts,
                 top-8, 32 query heads over 4 kv heads): calibration 16 x 256
@@ -336,7 +358,9 @@ chiprun_out/chip_smoke.json. The profiler pass over the quantize path is
 ``python -m repro_torch.launch.profile_quantize``.
 
 Run as ``chip_smoke.py mesh-worker <dir>`` under torchrun, it is one rank
-of the mesh phase's part (b) and writes ``<dir>/rank<r>.json``. Run as
+of the mesh phase's part (b) and writes ``<dir>/rank<r>.json``; as
+``chip_smoke.py model-axis-worker <dir>``, one rank of the model_axis
+phase. Run as
 ``chip_smoke.py grad-readings SEED ...``, it takes the hybrid train cell's
 gradient readings alone at those seeds (``grad_readings``).
 """
@@ -1255,8 +1279,14 @@ FLASH_SHAPES = {
                       causal=True, q_offset=0),
 }
 # shapes whose forward also runs with its log-sum-exp output (the launch a
-# train step makes under autograd), bf16: check_flash_lse
-FLASH_LSE_SHAPES = ("zamba B=2",)
+# train step makes under autograd), bf16: check_flash_lse; the last, a
+# model_axis rank's heads of the train phase's microbatch (Llama-2-7B's 32
+# heads on a model axis of 2)
+FLASH_LSE_SHAPES = {
+    "zamba B=2": FLASH_SHAPES["zamba B=2"],
+    "llama tp B=2": dict(B=2, Sq=4096, Sk=4096, H=16, KV=16, hd=128,
+                         causal=True, q_offset=0),
+}
 
 # flash attention's backward: the train phase's microbatch (bf16 and f32),
 # GQA with Qwen2-72B's heads, a q_offset, non-causal at hd 64, f32 queries
@@ -1277,6 +1307,9 @@ FLASH_BWD_SHAPES = {
     # the train_families phase's hybrid microbatch
     "zamba train": dict(B=2, Sq=4096, Sk=4096, H=32, KV=32, hd=112,
                         causal=True, q_offset=0),
+    # the model_axis phase: a rank's 16 heads of the train microbatch
+    "tp train": dict(B=2, Sq=4096, Sk=4096, H=16, KV=16, hd=128,
+                     causal=True, q_offset=0),
 }
 FLASH_BWD_ROWS = (("train", "bfloat16", "bfloat16"),
                   ("train", "float32", "float32"),
@@ -1285,7 +1318,8 @@ FLASH_BWD_ROWS = (("train", "bfloat16", "bfloat16"),
                   ("non-causal", "bfloat16", "bfloat16"),
                   ("q_offset", "float32", "bfloat16"),
                   ("zamba", "bfloat16", "bfloat16"),
-                  ("zamba train", "bfloat16", "bfloat16"))
+                  ("zamba train", "bfloat16", "bfloat16"),
+                  ("tp train", "bfloat16", "bfloat16"))
 
 
 def flash_bwd_rule(q_name: str, kv_name: str, hd: int) -> str:
@@ -1672,7 +1706,7 @@ def check_flash_lse(torch, dev, shape: str) -> dict:
     from repro_torch.kernels.flash_attention import (
         _launch_forward, flash_attention_plain)
 
-    sh = FLASH_SHAPES[shape]
+    sh = FLASH_LSE_SHAPES[shape]
     B, Sq, Sk, H, KV, hd = (sh[n] for n in ("B", "Sq", "Sk", "H", "KV", "hd"))
     causal, off = sh["causal"], sh["q_offset"]
     g = torch.Generator(device=dev).manual_seed(Sq + Sk + H + hd)
@@ -5462,36 +5496,6 @@ def mesh_worker(out_dir: str) -> int:
     return 0
 
 
-def run_mesh_ranks(out_dir: str) -> float:
-    """``chip_smoke.py mesh-worker`` on MESH_RANKS ranks under torchrun
-    (its own session: on a timeout every rank is killed with it)."""
-    import signal
-
-    os.makedirs(out_dir, exist_ok=True)
-    for f in os.listdir(out_dir):
-        os.remove(os.path.join(out_dir, f))
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         f"--nproc-per-node={MESH_RANKS}", os.path.abspath(__file__),
-         "mesh-worker", out_dir],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        start_new_session=True)
-    try:
-        out, _ = proc.communicate(timeout=MESH_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        raise Failed(f"mesh ranks did not end within {MESH_TIMEOUT_S} s")
-    for line in out.splitlines():
-        if line.startswith(("hessian mesh:", "[build]")) or "Error" in line:
-            log(f"[mesh]   {line}")
-    if proc.returncode != 0:
-        log(out[-6000:])
-        raise Failed(f"mesh ranks exited {proc.returncode}")
-    return time.perf_counter() - t0
-
-
 def phase_mesh(torch, dev, main_res, main_qparams) -> dict:
     """The data axis of the mesh: (a) NCCL at world size 1 on the card
     (accumulate_sharded against accumulate and accumulate_diag on main's
@@ -5557,7 +5561,9 @@ def phase_mesh(torch, dev, main_res, main_qparams) -> dict:
 
     # (b) 2 ranks over gloo on the one card
     out_dir = os.path.join(ROOT, "build", "repro_torch", "mesh_ranks")
-    t["ranks"] = run_mesh_ranks(out_dir)
+    t["ranks"] = run_ranks("mesh-worker", out_dir, MESH_RANKS,
+                           MESH_TIMEOUT_S, "mesh",
+                           show=("hessian mesh:", "[build]"))
     ranks = []
     for r in range(MESH_RANKS):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
@@ -5611,6 +5617,502 @@ def phase_mesh(torch, dev, main_res, main_qparams) -> dict:
             "b": ranks, "error_rel_vs_main": err_rel, "seconds": t}
 
 
+# ---------------------------------------------------------------------------
+# the mesh's model axis: tensor and expert parallelism on 2 ranks
+# ---------------------------------------------------------------------------
+
+MODEL_AXIS_RANKS = 2
+MODEL_AXIS_TIMEOUT_S = 600
+# (a) bf16 steps on the mesh against the train phase's single-device steps,
+# relative, step by step: the loss (readings on the H100 at most 3.51e-5)
+# and the gradient norm (at most 4.3e-4, the fourth step's)
+MODEL_AXIS_LOSS_RTOL = 1e-3
+MODEL_AXIS_GNORM_RTOL = 5e-3
+# (c) full-width Qwen3-MoE: a forward and backward of 2 x 2048 tokens; the
+# expert-parallel layer alone on seeded f32 inputs of the same size
+MODEL_AXIS_MOE_TOKENS = (2, 2048)
+
+
+def checksum(torch, t) -> int:
+    """An exact fingerprint of a tensor's bits: its elements read as
+    integers of their width, weighted by position (mod 65,521) and summed
+    in int64 on the card. Equal bits give equal sums; a single flipped
+    bit changes it."""
+    t = t.detach().contiguous()
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    v = t.view(ints[t.element_size()]).reshape(-1).to(torch.int64)
+    w = torch.arange(v.numel(), device=v.device, dtype=torch.int64) % 65521
+    return int((v * (w + 1)).sum())
+
+
+def model_axis_worker(out_dir: str) -> int:
+    """One rank of the model_axis phase, under ``torchrun
+    --nproc-per-node 2``: a (data 1, model 2) mesh over gloo, both ranks
+    on the one card. (a) full-width 2-layer Llama-2-7B on the train
+    phase's 4 x 4096 tokens (2 microbatches, remat): the f32 copy's loss
+    and gradients (gathered; rank 0 then takes the single-device step's
+    own), 4 bf16 steps (seconds, tokens/s, peak memory, flash launches by
+    variant); (b) a sharded save of the step-2 state, its restore with
+    ``shardings=``, bit for bit on every rank, step 3 from it against the
+    uninterrupted step 3, and each leaf's shard checksums for the parent's
+    own restore; (c) full-width 2-layer Qwen3-MoE: a bf16 forward and
+    backward through expert parallelism (64 experts a rank), layer 0's
+    experts alone (``_apply_ep``) against ``_apply_ep_plain`` at tp 2 on
+    rank 0, and the f32 copy's forward and backward on the mesh, its loss
+    and gradients (gathered) against rank 0's single-device step with
+    ``moe.apply`` as ``_apply_ep_plain`` at tp 2. Writes
+    ``out_dir/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model_zoo, moe
+    from repro_torch.models import parallel as par
+    from repro_torch.runtime import elastic
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import (
+        TrainState, data_rows, loss_and_grads, make_train_step)
+
+    t_all = time.perf_counter()
+    mesh = mesh_lib.make_production_mesh(model_parallel=MODEL_AXIS_RANKS,
+                                         device_type="cuda")
+    rank = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tokens = torch.load(os.path.join(out_dir, "tokens.pt")).to(dev)
+    res = {"rank": rank, "world": dist.get_world_size(),
+           "backend": dist.get_backend(), "mesh": list(mesh.shape),
+           "device": str(dev)}
+    t = {}
+    mb = TRAIN_MICROBATCHES
+
+    def note(msg: str) -> None:
+        print(f"[model_axis rank {rank}] {msg}", flush=True)
+
+    def flag_all(ok: bool) -> bool:
+        """``ok`` on every rank."""
+        v = torch.tensor([0 if ok else 1], device=dev)
+        dist.all_reduce(v)
+        return int(v) == 0
+
+    # (a) dense tensor parallelism, full-width Llama-2-7B
+    cfg = ARCHS["llama2-7b"].scaled(n_layers=2)
+    model = model_zoo.build(cfg)
+    model32 = model_zoo.build(cfg.scaled(dtype="float32"))
+    layout = par.Layout(model, mesh)
+    rows = data_rows({"tokens": tokens}, mesh, mb)
+    params = model.init_params(seed=0, device=dev)
+    t0 = time.perf_counter()
+    p32 = elastic.reshard(to_f32(params), model32.param_specs(), mesh)
+    zero_counts()
+    views, m32 = loss_and_grads(
+        model32, opt.tree_unflatten(p32, layout.views(p32)), rows,
+        microbatches=mb, remat=True, axis=layout.axis)
+    torch.cuda.synchronize()
+    res["launches_f32"] = train_counts()
+    grads = [par.whole(g) for g in opt.tree_leaves(
+        layout.grads(p32, opt.tree_leaves(views)))]
+    del views, p32
+    torch.cuda.empty_cache()
+    t["f32_tp"] = time.perf_counter() - t0
+    res["loss_f32_tp"] = float(m32["loss"])
+    note(f"(a) f32 copy on the mesh: loss {res['loss_f32_tp']:.6f}, "
+         f"{t['f32_tp']:.1f}s, launches {res['launches_f32']}")
+    if rank == 0:  # the single-device step's loss and gradients
+        t0 = time.perf_counter()
+        g1, m1 = loss_and_grads(model32, to_f32(params), {"tokens": tokens},
+                                microbatches=mb, remat=True)
+        rel, worst = rel_frobenius(torch, grads, g1, _leaf_names(g1))
+        res["loss_f32_single"] = float(m1["loss"])
+        res["grad_rel_frobenius"], res["grad_worst"] = rel, worst
+        del g1
+        t["f32_single"] = time.perf_counter() - t0
+        note(f"(a) single device: loss {res['loss_f32_single']:.6f}, worst "
+             f"gradient {res['grad_worst']}")
+    del grads
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    ocfg = opt.OptConfig(**TRAIN_OPT)
+    pt = elastic.reshard(params, model.param_specs(), mesh)
+    del params
+    state = TrainState(pt, opt.init(pt, ocfg))
+    step = make_train_step(model, ocfg, microbatches=mb, remat=True,
+                           mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, gnorms, secs, kept = [], [], [], {}
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, rows)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        if i + 1 in (2, 3):
+            kept[i + 1] = state
+    res["launches"] = train_counts()
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    res.update(losses=losses, grad_norms=gnorms, step_seconds=secs)
+    steady = _median(secs[1:])
+    res["seconds_per_step"] = steady
+    res["tokens_per_s"] = tokens.numel() / steady
+    note(f"(a) bf16 steps: losses {losses}, seconds {secs}, peak "
+         f"{res['max_memory_allocated'] / 2**30:.2f} GiB, launches "
+         f"{res['launches']}")
+    del state
+
+    # (b) the step-2 state saved sharded, restored with shardings=
+    t0 = time.perf_counter()
+    ck_dir = os.path.join(out_dir, "ckpt")
+    ckpt = Checkpointer(ck_dir, async_save=True)
+    s2 = kept[2]
+    ckpt.save(2, s2, metadata={"mesh": list(mesh.shape)})
+    ckpt.wait()
+    t["save"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, meta = ckpt.restore(s2, step=2, shardings=launch_train
+                              .shardings_for(mesh, model, s2))
+    torch.cuda.synchronize()
+    t["restore"] = time.perf_counter() - t0
+    same = all(a.placements == b.placements and torch.equal(
+        a.to_local(), b.to_local()) for a, b in zip(
+            _state_leaves(back), _state_leaves(s2)))
+    res["restore_bitwise"] = flag_all(same)
+    res["restore_meta"] = meta
+    r3, _ = step(back, rows)
+    res["step3_bitwise"] = flag_all(all(torch.equal(
+        a.to_local(), b.to_local()) for a, b in zip(
+            opt.tree_leaves(r3.params), opt.tree_leaves(kept[3].params))))
+    res["shard_checksums"] = [checksum(torch, x.to_local())
+                              for x in _state_leaves(s2)]
+    res["shard_placements"] = [repr(x.placements)
+                               for x in _state_leaves(s2)]
+    note(f"(b) save {t['save']:.1f}s, restore {t['restore']:.1f}s, bitwise "
+         f"{res['restore_bitwise']}, step 3 bitwise {res['step3_bitwise']}")
+    del back, r3, kept, s2, step
+    torch.cuda.empty_cache()
+
+    # (c) expert parallelism, full-width Qwen3-MoE
+    t0 = time.perf_counter()
+    mcfg = ARCHS[MOE_ARCH].scaled(n_layers=MOE_LAYERS)
+    mmodel = model_zoo.build(mcfg)
+    mlayout = par.Layout(mmodel, mesh)
+    B, S = MODEL_AXIS_MOE_TOKENS
+    mtok = {"tokens": tokens[:B, :S].contiguous()}
+    mparams = mmodel.init_params(seed=0, device=dev)
+    mp = elastic.reshard(mparams, mmodel.param_specs(), mesh)
+    moe._apply_ep.calls = 0
+    mviews, mm = loss_and_grads(
+        mmodel, opt.tree_unflatten(mp, mlayout.views(mp)), mtok,
+        microbatches=1, remat=False, axis=mlayout.axis)
+    torch.cuda.synchronize()
+    res["moe_ep_calls"] = moe._apply_ep.calls
+    res["moe_loss"] = float(mm["loss"])
+    res["moe_grads_finite"] = flag_all(all(
+        bool(torch.isfinite(g).all()) for g in opt.tree_leaves(mviews)))
+    res["moe_modes"] = sorted({leaf.mode for leaf in mlayout.of(mp)})
+    del mviews
+    t["moe_model"] = time.perf_counter() - t0
+    note(f"(c) moe forward and backward: loss {res['moe_loss']:.4f}, EP "
+         f"calls {res['moe_ep_calls']}, {t['moe_model']:.1f}s")
+
+    t0 = time.perf_counter()
+    axis = par.ModelAxis(mesh)
+    layer = mp["layers"][0]["ffn"]
+    # the router whole, this rank's experts
+    p = {k: (par.whole(v) if k == "router" else v.to_local()).to(
+        torch.float32).clone().requires_grad_() for k, v in layer.items()}
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((B, S, mcfg.d_model), generator=g, device=dev)
+    dy = torch.randn((B, S, mcfg.d_model), generator=g, device=dev)
+    xr = x.clone().requires_grad_()
+    y, aux, keep = moe._apply_ep(p, mcfg, xr, axis)
+    gr = torch.autograd.grad((y * dy).sum() + aux,
+                             [xr] + [p[k] for k in sorted(p)])
+    names = ["x"] + sorted(p)
+    shards = {k: par.all_gather(gr[names.index(k)], 0, axis.model_group)
+              for k in ("w_in", "w_gate", "w_out")}
+    keeps = par.all_gather(keep[None], 0, axis.model_group)
+    whole = {k: par.all_gather(p[k].detach(), 0, axis.model_group)
+             for k in ("w_in", "w_gate", "w_out")}
+    if rank == 0:
+        pw = {"router": p["router"].detach().clone().requires_grad_(),
+              **{k: v.requires_grad_() for k, v in whole.items()}}
+        xw = x.clone().requires_grad_()
+        yw, auxw, keepw = moe._apply_ep_plain(pw, mcfg, xw, MODEL_AXIS_RANKS)
+        gw = torch.autograd.grad((yw * dy).sum() + auxw,
+                                 [xw] + [pw[k] for k in sorted(pw)])
+        want = dict(zip(names, gw))
+        got = {"x": gr[0], "router": gr[names.index("router")], **shards}
+        outs, _ = rel_frobenius(torch, [y, aux], [yw, auxw], ["y", "aux"])
+        ep = {"keep_equal": bool(torch.equal(keeps, keepw)),
+              "pairs": keepw[0].numel(), "kept": int(keepw.sum()),
+              "capacity": moe.capacity(S, mcfg),
+              "y_rel": outs["y"], "aux_rel": outs["aux"],
+              "grad_rel": rel_frobenius(torch, list(got.values()), [
+                  want[k] for k in got], list(got))[0]}
+        ep["dropped"] = ep["pairs"] - ep["kept"]
+        res["ep_layer"] = ep
+        del pw, xw, yw, gw, want, got
+    del p, gr, shards, whole, mp, layer
+    torch.cuda.empty_cache()
+    t["moe_layer"] = time.perf_counter() - t0
+
+    # the f32 copy's step on the mesh against one device running
+    # _apply_ep_plain at tp 2 in place of the dispatch (the EP semantics)
+    t0 = time.perf_counter()
+    mmodel32 = model_zoo.build(mcfg.scaled(dtype="float32"))
+    mp32 = elastic.reshard(to_f32(mparams), mmodel32.param_specs(), mesh)
+    mviews, mm = loss_and_grads(
+        mmodel32, opt.tree_unflatten(mp32, mlayout.views(mp32)), mtok,
+        microbatches=1, remat=False, axis=mlayout.axis)
+    mgrads = [par.whole(g) for g in opt.tree_leaves(
+        mlayout.grads(mp32, opt.tree_leaves(mviews)))]
+    del mviews, mp32
+    torch.cuda.empty_cache()
+    res["moe_loss_f32_tp"] = float(mm["loss"])
+    if rank == 0:
+        real = moe.apply
+        moe.apply = lambda p, c, x: moe._apply_ep_plain(
+            p, c, x, MODEL_AXIS_RANKS)[:2]
+        try:
+            g1, m1 = loss_and_grads(mmodel32, to_f32(mparams), mtok,
+                                    microbatches=1, remat=False)
+        finally:
+            moe.apply = real
+        rel, worst = rel_frobenius(torch, mgrads, g1, _leaf_names(g1))
+        res["moe_loss_f32_single"] = float(m1["loss"])
+        res["moe_grad_worst"] = worst
+        res["moe_grad_rel_frobenius"] = rel
+        del g1
+    del mgrads, mparams
+    torch.cuda.empty_cache()
+    t["moe_f32"] = time.perf_counter() - t0
+    note(f"(c) f32 copy: loss on the mesh {res['moe_loss_f32_tp']:.6f}, "
+         f"{t['moe_f32']:.1f}s")
+    t["all"] = time.perf_counter() - t_all
+    res["seconds"] = t
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _state_leaves(state) -> list:
+    from repro_torch.train import optimizer as opt
+
+    return (opt.tree_leaves(state.params) + [state.opt.step]
+            + [x for t in (state.opt.m, state.opt.v, state.opt.master)
+               for x in opt.tree_leaves(t)])
+
+
+def run_ranks(worker: str, out_dir: str, n: int, timeout_s: int,
+              tag: str, show: tuple = ()) -> float:
+    """``chip_smoke.py <worker> <out_dir>`` on ``n`` ranks under torchrun
+    (its own session: on a timeout every rank is killed with it); the
+    ranks' lines starting with one of ``show``, or naming an error, are
+    logged."""
+    import signal
+
+    os.makedirs(out_dir, exist_ok=True)
+    for f in os.listdir(out_dir):
+        if f.startswith("rank"):
+            os.remove(os.path.join(out_dir, f))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc-per-node={n}", os.path.abspath(__file__), worker,
+         out_dir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise Failed(f"{tag} ranks did not end within {timeout_s} s")
+    for line in out.splitlines():
+        if (show and line.startswith(show)) or "Error" in line:
+            log(f"[{tag}]   {line}")
+    if proc.returncode != 0:
+        log(out[-6000:])
+        raise Failed(f"{tag} ranks exited {proc.returncode}")
+    return time.perf_counter() - t0
+
+
+def phase_model_axis(torch, dev, tokens, train_res) -> dict:
+    """The mesh's model axis: ``model_axis_worker`` on 2 gloo ranks sharing
+    the card, held to the single-device runs (the train phase's 4 bf16
+    steps on the same tokens and seed; rank 0's own single-device f32
+    gradients; ``_apply_ep_plain``), then the sharded checkpoint restored
+    in this process (world 1, NCCL) with ``shardings=`` on a 1 x 1 mesh,
+    each leaf cut as the ranks hold it, checksum for checksum."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model_zoo
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import init_state
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(ROOT, "build", "repro_torch", "model_axis")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    torch.save(tokens.cpu(), os.path.join(out_dir, "tokens.pt"))
+    torch.cuda.empty_cache()
+    t_ranks = run_ranks("model-axis-worker", out_dir, MODEL_AXIS_RANKS,
+                        MODEL_AXIS_TIMEOUT_S, "model_axis",
+                        show=("[model_axis rank",))
+    ranks = []
+    for r in range(MODEL_AXIS_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    L, mb = 2, TRAIN_MICROBATCHES
+    want = {"flash_attention": TRAIN_STEPS * L * mb * 2,
+            "flash_attention_bwd": TRAIN_STEPS * L * mb,
+            "flash_attention_by_impl": {"tc": TRAIN_STEPS * L * mb * 2},
+            "flash_attention_bwd_by_impl": {"tc": TRAIN_STEPS * L * mb}}
+    want32 = {"flash_attention": L * mb * 2, "flash_attention_bwd": L * mb,
+              "flash_attention_by_impl": {"fp32": L * mb * 2},
+              "flash_attention_bwd_by_impl": {"fp32": L * mb}}
+    single = train_res["losses"]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], single)]
+    gnorm_rel = [abs(a - b) / abs(b) for a, b in zip(
+        r0["grad_norms"], train_res["grad_norms"])]
+    for rk in ranks:
+        log(f"[model_axis] rank {rk['rank']} of {rk['world']}: backend "
+            f"{rk['backend']}, mesh (data, model) {rk['mesh']}, "
+            f"{rk['device']}; bf16 losses {rk['losses']}, grad norms "
+            f"{rk['grad_norms']}, seconds "
+            f"{[round(x, 4) for x in rk['step_seconds']]}"
+            f"; {rk['seconds_per_step']:.4f} s a step, "
+            f"{rk['tokens_per_s']:.1f} tokens/s, max_memory_allocated "
+            f"{rk['max_memory_allocated'] / 2**30:.2f} GiB; launches "
+            f"{rk['launches']} (f32 copy {rk['launches_f32']}); seconds "
+            f"{ {k: round(v, 2) for k, v in rk['seconds'].items()} }")
+    log(f"[model_axis] (a) f32 copy: loss on the mesh "
+        f"{r0['loss_f32_tp']:.6f}, single device {r0['loss_f32_single']:.6f}"
+        f"; gradients gathered vs single device, relative Frobenius worst "
+        f"{r0['grad_worst'][0]:.2e} ({r0['grad_worst'][1]}); bf16 losses "
+        f"vs the train phase's single-device steps {single}: relative "
+        f"{[f'{x:.2e}' for x in loss_rel]}; grad norms vs "
+        f"{train_res['grad_norms']}: relative "
+        f"{[f'{x:.2e}' for x in gnorm_rel]}")
+    log(f"[model_axis] (b) restore with shardings= bitwise "
+        f"{r0['restore_bitwise']}, step 3 from it bitwise "
+        f"{r0['step3_bitwise']}")
+    ep = r0["ep_layer"]
+    log(f"[model_axis] (c) {MOE_ARCH}: forward and backward of "
+        f"{MODEL_AXIS_MOE_TOKENS} tokens, loss {r0['moe_loss']:.4f}, "
+        f"_apply_ep calls {r0['moe_ep_calls']}, modes {r0['moe_modes']}; "
+        f"layer 0 alone vs _apply_ep_plain (tp 2): keep equal "
+        f"{ep['keep_equal']}, {ep['dropped']} of {ep['pairs']} (token, k) "
+        f"pairs dropped at capacity {ep['capacity']}, y {ep['y_rel']:.2e}, "
+        f"aux {ep['aux_rel']:.2e}, gradients "
+        + ", ".join(f"{k} {v:.2e}" for k, v in ep["grad_rel"].items()))
+    moe_loss_rel = (abs(r0["moe_loss_f32_tp"] - r0["moe_loss_f32_single"])
+                    / abs(r0["moe_loss_f32_single"]))
+    log(f"[model_axis] (c) f32 copy: loss on the mesh "
+        f"{r0['moe_loss_f32_tp']:.6f}, one device with _apply_ep_plain "
+        f"(tp 2) {r0['moe_loss_f32_single']:.6f} (relative "
+        f"{moe_loss_rel:.2e}); gradients gathered, relative Frobenius worst "
+        f"{r0['moe_grad_worst'][0]:.2e} ({r0['moe_grad_worst'][1]}) of "
+        f"{len(r0['moe_grad_rel_frobenius'])} leaves")
+
+    # (b) world 1: the same checkpoint restored here, cut as the ranks
+    t0 = time.perf_counter()
+    cfg = ARCHS["llama2-7b"].scaled(n_layers=2)
+    model = model_zoo.build(cfg)
+    hmesh = mesh_lib.make_host_mesh("cuda")
+    like = init_state(model, 0, opt.OptConfig(**TRAIN_OPT), device=dev,
+                      mesh=hmesh)
+    back, meta = Checkpointer(os.path.join(out_dir, "ckpt")).restore(
+        like, step=2, shardings=launch_train.shardings_for(hmesh, model,
+                                                           like))
+    del like
+    sums = [[] for _ in ranks]
+    for leaf, placed in zip(_state_leaves(back), r0["shard_placements"]):
+        whole = leaf.to_local()
+        shard_dim = re.search(r"Shard\(dim=(\d+)\)\)$", placed)
+        for r in range(len(ranks)):
+            part = (whole.chunk(len(ranks), int(shard_dim.group(1)))[r]
+                    if shard_dim else whole)
+            sums[r].append(checksum(torch, part))
+    world1_ok = all(sums[r] == ranks[r]["shard_checksums"]
+                    for r in range(len(ranks)))
+    backend_1 = dist.get_backend()
+    del back
+    dist.destroy_process_group()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    t_world1 = time.perf_counter() - t0
+    log(f"[model_axis] (b) world 1 ({backend_1}): restore with shardings= "
+        f"on a 1 x 1 mesh, every leaf's shard checksums equal the ranks' "
+        f"{world1_ok}; {t_world1:.1f}s")
+
+    checks = {
+        "2 gloo ranks on a (1, 2) mesh": all(
+            (rk["backend"], rk["world"], rk["mesh"]) == ("gloo", 2, [1, 2])
+            for rk in ranks),
+        "f32 loss within 1e-4 of the single device": abs(
+            r0["loss_f32_tp"] - r0["loss_f32_single"])
+        <= 1e-4 * abs(r0["loss_f32_single"]),
+        "f32 gradients within 1e-4 of the single device":
+            r0["grad_worst"][0] <= TRAIN_GRAD_RTOL,
+        "bf16 losses within 1e-3 of the single device":
+            max(loss_rel) <= MODEL_AXIS_LOSS_RTOL,
+        "bf16 grad norms within 5e-3 of the single device":
+            len(gnorm_rel) == TRAIN_STEPS
+            and max(gnorm_rel) <= MODEL_AXIS_GNORM_RTOL,
+        "bf16 loss finite and falling": all(
+            math.isfinite(x) for x in r0["losses"])
+        and r0["losses"][-1] < r0["losses"][0],
+        "ranks agree on the loss": all(
+            rk["losses"] == r0["losses"] for rk in ranks),
+        "flash launches a rank as planned": all(
+            rk["launches"] == want and rk["launches_f32"] == want32
+            for rk in ranks),
+        "restore bitwise at world 2": r0["restore_bitwise"],
+        "step 3 from the restore bitwise": r0["step3_bitwise"],
+        "restore at world 1 equals the ranks' shards": world1_ok,
+        "moe: _apply_ep once a layer": all(
+            rk["moe_ep_calls"] == L for rk in ranks),
+        "moe: loss and gradients finite": math.isfinite(r0["moe_loss"])
+        and r0["moe_grads_finite"],
+        "moe: keep masks equal": ep["keep_equal"],
+        "moe: pairs dropped": ep["dropped"] > 0,
+        "moe: y, aux and gradients within 1e-4": max(
+            [ep["y_rel"], ep["aux_rel"], *ep["grad_rel"].values()])
+        <= TRAIN_GRAD_RTOL,
+        "moe f32 step: loss within 1e-4 of one device with _apply_ep_plain":
+            moe_loss_rel <= 1e-4,
+        "moe f32 step: gradients within 1e-4 of one device with "
+        "_apply_ep_plain": r0["moe_grad_worst"][0] <= TRAIN_GRAD_RTOL,
+    }
+    t_phase = time.perf_counter() - t_phase
+    log(f"[model_axis] phase {t_phase:.1f}s (ranks {t_ranks:.1f}s)")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise Failed(f"model_axis phase checks failed: {bad}")
+    return {"ranks": ranks, "loss_rel_vs_single": loss_rel,
+            "grad_norm_rel_vs_single": gnorm_rel,
+            "moe_loss_rel_vs_plain": moe_loss_rel,
+            "predicted": {"bf16": want, "f32": want32},
+            "world1_checksums_equal": world1_ok,
+            "seconds": {"phase": t_phase, "ranks": t_ranks,
+                        "world1_restore": t_world1}}
+
+
 def kernel_line(rows: list[dict], launches: dict) -> dict:
     """One entry per kernel source, at the shape its path launches most:
     vq_dequant_matmul at the eval's M=512 on a 4096x4096 projection,
@@ -5640,7 +6142,10 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
     with its log-sum-exp output at the hybrid's microbatch (B=2, 32 heads
     of 112, 4096 tokens, bf16; launches the 4 hybrid steps' forwards) and
     flash_attention_bwd's tc variant at the same shape (launches their
-    backwards). library_ms
+    backwards). The model_axis phase's: the same pair at one rank's heads
+    of the train microbatch on a model axis of 2 (B=2, 16 heads of 128,
+    4096 tokens, bf16; launches rank 0's in its 4 bf16 steps).
+    library_ms
     is each row's own: for vq_dequant_matmul at int8 codebooks a bf16
     torch.matmul."""
     pick = {
@@ -5720,6 +6225,16 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
             lambda r: r["shape"] == "zamba train" and r["impl"] == "tc",
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:68"),
+        "flash_attention_train_tp": (
+            "flash_attention_lse",
+            lambda r: r["shape"] == "llama tp B=2",
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:68"),
+        "flash_attention_bwd_tp": (
+            "flash_attention_bwd",
+            lambda r: r["shape"] == "tp train" and r["impl"] == "tc",
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:68"),
     }
     out = []
     for name, (row_name, sel, source, replaces) in pick.items():
@@ -5760,6 +6275,8 @@ def main() -> int:
     out_dir = os.path.join(ROOT, "chiprun_out")
     if sys.argv[1:2] == ["mesh-worker"]:
         return mesh_worker(sys.argv[2])
+    if sys.argv[1:2] == ["model-axis-worker"]:
+        return model_axis_worker(sys.argv[2])
     if sys.argv[1:2] == ["grad-readings"]:
         return grad_readings([int(a) for a in sys.argv[2:]])
 
@@ -5792,6 +6309,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_families_res = phase_train_families(torch, dev, long_calib)
     torch.cuda.empty_cache()
+    model_axis_res = phase_model_axis(torch, dev, long_calib, train_res)
+    torch.cuda.empty_cache()
     moe_res = phase_moe(torch, dev)
     torch.cuda.empty_cache()
     vlm_res = phase_vlm(torch, dev, long_calib, long_heldout)
@@ -5810,6 +6329,7 @@ def main() -> int:
                    "budget": budget_res, "serve": serve_res, "long": long_res,
                    "train": train_res,
                    "train_families": train_families_res, "mesh": mesh_res,
+                   "model_axis": model_axis_res,
                    "moe": moe_res, "vlm": vlm_res, "ssm": ssm_res,
                    "hybrid": hybrid_res, "audio": audio_res}, f,
                   indent=1, default=str)
@@ -5839,6 +6359,11 @@ def main() -> int:
     launches["flash_attention_train_hd112"] = hybrid_train[
         "flash_attention_by_impl"]["tc"]
     launches["flash_attention_bwd_hd112"] = hybrid_train[
+        "flash_attention_bwd_by_impl"]["tc"]
+    tp_rank0 = model_axis_res["ranks"][0]["launches"]
+    launches["flash_attention_train_tp"] = tp_rank0[
+        "flash_attention_by_impl"]["tc"]
+    launches["flash_attention_bwd_tp"] = tp_rank0[
         "flash_attention_bwd_by_impl"]["tc"]
     print(json.dumps(kernel_line(rows, launches)))
     print(smi)

@@ -35,6 +35,17 @@ a list of groups of layers) in the reference's layout: one stacked
 (n_groups, per, ...) leaf per array when its layers stack
 (``core/adapters/base.blocks_stackable``), the list of lists otherwise (a
 mixed recipe).
+
+DTensor leaves (a train state on a mesh) are saved as their whole logical
+arrays, the same bytes as an unsharded save, so a checkpoint does not
+depend on the mesh that wrote it. Gathering a leaf (``parallel.whole``) is
+a collective: every rank calls ``save``, which gathers every leaf before
+the writer thread gets the arrays; rank 0 alone writes, and the next
+``wait`` (``save`` calls it first) holds every rank until it has.
+``restore`` places a leaf on a mesh when ``shardings=`` gives it a
+(mesh, spec) pair (``launch/mesh.NamedSharding``) or, without one, when
+``like``'s leaf is a DTensor (its mesh and placements); other leaves come
+back whole on ``like``'s device.
 """
 from __future__ import annotations
 
@@ -48,6 +59,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.models import common as cm
+from repro_torch.models import parallel as par
 
 _BF16 = "bfloat16"
 # dataclass fields holding the reference's uint32 code words as int32
@@ -144,6 +159,25 @@ def _from_host(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 
+def _zip_shardings(like, shardings):
+    """``shardings``' leaves in ``like``'s leaf order (``_flatten``'s):
+    ``shardings`` has ``like``'s containers down to its tensors."""
+    kids = _children(like)
+    if kids is None:
+        return [shardings]
+    if isinstance(like, dict):
+        return [s for k in sorted(like)
+                for s in _zip_shardings(like[k], shardings[k])]
+    if isinstance(like, list):
+        return [s for a, b in zip(like, shardings)
+                for s in _zip_shardings(a, b)]
+    if isinstance(like, tuple):  # NamedTuple
+        return [s for f in like._fields
+                for s in _zip_shardings(getattr(like, f),
+                                        getattr(shardings, f))]
+    raise TypeError(f"no shardings for {type(like).__name__} leaves")
+
+
 def _reference_layout(tree):
     """``tree`` with a stackable hybrid trunk stacked (n_groups, per, ...),
     as the reference's adapter finalizes and saves it."""
@@ -166,15 +200,27 @@ class Checkpointer:
         self.async_save = async_save
         self._thread: threading.Thread | None = None
         self._error: Exception | None = None
+        self._ranks_wait = False  # a save on a mesh waits for rank 0
         os.makedirs(directory, exist_ok=True)
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, tree: Any, metadata: dict | None = None):
-        # snapshot now, in the reference's layout
-        host = [(_name(path), *_to_host(path, leaf))
-                for path, leaf in _flatten(_reference_layout(tree))]
+        leaves = _flatten(_reference_layout(tree))
+        sharded = any(cm.is_dtensor(leaf) for _, leaf in leaves)
+        self.wait()
+        # snapshot now, in the reference's layout; a DTensor leaf whole
+        # (every rank gathers every leaf, in order)
+        writer = not sharded or dist.get_rank() == 0
+        host = []
+        for path, leaf in leaves:
+            if cm.is_dtensor(leaf):
+                leaf = par.whole(leaf)
+            if writer:
+                host.append((_name(path), *_to_host(path, leaf)))
+        self._ranks_wait = sharded
+        if not writer:
+            return
         if self.async_save:
-            self.wait()
             self._thread = threading.Thread(
                 target=self._save_async, args=(step, host, metadata))
             self._thread.start()
@@ -206,10 +252,15 @@ class Checkpointer:
         self._gc()
 
     def wait(self):
-        """Join a pending async save; raise the error it met, if any."""
+        """Join a pending async save (after a save on a mesh, every rank
+        waits here until rank 0's has landed); raise the error it met, if
+        any."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._ranks_wait:
+            self._ranks_wait = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -233,11 +284,15 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like: Any, step: int | None = None) -> tuple[Any, dict]:
-        """Restore into the structure of ``like`` (each leaf on the device
-        of ``like``'s leaf); returns (tree, metadata). The reference's
-        ``shardings=`` (leaves placed on a mesh) waits for ROADMAP.md
-        queue 1, "The model axis"."""
+    def restore(self, like: Any, step: int | None = None,
+                shardings: Any = None) -> tuple[Any, dict]:
+        """Restore into the structure of ``like``; returns (tree,
+        metadata). ``shardings``: a tree with ``like``'s containers whose
+        leaves are (mesh, spec) pairs (``launch.mesh.NamedSharding``) or
+        None; a leaf with a pair comes back as a DTensor placed by its
+        spec sanitized against the mesh, a DTensor ``like`` leaf without
+        one on its mesh and placements, any other on the device of
+        ``like``'s leaf."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint found in {self.dir}")
@@ -252,8 +307,11 @@ class Checkpointer:
                 loaded[name] = np.load(os.path.join(d, name + ".npy"))
             return loaded[name]
 
+        flat = _flatten(like)
+        shards = (_zip_shardings(like, shardings) if shardings is not None
+                  else [None] * len(flat))
         values = {}
-        for path, ref in _flatten(like):
+        for (path, ref), sh in zip(flat, shards):
             name, row = _name(path), ()
             if name not in dtypes:
                 # the reference's stacked form: drop the first run of list
@@ -273,5 +331,11 @@ class Checkpointer:
             arr = load(name)
             if row:
                 arr = arr[row]
-            values[path] = _from_host(arr, dtypes[name], ref.device)
+            t = _from_host(arr, dtypes[name], ref.device)
+            if sh is not None:
+                spec = cm.sanitize_specs(t, sh.spec, sh.mesh)
+                t = cm.place(t, sh.mesh, cm.placements(spec, sh.mesh))
+            elif cm.is_dtensor(ref):
+                t = cm.place(t, ref.device_mesh, ref.placements)
+            values[path] = t
         return _rebuild(like, values), manifest["metadata"]

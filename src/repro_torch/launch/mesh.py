@@ -5,15 +5,21 @@ Defined as functions, so importing this module starts no process group.
 A mesh needs the default process group: the mesh functions start it
 (``init_world``) on the backend of ``world_backend``'s rule (NCCL when
 each rank on the host has a card of its own, gloo when ranks share one
-card or run on the CPU), from ``torchrun``'s environment or, for a world
-of one, from an in-process store.
+card or run on the CPU): from ``COORDINATOR_ADDRESS`` (``host:port``, with
+``RANK`` and ``WORLD_SIZE``: the port's counterpart of the reference's
+``jax.distributed.initialize()``), from ``torchrun``'s environment, or,
+for a world of one, from an in-process store. ``NamedSharding`` pairs a
+mesh with a spec (``models/common.P``), as the reference's.
 """
 from __future__ import annotations
 
 import os
+from typing import Any, NamedTuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.models import common as cm
 
 AXES = ("data", "model")
 
@@ -28,26 +34,70 @@ HARDWARE = {
 }
 
 
+def local_world(device_type: str, world_size: int) -> tuple[int, int]:
+    """(this rank's index among the ranks on its host, their count):
+    ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE``, which ``torchrun`` sets. A
+    ``COORDINATOR_ADDRESS`` start without them has only ``RANK`` and
+    ``WORLD_SIZE``: on the CPU, or where the world has no more ranks than
+    this host has cards, ``RANK`` serves as the card (distinct ranks take
+    distinct cards, on one host or several); otherwise which ranks share
+    this host is unknown, and it raises. Without either, one host:
+    ``RANK`` of ``world_size``."""
+    env = os.environ
+    local = {k: int(env[k]) for k in ("LOCAL_RANK", "LOCAL_WORLD_SIZE")
+             if k in env}
+    if (env.get("COORDINATOR_ADDRESS") and device_type == "cuda"
+            and len(local) < 2 and world_size > torch.cuda.device_count()):
+        raise ValueError(
+            f"COORDINATOR_ADDRESS: a world of {world_size} ranks on hosts "
+            f"of {torch.cuda.device_count()} card(s) needs LOCAL_RANK and "
+            "LOCAL_WORLD_SIZE (this rank's index among the ranks on its "
+            "host, and their count) to choose the backend and the card")
+    return (local.get("LOCAL_RANK", int(env.get("RANK", "0"))),
+            local.get("LOCAL_WORLD_SIZE", world_size))
+
+
 def world_backend(device_type: str, world_size: int) -> str:
     """The backend for ranks on ``device_type``: ``nccl`` when each rank
     on this host can have a card of its own, ``gloo`` when ranks share a
     card (NCCL refuses two ranks on one device) or run on the CPU. The
-    ranks on this host are ``torchrun``'s ``LOCAL_WORLD_SIZE``, else
-    ``world_size`` (one host)."""
-    local = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
+    ranks on this host are ``local_world``'s."""
+    _, local = local_world(device_type, world_size)
     if device_type == "cuda" and local <= torch.cuda.device_count():
         return "nccl"
     return "gloo"
 
 
+class NamedSharding(NamedTuple):
+    """A mesh and a spec: where a tensor lives (the reference's
+    ``jax.sharding.NamedSharding``)."""
+    mesh: Any
+    spec: Any
+
+    def placements(self) -> list:
+        return cm.placements(self.spec, self.mesh)
+
+
 def init_world(backend: str) -> None:
     """Start the default process group with ``backend`` unless one is
-    running: from ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``,
-    ``MASTER_ADDR``, ``MASTER_PORT``) when it is set, else as a world of
-    one rank on an in-process store."""
+    running: from ``COORDINATOR_ADDRESS`` (``tcp://`` at that address,
+    rank and world from ``RANK`` and ``WORLD_SIZE``), from ``torchrun``'s
+    environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+    ``MASTER_PORT``) when it is set, else as a world of one rank on an
+    in-process store. Under NCCL each launched rank takes the card of its
+    index on its host (``local_world``)."""
     if dist.is_initialized():
         return
-    if "WORLD_SIZE" in os.environ:
+    addr = os.environ.get("COORDINATOR_ADDRESS")
+    if backend == "nccl" and (addr or "LOCAL_RANK" in os.environ):
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        torch.cuda.set_device(local_world("cuda", world)[0])
+    if addr:
+        dist.init_process_group(
+            backend, init_method=f"tcp://{addr}",
+            rank=int(os.environ["RANK"]),
+            world_size=int(os.environ["WORLD_SIZE"]))
+    elif "WORLD_SIZE" in os.environ:
         dist.init_process_group(backend)
     else:
         dist.init_process_group(backend, store=dist.HashStore(), rank=0,
@@ -76,14 +126,16 @@ def keep_current_device(device_type: str) -> None:
         torch.cuda.init()
 
 
-def make_production_mesh(*, device_type: str = "cuda"):
-    """The launched world (``torchrun``) as a ``(data, model)`` mesh of
-    world x 1 (``runtime.elastic``'s plan at model_parallel 1: the model
-    axis waits for ROADMAP.md queue 1, "The model axis"), on the backend
-    of ``world_backend``'s rule."""
+def make_production_mesh(*, model_parallel: int = 1,
+                         device_type: str = "cuda"):
+    """The launched world (``torchrun`` or ``COORDINATOR_ADDRESS``) as a
+    ``(data, model)`` mesh: ``runtime.elastic``'s plan at
+    ``model_parallel`` (the model axis fixed, the data axis absorbing the
+    rest), on the backend of ``world_backend``'s rule."""
     from repro_torch.runtime import elastic
 
     world = int(os.environ.get("WORLD_SIZE", "1"))
     init_world(world_backend(device_type, world))
-    plan = elastic.plan_mesh(dist.get_world_size(), model_parallel=1)
+    plan = elastic.plan_mesh(dist.get_world_size(),
+                             model_parallel=model_parallel)
     return elastic.build_mesh(plan, device_type)

@@ -15,6 +15,12 @@ Cache updates are in place: the reference's caches are functional
 (``.at[...].set`` under a donated ``jit``), while here a write goes straight
 into the pool (``pool[blk, off] = rows``) and ``apply`` returns the same
 cache object, so a decode tick never copies a pool.
+
+Under a model axis that splits the heads (``models/parallel``, set by the
+sharded train step) self-attention runs on the rank's own heads: q from
+its columns of wq, its KV heads (its own columns of wk/wv, or the ones its
+query heads read out of the whole projection), ``wo``'s rows for its
+heads, and the output summed over the model axis.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import kv_quant as kvq
 from repro_torch.models import common as cm
+from repro_torch.models import parallel as par
 from repro_torch.obs import dispatch as obs_dispatch
 
 NEG_INF = -1e30
@@ -83,6 +90,36 @@ def init(gen, cfg: ModelConfig, dtype=torch.float32, device=None,
         p["q_norm"] = torch.ones((hd,), dtype=dtype, device=device)
         p["k_norm"] = torch.ones((hd,), dtype=dtype, device=device)
     return p
+
+
+def specs(cfg: ModelConfig) -> dict:
+    """The reference's sharding specs (``common.P``): q/k/v columns and
+    ``wo`` rows over the model axis, the other side over data."""
+    s = {"wq": cm.P("data", "model"), "wk": cm.P("data", "model"),
+         "wv": cm.P("data", "model"), "wo": cm.P("model", "data")}
+    if cfg.qkv_bias:
+        s.update({"bq": cm.P("model"), "bk": cm.P("model"),
+                  "bv": cm.P("model")})
+    if cfg.qk_norm:
+        s.update({"q_norm": cm.P(None), "k_norm": cm.P(None)})
+    return s
+
+
+def split_modes(cfg: ModelConfig, axis) -> dict:
+    """How a step on ``axis`` (``parallel.ModelAxis``) reads each leaf of
+    ``specs``, as ``_project_qkv`` and ``attend`` read them under
+    ``axis.heads``: wq / bq columns and wo rows of the rank's heads
+    (SPLIT); wk / wv / bk / bv the rank's KV heads' columns (SPLIT), or
+    whole when it keeps its KV heads from the whole projection
+    (FULL_SUM); the norms applied to the rank's heads (FULL_SUM)."""
+    split = axis.heads(cfg)
+    if split is None:
+        return {k: par.FULL for k in specs(cfg)}
+    kv = par.SPLIT if split.kv_lo is None else par.FULL_SUM
+    modes = {"wq": par.SPLIT, "bq": par.SPLIT, "wo": par.SPLIT, "wk": kv,
+             "wv": kv, "bk": kv, "bv": kv, "q_norm": par.FULL_SUM,
+             "k_norm": par.FULL_SUM}
+    return {k: modes[k] for k in specs(cfg)}
 
 
 # ---------------------------------------------------------------------------
@@ -229,9 +266,12 @@ def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0):
 
 def _project_qkv(p, cfg: ModelConfig, x, kv_x=None):
     """q from x; k and v from ``kv_x`` (cross-attention's memory), or from
-    x when it is None."""
+    x when it is None. Under a head split, the rank's heads."""
     B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    H, hd = cfg.n_heads, cfg.hd
+    split = par.head_split(cfg) if kv_x is None else None
+    if split is not None:
+        x, H = par.enter(x, split.group), split.heads
     kv_x = x if kv_x is None else kv_x
     q = cm.matmul(x, p["wq"])
     k = cm.matmul(kv_x, p["wk"])
@@ -239,8 +279,11 @@ def _project_qkv(p, cfg: ModelConfig, x, kv_x=None):
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, kv_x.shape[1], KV, hd)
-    v = v.reshape(B, kv_x.shape[1], KV, hd)
+    k = k.reshape(B, kv_x.shape[1], -1, hd)
+    v = v.reshape(B, kv_x.shape[1], -1, hd)
+    if split is not None and split.kv_lo is not None:
+        heads = slice(split.kv_lo, split.kv_lo + split.kv_heads)
+        k, v = k[:, :, heads], v[:, :, heads]
     if cfg.qk_norm:
         q = cm.rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = cm.rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -282,12 +325,18 @@ def pre_out(p, cfg: ModelConfig, x, *, pos=0, causal: bool = True,
     return _self_attention(q, k, v, causal=causal).reshape(B, S, -1)
 
 
-def attend(p, q, k, v, out_dtype, *, causal: bool = True):
+def attend(p, cfg: ModelConfig, q, k, v, out_dtype, *,
+           causal: bool = True):
     """The cache-free rest of self-attention after ``project``: attention
-    of q over k/v and ``wo``; returns (B, S, D) in ``out_dtype``."""
+    of q over k/v and ``wo``; returns (B, S, D) in ``out_dtype``. Under a
+    head split, the rank's part is summed over the model axis."""
     B, S = q.shape[:2]
     o = _self_attention(q, k, v, causal=causal).reshape(B, S, -1)
-    return cm.matmul(o, p["wo"]).to(out_dtype)
+    y = cm.matmul(o, p["wo"])
+    split = par.head_split(cfg)
+    if split is not None:
+        y = par.reduce(y, split.group)
+    return y.to(out_dtype)
 
 
 def _self_attention(q, k, v, *, causal: bool = True):
@@ -343,7 +392,7 @@ def apply(p, cfg: ModelConfig, x: torch.Tensor, *, pos=0, cache=None,
                          "causal=False has no paged path")
     q, k, v = project(p, cfg, x, pos=pos, use_rope=use_rope)
     if cache is None:
-        return attend(p, q, k, v, x.dtype, causal=causal), None
+        return attend(p, cfg, q, k, v, x.dtype, causal=causal), None
 
     if isinstance(cache, PagedKVCache):
         pos_arr = cm.position_ids(pos, B, S, device=x.device)  # (B, S)

@@ -1,6 +1,6 @@
 """Shared neural-net primitives (port of ``repro/models/common.py``): dense
 init, the matmul dispatch on dense or fused-VQ weights (one matrix, or an
-expert stack), norms, RoPE and activations.
+expert stack), norms, RoPE and activations, and the sharding specs' language.
 
 Parameter convention: plain nested dicts of tensors; dense kernels are
 (in, out), as in the reference. Mixed-dtype matmuls promote like jnp
@@ -10,6 +10,13 @@ Parameter convention: plain nested dicts of tensors; dense kernels are
 a call, by the weight form each matmul site met (dense or fused VQ, one
 matrix or an expert stack), so a leaf densified where it should have
 stayed fused shows as a count moving.
+
+Sharding specs are the reference's: a ``P`` per parameter, one entry per
+tensor dim naming the mesh axis (or tuple of axes) it is split over, or
+None; a spec of None is fully replicated. ``sanitize_specs`` drops an axis
+the mesh lacks or whose size does not divide the dim (the reference's rule),
+and ``placements`` turns a sanitized spec into ``torch.distributed.tensor``
+placements on a ``DeviceMesh`` with the same axis names.
 """
 from __future__ import annotations
 
@@ -150,3 +157,104 @@ def act_fn(name: str):
 
 def is_gated(name: str) -> bool:
     return name in ("swiglu", "geglu")
+
+
+# ---------------------------------------------------------------------------
+# sharding specs
+# ---------------------------------------------------------------------------
+
+class P(tuple):
+    """The reference's ``PartitionSpec``: ``P("data", "model")`` splits
+    dim 0 over the data axis and dim 1 over the model axis; ``None`` (or a
+    missing trailing entry) leaves a dim whole."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+def axis_sizes(mesh) -> dict:
+    """{axis name: size} of a ``DeviceMesh``, of a mapping of the same, or
+    of anything with the reference's ``axis_names`` and ``devices.shape``."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+    if isinstance(mesh, dict):
+        return dict(mesh)
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+def _axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def sanitize_specs(shapes, specs, mesh):
+    """``specs`` with every axis dropped from a dim that the mesh lacks or
+    whose size does not divide the dim (the reference's rule: GQA kv
+    projections, odd vocabularies and small expert counts fall back to
+    replication). ``shapes`` is a tree like ``specs`` whose leaves are
+    tensors or shape tuples; dicts, lists and NamedTuples (a train
+    state's) are walked."""
+    size = axis_sizes(mesh)
+
+    def fix(shape, spec):
+        dims = tuple(shape.shape) if hasattr(shape, "shape") else tuple(shape)
+        if spec is None:
+            return P()
+        out = []
+        for i, entry in enumerate(spec):
+            tup = tuple(n for n in _axes(entry) if n in size)
+            total = math.prod(size[n] for n in tup)
+            if tup and i < len(dims) and dims[i] % total == 0:
+                out.append(tup if len(tup) > 1 else tup[0])
+            else:
+                out.append(None)
+        return P(*out)
+
+    def walk(shapes, specs):
+        if isinstance(specs, dict):
+            return {k: walk(shapes[k], v) for k, v in specs.items()}
+        if isinstance(specs, list):
+            return [walk(a, b) for a, b in zip(shapes, specs)]
+        if isinstance(specs, tuple) and hasattr(specs, "_fields"):
+            return type(specs)(*(walk(a, b) for a, b in zip(shapes, specs)))
+        return fix(shapes, specs)
+
+    return walk(shapes, specs)
+
+
+def placements(spec, mesh) -> list:
+    """The ``torch.distributed.tensor`` placements of a sanitized spec on
+    ``mesh`` (a ``DeviceMesh``): ``Shard(i)`` for each mesh dim that the
+    spec names at tensor dim i, ``Replicate()`` for the others. On a
+    ``("data", "model")`` mesh ``P("data", "model")`` is ``[Shard(0),
+    Shard(1)]``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    where = {n: i for i, entry in enumerate(spec or ()) for n in _axes(entry)}
+    return [Shard(where[n]) if n in where else Replicate()
+            for n in mesh.mesh_dim_names]
+
+
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def place(t: torch.Tensor, mesh, placements):
+    """``t``, the whole tensor on every rank, as a DTensor on ``mesh``:
+    each rank keeps its own shard, cut locally (no collective), in storage
+    of its own, so the whole tensor is freed once the caller drops it."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    d = distribute_tensor(t, mesh, placements, src_data_rank=None)
+    local = d.to_local()
+    if local.untyped_storage().nbytes() > local.numel() * local.element_size():
+        d = DTensor.from_local(local.clone(), mesh, placements,
+                               run_check=False, shape=d.shape,
+                               stride=d.stride())
+    return d

@@ -65,6 +65,27 @@ def init_params(cfg: ModelConfig, gen: torch.Generator | None,
     }
 
 
+def param_specs(cfg: ModelConfig) -> dict:
+    """The reference's sharding specs on the port's tree: one dict a layer
+    in ``enc_layers`` and ``dec_layers`` (the stacked axis dropped)."""
+    P = cm.P
+
+    def enc_one():
+        return {"norm1": P(None), "attn": attention.specs(cfg),
+                "norm2": P(None), "ffn": mlp.specs(cfg)}
+
+    def dec_one():
+        return {"norm1": P(None), "self_attn": attention.specs(cfg),
+                "norm_x": P(None), "cross_attn": attention.specs(cfg),
+                "norm2": P(None), "ffn": mlp.specs(cfg)}
+
+    return {"embed": P("model", "data"), "pos_enc": P(None, "data"),
+            "pos_dec": P(None, "data"),
+            "enc_layers": [enc_one() for _ in range(cfg.n_encoder_layers)],
+            "dec_layers": [dec_one() for _ in range(cfg.n_layers)],
+            "enc_norm": P(None), "final_norm": P(None)}
+
+
 def embed_frames(params, cfg: ModelConfig, frames: torch.Tensor):
     """Add learned positional embeddings to the (stub) frame embeddings;
     the stream keeps the frames' dtype, as the reference's."""

@@ -60,6 +60,23 @@ def init_params(cfg: ModelConfig, gen: torch.Generator | None,
     return params
 
 
+def param_specs(cfg: ModelConfig) -> dict:
+    """The reference's sharding specs on the port's tree: the trunk a list
+    of groups of layer dicts (the reference's two stacked axes dropped),
+    the LoRA factors stacked (n_groups, ...) as in the reference."""
+    n_groups, per = _groups(cfg)
+    P = cm.P
+    return {
+        "embed": P("model", "data"), "final_norm": P(None),
+        "lm_head": P("data", "model"),
+        "mamba": [[{"norm": P(None), "mixer": ssm.specs(cfg)}
+                   for _ in range(per)] for _ in range(n_groups)],
+        "shared": {"norm": P(None), "attn": attention.specs(cfg)},
+        "lora": {name: {"A": P(None, "data", None), "B": P(None, None, "model")}
+                 for name in ("q", "k", "v")},
+    }
+
+
 class HybridCache(NamedTuple):
     mamba: Any  # [group][layer] ssm.SSMCache
     attn: Any   # [group] KVCache or PagedKVCache, or None (no cache)

@@ -11,7 +11,10 @@ state and cross K/V are slot-resident either way), and whose
 ``forward(params, batch, cache=None, pos=0, **kw)`` takes a dict with
 ``tokens`` (B, S) and, for vlm, ``patches`` (B, n_image_tokens, D), for
 audio ``frames`` (B, encoder_seq, D), and returns (logits, new_cache,
-aux_loss). ``remat=`` (the reference's ``True`` / ``False`` /
+aux_loss). ``param_specs()`` gives the reference's sharding specs
+(``common.P``) on the port's tree, and ``abstract_params(model)`` the
+parameters' shapes and dtypes as ``meta`` tensors (nothing allocated).
+``remat=`` (the reference's ``True`` / ``False`` /
 ``"save_attn"``) passes through to the family's forward: the train step's
 checkpointing (a block of dense, moe, vlm and ssm; a hybrid group; an
 audio encoder or decoder layer).
@@ -34,6 +37,7 @@ class Model:
     init_params: Callable[..., Any]
     forward: Callable[..., tuple]
     init_cache: Callable[..., Any]
+    param_specs: Callable[[], Any]
 
 
 def _family_module(cfg: ModelConfig):
@@ -74,7 +78,9 @@ def build(cfg: ModelConfig) -> Model:
         return mod.init_cache(cfg, batch, max_len, dtype, paged,
                               device=resolve_device(device))
 
-    return Model(cfg, init_params, fwd, init_cache)
+    specs = {"hybrid": hybrid, "audio": encdec, "vlm": vlm}.get(
+        cfg.family, transformer).param_specs
+    return Model(cfg, init_params, fwd, init_cache, lambda: specs(cfg))
 
 
 def _leaves(tree):
@@ -88,8 +94,13 @@ def _leaves(tree):
         yield tree
 
 
+def abstract_params(model: Model):
+    """The parameter tree as ``meta`` tensors: shapes and dtypes, nothing
+    allocated (the reference's ``jax.eval_shape`` of the init)."""
+    return _family_module(model.cfg).init_params(model.cfg, None,
+                                                 device="meta")
+
+
 def count_params(model: Model) -> int:
     """Parameter count, from shapes only (no allocation: meta tensors)."""
-    shapes = _family_module(model.cfg).init_params(model.cfg, None,
-                                                    device="meta")
-    return sum(t.numel() for t in _leaves(shapes))
+    return sum(t.numel() for t in _leaves(abstract_params(model)))

@@ -1,5 +1,5 @@
 """Mixture-of-Experts layer with capacity-based scatter dispatch (port of
-``repro/models/moe.py``, its single-device path).
+``repro/models/moe.py``).
 
 Expert weights carry a leading ``n_experts`` axis: ``w_in`` / ``w_gate``
 (E, D, F) and ``w_out`` (E, F, D), dense tensors or stacked VQ leaves
@@ -22,9 +22,30 @@ Shazeer load-balancing loss is returned beside the output.
 so a caller can replace ``moe.route``, e.g. to replay one forward's expert
 choices in another.
 
-The reference's shard_map expert-parallel path (``_apply_ep``) is not
-ported: it waits for ROADMAP.md queue 1, "The model axis", and
-``apply`` never reaches it without a mesh.
+Expert parallelism (``_apply_ep``, the reference's shard_map path): under a
+model axis (``models/parallel``, set by the sharded train step) whose size
+tp > 1 divides n_experts, with dense expert stacks (fused VQ stacks keep
+the dispatch below), ``apply`` runs ``_apply_ep``: every model rank routes
+its data rank's tokens (replicated over the model axis) with the whole
+router, computes the (token, k) pairs of its own E / tp experts, and the
+partial outputs are summed over the model axis. ``_apply_ep.calls``
+counts its calls (a checkpointed block's recompute included).
+``_apply_ep_plain`` is the same arithmetic in one process, a loop over
+the shards. The EP path is not the single-device path, and matches the
+reference's, not ``apply``'s dispatch:
+
+* capacity is ``capacity(S, cfg)`` a row, but the slot cumsum runs over
+  all of a rank's Bl * S * K local (token, k) pairs in order, not a batch
+  row at a time, so it drops more than ``apply`` once Bl > 1;
+* a (token, k) that is not the shard's goes to the scratch expert
+  E / tp (never kept);
+* the expert weights are cast to x's dtype before the einsums;
+* y is summed over the model axis;
+* aux is the mean over the data ranks of each rank's own (one block of
+  rows each; the reference's pmean when the batch divides the data axis).
+
+Under a data axis the dispatch below averages the load-balancing means
+over the data ranks, so aux is the whole batch's, as GSPMD's.
 """
 from __future__ import annotations
 
@@ -35,6 +56,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as cm
+from repro_torch.models import parallel as par
 
 
 def init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
@@ -52,6 +74,27 @@ def init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
         p["w_gate"] = (torch.randn((E, D, Fd), generator=gen, device=device)
                        / math.sqrt(D)).to(dtype)
     return p
+
+
+def specs(cfg: ModelConfig) -> dict:
+    """The reference's sharding specs: experts over the model axis (the
+    expert-parallel layout), the router's expert columns too."""
+    s = {"router": cm.P(None, "model"),
+         "w_in": cm.P("model", "data", None),
+         "w_out": cm.P("model", None, "data")}
+    if cm.is_gated(cfg.activation):
+        s["w_gate"] = cm.P("model", "data", None)
+    return s
+
+
+def split_modes(cfg: ModelConfig, axis) -> dict:
+    """How a step on ``axis`` (``parallel.ModelAxis``) reads each leaf of
+    ``specs``: under expert parallelism the rank's expert stacks (SPLIT)
+    and the router whole (FULL: every rank routes all its tokens), else
+    every leaf whole."""
+    ep = axis.experts(cfg)
+    return {k: par.SPLIT if ep and k != "router" else par.FULL
+            for k in specs(cfg)}
 
 
 def capacity(tokens_per_row: int, cfg: ModelConfig) -> int:
@@ -94,7 +137,15 @@ def dispatch(expert_ids: torch.Tensor, n_experts: int, C: int):
 
 
 def apply(p, cfg: ModelConfig, x: torch.Tensor):
-    """x: (B, S, D) -> (y (B, S, D) in x's dtype, aux_loss f32 scalar)."""
+    """x: (B, S, D) -> (y (B, S, D) in x's dtype, aux_loss f32 scalar).
+    Under a model axis that splits the experts, ``_apply_ep``."""
+    from repro_torch.core import vq_linear as vql_mod
+
+    axis = par.current()
+    if (axis is not None and axis.experts(cfg)
+            and not isinstance(p["w_in"], vql_mod.FusedVQLinear)):
+        y, aux, _ = _apply_ep(p, cfg, x, axis)
+        return y, aux
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.n_experts_active
     C = capacity(S, cfg)
@@ -117,11 +168,106 @@ def apply(p, cfg: ModelConfig, x: torch.Tensor):
     w = (gate_vals * keep.to(gate_vals.dtype)).to(x.dtype)
     y = (y_slots * w[..., None]).sum(2)
 
-    # Shazeer load-balance aux loss
-    me = probs.reshape(-1, E).mean(0)
-    ce = F.one_hot(expert_ids[..., 0].reshape(-1), E).to(torch.float32).mean(0)
+    # Shazeer load-balance aux loss, over the whole batch
+    me = par.data_mean(probs.reshape(-1, E).mean(0))
+    ce = par.data_mean(F.one_hot(expert_ids[..., 0].reshape(-1), E).to(
+        torch.float32).mean(0))
     aux = cfg.moe_aux_loss_coef * E * torch.sum(me * ce)
     return y.to(x.dtype), aux
+
+
+def _ep_shard(p, cfg: ModelConfig, x, lo: int, n_local: int, C: int,
+              enter=None):
+    """One shard's expert-parallel dispatch (the reference's ``local_fn``):
+    x (Bl, S, D) the data rank's rows, experts [lo, lo + n_local) this
+    shard's (``p``'s stacks: this shard's experts only). Returns (y, the
+    shard's part of the output, (Bl, S, D); aux; keep (Bl, S, K), the
+    shard's kept pairs). ``enter`` marks the two tensors whose gradient
+    the shard holds a part of (the tokens into its experts, the gate
+    weights of its pairs): identity in one process."""
+    enter = enter or (lambda t: t)
+    Bl, S, D = x.shape
+    E, K = cfg.n_experts, cfg.n_experts_active
+    xf = x.reshape(Bl * S, D)
+    probs, gate, ids = route(xf, p["router"], K)       # (N, E), (N, K)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    local = ids - lo
+    mine = (local >= 0) & (local < n_local)
+    eid = torch.where(mine, local, n_local).reshape(-1)  # n_local: scratch
+    # slot within each local expert queue: exclusive cumsum over the N * K
+    # local (token, k) pairs in order, across the rows
+    oh = F.one_hot(eid, n_local + 1)
+    slot = ((torch.cumsum(oh, 0) - oh) * oh).sum(-1)
+    keep = (slot < C) & mine.reshape(-1)
+    sid = torch.where(keep, slot, C)
+
+    buf = x.new_zeros((n_local + 1, C + 1, D))
+    buf[eid, sid] = enter(xf).repeat_interleave(K, dim=0)
+    hbuf = buf[:n_local, :C]
+    act = cm.act_fn(cfg.activation)
+    h = torch.einsum("ecd,edf->ecf", hbuf, p["w_in"].to(x.dtype))
+    if "w_gate" in p:
+        g = torch.einsum("ecd,edf->ecf", hbuf, p["w_gate"].to(x.dtype))
+        h = act(g) * h
+    else:
+        h = act(h)
+    out = torch.einsum("ecf,efd->ecd", h, p["w_out"].to(x.dtype))
+    out_pad = F.pad(out, (0, 0, 0, 1, 0, 1))            # (n_local+1, C+1, D)
+    y_slots = out_pad[eid, sid].reshape(Bl * S, K, D)
+    w = (enter(gate) * keep.reshape(Bl * S, K)).to(x.dtype)
+    y = (y_slots * w[..., None]).sum(1).reshape(Bl, S, D)
+
+    me = probs.mean(0)
+    ce = F.one_hot(ids[:, 0], E).to(torch.float32).mean(0)
+    aux = cfg.moe_aux_loss_coef * E * torch.sum(me * ce)
+    return y, aux, keep.reshape(Bl, S, K)
+
+
+def _apply_ep(p, cfg: ModelConfig, x, axis):
+    """Expert parallelism on a ``parallel.ModelAxis`` (see the module
+    docstring): x (Bl, S, D) the data rank's rows, ``p``'s expert stacks
+    this model rank's E / tp experts, the router whole. Returns (y in x's
+    dtype, aux, keep (Bl, S, K): this rank's kept pairs)."""
+    _apply_ep.calls += 1
+    n_local = cfg.n_experts // axis.tp
+    group = axis.model_group
+    y, aux, keep = _ep_shard(p, cfg, x, axis.model_rank * n_local, n_local,
+                             capacity(x.shape[1], cfg),
+                             enter=lambda t: par.enter(t, group))
+    y = par.reduce(y, group)
+    aux = axis.data_mean(aux)
+    return y.to(x.dtype), aux, keep
+
+
+_apply_ep.calls = 0
+
+
+def _apply_ep_plain(p, cfg: ModelConfig, x, tp: int, dp: int = 1):
+    """``_apply_ep``'s arithmetic in one process: x (B, S, D) the whole
+    batch and ``p`` whole; the rows in ``dp`` blocks (one when dp does not
+    divide B, as the reference replicates such a batch), each block's
+    dispatch run for every one of ``tp`` shards and summed. Returns (y,
+    aux: the blocks' mean, keep (tp, B, S, K): each shard's kept pairs)."""
+    B, S, _ = x.shape
+    blocks = dp if B % dp == 0 else 1
+    rows, n_local = B // blocks, cfg.n_experts // tp
+    C = capacity(S, cfg)
+    ys, auxes, keeps = [], [], []
+    for b in range(blocks):
+        xb = x[b * rows:(b + 1) * rows]
+        parts = []
+        for s in range(tp):
+            ps = {k: (v if k == "router" else v[s * n_local:(s + 1) * n_local])
+                  for k, v in p.items()}
+            parts.append(_ep_shard(ps, cfg, xb, s * n_local, n_local, C))
+        y = parts[0][0]
+        for part in parts[1:]:
+            y = y + part[0]
+        ys.append(y)
+        auxes.append(parts[0][1])
+        keeps.append(torch.stack([part[2] for part in parts]))
+    aux = torch.stack(auxes).sum() / blocks
+    return torch.cat(ys).to(x.dtype), aux, torch.cat(keeps, dim=1)
 
 
 def expert_hessians(p, cfg: ModelConfig, x: torch.Tensor,

@@ -70,6 +70,15 @@ def init(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
     }
 
 
+def specs(cfg: ModelConfig) -> dict:
+    """The reference's sharding specs of a Mamba-2 mixer."""
+    P = cm.P
+    return {"in_proj": P("data", "model"), "conv_w": P(None, "model"),
+            "conv_b": P("model"), "A_log": P(None), "dt_bias": P(None),
+            "D_skip": P(None), "norm_scale": P("model"),
+            "out_proj": P("model", "data")}
+
+
 def init_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
                device=None) -> SSMCache:
     _, heads, conv_ch = _dims(cfg)

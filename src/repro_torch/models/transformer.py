@@ -14,7 +14,9 @@ gather form), while ``FusedVQLinear`` leaves reach ``common.matmul`` /
 summed over the layers into ``forward``'s aux. The vlm family runs this
 stack with patch embeddings prepended (``extra_embeds``). Of the families,
 ``PORTED`` run here or, the hybrid and audio, in ``models/hybrid`` and
-``models/encdec``; any other family raises.
+``models/encdec``; any other family raises. Under a model axis
+(``models/parallel``) the embedding and the head read the rank's
+vocabulary rows and columns, so ``forward``'s logits are its columns.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common as cm, mlp, moe, xlstm
+from repro_torch.models import parallel as par
 
 PORTED = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 PENDING: tuple[str, ...] = ()
@@ -98,7 +101,7 @@ def _block_apply(p, cfg: ModelConfig, kind: str, x, *, pos=0, cache=None,
             lambda x: attention.project(p["attn"], cfg, cm.rmsnorm(
                 x, p["norm1"], cfg.norm_eps), pos=pos), x,
             use_reentrant=False)
-        h = attention.attend(p["attn"], q, k, v, x.dtype)
+        h = attention.attend(p["attn"], cfg, q, k, v, x.dtype)
         x, aux = checkpoint(tail, x, h, use_reentrant=False)
         return x, None, aux
     h, new_kv = attention.apply(
@@ -146,6 +149,57 @@ def init_params(cfg: ModelConfig, gen: torch.Generator | None,
     return params
 
 
+def _block_specs(cfg: ModelConfig, kind: str) -> dict:
+    P = cm.P
+    if kind == "mlstm":
+        return {"norm1": P(None), "core": xlstm.mlstm_specs(cfg)}
+    if kind == "slstm":
+        return {"norm1": P(None), "core": xlstm.slstm_specs(cfg)}
+    return {"norm1": P(None), "attn": attention.specs(cfg), "norm2": P(None),
+            "ffn": moe.specs(cfg) if kind == "moe" else mlp.specs(cfg)}
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The reference's sharding specs on the port's tree: one dict a layer
+    in ``layers`` (the reference's stacked layer axis, a leading None,
+    dropped), the embedding's vocabulary rows and the head's columns over
+    the model axis."""
+    _check_family(cfg)
+    specs: dict[str, Any] = {"embed": cm.P("model", "data"),
+                             "final_norm": cm.P(None)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = cm.P("data", "model")
+    specs["layers"] = [_block_specs(cfg, block_kind(cfg, i))
+                       for i in range(cfg.n_layers)]
+    return specs
+
+
+def param_modes(cfg: ModelConfig, axis) -> dict:
+    """``param_specs``' tree of how a step on ``axis``
+    (``parallel.ModelAxis``) reads each leaf (``parallel.SPLIT``,
+    ``FULL`` or ``FULL_SUM``), each layer's from its own module; the
+    embedding and the head split as ``embed_tokens`` / ``unembed`` split
+    them. Recurrent blocks have no split yet."""
+    _check_family(cfg)
+    vocab = par.SPLIT if axis.vocab(cfg) is not None else par.FULL
+    modes: dict[str, Any] = {"embed": vocab, "final_norm": par.FULL}
+    if not cfg.tie_embeddings:
+        modes["lm_head"] = vocab
+    layers = []
+    for i in range(cfg.n_layers):
+        kind = block_kind(cfg, i)
+        if kind not in ("dense", "moe"):
+            raise NotImplementedError(
+                f"{kind} blocks have no split over the model axis yet "
+                "(ROADMAP.md queue 1, 'Sharded families')")
+        ffn = moe if kind == "moe" else mlp
+        layers.append({"norm1": par.FULL,
+                       "attn": attention.split_modes(cfg, axis),
+                       "norm2": par.FULL, "ffn": ffn.split_modes(cfg, axis)})
+    modes["layers"] = layers
+    return modes
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, paged=None, device=None) -> list:
     """One cache per layer. ``paged``: an attention.PagedLayout — each
@@ -158,14 +212,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens, extra_embeds=None):
-    x = params["embed"][tokens]  # gather
+    split = par.vocab_split(cfg)
+    if split is not None:  # this rank's vocabulary rows
+        x = par.embed_lookup(params["embed"], tokens, *split)
+    else:
+        x = params["embed"][tokens]  # gather
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     return x
 
 
 def unembed(params, cfg: ModelConfig, x):
+    """f32 logits; under a vocabulary split, this rank's columns."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    split = par.vocab_split(cfg)
+    if split is not None:
+        x = par.enter(x, split[1])
     return cm.matmul(x, w).to(torch.float32)
 
 

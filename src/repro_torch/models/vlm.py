@@ -18,6 +18,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator | None, device=None):
     return transformer.init_params(cfg, gen, device=device)
 
 
+def param_specs(cfg: ModelConfig) -> dict:
+    return transformer.param_specs(cfg)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, paged=None, device=None):
     return transformer.init_cache(cfg, batch, max_len, dtype, paged,

@@ -68,6 +68,16 @@ def mlstm_init(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
     }
 
 
+def mlstm_specs(cfg: ModelConfig) -> dict:
+    """The reference's sharding specs of an mLSTM core."""
+    P = cm.P
+    return {"up": P("data", "model"), "up_gate": P("data", "model"),
+            "wq": P("data", "model"), "wk": P("data", "model"),
+            "wv": P("data", "model"), "w_i": P("data", None),
+            "w_f": P("data", None), "b_i": P(None), "b_f": P(None),
+            "w_o": P("data", "model"), "down": P("model", "data")}
+
+
 def mlstm_cache(cfg: ModelConfig, batch: int, device=None) -> MLSTMCache:
     _, H, hd = _mlstm_dims(cfg)
     f32 = dict(dtype=torch.float32, device=device)
@@ -172,6 +182,18 @@ def slstm_init(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
                 "w_out": dense(ffdim, D)}
     p["ffn_norm"] = torch.ones((D,), dtype=dtype, device=device)
     return p
+
+
+def slstm_specs(cfg: ModelConfig) -> dict:
+    """The reference's sharding specs of an sLSTM core and its FFN."""
+    P = cm.P
+    s = {f"w_{g}": P("data", "model") for g in _GATES}
+    s.update({f"r_{g}": P("model", None, None) for g in _GATES})
+    s.update({f"b_{g}": P("model") for g in _GATES})
+    s["ffn"] = {"w_in": P("data", "model"), "w_gate": P("data", "model"),
+                "w_out": P("model", "data")}
+    s["ffn_norm"] = P(None)
+    return s
 
 
 def slstm_cache(cfg: ModelConfig, batch: int, device=None) -> SLSTMCache:

@@ -5,8 +5,10 @@ Policy, as the reference's: keep the model (tensor-parallel) axis fixed,
 absorb capacity changes into the data axis, and leave remainder devices as
 hot spares. ``MeshPlan``, ``plan_mesh`` and ``degrade_plan`` are the
 reference's integer arithmetic; ``build_mesh`` lays a plan's ranks out as
-a ``torch.distributed`` ``DeviceMesh``. Moving a restored tree onto a new
-mesh (``reshard``) shards parameters over the model axis and waits for it.
+a ``torch.distributed`` ``DeviceMesh``. ``reshard`` moves a (restored)
+tree onto a new mesh: its specs sanitized against that mesh, so a dim a
+degraded mesh no longer divides is replicated rather than failing the
+restart.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.pending import not_ported
+from repro_torch.models import common as cm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,4 +68,30 @@ def build_mesh(plan: MeshPlan, device_type: str = "cuda"):
                       mesh_dim_names=("pod", "data", "model"))
 
 
-reshard = not_ported("repro.runtime.elastic.reshard", "The model axis")
+def reshard(tree, specs, mesh):
+    """``tree`` (whole tensors, or DTensors on another mesh, gathered
+    first) as DTensors on ``mesh``, each placed by its spec in ``specs``
+    sanitized against ``mesh``. Every rank holds the same whole tree (as
+    after a restore), so each keeps its own shards: no collective but the
+    gathers."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import parallel as par
+
+    specs = cm.sanitize_specs(tree, specs, mesh)
+
+    def put(x, spec):
+        if isinstance(x, DTensor):
+            x = par.whole(x)
+        return cm.place(x, mesh, cm.placements(spec, mesh))
+
+    def walk(t, s):
+        if isinstance(t, dict):
+            return {k: walk(v, s[k]) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(a, b) for a, b in zip(t, s)]
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(walk(a, b) for a, b in zip(t, s)))
+        return put(t, s)
+
+    return walk(tree, specs)

@@ -3,7 +3,9 @@
 ``Checkpointer``).
 
 ``supervise`` wraps a step loop: on any step failure it restores the latest
-checkpoint, hands it to ``on_restore`` and resumes. Heartbeats
+checkpoint, hands it to ``on_restore`` and resumes. In a world of several
+ranks (a train state on a mesh) every rank restores the step rank 0 finds
+latest, after the pending save has landed. Heartbeats
 are written per step so an external watchdog (k8s liveness / SLURM prolog)
 can detect a hung job and recycle the pod — on thousands of nodes, crash
 loops are routine and the recovery path must be the *default* path.
@@ -35,6 +37,18 @@ def write_heartbeat(path: str, step: int, extra: dict | None = None):
     os.replace(tmp, path)
 
 
+def _latest_step(ckpt: Checkpointer) -> int | None:
+    """The checkpoint to restore: rank 0's latest, on every rank."""
+    import torch.distributed as dist
+
+    step = ckpt.latest_step()
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        box = [step]
+        dist.broadcast_object_list(box, src=0)
+        step = box[0]
+    return step
+
+
 def supervise(
     *,
     state: Any,
@@ -46,12 +60,13 @@ def supervise(
     heartbeat_path: str | None = None,
     on_restore: Callable[[Any], Any] | None = None,
 ) -> SuperviseResult:
-    """Run step_fn to total_steps with checkpoint/restart on failure."""
+    """Run step_fn to total_steps with checkpoint/restart on failure (a
+    DTensor state is restored on its own mesh and placements)."""
     monitor = StragglerMonitor()
     restarts = 0
-    start = ckpt.latest_step() or 0
+    start = _latest_step(ckpt) or 0
     if start > 0:
-        state, _ = ckpt.restore(state)
+        state, _ = ckpt.restore(state, step=start)
         if on_restore:
             state = on_restore(state)
     step = start
@@ -70,7 +85,7 @@ def supervise(
             if restarts > max_restarts:
                 raise
             ckpt.wait()  # an async save of an earlier step lands first
-            restore_step = ckpt.latest_step()
+            restore_step = _latest_step(ckpt)
             if restore_step is None:
                 raise
             state, _ = ckpt.restore(state, step=restore_step)

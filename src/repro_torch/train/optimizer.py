@@ -16,6 +16,13 @@ is decayed; the port keeps layers in lists, where the same norm scale is
 1-D. ``decay_mask`` gives the reference's answer for the port's tree, and
 ``update`` applies it: its caller says with ``stacked_layers`` whether the
 reference stacks the model's layer lists (``STACKS``).
+
+On a mesh the state's leaves are DTensors (``models/parallel.Layout``):
+``init`` makes m, v and master with the parameters' placements and the
+step a replicated DTensor, ``update`` runs elementwise on the shards and
+``global_norm`` sums the squares of the shards each rank owns, then over
+the mesh.
+``state_specs`` gives the state's specs from the parameters'.
 """
 from __future__ import annotations
 
@@ -25,7 +32,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.pending import not_ported
+from repro_torch.models import common as cm
 
 
 class AdamWState(NamedTuple):
@@ -96,20 +103,49 @@ def init(params, cfg: OptConfig | None = None) -> AdamWState:
     flat = tree_leaves(params)
 
     def zeros():
-        return tree_unflatten(params, [
-            torch.zeros(p.shape, dtype=mdt, device=p.device) for p in flat])
+        return tree_unflatten(params, [torch.zeros_like(p, dtype=mdt)
+                                       for p in flat])
 
+    step = torch.zeros((), dtype=torch.int32,
+                       device=flat[0].device if flat else None)
+    if flat and cm.is_dtensor(flat[0]):  # replicated on the parameters' mesh
+        from torch.distributed.tensor import Replicate
+
+        mesh = flat[0].device_mesh
+        step = cm.place(step, mesh, [Replicate()] * mesh.ndim)
     return AdamWState(
-        step=torch.zeros((), dtype=torch.int32,
-                         device=flat[0].device if flat else None),
-        m=zeros(), v=zeros(),
+        step=step, m=zeros(), v=zeros(),
         master=tree_unflatten(params, [p.to(torch.float32) for p in flat]),
     )
 
 
+def _sharded_squares(leaves) -> torch.Tensor:
+    """The sum of squares of DTensor leaves on one mesh: each rank sums
+    the shards it owns (a replicated shard counts on the ranks at
+    coordinate 0 of the mesh dims it is replicated over), then one sum
+    over each mesh dim."""
+    import torch.distributed as dist
+
+    mesh = leaves[0].device_mesh
+    coord = mesh.get_coordinate()
+    total = torch.zeros((), dtype=torch.float32,
+                        device=leaves[0].to_local().device)
+    for g in leaves:
+        if all(c == 0 for c, pl in zip(coord, g.placements)
+               if pl.is_replicate()):
+            total = total + torch.sum(torch.square(
+                g.to_local().to(torch.float32)))
+    for dim in range(mesh.ndim):
+        dist.all_reduce(total, group=mesh.get_group(dim))
+    return total
+
+
 def global_norm(tree) -> torch.Tensor:
+    flat = tree_leaves(tree)
+    if flat and cm.is_dtensor(flat[0]):
+        return torch.sqrt(_sharded_squares(flat))
     total = 0
-    for g in tree_leaves(tree):
+    for g in flat:
         total = total + torch.sum(torch.square(g.to(torch.float32)))
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
@@ -173,5 +209,8 @@ def update(cfg: OptConfig, grads, state: AdamWState, param_dtype=None, *,
     return new_params, new_state, {"lr": lr, "grad_norm": gnorm}
 
 
-state_specs = not_ported("repro.train.optimizer.state_specs",
-                         "The model axis")
+def state_specs(param_specs) -> AdamWState:
+    """The optimizer state's specs (the reference's): the step replicated,
+    m, v and master with the parameters' specs."""
+    return AdamWState(step=cm.P(), m=param_specs, v=param_specs,
+                      master=param_specs)

@@ -328,3 +328,35 @@ def test_mixed_recipe_roundtrip_checkpoint_serve(tmp_path):
                     max_new_tokens=4) for i in range(3)]
     eng.run(reqs)
     assert all(len(r.out_tokens) >= 4 for r in reqs)
+
+
+def test_restore_with_shardings(tmp_path):
+    """Mirror of the reference's ``tests/substrate/test_checkpoint_sharded.
+    py::test_restore_with_shardings``: on a 1 x 1 ``("data", "model")``
+    mesh, ``restore(shardings=)`` with (mesh, spec) pairs gives DTensors
+    placed by the specs, holding the saved values; a save of those
+    DTensors writes the same whole arrays."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import common as cm
+
+    mesh = mesh_lib.make_host_mesh("cpu")
+    try:
+        tree = {"w": torch.arange(16.0).reshape(4, 4), "b": torch.ones(4)}
+        ck = Checkpointer(str(tmp_path))
+        ck.save(3, tree)
+        sh = {"w": mesh_lib.NamedSharding(mesh, cm.P("data", "model")),
+              "b": mesh_lib.NamedSharding(mesh, cm.P(None))}
+        restored, _ = ck.restore(tree, shardings=sh)
+        assert restored["w"].placements == (Shard(0), Shard(1))
+        assert restored["b"].placements == (Replicate(), Replicate())
+        assert torch.equal(restored["w"].full_tensor(),
+                           torch.arange(16.0).reshape(4, 4))
+        ck.save(4, restored)
+        again, _ = ck.restore(tree, step=4)
+        assert torch.equal(again["w"], tree["w"])
+        assert torch.equal(again["b"], tree["b"])
+    finally:
+        dist.destroy_process_group()

@@ -1569,3 +1569,69 @@ def test_flash_fwd_lse_and_bwd_hd112_zamba_train(dev):
     for g, w in zip(got, want):
         assert bool(torch.isfinite(g).all())
         _within_bwd_bars(g, w)
+
+
+# ---------------------------------------------------------------------------
+# the model axis: a tensor-parallel rank's flash pair, expert parallelism
+# ---------------------------------------------------------------------------
+
+def test_flash_fwd_lse_and_bwd_h16_llama_tp_rank(dev):
+    """Full-width Llama-2-7B's attention on one rank of a model axis of 2
+    (a microbatch of 2 x 4096 tokens, 16 heads over 16 of head dim 128,
+    bf16): the forward kernel's log-sum-exp against the plain forward's,
+    its out bitwise the same with and without the lse, and the tc
+    backward against the f32 plain backward at the backward's bars."""
+    from repro_torch.kernels.flash_attention import (
+        _launch_forward, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain)
+
+    B, S, H, hd, dt = 2, 4096, 16, 128, torch.bfloat16
+    before = dict(flash_attention_bwd.launches_by_impl)
+    q, k, v, out, dout, lse = _flash_bwd_inputs(
+        dev, B, S, S, H, H, hd, True, 0, dt, dt)
+    assert torch.equal(out, _launch_forward(q, k, v, True, 0))
+    _, lse_plain = flash_attention_plain(q, k, v, causal=True, with_lse=True)
+    torch.testing.assert_close(
+        lse, lse_plain.float(), rtol=1e-5,
+        atol=1e-5 * float(lse_plain.abs().max()))
+    got = flash_attention_bwd(q, k, v, out, dout, lse, causal=True)
+    torch.cuda.synchronize()
+    assert _bwd_impl_delta(before) == {"tc": 1}
+    want = flash_attention_bwd_plain(
+        q.float(), k.float(), v.float(), out.float(), dout.float(), lse,
+        causal=True)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        _within_bwd_bars(g, w)
+
+
+def test_apply_ep_shards_on_the_card_match_plain(dev):
+    """The expert-parallel dispatch at tp 2 on one card: each shard's
+    ``_ep_shard`` (its experts' stacks) summed equals ``_apply_ep_plain``
+    on the card, and both equal ``_apply_ep_plain`` on the CPU: keep masks
+    exactly, y and aux at rtol 1e-5, atol 1e-6 * max|y| (f32), with a
+    capacity that drops pairs."""
+    from repro_torch.models import moe
+
+    cfg = SMOKE["qwen3-moe-30b-a3b"].scaled(dtype="float32")
+    g = torch.Generator().manual_seed(0)
+    E, D, F = cfg.n_experts, cfg.d_model, cfg.d_ff
+    p = {"router": torch.randn((D, E), generator=g) * 0.5,
+         "w_in": torch.randn((E, D, F), generator=g) / D ** 0.5,
+         "w_gate": torch.randn((E, D, F), generator=g) / D ** 0.5,
+         "w_out": torch.randn((E, F, D), generator=g) / F ** 0.5}
+    x = torch.randn((4, 16, D), generator=g)
+    y_cpu, aux_cpu, keep_cpu = moe._apply_ep_plain(p, cfg, x, 2)
+    pd = {k: v.to(dev) for k, v in p.items()}
+    y, aux, keep = moe._apply_ep_plain(pd, cfg, x.to(dev), 2)
+    C, n = moe.capacity(16, cfg), E // 2
+    parts = [moe._ep_shard({k: v if k == "router" else v[s * n:(s + 1) * n]
+                            for k, v in pd.items()}, cfg, x.to(dev),
+                           s * n, n, C) for s in range(2)]
+    assert not bool(keep_cpu.any(0).all())  # some pairs dropped
+    assert torch.equal(keep.cpu(), keep_cpu)
+    assert torch.equal(torch.stack([pt[2] for pt in parts]), keep)
+    tol = dict(rtol=1e-5, atol=1e-6 * float(y_cpu.abs().max()))
+    torch.testing.assert_close(y.cpu(), y_cpu, **tol)
+    torch.testing.assert_close(parts[0][0] + parts[1][0], y, **tol)
+    torch.testing.assert_close(aux.cpu(), aux_cpu, rtol=1e-5, atol=1e-7)

@@ -121,11 +121,34 @@ def test_every_kernel_source_has_a_wrapper():
         assert "What bounds it on the H100" in text
 
 
-@pytest.mark.parametrize("module,name", [
-    ("runtime.elastic", "reshard")])
-def test_left_out_functions_name_their_roadmap_entry(module, name):
-    import importlib
+def test_elastic_reshard_places_a_tree_on_a_mesh():
+    """``elastic.reshard`` on a world-1 mesh: whole tensors (and DTensors
+    from another mesh, gathered first) come back as DTensors placed by
+    their specs sanitized against the mesh, with the same values; no
+    stand-in raises any more."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
 
-    fn = getattr(importlib.import_module(f"repro_torch.{module}"), name)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        fn()
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import common as cm
+    from repro_torch.runtime import elastic
+
+    mesh = mesh_lib.make_host_mesh("cpu")
+    try:
+        tree = {"w": torch.arange(24.).reshape(4, 6),
+                "layers": [{"b": torch.ones(3)}], "s": torch.zeros(())}
+        specs = {"w": cm.P("data", "model"),
+                 "layers": [{"b": cm.P("model")}], "s": cm.P()}
+        got = elastic.reshard(tree, specs, mesh)
+        assert got["w"].placements == (Shard(0), Shard(1))
+        assert got["layers"][0]["b"].placements == (Replicate(), Shard(0))
+        assert got["s"].placements == (Replicate(), Replicate())
+        again = elastic.reshard(got, {"w": cm.P(), "layers": [
+            {"b": cm.P()}], "s": cm.P()}, mesh)
+        assert again["w"].placements == (Replicate(), Replicate())
+        for a, b in ((got["w"], tree["w"]), (again["w"], tree["w"]),
+                     (got["layers"][0]["b"], tree["layers"][0]["b"])):
+            assert torch.equal(a.full_tensor(), b)
+        assert not (PORT / "pending.py").exists()
+    finally:
+        dist.destroy_process_group()

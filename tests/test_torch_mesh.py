@@ -124,6 +124,55 @@ def test_world_backend_counts_the_ranks_on_this_host(monkeypatch, env,
     assert mesh_lib.world_backend("cpu", world) == "gloo"
 
 
+COORDINATOR_CASES = {  # name -> (env, cards, backend, card); None: raises
+    # 2 hosts x 8 cards, the launcher names each rank's place on its host
+    "two_hosts_local_set": (dict(RANK="11", WORLD_SIZE="16", LOCAL_RANK="3",
+                                 LOCAL_WORLD_SIZE="8"), 8, "nccl", 3),
+    # 2 hosts x 8 cards, RANK and WORLD_SIZE only: which ranks share a
+    # host is unknown
+    "two_hosts_rank_only": (dict(RANK="11", WORLD_SIZE="16"), 8, None, None),
+    # a world no larger than the cards: RANK is the card
+    "world_within_cards": (dict(RANK="5", WORLD_SIZE="8"), 8, "nccl", 5),
+    # 2 ranks share one card: gloo, the current card kept
+    "ranks_share_a_card": (dict(RANK="1", WORLD_SIZE="2", LOCAL_RANK="1",
+                                LOCAL_WORLD_SIZE="2"), 1, "gloo", None),
+    "share_rank_only": (dict(RANK="1", WORLD_SIZE="2"), 1, None, None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(COORDINATOR_CASES))
+def test_coordinator_start_picks_backend_and_card(monkeypatch, name):
+    """A ``COORDINATOR_ADDRESS`` start (RANK and WORLD_SIZE, LOCAL_RANK
+    and LOCAL_WORLD_SIZE where the launcher sets them): NCCL with each
+    rank on its own card of its host, gloo when ranks share a card, and
+    an error, not a silent choice, when the ranks on this host cannot be
+    known; the CPU takes gloo at any count."""
+    env, cards, backend, card = COORDINATOR_CASES[name]
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("COORDINATOR_ADDRESS", "10.0.0.1:29500")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    world = int(env["WORLD_SIZE"])
+    assert mesh_lib.world_backend("cpu", world) == "gloo"
+    if backend is None:
+        with pytest.raises(ValueError, match="LOCAL_RANK and"):
+            mesh_lib.world_backend("cuda", world)
+        return
+    assert mesh_lib.world_backend("cuda", world) == backend
+    chosen, started = [], []
+    monkeypatch.setattr(torch.cuda, "set_device", chosen.append)
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda *a, **kw: started.append((a, kw)))
+    mesh_lib.init_world(backend)
+    assert chosen == ([] if card is None else [card])
+    assert started == [((backend,), dict(
+        init_method="tcp://10.0.0.1:29500", rank=int(env["RANK"]),
+        world_size=world))]
+
+
 MESH_SCRIPT = r"""
 import sys
 

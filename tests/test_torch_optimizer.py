@@ -181,9 +181,55 @@ def test_weight_decay_by_reference_rank():
     assert torch.equal(new2["layers"][0]["norm1"], p["layers"][0]["norm1"])
 
 
-def test_state_specs_is_a_mesh_function_not_ported():
-    with pytest.raises(NotImplementedError, match="The model axis"):
-        opt.state_specs({})
+def test_state_specs_mirror_the_parameters():
+    """The reference's rule: the step replicated, m, v and master the
+    parameters' specs (the same objects)."""
+    from repro_torch.models import common as cm
+
+    specs = {"w": cm.P("data", "model"), "layers": [{"n": cm.P(None)}]}
+    got = opt.state_specs(specs)
+    assert tuple(got.step) == () and isinstance(got.step, cm.P)
+    assert got.m is got.v is got.master is specs
+
+
+def test_update_on_dtensors_equals_plain():
+    """On a world-1 mesh the state's leaves are DTensors (m, v and master
+    with the parameters' placements, the step replicated) and two steps
+    of ``update`` give the plain tensors' results bit for bit, the global
+    norm included."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import common as cm
+    from repro_torch.runtime import elastic
+
+    g = torch.Generator().manual_seed(0)
+    p = {"w": torch.randn((4, 6), generator=g), "n": torch.randn((6,),
+                                                                 generator=g)}
+    grads = [{k: torch.randn(v.shape, generator=g) for k, v in p.items()}
+             for _ in range(2)]
+    specs = {"w": cm.P("data", "model"), "n": cm.P(None)}
+    cfg = opt.OptConfig(lr=0.1, warmup_steps=1, total_steps=10,
+                        moment_dtype="bfloat16")
+    mesh = mesh_lib.make_host_mesh("cpu")
+    try:
+        dp = elastic.reshard(p, specs, mesh)
+        st, dst = opt.init(p, cfg), opt.init(dp, cfg)
+        assert isinstance(dst.step, DTensor)
+        assert dst.step.placements == (Replicate(), Replicate())
+        assert dst.m["w"].placements == (Shard(0), Shard(1))
+        for gr in grads:
+            new, st, m = opt.update(cfg, gr, st, stacked_layers=False)
+            dnew, dst, dm = opt.update(cfg, elastic.reshard(gr, specs, mesh),
+                                       dst, stacked_layers=False)
+            assert float(dm["grad_norm"]) == float(m["grad_norm"])
+            for k in p:
+                assert torch.equal(dnew[k].full_tensor(), new[k])
+                assert torch.equal(dst.v[k].full_tensor(), st.v[k])
+        assert int(dst.step.full_tensor()) == 2
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

@@ -240,13 +240,52 @@ def test_launcher_resumes_from_an_injected_failure_to_the_same_state(
     assert same(res.final_state, clean.final_state)
 
 
-def test_launcher_refuses_the_mesh_paths(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="The model axis"):
-        launch_train.main(SMOKE_ARGS + ["--model-parallel", "2",
-                                        "--ckpt-dir", str(tmp_path)])
-    monkeypatch.setenv("COORDINATOR_ADDRESS", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="The model axis"):
-        launch_train.main(SMOKE_ARGS + ["--ckpt-dir", str(tmp_path)])
+def test_launcher_model_parallel_needs_that_many_ranks(tmp_path):
+    """``--model-parallel 2`` in a world of one rank: the mesh plan
+    refuses (the model axis is fixed; nothing falls back)."""
+    import torch.distributed as dist
+
+    try:
+        with pytest.raises(ValueError, match="model_parallel 2"):
+            launch_train.main(SMOKE_ARGS + ["--model-parallel", "2",
+                                            "--ckpt-dir", str(tmp_path)])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_launcher_coordinator_address_world_of_one(monkeypatch, tmp_path):
+    """``COORDINATOR_ADDRESS`` with RANK 0 and WORLD_SIZE 1 starts the
+    process group over tcp and trains on a 1 x 1 mesh: the state, gathered,
+    is the single-device run's bit for bit (one rank's arithmetic is the
+    same), and its checkpoint holds the same whole arrays."""
+    import socket
+
+    import torch.distributed as dist
+
+    args = SMOKE_ARGS + ["--steps", "3", "--microbatches", "2"]
+    clean = launch_train.main(args + ["--ckpt-dir", str(tmp_path / "one")])
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setenv("COORDINATOR_ADDRESS", f"127.0.0.1:{port}")
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    try:
+        res = launch_train.main(args + ["--ckpt-dir", str(tmp_path / "mesh")])
+        assert dist.get_backend() == "gloo"
+        got = [x.full_tensor() for x in leaves(res.final_state)]
+        want = leaves(clean.final_state)
+        assert len(got) == len(want) and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(got, want))
+    finally:
+        dist.destroy_process_group()
+    like = init_state(model_zoo.build(SMOKE["llama2-7b"].scaled(
+        dtype="float32")), 0, opt.OptConfig(), device="cpu")
+    a, _ = Checkpointer(str(tmp_path / "mesh")).restore(like, step=3)
+    b, _ = Checkpointer(str(tmp_path / "one")).restore(like, step=3)
+    assert same(a, b)
 
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-small"])
