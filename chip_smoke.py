@@ -1286,6 +1286,12 @@ FLASH_LSE_SHAPES = {
     "zamba B=2": FLASH_SHAPES["zamba B=2"],
     "llama tp B=2": dict(B=2, Sq=4096, Sk=4096, H=16, KV=16, hd=128,
                          causal=True, q_offset=0),
+    # the model_axis phase's families: a rank's 16 heads of Phi-3-vision
+    # (hd 96) and of Zamba2-7B's shared attention (hd 112)
+    "phi3 tp B=2": dict(B=2, Sq=4096, Sk=4096, H=16, KV=16, hd=96,
+                        causal=True, q_offset=0),
+    "zamba tp B=2": dict(B=2, Sq=4096, Sk=4096, H=16, KV=16, hd=112,
+                         causal=True, q_offset=0),
 }
 
 # flash attention's backward: the train phase's microbatch (bf16 and f32),
@@ -1307,9 +1313,12 @@ FLASH_BWD_SHAPES = {
     # the train_families phase's hybrid microbatch
     "zamba train": dict(B=2, Sq=4096, Sk=4096, H=32, KV=32, hd=112,
                         causal=True, q_offset=0),
-    # the model_axis phase: a rank's 16 heads of the train microbatch
+    # the model_axis phase: a rank's 16 heads of the train microbatch,
+    # of Phi-3-vision's and of Zamba2-7B's
     "tp train": dict(B=2, Sq=4096, Sk=4096, H=16, KV=16, hd=128,
                      causal=True, q_offset=0),
+    "phi3 tp train": FLASH_LSE_SHAPES["phi3 tp B=2"],
+    "zamba tp train": FLASH_LSE_SHAPES["zamba tp B=2"],
 }
 FLASH_BWD_ROWS = (("train", "bfloat16", "bfloat16"),
                   ("train", "float32", "float32"),
@@ -1319,7 +1328,9 @@ FLASH_BWD_ROWS = (("train", "bfloat16", "bfloat16"),
                   ("q_offset", "float32", "bfloat16"),
                   ("zamba", "bfloat16", "bfloat16"),
                   ("zamba train", "bfloat16", "bfloat16"),
-                  ("tp train", "bfloat16", "bfloat16"))
+                  ("tp train", "bfloat16", "bfloat16"),
+                  ("phi3 tp train", "bfloat16", "bfloat16"),
+                  ("zamba tp train", "bfloat16", "bfloat16"))
 
 
 def flash_bwd_rule(q_name: str, kv_name: str, hd: int) -> str:
@@ -5633,6 +5644,48 @@ MODEL_AXIS_GNORM_RTOL = 5e-3
 MODEL_AXIS_MOE_TOKENS = (2, 2048)
 
 
+# (d) the other four families on the same mesh at full width: (arch,
+# layers or None for the config's own, (sequences, tokens)) of a batch in
+# TRAIN_MICROBATCHES microbatches. vlm: the long phase's first 3,072
+# tokens of each sequence after 1,024 seeded patch embeddings (4,096
+# positions: 16 heads of 96 a rank through the flash pair); hybrid: one
+# group (the shared block and 6 Mamba layers) on the long phase's 4 x
+# 4096 tokens (16 heads of 112 and 56 Mamba heads a rank; one device
+# held 59.33 GiB at 12 layers, and two ranks share the card); audio:
+# train_families' 4 x 448 tokens with 4 x 1,500 stub frames (6 heads of
+# 64, no flash); ssm: 4 x 32 seeded tokens (2 heads of 384: the xLSTM's
+# time loops launch ~60 kernels a step and layer, so the step's time
+# grows with S: on the mesh 13.9 s a step at 4 x 128, 7.8 s at 4 x 64;
+# NVIDIA H100 80GB HBM3, 700 W)
+# a leaf whose single-device gradient's max is below this share of the
+# tree's max is rounding noise (its gradient is zero in exact arithmetic):
+# its distance is held to the same share of the tree's max
+MODEL_AXIS_NOISE_FRAC = 1e-6
+MODEL_AXIS_FAMILIES = {
+    "vlm": (VLM_ARCH, VLM_LAYERS, (LONG_CALIB, VLM_TEXT)),
+    "hybrid": (HYBRID_ARCH, 6, (LONG_CALIB, LONG_SEQ)),
+    "audio": (AUDIO_ARCH, None, TRAIN_FAMILY_AUDIO_TOKENS),
+    "ssm": (SSM_ARCH, None, (4, 32)),
+}
+# the per-head (or per-column) gate and scan leaves: their gradients sum
+# over every position of every sequence with cancellation, so any
+# reordered f32 sum moves them more, relatively, than a matrix (PERF.md
+# section 2): held at TRAIN_SCAN_GRAD_RTOL. The Mamba2 scan's, and the
+# xLSTM's forget-gate biases (read 9.82e-5 at 4 x 128 and 1.55e-4 at 4 x
+# 64, every other xLSTM leaf 5-7e-5)
+MODEL_AXIS_SUM_LEAVES = TRAIN_SCAN_LEAVES + ("b_f",)
+# bf16 steps against one device: (loss, grad norm, steps held) relative,
+# the dense case's bars over the 4 steps; but the xLSTM's random 12
+# layers amplify the split's other bf16 roundings (PERF.md section 2's
+# ssm bf16 bars), and from step 2 its two runs start from other params
+# and part (the loss rising on one, falling on the other): its step 1
+# read 2.58e-4 / 2.65e-2 at 4 x 128, 2.89e-4 / 2.81e-2 at 4 x 64 and
+# 6.56e-4 / 3.48e-2 at 4 x 32, step 4 up to 1.03e-2 / 1.81e-1 (step 3),
+# while the f32 copy's loss agreed to 8.7e-8: its step 1 is held at
+# about 3x the largest reading, the rest only finite with the loss falling
+MODEL_AXIS_BF16_BARS = {"ssm": (2e-3, 0.1, 1)}
+
+
 def checksum(torch, t) -> int:
     """An exact fingerprint of a tensor's bits: its elements read as
     integers of their width, weighted by position (mod 65,521) and summed
@@ -5643,6 +5696,183 @@ def checksum(torch, t) -> int:
     v = t.view(ints[t.element_size()]).reshape(-1).to(torch.int64)
     w = torch.arange(v.numel(), device=v.device, dtype=torch.int64) % 65521
     return int((v * (w + 1)).sum())
+
+
+def model_axis_family_batches(torch, dev, fam: str, cfg, long_tokens):
+    """(bf16 batch, f32 batch) of one (d) case, the same on every rank."""
+    from repro_torch.core import adapters
+
+    B, S = MODEL_AXIS_FAMILIES[fam][2]
+    if fam in ("vlm", "hybrid"):
+        toks = long_tokens[:B, :S].contiguous()
+    else:
+        rng = np.random.default_rng(1)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (B, S))).to(dev)
+    extra = {}
+    if fam == "vlm":
+        g = torch.Generator(device=dev).manual_seed(11)
+        extra["patches"] = torch.randn(
+            (B, cfg.n_image_tokens, cfg.d_model), generator=g,
+            device=dev) * 0.1
+    elif fam == "audio":
+        extra["frames"] = adapters.calib_extras(cfg, toks)["frames"].float()
+    return ({"tokens": toks, **{k: v.to(torch.bfloat16)
+                                for k, v in extra.items()}},
+            {"tokens": toks, **extra})
+
+
+def model_axis_family(torch, dev, mesh, fam: str, long_tokens,
+                      note) -> dict:
+    """(d) one family on the (1, 2) mesh: the f32 copy's loss and
+    gradients on the mesh (gathered) and, on rank 0, the single-device
+    step's; on rank 0, 4 bf16 steps on one device, then on both ranks the
+    same 4 steps on the mesh (seconds, tokens/s, peak memory, flash
+    launches by variant); the leaves stored split and read whole, with
+    the bytes a step gathers for them."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import model_zoo
+    from repro_torch.models import parallel as par
+    from repro_torch.runtime import elastic
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import (
+        TrainState, data_rows, loss_and_grads, make_train_step)
+
+    t_fam = time.perf_counter()
+    arch, layers, (B, S) = MODEL_AXIS_FAMILIES[fam]
+    cfg = ARCHS[arch] if layers is None else ARCHS[arch].scaled(
+        n_layers=layers)
+    rank, mb = dist.get_rank(), TRAIN_MICROBATCHES
+    model = model_zoo.build(cfg)
+    model32 = model_zoo.build(cfg.scaled(dtype="float32"))
+    layout = par.Layout(model, mesh)
+    params = model.init_params(seed=0, device=dev)
+    seed = {"hybrid": seed_lora_b, "audio": seed_qkv_biases}.get(fam)
+    if seed is not None:
+        seed(torch, params)
+    b16, b32 = model_axis_family_batches(torch, dev, fam, cfg, long_tokens)
+    rows16, rows32 = data_rows(b16, mesh, mb), data_rows(b32, mesh, mb)
+    tp = layout.axis.tp
+    whole = [(path, leaf) for path, leaf in layout.leaves.items()
+             if leaf.model_dim is not None and leaf.mode != par.SPLIT]
+    shapes = {path: t for path, t in zip(
+        layout.leaves, opt.tree_leaves(model_zoo.abstract_params(model)))}
+    # self-attentions past 2048 positions a forward: the flash pair's
+    n_attn = {"vlm": cfg.n_layers,
+              "hybrid": cfg.n_layers // max(cfg.shared_attn_every, 1)}
+    res = {"family": fam, "arch": cfg.name, "layers": cfg.n_layers,
+           "flash_attentions": n_attn.get(fam, 0), "batch": [B, S],
+           "modes": sorted({leaf.mode for leaf in layout.leaves.values()}),
+           "read_whole": sorted({".".join(p for p in path
+                                          if isinstance(p, str))
+                                 for path, _ in whole}),
+           # an all_gather of a leaf stored split: each rank receives the
+           # other ranks' parts, in the model's dtype, once a step
+           "read_whole_bytes": sum(
+               shapes[path].numel() * shapes[path].element_size()
+               * (tp - 1) // tp for path, _ in whole),
+           # the FULL_SUM leaves' f32 gradients, summed over the model axis
+           # once a step
+           "full_sum_grad_bytes": sum(
+               shapes[path].numel() * 4 for path, leaf in
+               layout.leaves.items() if leaf.mode == par.FULL_SUM)}
+    t = {}
+
+    # the f32 copy on the mesh, then on one device (rank 0)
+    t0 = time.perf_counter()
+    p32 = elastic.reshard(to_f32(params), model32.param_specs(), mesh)
+    zero_counts()
+    views, m32 = loss_and_grads(
+        model32, opt.tree_unflatten(p32, layout.views(p32)), rows32,
+        microbatches=mb, remat=True, axis=layout.axis)
+    torch.cuda.synchronize()
+    res["launches_f32"] = train_counts()
+    grads = [par.whole(g) for g in opt.tree_leaves(
+        layout.grads(p32, opt.tree_leaves(views)))]
+    del views, p32
+    torch.cuda.empty_cache()
+    res["loss_f32_tp"] = float(m32["loss"])
+    t["f32_tp"] = time.perf_counter() - t0
+    if rank == 0:
+        t0 = time.perf_counter()
+        g1, m1 = loss_and_grads(model32, to_f32(params), b32,
+                                microbatches=mb, remat=True)
+        names = _leaf_names(g1)
+        rel, _ = rel_frobenius(torch, grads, g1, names)
+        scan = {n for n in names
+                if n.rsplit(".", 1)[-1] in MODEL_AXIS_SUM_LEAVES}
+        # a leaf whose gradient is zero but for rounding (audio's key
+        # biases: a shift of a query row's scores, which the softmax
+        # cancels; the xLSTM's input-gate biases) is held to the tree's
+        # max, not to its own norm
+        g1s = opt.tree_leaves(g1)
+        tmax = max(float(g.abs().max()) for g in g1s)
+        res["grad_noise_leaves"] = {
+            n: float((a.float() - b.float()).abs().max()) / tmax
+            for n, a, b in zip(names, grads, g1s)
+            if float(b.abs().max()) < MODEL_AXIS_NOISE_FRAC * tmax}
+        res["loss_f32_single"] = float(m1["loss"])
+        res["grad_rel_frobenius"] = rel
+        res["grad_worst"] = max((r, n) for n, r in rel.items()
+                                if n not in scan
+                                and n not in res["grad_noise_leaves"])
+        res["grad_worst_scan"] = max(((r, n) for n, r in rel.items()
+                                      if n in scan), default=(0.0, None))
+        res["grad_worst_5"] = sorted(
+            ((r, n) for n, r in rel.items()
+             if n not in res["grad_noise_leaves"]), reverse=True)[:5]
+        del g1, g1s
+        t["f32_single"] = time.perf_counter() - t0
+        note(f"(d) {fam} f32 copy: loss on the mesh {res['loss_f32_tp']:.6f}"
+             f", one device {res['loss_f32_single']:.6f}; worst gradients "
+             f"{res['grad_worst_5']}, scan and gate-bias leaves "
+             f"{res['grad_worst_scan']}")
+    del grads
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    ocfg = opt.OptConfig(**TRAIN_OPT)
+
+    def steps(state, step, batch) -> dict:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        out = {"losses": [], "grad_norms": [], "step_seconds": []}
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            out["step_seconds"].append(time.perf_counter() - t0)
+            out["losses"].append(float(m["loss"]))
+            out["grad_norms"].append(float(m["grad_norm"]))
+        out["launches"] = train_counts()
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        out["seconds_per_step"] = _median(out["step_seconds"][1:])
+        out["tokens_per_s"] = B * S / out["seconds_per_step"]
+        return out
+
+    if rank == 0:  # the same 4 bf16 steps on one device
+        res["single"] = steps(
+            TrainState(params, opt.init(params, ocfg)),
+            make_train_step(model, ocfg, microbatches=mb, remat=True), b16)
+        torch.cuda.empty_cache()
+    dist.barrier()
+    pt = elastic.reshard(params, model.param_specs(), mesh)
+    del params
+    res.update(steps(TrainState(pt, opt.init(pt, ocfg)), make_train_step(
+        model, ocfg, microbatches=mb, remat=True, mesh=mesh), rows16))
+    del pt
+    torch.cuda.empty_cache()
+    t["all"] = time.perf_counter() - t_fam
+    res["seconds"] = t
+    note(f"(d) {fam} bf16 steps: losses {res['losses']}, seconds "
+         f"{[round(x, 4) for x in res['step_seconds']]}, peak "
+         f"{res['max_memory_allocated'] / 2**30:.2f} GiB, launches "
+         f"{res['launches']}; {t['all']:.1f}s")
+    dist.barrier()
+    return res
 
 
 def model_axis_worker(out_dir: str) -> int:
@@ -5660,8 +5890,9 @@ def model_axis_worker(out_dir: str) -> int:
     experts alone (``_apply_ep``) against ``_apply_ep_plain`` at tp 2 on
     rank 0, and the f32 copy's forward and backward on the mesh, its loss
     and gradients (gathered) against rank 0's single-device step with
-    ``moe.apply`` as ``_apply_ep_plain`` at tp 2. Writes
-    ``out_dir/rank<r>.json``."""
+    ``moe.apply`` as ``_apply_ep_plain`` at tp 2; (d) the vlm, hybrid,
+    audio and ssm families at full width (``MODEL_AXIS_FAMILIES``,
+    ``model_axis_family``). Writes ``out_dir/rank<r>.json``."""
     import torch
     import torch.distributed as dist
 
@@ -5894,6 +6125,11 @@ def model_axis_worker(out_dir: str) -> int:
     t["moe_f32"] = time.perf_counter() - t0
     note(f"(c) f32 copy: loss on the mesh {res['moe_loss_f32_tp']:.6f}, "
          f"{t['moe_f32']:.1f}s")
+
+    # (d) the vlm, hybrid, audio and ssm families
+    res["families"] = {fam: model_axis_family(torch, dev, mesh, fam, tokens,
+                                              note)
+                       for fam in MODEL_AXIS_FAMILIES}
     t["all"] = time.perf_counter() - t_all
     res["seconds"] = t
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -5944,13 +6180,112 @@ def run_ranks(worker: str, out_dir: str, n: int, timeout_s: int,
     return time.perf_counter() - t0
 
 
+def model_axis_family_checks(ranks: list) -> tuple[dict, dict]:
+    """(checks, summary) of the model_axis phase's (d) cases from the
+    ranks' results: each family's f32 loss and gradients and 4 bf16 steps
+    against rank 0's single-device runs, its flash launches a rank against
+    the host plan, and its ranks' peaks; one log line each."""
+    r0, mb = ranks[0], TRAIN_MICROBATCHES
+    fam_checks, fam_summary = {}, {}
+    for fam, (_, _, (B, S)) in MODEL_AXIS_FAMILIES.items():
+        fr = r0["families"][fam]
+        one = fr["single"]
+        loss_rel_f = [abs(a - b) / abs(b)
+                      for a, b in zip(fr["losses"], one["losses"])]
+        gnorm_rel_f = [abs(a - b) / abs(b)
+                       for a, b in zip(fr["grad_norms"], one["grad_norms"])]
+        f32_rel = (abs(fr["loss_f32_tp"] - fr["loss_f32_single"])
+                   / abs(fr["loss_f32_single"]))
+        # the host plan: each self-attention past 2048 positions through
+        # the flash pair (forward with lse twice under remat, one backward)
+        # a layer (the hybrid: a group) and microbatch
+        noise = max(((v, n) for n, v in fr["grad_noise_leaves"].items()),
+                    default=(0.0, None))
+        loss_bar, gnorm_bar, held = MODEL_AXIS_BF16_BARS.get(
+            fam, (MODEL_AXIS_LOSS_RTOL, MODEL_AXIS_GNORM_RTOL, TRAIN_STEPS))
+        n_attn = fr["flash_attentions"]
+        fwd, bwd = n_attn * mb * 2, n_attn * mb
+
+        def plan(impl, f, b):
+            return {"flash_attention": f, "flash_attention_bwd": b,
+                    "flash_attention_by_impl": {impl: f} if f else {},
+                    "flash_attention_bwd_by_impl": {impl: b} if b else {}}
+
+        want_f = plan("tc", TRAIN_STEPS * fwd, TRAIN_STEPS * bwd)
+        want32_f = plan("fp32", fwd, bwd)
+        peaks = [rk["families"][fam]["max_memory_allocated"] for rk in ranks]
+        log(f"[model_axis] (d) {fam} {fr['arch']} ({fr['layers']} layers), "
+            f"{B} x {S} tokens in {mb} microbatches: f32 loss on the mesh "
+            f"{fr['loss_f32_tp']:.6f}, one device "
+            f"{fr['loss_f32_single']:.6f} (relative {f32_rel:.2e}); "
+            f"gradients relative Frobenius worst {fr['grad_worst'][0]:.2e} "
+            f"({fr['grad_worst'][1]}), scan and gate-bias leaves "
+            f"{fr['grad_worst_scan'][0]:.2e} ({fr['grad_worst_scan'][1]}); "
+            f"rounding-noise leaves, worst of the tree's max: "
+            f"{noise[0]:.2e} ({noise[1]})")
+        log(f"[model_axis] (d) {fam} bf16, 4 steps: mesh "
+            f"{fr['seconds_per_step']:.4f} s a step, "
+            f"{fr['tokens_per_s']:.1f} tokens/s, peak a rank "
+            f"{[round(x / 2**30, 2) for x in peaks]} GiB; one device "
+            f"{one['seconds_per_step']:.4f} s, {one['tokens_per_s']:.1f} "
+            f"tokens/s, {one['max_memory_allocated'] / 2**30:.2f} GiB; "
+            f"losses {fr['losses']} vs {one['losses']} (relative "
+            f"{[f'{x:.2e}' for x in loss_rel_f]}), grad norms relative "
+            f"{[f'{x:.2e}' for x in gnorm_rel_f]}; flash launches a rank "
+            f"{fr['launches']} (f32 {fr['launches_f32']}), planned {want_f} "
+            f"(f32 {want32_f}); read whole {fr['read_whole']}, "
+            f"{fr['read_whole_bytes'] / 2**20:.1f} MiB gathered a step a "
+            f"rank, FULL_SUM gradients {fr['full_sum_grad_bytes'] / 2**20:.1f}"
+            f" MiB all-reduced; {fr['seconds']['all']:.1f}s")
+        fam_summary[fam] = {"loss_rel_vs_single": loss_rel_f,
+                            "grad_norm_rel_vs_single": gnorm_rel_f,
+                            "f32_loss_rel": f32_rel,
+                            "predicted": {"bf16": want_f, "f32": want32_f},
+                            "peaks": peaks}
+        fam_checks.update({
+            f"{fam}: f32 loss within 1e-4 of one device": f32_rel <= 1e-4,
+            f"{fam}: f32 gradients within 1e-4 of one device":
+                fr["grad_worst"][0] <= TRAIN_GRAD_RTOL,
+            f"{fam}: f32 scan and gate-bias leaves within 3.3e-4 of one "
+            "device":
+                fr["grad_worst_scan"][0] <= TRAIN_SCAN_GRAD_RTOL,
+            f"{fam}: f32 rounding-noise leaves within 1e-6 of the tree's "
+            "max": all(x <= MODEL_AXIS_NOISE_FRAC
+                       for x in fr["grad_noise_leaves"].values()),
+            f"{fam}: bf16 losses within {loss_bar} of one device, "
+            f"steps 1-{held}": len(loss_rel_f) == TRAIN_STEPS
+            and max(loss_rel_f[:held]) <= loss_bar,
+            f"{fam}: bf16 grad norms within {gnorm_bar} of one device, "
+            f"steps 1-{held}": max(gnorm_rel_f[:held]) <= gnorm_bar,
+            f"{fam}: bf16 loss finite and falling": all(
+                math.isfinite(x) for x in fr["losses"])
+            and fr["losses"][-1] < fr["losses"][0],
+            f"{fam}: ranks agree on the loss": all(
+                rk["families"][fam]["losses"] == fr["losses"]
+                for rk in ranks),
+            f"{fam}: flash launches a rank as planned": all(
+                rk["families"][fam]["launches"] == want_f
+                and rk["families"][fam]["launches_f32"] == want32_f
+                for rk in ranks),
+            f"{fam}: both ranks' peaks within 72 GiB":
+                sum(peaks) <= 72 * 2**30,
+        })
+    return fam_checks, fam_summary
+
+
 def phase_model_axis(torch, dev, tokens, train_res) -> dict:
     """The mesh's model axis: ``model_axis_worker`` on 2 gloo ranks sharing
     the card, held to the single-device runs (the train phase's 4 bf16
     steps on the same tokens and seed; rank 0's own single-device f32
     gradients; ``_apply_ep_plain``), then the sharded checkpoint restored
     in this process (world 1, NCCL) with ``shardings=`` on a 1 x 1 mesh,
-    each leaf cut as the ranks hold it, checksum for checksum."""
+    each leaf cut as the ranks hold it, checksum for checksum; and the
+    vlm, hybrid, audio and ssm families' f32 gradients and bf16 steps
+    against rank 0's single-device runs (gradients within 1e-4 a leaf,
+    the Mamba scan's per-head leaves and the xLSTM's forget-gate biases
+    3.3e-4; losses and grad norms as the dense case's but for the xLSTM,
+    MODEL_AXIS_BF16_BARS), the loss finite and falling, their flash
+    launches a rank against the plan."""
     import shutil
 
     import torch.distributed as dist
@@ -6029,6 +6364,9 @@ def phase_model_axis(torch, dev, tokens, train_res) -> dict:
         f"{r0['moe_grad_worst'][0]:.2e} ({r0['moe_grad_worst'][1]}) of "
         f"{len(r0['moe_grad_rel_frobenius'])} leaves")
 
+    # (d) the other families, each against rank 0's single-device runs
+    fam_checks, fam_summary = model_axis_family_checks(ranks)
+
     # (b) world 1: the same checkpoint restored here, cut as the ranks
     t0 = time.perf_counter()
     cfg = ARCHS["llama2-7b"].scaled(n_layers=2)
@@ -6098,6 +6436,7 @@ def phase_model_axis(torch, dev, tokens, train_res) -> dict:
             moe_loss_rel <= 1e-4,
         "moe f32 step: gradients within 1e-4 of one device with "
         "_apply_ep_plain": r0["moe_grad_worst"][0] <= TRAIN_GRAD_RTOL,
+        **fam_checks,
     }
     t_phase = time.perf_counter() - t_phase
     log(f"[model_axis] phase {t_phase:.1f}s (ranks {t_ranks:.1f}s)")
@@ -6108,7 +6447,7 @@ def phase_model_axis(torch, dev, tokens, train_res) -> dict:
             "grad_norm_rel_vs_single": gnorm_rel,
             "moe_loss_rel_vs_plain": moe_loss_rel,
             "predicted": {"bf16": want, "f32": want32},
-            "world1_checksums_equal": world1_ok,
+            "world1_checksums_equal": world1_ok, "families": fam_summary,
             "seconds": {"phase": t_phase, "ranks": t_ranks,
                         "world1_restore": t_world1}}
 
@@ -6144,7 +6483,9 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
     flash_attention_bwd's tc variant at the same shape (launches their
     backwards). The model_axis phase's: the same pair at one rank's heads
     of the train microbatch on a model axis of 2 (B=2, 16 heads of 128,
-    4096 tokens, bf16; launches rank 0's in its 4 bf16 steps).
+    4096 tokens, bf16; launches rank 0's in its 4 bf16 steps), and at
+    one rank's heads of the vlm's (16 of 96) and the hybrid's (16 of 112)
+    microbatches (launches rank 0's in their 4 bf16 steps).
     library_ms
     is each row's own: for vq_dequant_matmul at int8 codebooks a bf16
     torch.matmul."""
@@ -6235,6 +6576,26 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
             lambda r: r["shape"] == "tp train" and r["impl"] == "tc",
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:68"),
+        "flash_attention_train_hd96_tp": (
+            "flash_attention_lse",
+            lambda r: r["shape"] == "phi3 tp B=2",
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:68"),
+        "flash_attention_bwd_hd96_tp": (
+            "flash_attention_bwd",
+            lambda r: r["shape"] == "phi3 tp train" and r["impl"] == "tc",
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:68"),
+        "flash_attention_train_hd112_tp": (
+            "flash_attention_lse",
+            lambda r: r["shape"] == "zamba tp B=2",
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:68"),
+        "flash_attention_bwd_hd112_tp": (
+            "flash_attention_bwd",
+            lambda r: r["shape"] == "zamba tp train" and r["impl"] == "tc",
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:68"),
     }
     out = []
     for name, (row_name, sel, source, replaces) in pick.items():
@@ -6273,10 +6634,14 @@ def paged_rows(torch, dev) -> list[dict]:
 
 def main() -> int:
     out_dir = os.path.join(ROOT, "chiprun_out")
-    if sys.argv[1:2] == ["mesh-worker"]:
-        return mesh_worker(sys.argv[2])
-    if sys.argv[1:2] == ["model-axis-worker"]:
-        return model_axis_worker(sys.argv[2])
+    workers = {"mesh-worker": mesh_worker,
+               "model-axis-worker": model_axis_worker}
+    if sys.argv[1:2] and sys.argv[1] in workers:
+        from repro_torch.launch.mesh import close_world
+
+        code = workers[sys.argv[1]](sys.argv[2])
+        close_world()  # the rank's gloo threads joined before shutdown
+        return code
     if sys.argv[1:2] == ["grad-readings"]:
         return grad_readings([int(a) for a in sys.argv[2:]])
 
@@ -6365,6 +6730,12 @@ def main() -> int:
         "flash_attention_by_impl"]["tc"]
     launches["flash_attention_bwd_tp"] = tp_rank0[
         "flash_attention_bwd_by_impl"]["tc"]
+    for fam, hd in (("vlm", 96), ("hybrid", 112)):
+        fam_rank0 = model_axis_res["ranks"][0]["families"][fam]["launches"]
+        launches[f"flash_attention_train_hd{hd}_tp"] = fam_rank0[
+            "flash_attention_by_impl"]["tc"]
+        launches[f"flash_attention_bwd_hd{hd}_tp"] = fam_rank0[
+            "flash_attention_bwd_by_impl"]["tc"]
     print(json.dumps(kernel_line(rows, launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -946,7 +946,11 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
 // thread, S^T and dP^T 2 x 32, the split terms of P^T or dS^T 32 more, so
 // every A fragment is read from shared memory at its use (8 ldmatrix.x4 a
 // product for the warp's 16 rows) instead of held: K and V in the dk/dv
-// pass, Q and dO in the dq pass.
+// pass, Q and dO in the dq pass. From HD 80 up the dk/dv pass still
+// spilled (148 bytes at 96, 180 at 112, 156 at 128), so there it walks a
+// query tile in blocks of 16 or 32 columns (kQC): S^T, dP^T and the split
+// terms take a quarter or a half of the registers, and each block's
+// products are summed in their own fresh fragment before the f32 add.
 
 template <int HD>
 __host__ __device__ constexpr size_t tc_bwd_tile() {  // a 64-row tile, bf16s
@@ -954,15 +958,15 @@ __host__ __device__ constexpr size_t tc_bwd_tile() {  // a 64-row tile, bf16s
 }
 
 // acc[j] = A . B^T for the warp's 16 rows of A (a: its first row) against
-// the 64 rows of B (n-tile j: B's rows 8j .. 8j+7), summed over HD; both
-// row-major [row][HD + 8] in shared memory
-template <int HD>
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4],
+// the NT * 8 rows of B (n-tile j: B's rows 8j .. 8j+7), summed over HD;
+// both row-major [row][HD + 8] in shared memory
+template <int HD, int NT = 8>
+__device__ __forceinline__ void mma_abt(float (&acc)[NT][4],
                                         const __nv_bfloat16* a,
                                         const __nv_bfloat16* b, int lane) {
   constexpr int LD = HD + 8;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 #pragma unroll
@@ -970,7 +974,7 @@ __device__ __forceinline__ void mma_abt(float (&acc)[8][4],
     uint32_t af[4];
     mma::ldsm_x4(af, a + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {
+    for (int np = 0; np < NT / 2; ++np) {
       uint32_t r[4];
       mma::ldsm_x4(r, b + ((2 * np + (lane >> 4)) * 8 + (lane & 7)) * LD +
                           kk * 16 + ((lane >> 3) & 1) * 8);
@@ -980,13 +984,14 @@ __device__ __forceinline__ void mma_abt(float (&acc)[8][4],
   }
 }
 
-// the warp's 16 x 64 f32 tile x in the C layout (x[j]: columns 8j .. 8j+7)
-// as A fragments, two bf16 terms a 16-column k-step: xa[kk][0] the hi
-// terms, xa[kk][1] the lo ones (slots a0 .. a3)
-__device__ __forceinline__ void split_frags(const float (&x)[8][4],
-                                            uint32_t (&xa)[4][2][4]) {
+// the warp's 16 x (NT * 8) f32 tile x in the C layout (x[j]: columns
+// 8j .. 8j+7) as A fragments, two bf16 terms a 16-column k-step:
+// xa[kk][0] the hi terms, xa[kk][1] the lo ones (slots a0 .. a3)
+template <int NT = 8>
+__device__ __forceinline__ void split_frags(const float (&x)[NT][4],
+                                            uint32_t (&xa)[NT / 2][2][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < NT / 2; ++kk)
 #pragma unroll
     for (int half = 0; half < 2; ++half)
 #pragma unroll
@@ -995,20 +1000,21 @@ __device__ __forceinline__ void split_frags(const float (&x)[8][4],
                     xa[kk][0][half * 2 + rr], xa[kk][1][half * 2 + rr]);
 }
 
-// acc[j] += X . M[:, 8j .. 8j+7] for X split by split_frags and M [64][HD
-// + 8] row-major in shared memory, read transposed. Each pair of n-tiles
-// sums the tile's 64 rows on the tensor cores in a fresh fragment (a
-// k-step's lo product before its hi one), then adds it to acc in f32
-template <int HD>
+// acc[j] += X . M[:, 8j .. 8j+7] for X (16 x NT * 8) split by
+// split_frags and M [NT * 8][HD + 8] row-major in shared memory, read
+// transposed. Each pair of n-tiles sums M's NT * 8 rows on the tensor
+// cores in a fresh fragment (a k-step's lo product before its hi one),
+// then adds it to acc in f32
+template <int HD, int NT = 8>
 __device__ __forceinline__ void mma_xm(float (&acc)[HD / 8][4],
-                                       const uint32_t (&xa)[4][2][4],
+                                       const uint32_t (&xa)[NT / 2][2][4],
                                        const __nv_bfloat16* m, int lane) {
   constexpr int LD = HD + 8;
 #pragma unroll
   for (int hp = 0; hp < HD / 16; ++hp) {
     float part[2][4] = {};
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < NT / 2; ++kk) {
       uint32_t r[4];
       mma::ldsm_x4_t(r, m + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
                                 LD + (2 * hp + (lane >> 4)) * 8);
@@ -1058,6 +1064,15 @@ flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                          int H, int KV, int causal, int q_offset,
                          float scale) {
   constexpr int LD = HD + 8, NHT = HD / 8;
+  // a tile's query columns in blocks of kQC: the dK and dV accumulators
+  // (HD / 2 f32 a thread each) beside S^T and dP^T of all 64 columns (32
+  // each) spill past the 255 registers from HD 80 up. Blocks of 16 leave
+  // no spill at 80 and 96 (232 and 240 registers; blocks of 32 left 4 and
+  // 8 bytes); at 112 and 128 blocks of 32 cut 180 / 156 bytes to 24 / 40
+  // at the unblocked pass's speed, where blocks of 16 (4 / 8 bytes) cost
+  // 3-6% (ptxas and the card, NVIDIA H100 80GB HBM3)
+  constexpr int kQC = HD >= 112 ? 32 : HD >= 80 ? 16 : kTcRows;
+  constexpr int NT = kQC / 8;
   constexpr size_t T = tc_bwd_tile<HD>();
   extern __shared__ float4 bwd_tc_smem4[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(bwd_tc_smem4);
@@ -1126,36 +1141,43 @@ flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const bool need_mask = k0 + kTcRows > Sk || q0 + kTcRows > Sq ||
                            (causal && k0 + kTcRows - 1 > q_offset + q0);
 
-    float p[8][4];  // S^T, then P^T: kv rows x the tile's query columns
-    mma_abt<HD>(p, kw, qt, lane);
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTcRows; c0 += kQC) {  // a block of query columns
+      const __nv_bfloat16* qc = qt + c0 * LD;
+      const __nv_bfloat16* oc = ot + c0 * LD;
+      float p[NT][4];  // S^T, then P^T: kv rows x the block's query columns
+      mma_abt<HD, NT>(p, kw, qc, lane);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 l2 = *reinterpret_cast<const float2*>(lt + j * 8 + 2 * q4);
+      for (int j = 0; j < NT; ++j) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(lt + c0 + j * 8 + 2 * q4);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = expf(p[j][e] * scale - ((e & 1) ? l2.y : l2.x));
-        if (need_mask) {
-          const int c = q0 + j * 8 + 2 * q4 + (e & 1);
-          const int r = row_a + (e >> 1) * 8;
-          if (r >= Sk || c >= Sq || (causal && r > q_offset + c)) x = 0.f;
+        for (int e = 0; e < 4; ++e) {
+          float x = expf(p[j][e] * scale - ((e & 1) ? l2.y : l2.x));
+          if (need_mask) {
+            const int c = q0 + c0 + j * 8 + 2 * q4 + (e & 1);
+            const int r = row_a + (e >> 1) * 8;
+            if (r >= Sk || c >= Sq || (causal && r > q_offset + c)) x = 0.f;
+          }
+          p[j][e] = x;
         }
-        p[j][e] = x;
       }
-    }
-    float ds[8][4];  // dP^T, then dS^T
-    mma_abt<HD>(ds, vw, ot, lane);
+      float ds[NT][4];  // dP^T, then dS^T
+      mma_abt<HD, NT>(ds, vw, oc, lane);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 d2 = *reinterpret_cast<const float2*>(dt + j * 8 + 2 * q4);
+      for (int j = 0; j < NT; ++j) {
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(dt + c0 + j * 8 + 2 * q4);
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ds[j][e] = p[j][e] * (ds[j][e] - ((e & 1) ? d2.y : d2.x));
+        for (int e = 0; e < 4; ++e)
+          ds[j][e] = p[j][e] * (ds[j][e] - ((e & 1) ? d2.y : d2.x));
+      }
+      uint32_t xa[NT / 2][2][4];
+      split_frags<NT>(p, xa);
+      mma_xm<HD, NT>(dva, xa, oc, lane);  // dV += P^T dO
+      split_frags<NT>(ds, xa);
+      mma_xm<HD, NT>(dka, xa, qc, lane);  // dK += dS^T Q
     }
-    uint32_t xa[4][2][4];
-    split_frags(p, xa);
-    mma_xm<HD>(dva, xa, ot, lane);  // dV += P^T dO
-    split_frags(ds, xa);
-    mma_xm<HD>(dka, xa, qt, lane);  // dK += dS^T Q
     __syncthreads();  // every warp is done with buffer cur before its refill
   }
   mma::cp_async_wait<0>();  // K and V's copies when no tile was walked

@@ -104,6 +104,23 @@ def init_world(backend: str) -> None:
                                 world_size=1)
 
 
+def close_world() -> None:
+    """End this process's part in the world: destroy the default process
+    group (if one runs), then collect the garbage that still refers to
+    its groups, so that their threads (gloo's ``gloo_tcp_loop`` and
+    ``pt_gloo_runloop``) are joined while the interpreter is whole. A
+    group outlives ``destroy_process_group`` while a ``DeviceMesh`` or a
+    DTensor refers to it, and its threads left running into interpreter
+    shutdown abort a rank now and then after its work is done
+    (``terminate called without an active exception``). Call it after
+    the last reference to the mesh and the state is dropped."""
+    import gc
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    gc.collect()
+
+
 def make_host_mesh(device_type: str = "cuda"):
     """A 1 x 1 ``("data", "model")`` mesh for one process: the mesh-aware
     paths at world size 1 (NCCL on the card, gloo on the CPU)."""

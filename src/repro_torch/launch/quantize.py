@@ -119,9 +119,10 @@ def main(argv=None):
         return run(args, device, mesh)
     finally:
         if mesh is not None:
-            import torch.distributed as dist
+            from repro_torch.launch.mesh import close_world
 
-            dist.destroy_process_group()
+            del mesh
+            close_world()
 
 
 def hessian_mesh(n: int, device):

@@ -27,8 +27,8 @@ On several ranks (``torchrun``, or ``COORDINATOR_ADDRESS=host:port`` with
 ``RANK`` and ``WORLD_SIZE`` set for each process: the reference's
 multi-host start) it trains on a ``(data, model)`` mesh with
 ``--model-parallel`` ranks on the model axis (``launch/mesh``: NCCL when
-each rank on the host has a card, gloo otherwise) and the dense and moe
-families: every rank makes the same state from seed 0 and keeps its
+each rank on the host has a card, gloo otherwise), any family the stream
+feeds: every rank makes the same state from seed 0 and keeps its
 shards (placed as ``shardings_for`` gives them), each data rank draws
 its own rows of the stream's global batch (shard ``data rank`` of ``data
 ranks``), and rank 0 prints and writes the checkpoints (whole arrays:
@@ -195,3 +195,6 @@ def main(argv=None) -> ft.SuperviseResult:
 
 if __name__ == "__main__":
     main()
+    from repro_torch.launch.mesh import close_world
+
+    close_world()

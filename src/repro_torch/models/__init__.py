@@ -1,1 +1,1 @@
-"""Model assemblies of the port (the dense and moe families)."""
+"""Model assemblies of the port (all six families)."""

@@ -12,6 +12,12 @@ A cache is an ``EncDecCache``: per decoder layer one self-attention cache
 (``KVCache``, or ``PagedKVCache`` when serving) and one pair of cross K/V
 (B, S_enc, KV, hd) tensors, computed from the memory at a prefill with
 frames and slot-resident after that, like recurrent state.
+
+Under a model axis (``models/parallel``) the tied embedding reads the
+rank's vocabulary rows (the lookup and the head's columns), every self-
+and cross-attention the rank's heads (the cross K/V of its KV heads from
+the memory, its q and ``wo`` rows, summed over the axis) and every MLP
+its hidden units; ``param_modes`` says how each leaf is read.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common as cm, mlp
+from repro_torch.models import parallel as par
 
 
 class EncDecCache(NamedTuple):
@@ -86,6 +93,25 @@ def param_specs(cfg: ModelConfig) -> dict:
             "enc_norm": P(None), "final_norm": P(None)}
 
 
+def param_modes(cfg: ModelConfig, axis) -> dict:
+    """``param_specs``' tree of how a step on ``axis`` reads each leaf:
+    the embedding split as the vocabulary is, the positional tables and
+    norms whole, each attention (cross-attention too) as
+    ``attention.split_modes`` reads its heads and each MLP as
+    ``mlp.split_modes``."""
+    vocab = par.SPLIT if axis.vocab(cfg) is not None else par.FULL
+    attn, ffn = attention.split_modes(cfg, axis), mlp.split_modes(cfg, axis)
+    F = par.FULL
+    return {"embed": vocab, "pos_enc": F, "pos_dec": F,
+            "enc_layers": [{"norm1": F, "attn": attn, "norm2": F,
+                            "ffn": ffn}
+                           for _ in range(cfg.n_encoder_layers)],
+            "dec_layers": [{"norm1": F, "self_attn": attn, "norm_x": F,
+                            "cross_attn": attn, "norm2": F, "ffn": ffn}
+                           for _ in range(cfg.n_layers)],
+            "enc_norm": F, "final_norm": F}
+
+
 def embed_frames(params, cfg: ModelConfig, frames: torch.Tensor):
     """Add learned positional embeddings to the (stub) frame embeddings;
     the stream keeps the frames' dtype, as the reference's."""
@@ -145,26 +171,42 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _cross_kv(layer_p, cfg: ModelConfig, memory):
+    """The cross K/V (B, S_enc, KV, hd) of ``memory``; under a head split
+    the KV heads the rank's query heads read (its own columns of wk/wv, or
+    its heads of the whole projection)."""
     B, S, _ = memory.shape
-    KV, hd = cfg.n_kv_heads, cfg.hd
-    k = cm.matmul(memory, layer_p["wk"]).reshape(B, S, KV, hd)
-    v = cm.matmul(memory, layer_p["wv"]).reshape(B, S, KV, hd)
+    hd = cfg.hd
+    split = par.head_split(cfg)
+    if split is not None:
+        memory = par.enter(memory, split.group)
+    k = cm.matmul(memory, layer_p["wk"]).reshape(B, S, -1, hd)
+    v = cm.matmul(memory, layer_p["wv"]).reshape(B, S, -1, hd)
     if cfg.qkv_bias:
-        k = k + layer_p["bk"].reshape(KV, hd)
-        v = v + layer_p["bv"].reshape(KV, hd)
+        k = k + layer_p["bk"].reshape(-1, hd)
+        v = v + layer_p["bv"].reshape(-1, hd)
+    if split is not None and split.kv_lo is not None:
+        heads = slice(split.kv_lo, split.kv_lo + split.kv_heads)
+        k, v = k[:, :, heads], v[:, :, heads]
     return k, v
 
 
 def _cross_attend(layer_p, cfg: ModelConfig, x, ck, cv):
-    """Plain all-ones-mask attention of x over the cross K/V, then wo."""
+    """Plain all-ones-mask attention of x over the cross K/V, then wo;
+    under a head split the rank's heads, summed over the model axis."""
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.hd
+    split = par.head_split(cfg)
+    if split is not None:
+        x, H = par.enter(x, split.group), split.heads
     q = cm.matmul(x, layer_p["wq"]).reshape(B, S, H, hd)
     if cfg.qkv_bias:
         q = q + layer_p["bq"].reshape(H, hd)
     o = attention._plain_attention(
         q, ck, cv, attention._mask(S, ck.shape[1], x.device, causal=False))
-    return cm.matmul(o.reshape(B, S, H * hd), layer_p["wo"]).to(x.dtype)
+    y = cm.matmul(o.reshape(B, S, H * hd), layer_p["wo"])
+    if split is not None:
+        y = par.reduce(y, split.group)
+    return y.to(x.dtype)
 
 
 def dec_block_apply(layer_p, cfg: ModelConfig, h, memory):
@@ -219,7 +261,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, frames=None,
         memory = encode(params, cfg, frames, remat)
 
     B, S = tokens.shape
-    x = params["embed"][tokens]
+    x = par.embed(params["embed"], tokens, cfg)
     pos_ids = cm.position_ids(pos, B, S, device=x.device)
     x = x + params["pos_dec"][pos_ids].to(x.dtype)
     fill_cross = cache is not None and memory is not None
@@ -256,7 +298,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, frames=None,
     if last_only:
         x = x[:, -1:]
     x = cm.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = cm.matmul(x, params["embed"].T).to(torch.float32)
+    logits = par.vocab_logits(x, params["embed"].T, cfg)
     new_cache = (None if cache is None
                  else EncDecCache(new_kv, new_ck, new_cv))
     return logits, new_cache, torch.zeros((), dtype=torch.float32,

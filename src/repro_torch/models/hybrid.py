@@ -15,6 +15,13 @@ factors. The reference scans a homogeneous trunk (two nested
 recipe); here one Python loop runs either. A cache is a ``HybridCache``:
 per group one attention cache (``KVCache`` or ``PagedKVCache``), per layer
 one ``ssm.SSMCache``, which stays slot-resident when the attention is paged.
+
+Under a model axis (``models/parallel``) the embedding and the head read
+the rank's vocabulary rows and columns, the shared block the rank's heads
+(as ``attention`` splits them: the LoRA B factors' model split is the
+same column split as the q/k/v weights they are added to, so each
+group's densify A @ B gives the rank's columns) and each Mamba2 mixer the
+rank's heads (``ssm``); ``param_modes`` says how each leaf is read.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common as cm, ssm
+from repro_torch.models import parallel as par
 
 
 def _groups(cfg: ModelConfig) -> tuple[int, int]:
@@ -75,6 +83,26 @@ def param_specs(cfg: ModelConfig) -> dict:
         "lora": {name: {"A": P(None, "data", None), "B": P(None, None, "model")}
                  for name in ("q", "k", "v")},
     }
+
+
+def param_modes(cfg: ModelConfig, axis) -> dict:
+    """``param_specs``' tree of how a step on ``axis`` reads each leaf:
+    the embedding's rows and the head's columns split as the vocabulary
+    is, the shared block as ``attention.split_modes`` reads its heads, each
+    mixer as ``ssm.split_modes``; of the LoRA factors B as its weight (q's
+    columns of the rank's heads, k's and v's as wk and wv are read) and A
+    whole, its gradient a part on each rank of a head split (FULL_SUM)."""
+    n_groups, per = _groups(cfg)
+    vocab = par.SPLIT if axis.vocab(cfg) is not None else par.FULL
+    attn = attention.split_modes(cfg, axis)
+    heads = axis.heads(cfg) is not None
+    mixer = ssm.split_modes(cfg, axis)
+    lora = {name: {"A": par.FULL_SUM if heads else par.FULL, "B": attn[w]}
+            for name, w in (("q", "wq"), ("k", "wk"), ("v", "wv"))}
+    return {"embed": vocab, "final_norm": par.FULL, "lm_head": vocab,
+            "mamba": [[{"norm": par.FULL, "mixer": mixer}
+                       for _ in range(per)] for _ in range(n_groups)],
+            "shared": {"norm": par.FULL, "attn": attn}, "lora": lora}
 
 
 class HybridCache(NamedTuple):
@@ -156,7 +184,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, pos=0,
     top = {k: v for k, v in params.items() if k != "mamba"}
     params = {**params, **vql_mod.dequant_tree(top, dtype,
                                                densify_fused=True)}
-    x = params["embed"][tokens]
+    x = par.embed(params["embed"], tokens, cfg)
     emb0 = x  # the initial embedding, re-fed to every shared invocation
     remat = remat if cache is None and torch.is_grad_enabled() else False
 
@@ -188,7 +216,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, pos=0,
     if last_only:
         x = x[:, -1:]
     x = cm.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = cm.matmul(x, params["lm_head"]).to(torch.float32)
+    logits = par.vocab_logits(x, params["lm_head"], cfg)
     new_cache = None if cache is None else HybridCache(new_m, new_kv)
     return logits, new_cache, torch.zeros((), dtype=torch.float32,
                                           device=x.device)

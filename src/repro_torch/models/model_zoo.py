@@ -12,7 +12,9 @@ state and cross K/V are slot-resident either way), and whose
 ``tokens`` (B, S) and, for vlm, ``patches`` (B, n_image_tokens, D), for
 audio ``frames`` (B, encoder_seq, D), and returns (logits, new_cache,
 aux_loss). ``param_specs()`` gives the reference's sharding specs
-(``common.P``) on the port's tree, and ``abstract_params(model)`` the
+(``common.P``) on the port's tree, ``param_modes(axis)`` how a step on a
+model axis (``parallel.ModelAxis``) reads each of those leaves (each
+layer module's ``split_modes``), and ``abstract_params(model)`` the
 parameters' shapes and dtypes as ``meta`` tensors (nothing allocated).
 ``remat=`` (the reference's ``True`` / ``False`` /
 ``"save_attn"``) passes through to the family's forward: the train step's
@@ -38,6 +40,7 @@ class Model:
     forward: Callable[..., tuple]
     init_cache: Callable[..., Any]
     param_specs: Callable[[], Any]
+    param_modes: Callable[[Any], Any]
 
 
 def _family_module(cfg: ModelConfig):
@@ -78,9 +81,11 @@ def build(cfg: ModelConfig) -> Model:
         return mod.init_cache(cfg, batch, max_len, dtype, paged,
                               device=resolve_device(device))
 
-    specs = {"hybrid": hybrid, "audio": encdec, "vlm": vlm}.get(
-        cfg.family, transformer).param_specs
-    return Model(cfg, init_params, fwd, init_cache, lambda: specs(cfg))
+    fam = {"hybrid": hybrid, "audio": encdec, "vlm": vlm}.get(cfg.family,
+                                                              transformer)
+    return Model(cfg, init_params, fwd, init_cache,
+                 lambda: fam.param_specs(cfg),
+                 lambda axis: fam.param_modes(cfg, axis))
 
 
 def _leaves(tree):

@@ -27,6 +27,9 @@ keeps the model axis on the same weights):
   rows and the head's columns, with the cross-entropy over vocab-sharded
   logits in ``train/loss.next_token_loss_split``.
 * experts (``experts``): tp divides n_experts; ``moe._apply_ep``.
+* units (``units``): tp divides a layer's own count of independent units
+  (the Mamba2 mixer's heads, the xLSTM's heads, the sLSTM FFN's hidden
+  units); the layer runs the rank's contiguous block of them.
 
 A layer whose split does not hold runs whole on every model rank. The
 batch is split over the data axis: each data rank runs its own rows.
@@ -191,6 +194,14 @@ class ModelAxis:
         return (cfg.family == "moe" and self.tp > 1
                 and cfg.n_experts % self.tp == 0)
 
+    def units(self, n: int) -> slice | None:
+        """This rank's contiguous block of ``n`` units, or None (tp 1, or
+        tp does not divide n)."""
+        if self.tp == 1 or n % self.tp:
+            return None
+        k = n // self.tp
+        return slice(self.model_rank * k, (self.model_rank + 1) * k)
+
     def data_mean(self, x):
         """The mean of ``x`` over the data ranks (a part of the objective
         on each)."""
@@ -233,9 +244,44 @@ def vocab_split(cfg):
     return None if lo is None else (lo, axis.model_group)
 
 
+def unit_split(n: int):
+    """(slice, group) of this rank's block of ``n`` units, or None."""
+    axis = current()
+    sl = None if axis is None else axis.units(n)
+    return None if sl is None else (sl, axis.model_group)
+
+
 def data_mean(x):
     axis = current()
     return x if axis is None else axis.data_mean(x)
+
+
+def gather_units(x, sl: slice, n: int, group):
+    """The whole last dim (``n``) of ``x``, whose columns ``sl`` this rank
+    holds, on every rank of ``group``: its columns in place, zeros
+    elsewhere, summed (the backward gives each rank its columns of the
+    gradient, the same on every rank after the sum)."""
+    whole_x = x.new_zeros((*x.shape[:-1], n))
+    whole_x[..., sl] = x
+    return reduce(whole_x, group)
+
+
+def embed(table, tokens, cfg):
+    """``table[tokens]``: under a vocabulary split of ``cfg`` the rows of
+    this rank's shard, summed over the model axis (``embed_lookup``)."""
+    split = vocab_split(cfg)
+    if split is None:
+        return table[tokens]
+    return embed_lookup(table, tokens, *split)
+
+
+def vocab_logits(x, w, cfg):
+    """f32 logits ``x @ w`` (w: (d, V)); under a vocabulary split of
+    ``cfg``, this rank's columns (x enters the split work)."""
+    split = vocab_split(cfg)
+    if split is not None:
+        x = enter(x, split[1])
+    return cm.matmul(x, w).to(torch.float32)
 
 
 def embed_lookup(table, tokens, lo: int, group):
@@ -270,14 +316,11 @@ class _Leaf(NamedTuple):
     mode: str
 
 
-TRAINED_FAMILIES = ("dense", "moe")
-
-
 class Layout:
     """Where each parameter of ``model`` lives on ``mesh`` (the sanitized
-    ``param_specs``) and how the forward reads it (``param_modes``: each
-    layer's module says how its own code reads its leaves; a leaf that
-    has a spec and no mode, or the reverse, raises).
+    ``param_specs``) and how the forward reads it (``model.param_modes``:
+    each layer's module says how its own code reads its leaves; a leaf
+    that has a spec and no mode, or the reverse, raises).
 
     ``views`` gathers a step's weights from their shards over each axis
     with more than one rank: the data axis, and the model axis unless the
@@ -288,18 +331,12 @@ class Layout:
 
     def __init__(self, model, mesh):
         cfg = model.cfg
-        if cfg.family not in TRAINED_FAMILIES:
-            raise NotImplementedError(
-                f"sharded training of the {cfg.family!r} family is not "
-                "ported yet (ROADMAP.md queue 1, 'Sharded families': "
-                "dense and moe train on a mesh)")
         self.mesh, self.axis, self.cfg = mesh, ModelAxis(mesh), cfg
-        from repro_torch.models import transformer
         from repro_torch.train.optimizer import tree_leaves
 
         shapes = _meta_params(model)
         self.specs = cm.sanitize_specs(shapes, model.param_specs(), mesh)
-        modes = transformer.param_modes(cfg, self.axis)
+        modes = model.param_modes(self.axis)
         if _paths(modes) != _paths(self.specs):
             odd = set(_paths(modes)) ^ set(_paths(self.specs))
             raise AssertionError(f"{cfg.name}: the leaves with a mode "

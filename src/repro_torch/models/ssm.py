@@ -21,6 +21,15 @@ model's dtype, and so do ``A_log``, ``dt_bias``, ``D_skip`` and the state.
 
 Decode carries (h, conv) per layer, O(1) a token; the serving engine keeps
 this ``SSMCache`` slot-resident.
+
+Under a model axis that divides the heads (``models/parallel``, set by the
+sharded train step) a cache-free mixer runs the rank's heads: its z, x and
+dt columns of ``in_proj`` and its x channels of the conv, with B and C
+(shared by every head) on every rank, its heads' scan, the gated RMSNorm
+over the whole of d_inner (its sum of squares summed over the axis) and
+``out_proj``'s rows of its heads, summed over the axis. ``in_proj`` packs
+[z | x | B | C | dt] and the conv [x | B | C], so a contiguous block of
+their columns is no rank's heads: they are read whole (``split_modes``).
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as cm
+from repro_torch.models import parallel as par
 
 # f32 elements of the (B, nc, heads, Q, Q) decay tiles built at once: 2^28
 # (1 GiB); at B = 4, S = 4096, Q = 256 that is 16 of Zamba2-7B's 112 heads
@@ -79,6 +89,43 @@ def specs(cfg: ModelConfig) -> dict:
             "out_proj": P("model", "data")}
 
 
+def split_modes(cfg: ModelConfig, axis) -> dict:
+    """How a step on ``axis`` reads each leaf of ``specs``: with the heads
+    split, ``norm_scale`` and ``out_proj``'s rows of the rank's heads
+    (SPLIT); ``in_proj`` and the conv whole (their packed columns), and
+    the per-head ``A_log`` / ``dt_bias`` / ``D_skip``, sliced to the
+    rank's heads (FULL_SUM). Else every leaf whole (FULL)."""
+    if axis.units(_dims(cfg)[1]) is None:
+        return {k: par.FULL for k in specs(cfg)}
+    return {k: par.SPLIT if k in ("norm_scale", "out_proj") else par.FULL_SUM
+            for k in specs(cfg)}
+
+
+def _rank_columns(cfg: ModelConfig, heads: slice, device):
+    """(in_proj columns, conv channels) of the heads ``heads``: their z, x
+    and dt columns with all of B and C; their x channels with B and C."""
+    d_inner, n_heads, _ = _dims(cfg)
+    hd, N = cfg.ssm_head_dim, cfg.ssm_state
+    inner = torch.arange(heads.start * hd, heads.stop * hd, device=device)
+    bc = torch.arange(2 * N, device=device)
+    dt = torch.arange(heads.start, heads.stop, device=device)
+    proj = torch.cat([inner, d_inner + inner, 2 * d_inner + bc,
+                      2 * d_inner + 2 * N + dt])
+    return proj, torch.cat([inner, d_inner + bc])
+
+
+def _gated_norm(y, z, scale, eps: float, width: int, group):
+    """``cm.rmsnorm(y * silu(z), scale)`` over a width split across
+    ``group``: the sum of squares of this rank's columns, summed over the
+    group (a part of every rank's normalizer both ways)."""
+    t = y * F.silu(z)
+    dt = t.dtype
+    t = t.to(torch.float32)
+    ss = par.reduce_parts(torch.sum(t * t, dim=-1, keepdim=True), group)
+    return ((t * torch.rsqrt(ss / width + eps))
+            * scale.to(torch.float32)).to(dt)
+
+
 def init_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
                device=None) -> SSMCache:
     _, heads, conv_ch = _dims(cfg)
@@ -87,12 +134,6 @@ def init_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
                       dtype=dtype, device=device),
         conv=torch.zeros((batch, cfg.ssm_conv_width - 1, conv_ch),
                          dtype=dtype, device=device))
-
-
-def _split_proj(cfg: ModelConfig, proj):
-    d_inner, heads, _ = _dims(cfg)
-    N = cfg.ssm_state
-    return torch.split(proj, [d_inner, d_inner, N, N, heads], dim=-1)
 
 
 def _causal_conv(u, w, b):
@@ -201,10 +242,24 @@ def pre_out(p, cfg: ModelConfig, x, cache: SSMCache | None = None):
     Bsz, S, _ = x.shape
     d_inner, heads, conv_ch = _dims(cfg)
     N, hd, w = cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_conv_width
-    proj = cm.matmul(x, p["in_proj"])
-    z, xc, Bc, Cc, dt = _split_proj(cfg, proj)
-    A = -torch.exp(p["A_log"])  # (P,)
-    dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])
+    split = par.unit_split(heads) if cache is None else None
+    w_in, conv_w, conv_b = p["in_proj"], p["conv_w"], p["conv_b"]
+    A_log, dt_bias, D_skip = p["A_log"], p["dt_bias"], p["D_skip"]
+    width = d_inner
+    if split is not None:  # the rank's heads
+        hs, group = split
+        cols, chans = _rank_columns(cfg, hs, x.device)
+        x = par.enter(x, group)
+        w_in = w_in.index_select(1, cols)
+        conv_w, conv_b = conv_w.index_select(1, chans), conv_b[chans]
+        A_log, dt_bias, D_skip = A_log[hs], dt_bias[hs], D_skip[hs]
+        heads = hs.stop - hs.start
+        d_inner, conv_ch = heads * hd, heads * hd + 2 * N
+    proj = cm.matmul(x, w_in)
+    z, xc, Bc, Cc, dt = torch.split(proj, [d_inner, d_inner, N, N, heads],
+                                    dim=-1)
+    A = -torch.exp(A_log)  # (P,)
+    dt = F.softplus(dt.to(torch.float32) + dt_bias)
 
     u = torch.cat([xc, Bc, Cc], dim=-1)  # (B,S,conv_ch)
     pad = (cache.conv.to(u.dtype) if cache is not None
@@ -212,7 +267,7 @@ def pre_out(p, cfg: ModelConfig, x, cache: SSMCache | None = None):
                             device=u.device))
     u_pad = torch.cat([pad, u], dim=1)
     new_conv = u_pad[:, -(w - 1):, :]
-    conv = F.silu(_causal_conv(u_pad, p["conv_w"], p["conv_b"]))
+    conv = F.silu(_causal_conv(u_pad, conv_w, conv_b))
     xcv, Bcv, Ccv = torch.split(conv, [d_inner, N, N], dim=-1)
     xh = xcv.reshape(Bsz, S, heads, hd)
 
@@ -231,15 +286,25 @@ def pre_out(p, cfg: ModelConfig, x, cache: SSMCache | None = None):
         # engine can feed a prompt in several chunked calls
         y, h_fin = _ssd_chunked(xh, Bcv, Ccv, dt, A, cfg.ssm_chunk,
                                 h0=cache.h if cache is not None else None)
-    y = y + xh * p["D_skip"][None, None, :, None]
+    y = y + xh * D_skip[None, None, :, None]
     y = y.reshape(Bsz, S, d_inner)
-    y = cm.rmsnorm(y.to(x.dtype) * F.silu(z), p["norm_scale"], cfg.norm_eps)
+    if split is not None:
+        y = _gated_norm(y.to(x.dtype), z, p["norm_scale"], cfg.norm_eps,
+                        width, group)
+    else:
+        y = cm.rmsnorm(y.to(x.dtype) * F.silu(z), p["norm_scale"],
+                       cfg.norm_eps)
     new_cache = (SSMCache(h=h_fin, conv=new_conv.to(cache.conv.dtype))
                  if cache is not None else None)
     return y, new_cache
 
 
 def apply(p, cfg: ModelConfig, x, cache: SSMCache | None = None):
-    """Mamba2 mixer. x: (B,S,D). Returns (y, new_cache)."""
+    """Mamba2 mixer. x: (B,S,D). Returns (y, new_cache); under a head
+    split the rank's heads' part summed over the model axis."""
     y, new_cache = pre_out(p, cfg, x, cache)
-    return cm.matmul(y, p["out_proj"]).to(x.dtype), new_cache
+    out = cm.matmul(y, p["out_proj"])
+    split = par.unit_split(_dims(cfg)[1]) if cache is None else None
+    if split is not None:
+        out = par.reduce(out, split[1])
+    return out.to(x.dtype), new_cache

@@ -179,7 +179,7 @@ def param_modes(cfg: ModelConfig, axis) -> dict:
     (``parallel.ModelAxis``) reads each leaf (``parallel.SPLIT``,
     ``FULL`` or ``FULL_SUM``), each layer's from its own module; the
     embedding and the head split as ``embed_tokens`` / ``unembed`` split
-    them. Recurrent blocks have no split yet."""
+    them."""
     _check_family(cfg)
     vocab = par.SPLIT if axis.vocab(cfg) is not None else par.FULL
     modes: dict[str, Any] = {"embed": vocab, "final_norm": par.FULL}
@@ -188,10 +188,11 @@ def param_modes(cfg: ModelConfig, axis) -> dict:
     layers = []
     for i in range(cfg.n_layers):
         kind = block_kind(cfg, i)
-        if kind not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"{kind} blocks have no split over the model axis yet "
-                "(ROADMAP.md queue 1, 'Sharded families')")
+        if kind in ("mlstm", "slstm"):
+            core = (xlstm.mlstm_split_modes if kind == "mlstm"
+                    else xlstm.slstm_split_modes)
+            layers.append({"norm1": par.FULL, "core": core(cfg, axis)})
+            continue
         ffn = moe if kind == "moe" else mlp
         layers.append({"norm1": par.FULL,
                        "attn": attention.split_modes(cfg, axis),
@@ -212,11 +213,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens, extra_embeds=None):
-    split = par.vocab_split(cfg)
-    if split is not None:  # this rank's vocabulary rows
-        x = par.embed_lookup(params["embed"], tokens, *split)
-    else:
-        x = params["embed"][tokens]  # gather
+    x = par.embed(params["embed"], tokens, cfg)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     return x
@@ -225,10 +222,7 @@ def embed_tokens(params, cfg: ModelConfig, tokens, extra_embeds=None):
 def unembed(params, cfg: ModelConfig, x):
     """f32 logits; under a vocabulary split, this rank's columns."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    split = par.vocab_split(cfg)
-    if split is not None:
-        x = par.enter(x, split[1])
-    return cm.matmul(x, w).to(torch.float32)
+    return par.vocab_logits(x, w, cfg)
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, pos=0,

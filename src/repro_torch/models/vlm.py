@@ -22,6 +22,12 @@ def param_specs(cfg: ModelConfig) -> dict:
     return transformer.param_specs(cfg)
 
 
+def param_modes(cfg: ModelConfig, axis) -> dict:
+    """The dense transformer's: the patches join the stream after the
+    embedding's vocabulary-split lookup, so no leaf reads them."""
+    return transformer.param_modes(cfg, axis)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, paged=None, device=None):
     return transformer.init_cache(cfg, batch, max_len, dtype, paged,

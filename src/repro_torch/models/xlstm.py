@@ -13,6 +13,15 @@ with ``lax.scan`` in 64-step chunks whose boundaries it checkpoints for
 backpropagation; the chunks change no value, so a flat loop computes the
 same thing. The state is O(1) a sequence (``MLSTMCache``, ``SLSTMCache``),
 which the serving engine keeps slot-resident.
+
+Under a model axis that divides the heads (``models/parallel``, set by the
+sharded train step) each block runs the rank's heads: the mLSTM's q/k/v,
+gates and output gate on its heads from the whole up-projection, ``down``
+over its rows summed over the axis; the sLSTM's gate columns and
+block-diagonal recurrences of its heads, its output gathered whole, and
+the FFN's hidden units (when the axis divides them) as ``mlp`` splits
+them. ``mlstm_split_modes`` / ``slstm_split_modes`` say how each leaf is
+read.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as cm
+from repro_torch.models import parallel as par
 
 _M_INIT = -1e30  # the stabiliser's start: any first gate value exceeds it
 
@@ -78,8 +88,24 @@ def mlstm_specs(cfg: ModelConfig) -> dict:
             "w_o": P("data", "model"), "down": P("model", "data")}
 
 
-def mlstm_cache(cfg: ModelConfig, batch: int, device=None) -> MLSTMCache:
+def mlstm_split_modes(cfg: ModelConfig, axis) -> dict:
+    """How a step on ``axis`` reads each leaf of ``mlstm_specs``: with the
+    heads split, the columns of the rank's heads of ``up_gate``, q/k/v and
+    ``w_o`` and ``down``'s rows (SPLIT); ``up`` whole (its output feeds
+    every head: a contiguous block of its columns is no head's), the
+    gates' weights and biases whole, sliced to the rank's heads
+    (FULL_SUM). Else every leaf whole (FULL)."""
+    if axis.units(cfg.n_heads) is None:
+        return {k: par.FULL for k in mlstm_specs(cfg)}
+    split = ("up_gate", "wq", "wk", "wv", "w_o", "down")
+    return {k: par.SPLIT if k in split else par.FULL_SUM
+            for k in mlstm_specs(cfg)}
+
+
+def mlstm_cache(cfg: ModelConfig, batch: int, device=None,
+                heads: int | None = None) -> MLSTMCache:
     _, H, hd = _mlstm_dims(cfg)
+    H = H if heads is None else heads
     f32 = dict(dtype=torch.float32, device=device)
     return MLSTMCache(C=torch.zeros((batch, H, hd, hd), **f32),
                       n=torch.zeros((batch, H, hd), **f32),
@@ -117,28 +143,39 @@ def mlstm_pre_down(p, cfg: ModelConfig, x, cache: MLSTMCache | None = None):
     Returns (u, h, new_state): u is the up-projected stream feeding the
     q/k/v/o heads, h the gated core output feeding ``down``, the two
     Hessian taps the xLSTM adapter quantizes against (core/adapters/
-    recurrent.py).
+    recurrent.py). Under a head split, h holds the rank's heads.
     """
     B, S, _ = x.shape
-    d_inner, H, hd = _mlstm_dims(cfg)
+    _, H, hd = _mlstm_dims(cfg)
+    heads = slice(None)
+    split = par.unit_split(H)
+    if split is not None:
+        heads, group = split
+        x, H = par.enter(x, group), heads.stop - heads.start
     u = cm.matmul(x, p["up"])
     g = cm.matmul(x, p["up_gate"])
     q = cm.matmul(u, p["wq"]).reshape(B, S, H, hd)
     k = cm.matmul(u, p["wk"]).reshape(B, S, H, hd)
     v = cm.matmul(u, p["wv"]).reshape(B, S, H, hd)
+    # the gates in f32 (w_i / w_f start f32 and a bf16 train step stores
+    # them bf16: the product promotes, as jnp's)
     uf = u.to(torch.float32)
-    i_raw = uf @ p["w_i"] + p["b_i"]
-    f_raw = uf @ p["w_f"] + p["b_f"]
-    state = cache if cache is not None else mlstm_cache(cfg, B, x.device)
+    i_raw = cm.matmul(uf, p["w_i"][:, heads]) + p["b_i"][heads]
+    f_raw = cm.matmul(uf, p["w_f"][:, heads]) + p["b_f"][heads]
+    state = (cache if cache is not None
+             else mlstm_cache(cfg, B, x.device, heads=H))
     h, new_state = _mlstm_core(q, k, v, i_raw, f_raw, state)
     o = torch.sigmoid(cm.matmul(u, p["w_o"]))
-    h = (h.reshape(B, S, d_inner).to(x.dtype) * o) * F.silu(g)
+    h = (h.reshape(B, S, H * hd).to(x.dtype) * o) * F.silu(g)
     return u, h, new_state
 
 
 def mlstm_apply(p, cfg: ModelConfig, x, cache: MLSTMCache | None = None):
     _, h, new_state = mlstm_pre_down(p, cfg, x, cache)
     y = cm.matmul(h, p["down"])
+    split = par.unit_split(cfg.n_heads)
+    if split is not None:
+        y = par.reduce(y, split[1])
     return y.to(x.dtype), (new_state if cache is not None else None)
 
 
@@ -196,8 +233,24 @@ def slstm_specs(cfg: ModelConfig) -> dict:
     return s
 
 
-def slstm_cache(cfg: ModelConfig, batch: int, device=None) -> SLSTMCache:
-    D = cfg.d_model
+def slstm_split_modes(cfg: ModelConfig, axis) -> dict:
+    """How a step on ``axis`` reads each leaf of ``slstm_specs``: the gate
+    columns, biases and block-diagonal recurrences of the rank's heads
+    (SPLIT) when the axis divides the heads, the FFN's hidden units
+    (SPLIT) when it divides them; else whole (FULL)."""
+    core = par.SPLIT if axis.units(cfg.n_heads) is not None else par.FULL
+    ffn = (par.SPLIT if axis.units(slstm_ffn_dim(cfg)) is not None
+           else par.FULL)
+    modes = {k: core for k in slstm_specs(cfg) if k not in ("ffn",
+                                                            "ffn_norm")}
+    modes["ffn"] = {k: ffn for k in ("w_in", "w_gate", "w_out")}
+    modes["ffn_norm"] = par.FULL
+    return modes
+
+
+def slstm_cache(cfg: ModelConfig, batch: int, device=None,
+                width: int | None = None) -> SLSTMCache:
+    D = cfg.d_model if width is None else width
     f32 = dict(dtype=torch.float32, device=device)
     return SLSTMCache(c=torch.zeros((batch, D), **f32),
                       n=torch.zeros((batch, D), **f32),
@@ -214,10 +267,19 @@ def _blockdiag(h, R):
 
 
 def slstm_apply(p, cfg: ModelConfig, x, cache: SLSTMCache | None = None):
-    B, S, _ = x.shape
+    """The sLSTM core over x (B, S, D); under a head split the rank runs
+    its heads' columns and the output is gathered whole."""
+    B, S, D = x.shape
+    split = par.unit_split(cfg.n_heads)
+    if split is not None:
+        heads, group = split
+        hd = D // cfg.n_heads
+        cols = slice(heads.start * hd, heads.stop * hd)
+        x = par.enter(x, group)
     pre = {g: cm.matmul(x, p[f"w_{g}"]) + p[f"b_{g}"] for g in _GATES}
-    c, n, h, m = cache if cache is not None else slstm_cache(cfg, B,
-                                                             x.device)
+    width = pre["z"].shape[-1]
+    c, n, h, m = cache if cache is not None else slstm_cache(
+        cfg, B, x.device, width=width)
     hs = []
     for t in range(S):
         z_x, i_x, f_x, o_x = (pre[g][:, t].to(torch.float32) for g in _GATES)
@@ -234,6 +296,8 @@ def slstm_apply(p, cfg: ModelConfig, x, cache: SLSTMCache | None = None):
         m = m_new
         hs.append(h)
     y = torch.stack(hs, dim=1).to(x.dtype)  # (B,S,D)
+    if split is not None:
+        y = par.gather_units(y, cols, D, group)
     new_cache = SLSTMCache(c, n, h, m) if cache is not None else None
     return y, new_cache
 
@@ -245,5 +309,12 @@ def slstm_ffn_pre_out(p, cfg: ModelConfig, x):
 
 
 def slstm_ffn(p, cfg: ModelConfig, x):
-    h = slstm_ffn_pre_out(p, cfg, x)
-    return cm.matmul(h, p["ffn"]["w_out"]).to(x.dtype)
+    """The gated FFN; under a split of its hidden units the rank's, its
+    output summed over the model axis."""
+    split = par.unit_split(slstm_ffn_dim(cfg))
+    if split is None:
+        h = slstm_ffn_pre_out(p, cfg, x)
+        return cm.matmul(h, p["ffn"]["w_out"]).to(x.dtype)
+    h = slstm_ffn_pre_out(p, cfg, par.enter(x, split[1]))
+    return par.reduce(cm.matmul(h, p["ffn"]["w_out"]),
+                      split[1]).to(x.dtype)

@@ -5,8 +5,9 @@ At >256 hosts, slow hosts (thermal throttling, failing HBM, noisy
 neighbours) stretch every synchronous step. The monitor keeps a rolling
 window of per-step (and per-host, when the launcher reports them) timings
 and flags outliers; the launcher quarantines flagged hosts at the next
-checkpoint boundary and triggers an elastic re-mesh (the reference's
-runtime/elastic.py; not ported yet, ROADMAP.md queue 1).
+checkpoint boundary and triggers an elastic re-mesh (``runtime/elastic``:
+``plan_mesh`` / ``degrade_plan`` for the smaller mesh, ``reshard`` to
+place the restored state on it).
 """
 from __future__ import annotations
 

@@ -13,18 +13,19 @@ which is not re-run). Every leaf of the batch (``tokens``, and audio's
 The loss is the reference's: ``ce + aux`` on the last S positions' logits
 in f32, with the metrics averaged over the microbatches.
 
-On a mesh (``mesh=``; dense and moe families) the state is DTensors placed
-by the sanitized ``param_specs`` (``models/parallel.Layout``): parameters,
-m, v and master alike, the step replicated, and so are the gradients
+On a mesh (``mesh=``; every family) the state is DTensors placed by the
+sanitized ``param_specs`` (``models/parallel.Layout``): parameters, m, v
+and master alike, the step replicated, and so are the gradients
 ``update`` gets. A step gathers the weights its forward reads from their
 shards, runs the rank's work under the model axis (``models/parallel``:
-its heads, hidden units, vocabulary columns and experts) on its data
-rank's rows, and turns the gradients into the shards'. The batch is split
-over the data axis and replicated over the model axis: ``data_rows``
-gives a data rank its block of every microbatch (with one microbatch,
-one block of rows of the global batch), so each microbatch is the one
-the single-device step sees and the loss and metrics are the global
-batch's, as under the reference's GSPMD. A data rank's loss is its part
+its heads, hidden units, vocabulary columns, experts, Mamba2 and xLSTM
+heads) on its data rank's rows, and turns the gradients into the shards'.
+The batch is split over the data axis and replicated over the model axis:
+``data_rows`` gives a data rank its block of every microbatch, every leaf
+of the batch alike (the vlm's patches and audio's frames beside the
+tokens; with one microbatch, one block of rows of the global batch), so
+each microbatch is the one the single-device step sees and the loss and
+metrics are the global batch's, as under the reference's GSPMD. A data rank's loss is its part
 of the objective (its rows' mean over the data ranks); the gradients are
 summed over the data ranks.
 """

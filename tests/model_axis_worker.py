@@ -1,13 +1,15 @@
-"""One rank of ``test_torch_model_axis.py``'s process groups, on the CPU
-over gloo:
+"""One rank of the model-axis tests' process groups
+(``test_torch_model_axis*.py``), on the CPU over gloo:
 
     python -m torch.distributed.run --standalone --nproc-per-node 4 \\
-        tests/model_axis_worker.py <cases.pt> <out dir>
+        tests/ranks.py tests/model_axis_worker.py <cases.pt> <out dir>
 
 ``cases.pt`` (``torch.save``) holds a list of case dicts, each with a
 ``kind``, a ``name`` and a ``mesh`` (data, model); the worker runs, in
 order, every case whose mesh holds the world's ranks, and rank 0 writes
-``<out dir>/<name>.pt``. Imports the port only.
+``<out dir>/<name>.pt``. A step case's batches are its ``tokens`` and,
+where it has them, its ``extras`` (one dict a step: the vlm's patches,
+audio's frames), every leaf cut by data rank. Imports the port only.
 """
 import math
 import os
@@ -58,7 +60,9 @@ def run_step(case, mesh):
     mb = case["microbatches"]
     params = elastic.reshard(case["params"], model.param_specs(), mesh)
     state = TrainState(params, opt.init(params, ocfg))
-    batches = [data_rows({"tokens": t}, mesh, mb) for t in case["tokens"]]
+    extras = case.get("extras") or [{} for _ in case["tokens"]]
+    batches = [data_rows({"tokens": t, **e}, mesh, mb)
+               for t, e in zip(case["tokens"], extras)]
     layout = par.Layout(model, mesh)
     flash0, ep0 = attention._FLASH_COUNTS["fused"], moe._apply_ep.calls
     views, m1 = loss_and_grads(

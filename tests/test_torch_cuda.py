@@ -1540,18 +1540,17 @@ def test_synthetic_stream_draws_on_the_card(dev):
                                                            first[2])
 
 
-def test_flash_fwd_lse_and_bwd_hd112_zamba_train(dev):
-    """Zamba2-7B's shared attention in its train step (a microbatch of 2 x
-    4096 tokens, 32 heads over 32 of head dim 112, bf16): the forward
-    kernel's log-sum-exp against the plain forward's (rtol 1e-5 plus 1e-5
-    * max|lse|), its out bitwise the same with and without the lse, and
-    the tc backward fed it against the f32 plain backward at the
-    backward's bars (``_within_bwd_bars``)."""
+def _check_fwd_lse_and_bwd(dev, B, S, H, hd):
+    """The causal bf16 flash pair at (B, S, H heads over H of ``hd``):
+    the forward kernel's log-sum-exp against the plain forward's (rtol
+    1e-5 plus 1e-5 * max|lse|), its out bitwise the same with and without
+    the lse, and the tc backward fed it against the f32 plain backward at
+    the backward's bars (``_within_bwd_bars``)."""
     from repro_torch.kernels.flash_attention import (
         _launch_forward, flash_attention_bwd, flash_attention_bwd_plain,
         flash_attention_plain)
 
-    B, S, H, hd, dt = 2, 4096, 32, 112, torch.bfloat16
+    dt = torch.bfloat16
     before = dict(flash_attention_bwd.launches_by_impl)
     q, k, v, out, dout, lse = _flash_bwd_inputs(
         dev, B, S, S, H, H, hd, True, 0, dt, dt)
@@ -1569,6 +1568,13 @@ def test_flash_fwd_lse_and_bwd_hd112_zamba_train(dev):
     for g, w in zip(got, want):
         assert bool(torch.isfinite(g).all())
         _within_bwd_bars(g, w)
+
+
+def test_flash_fwd_lse_and_bwd_hd112_zamba_train(dev):
+    """Zamba2-7B's shared attention in its train step (a microbatch of 2 x
+    4096 tokens, 32 heads over 32 of head dim 112, bf16):
+    ``_check_fwd_lse_and_bwd``."""
+    _check_fwd_lse_and_bwd(dev, 2, 4096, 32, 112)
 
 
 # ---------------------------------------------------------------------------
@@ -1578,31 +1584,22 @@ def test_flash_fwd_lse_and_bwd_hd112_zamba_train(dev):
 def test_flash_fwd_lse_and_bwd_h16_llama_tp_rank(dev):
     """Full-width Llama-2-7B's attention on one rank of a model axis of 2
     (a microbatch of 2 x 4096 tokens, 16 heads over 16 of head dim 128,
-    bf16): the forward kernel's log-sum-exp against the plain forward's,
-    its out bitwise the same with and without the lse, and the tc
-    backward against the f32 plain backward at the backward's bars."""
-    from repro_torch.kernels.flash_attention import (
-        _launch_forward, flash_attention_bwd, flash_attention_bwd_plain,
-        flash_attention_plain)
+    bf16): ``_check_fwd_lse_and_bwd``."""
+    _check_fwd_lse_and_bwd(dev, 2, 4096, 16, 128)
 
-    B, S, H, hd, dt = 2, 4096, 16, 128, torch.bfloat16
-    before = dict(flash_attention_bwd.launches_by_impl)
-    q, k, v, out, dout, lse = _flash_bwd_inputs(
-        dev, B, S, S, H, H, hd, True, 0, dt, dt)
-    assert torch.equal(out, _launch_forward(q, k, v, True, 0))
-    _, lse_plain = flash_attention_plain(q, k, v, causal=True, with_lse=True)
-    torch.testing.assert_close(
-        lse, lse_plain.float(), rtol=1e-5,
-        atol=1e-5 * float(lse_plain.abs().max()))
-    got = flash_attention_bwd(q, k, v, out, dout, lse, causal=True)
-    torch.cuda.synchronize()
-    assert _bwd_impl_delta(before) == {"tc": 1}
-    want = flash_attention_bwd_plain(
-        q.float(), k.float(), v.float(), out.float(), dout.float(), lse,
-        causal=True)
-    for g, w in zip(got, want):
-        assert bool(torch.isfinite(g).all())
-        _within_bwd_bars(g, w)
+
+def test_flash_fwd_lse_and_bwd_hd96_vlm_tp_rank(dev):
+    """Phi-3-vision's attention on one rank of a model axis of 2 (a
+    microbatch of 2 x (1,024 patches + 3,072 tokens), 16 heads over 16 of
+    head dim 96, bf16): ``_check_fwd_lse_and_bwd``."""
+    _check_fwd_lse_and_bwd(dev, 2, 4096, 16, 96)
+
+
+def test_flash_fwd_lse_and_bwd_hd112_zamba_tp_rank(dev):
+    """Zamba2-7B's shared attention on one rank of a model axis of 2 (a
+    microbatch of 2 x 4096 tokens, 16 heads over 16 of head dim 112,
+    bf16): ``_check_fwd_lse_and_bwd``."""
+    _check_fwd_lse_and_bwd(dev, 2, 4096, 16, 112)
 
 
 def test_apply_ep_shards_on_the_card_match_plain(dev):

@@ -6,13 +6,9 @@ mirrors of the reference's ``TestMeshAccumulation`` and ``TestElastic``.
 
 World 1 runs inline on an in-process store (``launch.mesh.make_host_mesh``);
 worlds 2 and 4 are ``torchrun`` process groups of CPU ranks, started once
-each (``MESH_SCRIPT``), with a time limit.
+each (``MESH_SCRIPT``) through ``ranks.py``, with a time limit.
 """
 import dataclasses
-import os
-import pathlib
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -32,7 +28,8 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import model_zoo
 from repro_torch.runtime import elastic
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
+import ranks
+
 ROWS, COLS = 21, 96  # 21 rows: zero-padded at 2 and at 4 ranks
 QUANT_KW = dict(dtype="float32", n_layers=1)
 
@@ -222,17 +219,10 @@ dist.destroy_process_group()
 
 
 def run_ranks(tmp_path, n: int, *args) -> None:
-    """``MESH_SCRIPT`` under ``torchrun --standalone`` on ``n`` CPU ranks."""
+    """``MESH_SCRIPT`` on ``n`` CPU ranks (``ranks.run``)."""
     script = tmp_path / "mesh_script.py"
     script.write_text(MESH_SCRIPT)
-    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
-        [str(ROOT / "src")] + os.environ.get("PYTHONPATH", "").split(
-            os.pathsep)))
-    proc = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         f"--nproc-per-node={n}", str(script), *args],
-        env=env, capture_output=True, text=True, timeout=240)
-    assert proc.returncode == 0, proc.stderr[-4000:]
+    ranks.run(n, script, *args)
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -359,18 +349,10 @@ def test_launcher_hessian_mesh_under_torchrun(tmp_path):
     """``launch.quantize --hessian-mesh 2`` under ``torchrun
     --nproc-per-node 2``: both ranks print the backend (gloo on the CPU)
     and quantize; rank 0 alone writes the checkpoint and the events."""
-    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
-        [str(ROOT / "src")] + os.environ.get("PYTHONPATH", "").split(
-            os.pathsep)))
     events = tmp_path / "events.jsonl"
-    proc = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node=2", "-m", "repro_torch.launch.quantize",
-         *LAUNCH_ARGS, "--hessian-mesh", "2", "--out",
-         str(tmp_path / "ck"), "--events-out", str(events)],
-        env=env, capture_output=True, text=True, timeout=240)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    out = proc.stdout
+    out = ranks.run(2, "-m", "repro_torch.launch.quantize", *LAUNCH_ARGS,
+                    "--hessian-mesh", "2", "--out", tmp_path / "ck",
+                    "--events-out", events)
     for r in (0, 1):
         assert f"hessian mesh: rank {r} of 2, backend gloo, device cpu" in out
     assert out.count("achieved 2.250 bpv") == 2

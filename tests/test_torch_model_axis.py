@@ -6,10 +6,10 @@ sharded checkpoints (``restore(shardings=)``,
 ``--model-parallel`` under ``torchrun`` and under ``COORDINATOR_ADDRESS``.
 
 The ranks are ``torchrun`` groups of 2 and 4 gloo CPU ranks
-(``model_axis_worker.py``), each started once; the 4-rank group first (it
-writes the checkpoint the 2-rank group restores), then the 2-rank group
-beside the ``COORDINATOR_ADDRESS`` launcher run, then the torchrun
-launcher run. The reference's ``_apply_ep`` runs in a
+(``model_axis_worker.py``), each started once through ``ranks.py``; the
+4-rank group first (it writes the checkpoint the 2-rank group restores),
+then the 2-rank group beside the ``COORDINATOR_ADDRESS`` and torchrun
+launcher runs. The reference's ``_apply_ep`` runs in a
 subprocess on 4 forced host devices under ``with mesh:``, its keep masks
 read through a ``jax.debug.callback`` on its ``jnp.where(keep, ...)``.
 
@@ -35,8 +35,6 @@ import functools
 import io
 import os
 import pathlib
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -56,12 +54,12 @@ from repro_torch.runtime import elastic
 from repro_torch.train import optimizer as opt
 from repro_torch.train.train_step import (
     TrainState, init_state, loss_and_grads, make_train_step)
+import ranks
 from test_torch_train_step import (
     DENSE_KW, MB_ROWS, OCFG, SEQ, STEPS, check_grads, check_metrics,
     check_params, names, np_tree, reference_run, tokens_for)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-TIMEOUT_S = 240
 MOE = "qwen3-moe-30b-a3b"
 MOE_KW = dict(dtype="float32")
 CKPT_KW = dict(dtype="bfloat16", n_layers=2, d_model=64, vocab_size=256,
@@ -256,47 +254,6 @@ print("EP_REF_OK")
 """
 
 
-def _env(**extra) -> dict:
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
-                        "MASTER_PORT", "LOCAL_WORLD_SIZE",
-                        "COORDINATOR_ADDRESS")}
-    env.update(OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
-        [str(ROOT / "src"), str(ROOT / "tests")]
-        + os.environ.get("PYTHONPATH", "").split(os.pathsep)), **extra)
-    return env
-
-
-def _start(args, env=None) -> subprocess.Popen:
-    return subprocess.Popen(args, env=env or _env(), stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-
-
-def _finish(procs: dict) -> dict:
-    outs = {}
-    for name, proc in procs.items():
-        try:
-            out, _ = proc.communicate(timeout=TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            for p in procs.values():
-                p.kill()
-            raise
-        assert proc.returncode == 0, f"{name}:\n{out[-6000:]}"
-        outs[name] = out
-    return outs
-
-
-def _torchrun(n: int, *args) -> list:
-    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
-            f"--nproc-per-node={n}", *args]
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every multi-process run, their outputs under ``out``; the
@@ -306,33 +263,32 @@ def runs(tmp_path_factory):
     out.mkdir()
     torch.save(cases(tmp), tmp / "cases.pt")
     np.savez(tmp / "ep_in.npz", **ep_inputs())
-    worker = [str(ROOT / "tests" / "model_axis_worker.py"),
-              str(tmp / "cases.pt"), str(out)]
-    ref_env = _env(XLA_FLAGS=os.environ.get("XLA_FLAGS", "")
-                   + " --xla_force_host_platform_device_count=4",
-                   JAX_PLATFORMS="cpu")
-    first = {"world4": _start(_torchrun(4, *worker)),
-             "ep_ref": _start([sys.executable, "-c", EP_REF_SCRIPT,
-                               str(tmp / "ep_in.npz"),
-                               str(out / "ep_ref.npz")], ref_env)}
+    worker = [ROOT / "tests" / "model_axis_worker.py", tmp / "cases.pt",
+              out]
+    ref_env = ranks.env(XLA_FLAGS=os.environ.get("XLA_FLAGS", "")
+                        + " --xla_force_host_platform_device_count=4",
+                        JAX_PLATFORMS="cpu")
+    first = {"world4": ranks.start(ranks.torchrun(4, *worker)),
+             "ep_ref": ranks.start([sys.executable, "-c", EP_REF_SCRIPT,
+                                    str(tmp / "ep_in.npz"),
+                                    str(out / "ep_ref.npz")], ref_env)}
     refs()  # the reference's steps compile while the ranks run
-    logs = _finish(first)
+    logs = ranks.finish(first)
     assert "EP_REF_OK" in logs["ep_ref"]
-    # one torchrun group starts at a time: each picks its ports as it
-    # starts, and two starting together can be handed the same one
-    port = _free_port()
-    coord = {f"coord{r}": _start(
+    # the 2-rank group restores the 4-rank group's checkpoint
+    port = ranks.free_port()
+    procs = {f"coord{r}": ranks.start(
         [sys.executable, "-m", "repro_torch.launch.train", *LAUNCH_ARGS,
          "--model-parallel", "2", "--ckpt-dir", str(tmp / "coord")],
-        _env(COORDINATOR_ADDRESS=f"127.0.0.1:{port}", RANK=str(r),
-             WORLD_SIZE="2")) for r in range(2)}
-    logs.update(_finish({"world2": _start(_torchrun(2, *worker)), **coord}))
-    procs = {"torchrun": _start(_torchrun(
+        ranks.env(COORDINATOR_ADDRESS=f"127.0.0.1:{port}", RANK=str(r),
+                  WORLD_SIZE="2")) for r in range(2)}
+    procs["world2"] = ranks.start(ranks.torchrun(2, *worker))
+    procs["torchrun"] = ranks.start(ranks.torchrun(
         2, "-m", "repro_torch.launch.train", *LAUNCH_ARGS,
-        "--model-parallel", "2", "--ckpt-dir", str(tmp / "torchrun")))}
+        "--model-parallel", "2", "--ckpt-dir", tmp / "torchrun"))
     with contextlib.redirect_stdout(io.StringIO()) as single:
         launch_train.main(LAUNCH_ARGS + ["--ckpt-dir", str(tmp / "single")])
-    logs.update(_finish(procs), single=single.getvalue())
+    logs.update(ranks.finish(procs), single=single.getvalue())
     return {"out": out, "tmp": tmp, "logs": logs}
 
 

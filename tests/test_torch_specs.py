@@ -168,19 +168,6 @@ def test_state_specs_mirror_the_references(name):
             assert tuple(g) == w, (field, path)
 
 
-@pytest.mark.parametrize("name", ["zamba2-7b", "xlstm-125m", "whisper-small",
-                                  "phi-3-vision-4.2b"])
-def test_sharded_training_refuses_the_other_families(name):
-    """``models/parallel.Layout`` (the sharded train step's) takes the
-    dense and moe families; the others have specs but raise, naming
-    their ROADMAP entry, before touching a mesh."""
-    from repro_torch.models import parallel as par
-
-    model = model_zoo.build(SMOKE[name].scaled(dtype="float32"))
-    with pytest.raises(NotImplementedError, match="Sharded families"):
-        par.Layout(model, mesh=None)
-
-
 def axis_of(tp: int, model_rank: int = 0):
     """A ``parallel.ModelAxis`` of a (1, tp) mesh without a process group:
     the sizes and the rank the layers' split rules read."""
@@ -192,21 +179,25 @@ def axis_of(tp: int, model_rank: int = 0):
     return axis
 
 
+FAMILY_ARCHS = ["llama2-7b", "qwen3-moe-30b-a3b", "phi-3-vision-4.2b",
+                "xlstm-125m", "zamba2-7b", "whisper-small"]
+
+
 @pytest.mark.parametrize("tp", [1, 2, 4, 8])
-@pytest.mark.parametrize("name", ["llama2-7b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("name", FAMILY_ARCHS)
 @pytest.mark.parametrize("full", [False, True])
 def test_param_modes_cover_the_specs(name, tp, full):
-    """``transformer.param_modes`` (each layer module's ``split_modes``)
-    names every leaf of ``param_specs`` and no other, and each leaf the
-    forward reads split (SPLIT) keeps the model axis in its sanitized
-    spec, at smoke and full widths (at 8, Qwen3-MoE's 4 KV heads split
-    mid-head: wk / wv read whole)."""
+    """``Model.param_modes`` (each layer module's ``split_modes``) names
+    every leaf of ``param_specs`` and no other, and each leaf the forward
+    reads split (SPLIT) keeps the model axis in its sanitized spec, for
+    each of the six families at smoke and full widths (at 8, Qwen3-MoE's
+    4 KV heads split mid-head: wk / wv read whole; xLSTM-125M's 4 heads
+    do not split: its blocks run whole but for the sLSTM FFN)."""
     from repro_torch.models import parallel as par
-    from repro_torch.models import transformer
 
     shapes, specs = port(name, full=full)
     cfg = (ARCHS if full else SMOKE)[name]
-    modes = transformer.param_modes(cfg, axis_of(tp))
+    modes = model_zoo.build(cfg).param_modes(axis_of(tp))
     sane = cm.sanitize_specs(shapes, specs, {"data": 1, "model": tp})
     got = pairs(modes, sane)
     assert len(got) == len(opt.tree_leaves(specs))

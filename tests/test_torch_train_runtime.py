@@ -259,16 +259,13 @@ def test_launcher_coordinator_address_world_of_one(monkeypatch, tmp_path):
     process group over tcp and trains on a 1 x 1 mesh: the state, gathered,
     is the single-device run's bit for bit (one rank's arithmetic is the
     same), and its checkpoint holds the same whole arrays."""
-    import socket
-
     import torch.distributed as dist
+
+    from ranks import free_port
 
     args = SMOKE_ARGS + ["--steps", "3", "--microbatches", "2"]
     clean = launch_train.main(args + ["--ckpt-dir", str(tmp_path / "one")])
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    monkeypatch.setenv("COORDINATOR_ADDRESS", f"127.0.0.1:{port}")
+    monkeypatch.setenv("COORDINATOR_ADDRESS", f"127.0.0.1:{free_port()}")
     monkeypatch.setenv("RANK", "0")
     monkeypatch.setenv("WORLD_SIZE", "1")
     try:

@@ -57,3 +57,29 @@ def test_moe_aux_loss_is_in_the_loss(refs):
     than the z-loss alone."""
     m = refs["moe"]["metrics"][2]
     assert m["loss"] - m["nll"] > 1e-3
+
+
+def test_ssm_bf16_steps_after_the_gate_weights_turn_bf16():
+    """A bf16 xLSTM trains past its first step: AdamW stores every leaf in
+    the model's dtype, the mLSTM's f32 gate weights ``w_i`` / ``w_f``
+    included, and the gates' f32 product with them promotes (as jnp's
+    does) instead of raising."""
+    from repro_torch.configs import SMOKE
+    from repro_torch.models import model_zoo
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import TrainState, make_train_step
+
+    model = model_zoo.build(SMOKE["xlstm-125m"].scaled(dtype="bfloat16"))
+    params = model.init_params(seed=0, device="cpu")
+    assert params["layers"][0]["core"]["w_i"].dtype == torch.float32
+    ocfg = opt.OptConfig(**dict(OCFG, lr=LR["ssm"]))
+    state = TrainState(params, opt.init(params, ocfg))
+    step = make_train_step(model, ocfg, microbatches=2, remat=True)
+    tokens = torch.randint(0, 512, (4, 16),
+                           generator=torch.Generator().manual_seed(0))
+    losses = []
+    for _ in range(3):
+        state, metrics = step(state, {"tokens": tokens})
+        losses.append(float(metrics["loss"]))
+    assert state.params["layers"][0]["core"]["w_i"].dtype == torch.bfloat16
+    assert all(torch.isfinite(torch.tensor(losses))) and losses[2] < losses[0]
