@@ -145,6 +145,23 @@ Phases (each prints its seconds; any failure exits non-zero):
                 held to the host plan as above and request 0's
                 teacher-forced kernel decode to the gather decode and to
                 the cache-free forward, with the 256-token run's bars.
+  7b. dryrun  — launch/dryrun: four qwen3-1.7b cells traced on the
+                production meshes (train and decode at 256 cards, decode at
+                512, decode --vq), each cell's dominant term and fits
+                printed; then at mesh (1, 1) the train phase's step and a
+                decode tick of main's packed model (B 4, a 4096-position
+                dense cache) each traced (FakeTensorMode) and run on the
+                card: FLOPs (aten plus the kernels' counted operations)
+                and launches by variant equal, the traced peak within 5% of
+                torch.cuda.max_memory_allocated (the garbage collector off
+                for the step), roofline.step_lower_bound_s beside the
+                measured seconds; the HBM reserve (total - free right
+                after the context starts, phase 1) against
+                launch/mesh.HARDWARE's.
+  7c. examples — the four examples/torch_*.py at smoke size on the card,
+                side by side, while the dryrun phase traces its host
+                cells (its card-held part runs after both): exit 0, their
+                figures printed and checked.
   8. long     — the quantize path at Llama-2-7B's 4096-token context, same
                 full-width 2-layer model and recipe: calibration 4 x 4096
                 tokens, heldout 8 x 4096; fp perplexity, quantize_model
@@ -535,6 +552,9 @@ def phase_device(torch):
     from repro_torch.device import resolve_device
 
     dev = resolve_device("cuda")
+    # the device memory the CUDA context holds before any tensor
+    free, total = torch.cuda.mem_get_info()
+    reserve = total - free
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -544,7 +564,9 @@ def phase_device(torch):
         f"{torch.__version__} cuda {torch.version.cuda} | "
         f"{time.perf_counter() - t0:.2f}s")
     log(f"[device] nvidia-smi: {smi}")
-    return dev, name, smi
+    log(f"[device] HBM reserve (total - free right after the context "
+        f"starts): {reserve} bytes ({reserve / 2**20:.1f} MiB) of {total}")
+    return dev, name, smi, reserve
 
 
 def kernel_label(mangled: str) -> str:
@@ -603,8 +625,10 @@ def check_assign(torch, dev, B: int, n: int, label: str) -> dict:
     plain_ms = time_ms(torch, lambda: vq_assign_plain(x, hw, cb))
     lib_ms = time_ms(torch, lambda: torch.argmin(
         weighted_distances(x, hw, cb), dim=-1))
-    nbytes = 4 * (x.numel() + hw.numel() + cb.numel() + B * n)
-    b_ms, b_by = bound_ms(nbytes, 4.0 * B * n * k * d)
+    from repro_torch.obs import work
+
+    flops, nbytes, _ = work.vq_assign_work(B, n, k, d, hw.numel())
+    b_ms, b_by = bound_ms(nbytes, flops)
     row = {"name": "vq_assign", "shape": label, "B": B, "n": n, "d": d,
            "k": k, "max_abs_err": abs_err, "max_rel_err": err, "tol": tol,
            "index_agreement": float((idx_k == idx_p).float().mean()),
@@ -725,11 +749,10 @@ def check_sweep(torch, dev, layer: str, setting: str = "2.25bpv_2d",
     # each span's distances to the k centroids (diagonal: 4 a coordinate;
     # babai: y's 2 and y M y's 2 + 2d a coordinate) and the multiply-adds
     # of the in-group update
-    nbytes = 4 * (5 * r * cg + cg * (cg + 1) // 2 + C.numel() + cg
-                  + r * spans + (metric.numel() if babai else 0))
-    per_coord = 4.0 + 2.0 * d if babai else 4.0
-    flops = (per_coord * k * r * cg
-             + 2.0 * r * d * sum(cg - (j + 1) * d for j in range(spans)))
+    from repro_torch.obs import work
+
+    flops, nbytes, _ = work.vq_group_sweep_work(
+        r, cg, d, k, C.numel(), metric.numel() if babai else 0)
     b_ms, b_by = bound_ms(nbytes, flops)
     label = f"{layer} group" + ("" if setting == "2.25bpv_2d"
                                 else f" {setting}")
@@ -811,8 +834,9 @@ def check_em(torch, dev, label: str, B: int, n: int, d: int = VQ_D,
     # bytes: X, the weights and the seeds read once, the codebooks written;
     # operations: each step's distances (4 a coordinate a centroid) and its
     # M-step sums (a multiply-add and an add a coordinate)
-    nbytes = 4 * (X.numel() + Hw.numel() + 2 * C0.numel())
-    flops = iters * B * n * d * (4.0 * k + 3.0)
+    from repro_torch.obs import work
+
+    flops, nbytes, _ = work.vq_em_work(B, n, d, k, Hw.numel(), iters)
     b_ms, b_by = bound_ms(nbytes, flops)
     row = {"name": "vq_em", "shape": label, "B": B, "n": n, "d": d, "k": k,
            "iters": iters, "close_at_10": close10,
@@ -925,12 +949,14 @@ def check_matmul(torch, dev, layer: str, M: int, scale_block: int,
     # (int8 and their scales, or f32), the plane, y
     cb_bytes = (extra["codebooks_i8"].numel() + extra["cb_scale"].numel() * 4
                 if extra else cb.numel() * 4)
-    nbytes = (x.numel() * x.element_size() + words.numel() * 4 + cb_bytes
-              + (scales.numel() * 4 if scale_block else 0) + M * N * 4)
+    from repro_torch.obs import work
+
     # whatever variant runs, bf16 x times a bf16-exact W is exact on bf16
     # tensor cores with an f32 sum: the int8 values as they are, an
     # arbitrary f32 value as three bf16 terms (three times the operations)
-    flops = 2.0 * M * N * K * (1 if extra else 3)
+    flops, nbytes, _ = work.vq_dequant_matmul_work(
+        1, M, N, K, x.element_size(), words.numel(), cb_bytes,
+        scales.numel() if scale_block else 0, 1 if extra else 3)
     b_ms, b_by = bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
     row = {"name": "vq_dequant_matmul", "shape": layer, "M": M, "N": N,
            "K": K, "scale_block": scale_block, "cb_form": cb_form,
@@ -1044,9 +1070,12 @@ def check_expert_matmul(torch, dev, weight: str, M: int) -> dict:
     # the bytes the launch must move: x, every expert's words, int8
     # codebooks and their scales, y; the operations: 2MNK an expert on the
     # bf16 tensor cores (int8 values are exact in bf16)
-    nbytes = (x.numel() * 2 + words.numel() * 4 + cb_i8.numel()
-              + s.numel() * 4 + E * M * N * 4)
-    b_ms, b_by = bound_ms(nbytes, 2.0 * E * M * N * K, BF16_TC_FLOP_PER_S)
+    from repro_torch.obs import work
+
+    flops, nbytes, _ = work.vq_dequant_matmul_work(
+        E, M, N, K, x.element_size(), words.numel(),
+        cb_i8.numel() + s.numel() * 4, 0, 1)
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
     row = {"name": "vq_dequant_matmul", "shape": f"{weight} experts",
            "E": E, "M": M, "N": N, "K": K, "scale_block": 0,
            "cb_form": "int8", "impl": impl, "max_abs_err": err, "tol": tol,
@@ -1182,10 +1211,12 @@ def check_paged(torch, dev, shape: str, fmt, q_dtype) -> dict:
                                          enable_gqa=True))
     rows = sum(min(p + 1, n_pages * PAGE_SIZE) for p in pos)
     row_bytes = kp.shape[-1] * kp.element_size() + (4 if kw else 0)
-    nbytes = (2 * rows * KV * row_bytes + 2 * q.numel() * q.element_size()
-              + table.numel() * 4 + B * 4
-              + (2 * KV * 32 * 4 if fmt == "vq2" else 0))
-    b_ms, b_by = bound_ms(nbytes, 4.0 * rows * H * hd)
+    from repro_torch.obs import work
+
+    flops, nbytes, _ = work.paged_attention_work(
+        rows, B, H, KV, hd, row_bytes, q.element_size(), table.numel(),
+        fmt == "vq2")
+    b_ms, b_by = bound_ms(nbytes, flops)
     row = {"name": "paged_attention", "shape": shape, "fmt": str(fmt),
            "q_dtype": str(q_dtype).replace("torch.", ""), "B": B, "H": H,
            "KV": KV, "hd": hd, "pos": pos, "n_pages": n_pages,
@@ -1341,14 +1372,6 @@ def flash_bwd_rule(q_name: str, kv_name: str, hd: int) -> str:
     return "tc" if bf16 and hd % 16 == 0 else "fp32"
 
 
-def flash_pairs(sh: dict) -> int:
-    """Unmasked (row, column) pairs of one (batch, head)."""
-    Sq, Sk, off = sh["Sq"], sh["Sk"], sh["q_offset"]
-    if sh["causal"]:
-        return sum(min(Sk, off + i + 1) for i in range(Sq))
-    return Sq * Sk
-
-
 def check_flash_bwd(torch, dev, shape: str, q_name: str,
                     kv_name: str) -> dict:
     """The forward kernel's lse against flash_attention_plain's (f32 on
@@ -1458,15 +1481,18 @@ def check_flash_bwd(torch, dev, shape: str, q_name: str,
     # once, dq, dk, dv written once. bf16 rows also give the time of the
     # ten product-units the tc design issues (P and dS in two terms, S and
     # dP again in the dq pass) at the same peak
-    flops = 4.0 * hd * flash_pairs(sh) * B * H
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (q, k, v, out, dout, lse, *got))
+    from repro_torch.obs import work
+
+    flops, nbytes, rate = work.flash_attention_bwd_work(
+        B, Sq, Sk, H, KV, hd, sh["q_offset"], sh["causal"],
+        q.element_size(), k.element_size(),
+        q_dt == torch.bfloat16 and kv_dt == torch.bfloat16)
     issued_ms = None
-    if q_dt == torch.bfloat16 and kv_dt == torch.bfloat16:
-        b_ms, b_by = bound_ms(nbytes, 2.5 * flops, BF16_TC_FLOP_PER_S)
-        issued_ms = bound_ms(nbytes, 2.5 * 2 * flops, BF16_TC_FLOP_PER_S)[0]
+    if rate == work.RATE_BF16_TC:
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
+        issued_ms = bound_ms(nbytes, 2 * flops, BF16_TC_FLOP_PER_S)[0]
     else:
-        b_ms, b_by = bound_ms(nbytes, 2.5 * flops)
+        b_ms, b_by = bound_ms(nbytes, flops)
     row = {"name": "flash_attention_bwd", "shape": shape, **sh,
            "dtype": q_name, "kv_dtype": kv_name, "impl": impl,
            "max_abs_err": err, "lse_max_abs_err": lse_err,
@@ -1678,12 +1704,11 @@ def check_flash(torch, dev, shape: str, dtype) -> dict:
     # peak, f32 at the FP32 peak. bf16 rows also give the time of what the
     # tc design issues: p.v with the f32 p split into three bf16 terms
     # (flops/2 + 3 flops/2) at the same peak
-    if causal:
-        pairs = sum(min(Sk, off + i + 1) for i in range(Sq))
-    else:
-        pairs = Sq * Sk
-    flops = 4.0 * hd * pairs * B * H
-    nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size()
+    from repro_torch.obs import work
+
+    flops, nbytes, _ = work.flash_attention_work(
+        B, Sq, Sk, H, KV, hd, off, causal, q.element_size(),
+        dtype == torch.bfloat16)
     issued_ms = None
     if dtype == torch.bfloat16:
         b_ms, b_by = bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
@@ -1747,9 +1772,11 @@ def check_flash_lse(torch, dev, shape: str) -> dict:
     lib_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal,
                                          enable_gqa=KV != H), 5, 1)
     # bound as check_flash's bf16 rows, the lse written too
-    flops = 4.0 * hd * flash_pairs(sh) * B * H
-    nbytes = ((q.numel() + k.numel() + v.numel() + out.numel())
-              * q.element_size() + lse.numel() * lse.element_size())
+    from repro_torch.obs import work
+
+    flops, nbytes, _ = work.flash_attention_work(
+        B, Sq, Sk, H, KV, hd, sh["q_offset"], sh["causal"],
+        q.element_size(), True, lse=True)
     b_ms, b_by = bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
     issued_ms = bound_ms(nbytes, 2 * flops, BF16_TC_FLOP_PER_S)[0]
     row = {"name": "flash_attention_lse", "shape": shape, **sh,
@@ -6452,6 +6479,250 @@ def phase_model_axis(torch, dev, tokens, train_res) -> dict:
                         "world1_restore": t_world1}}
 
 
+# the dry run's phase: cells of an assigned arch on the production meshes
+# (arch, shape, multi-pod, vq), and the card's own steps held to traces
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", False, False),
+                ("qwen3-1.7b", "decode_32k", False, False),
+                ("qwen3-1.7b", "decode_32k", True, False),
+                ("qwen3-1.7b", "decode_32k", False, True))
+DRYRUN_PEAK_RTOL = 0.05  # traced peak vs torch.cuda.max_memory_allocated
+DRYRUN_TICK = (4, 4096)  # main's packed model's decode tick: B, context
+DRYRUN_SEED = 5
+
+
+def dryrun_held(torch, dev, tag: str, run_kw: dict, build_kw: dict,
+                wrappers: tuple) -> dict:
+    """One step traced at mesh (1, 1) (``dryrun.run_cell`` on fakes of
+    the step's own tensors) and run on the card (``dryrun.measure``, a
+    world of one rank): FLOPs (aten plus the kernels' counted operations)
+    and launches by kernel and variant equal, the traced peak within
+    ``DRYRUN_PEAK_RTOL`` of the card's, and the wrappers' own counters
+    showing every counted launch launched (four times: ``measure``'s
+    warm-up, timed, counted and live-count runs)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+
+    t0 = time.perf_counter()
+    traced = dryrun.run_cell(mesh_shape=((1, 1), ("data", "model")),
+                             save=False, **run_kw)
+    if traced["status"] != "ok":
+        raise AssertionError(f"[dryrun] {tag}: trace {traced}")
+    t_trace = time.perf_counter() - t0
+    mesh = mesh_lib.make_host_mesh("cuda")
+    zero_counts()
+    cell = dryrun.build_cell(mesh=mesh, device="cuda", **build_kw)
+    real = dryrun.measure(cell)
+    del cell
+    mesh_lib.close_world()
+    torch.cuda.synchronize()
+    counters = {w.__name__: dict(w.launches_by_impl) for w in wrappers}
+    # measure runs the step four times: warm-up, timed, counted, live
+    counted = {name: {v: 4 * n for v, n in by.items()}
+               for name, by in real["launches"].items()}
+    peak_t, peak_r = traced["memory"]["peak_bytes"], real["peak_bytes"]
+    peak_err = abs(peak_t - peak_r) / peak_r
+    bound = traced["roofline"]["step_lower_bound_s"]
+    out = {"traced_flops": traced["flops"]["total"],
+           "traced_aten_flops": traced["flops"]["aten"],
+           "traced_kernel_flops": traced["flops"]["kernels"],
+           "measured_flops": real["flops"],
+           "measured_aten_flops": real["aten_flops"],
+           "traced_launches": traced["launches"],
+           "measured_launches": real["launches"],
+           "wrapper_launches": counters,
+           "traced_peak_bytes": peak_t, "measured_peak_bytes": peak_r,
+           "traced_argument_bytes": traced["memory"]["argument_bytes"],
+           "measured_argument_bytes": real["argument_bytes"],
+           "measured_live_peak_step_bytes": real["live_peak_step_bytes"],
+           "allocator": {k: real[k] for k in (
+               "base_bytes", "allocated_after_bytes", "max_allocated_bytes")},
+           "traced_peak_step_bytes": traced["memory"]["peak_step_bytes"],
+           "peak_rel_err": peak_err, "step_s": real["seconds"],
+           "step_lower_bound_s": bound,
+           "roofline_fraction": bound / real["seconds"],
+           "trace_s": t_trace}
+    log(f"[dryrun] {tag}: FLOPs traced {out['traced_flops']:.6e} "
+        f"(aten {out['traced_aten_flops']:.6e} + kernels "
+        f"{out['traced_kernel_flops']:.6e}), measured "
+        f"{out['measured_flops']:.6e}; launches traced "
+        f"{traced['launches']}, measured {real['launches']}, wrappers "
+        f"{counters}; peak traced {peak_t / 2**30:.3f} GiB, measured "
+        f"{peak_r / 2**30:.3f} GiB (max_memory_allocated), arguments "
+        f"traced {out['traced_argument_bytes'] / 2**30:.3f} / measured "
+        f"{out['measured_argument_bytes'] / 2**30:.3f} GiB, the step's own "
+        f"peak traced {out['traced_peak_step_bytes'] / 2**30:.3f} / live "
+        f"count on the card {out['measured_live_peak_step_bytes'] / 2**30:.3f}"
+        f" GiB, allocator {out['allocator']}, rel err "
+        f"{peak_err:.4f} (bar {DRYRUN_PEAK_RTOL}); step {real['seconds']:.4f}"
+        f" s vs roofline.step_lower_bound_s {bound:.6f} s: fraction "
+        f"{out['roofline_fraction']:.4f}; trace {t_trace:.1f} s")
+    if out["traced_flops"] != out["measured_flops"]:
+        raise AssertionError(f"[dryrun] {tag}: traced FLOPs "
+                             f"{out['traced_flops']} != measured "
+                             f"{out['measured_flops']}")
+    if traced["launches"] != real["launches"]:
+        raise AssertionError(f"[dryrun] {tag}: traced launches "
+                             f"{traced['launches']} != measured "
+                             f"{real['launches']}")
+    if any(counters.get(name, {}) != by for name, by in counted.items()):
+        raise AssertionError(f"[dryrun] {tag}: the wrappers launched "
+                             f"{counters}, the counts say {counted}")
+    if peak_err > DRYRUN_PEAK_RTOL:
+        raise AssertionError(f"[dryrun] {tag}: traced peak {peak_t} vs "
+                             f"max_memory_allocated's {peak_r}: rel err "
+                             f"{peak_err:.4f} > {DRYRUN_PEAK_RTOL}")
+    return out
+
+
+def dryrun_cells() -> dict:
+    """The dry run's host side: ``run_cell`` on the production meshes
+    (256 cards; one cell at 512; one --vq cell) at full size, each cell's
+    dominant term and fits printed."""
+    from repro_torch.launch import dryrun
+
+    res = {}
+    out_dir = os.path.join(ROOT, "chiprun_out", "dryrun_torch")
+    for arch, shape, mp, vq in DRYRUN_CELLS:
+        t1 = time.perf_counter()
+        r = dryrun.run_cell(arch, shape, multi_pod=mp, vq=vq,
+                            out_dir=out_dir)
+        if r["status"] != "ok":
+            raise AssertionError(f"[dryrun] {arch}/{shape}: {r}")
+        ro = r["roofline"]
+        res[r["cell"]] = {
+            "dominant": ro["dominant"], "fits": r["fits"],
+            "peak_bytes": r["memory"]["peak_bytes"],
+            "step_lower_bound_s": ro["step_lower_bound_s"],
+            "launches": r["launches"], "seconds": time.perf_counter() - t1}
+        log(f"[dryrun] {r['cell']}: {r['chips']} cards {r['mesh']}; "
+            f"dominant {ro['dominant']} (compute {ro['compute_s']:.6f} s, "
+            f"memory {ro['memory_s']:.6f} s, collective "
+            f"{ro['collective_s']:.6f} s: data-sheet figures, computed); "
+            f"fits {r['fits']} (peak {r['memory']['peak_bytes'] / 1e9:.2f}"
+            f" GB); launches {r['launches']}; "
+            f"{time.perf_counter() - t1:.1f} s")
+    return res
+
+
+def phase_dryrun(torch, dev, model, qparams, reserve: int,
+                 cells: dict, t0: float) -> dict:
+    """The dry run (``launch/dryrun``) on the card, after its host side
+    (``dryrun_cells``, begun at ``t0``): the train phase's configuration
+    (full-width Llama-2-7B, 2 layers, 4 x 4096 tokens, 2 microbatches,
+    remat, bf16, the train phase's optimizer) and one decode tick of
+    main's packed model (B 4, a 4096-token dense cache, position 4095)
+    each traced at mesh (1, 1) and run on the card (``dryrun_held``);
+    each step's ``roofline.step_lower_bound_s`` beside its measured
+    seconds; the HBM reserve beside ``launch/mesh.HARDWARE``'s."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd)
+    from repro_torch.kernels.vq_dequant_matmul import vq_dequant_matmul
+    from repro_torch.launch.mesh import HARDWARE
+    from repro_torch.models import model_zoo
+    from repro_torch.train import optimizer as opt
+
+    log(f"[dryrun] HBM reserve: measured {reserve} bytes; "
+        f"launch/mesh.HARDWARE has {HARDWARE['hbm_reserve']}")
+    res = {"reserve_bytes": reserve, "cells": cells}
+    cfg = ARCHS["llama2-7b"].scaled(n_layers=2)
+    B, S = 4, 4096  # the train phase's batch
+    gen = torch.Generator(device=dev).manual_seed(DRYRUN_SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev, dtype=torch.int32)
+    params = model_zoo.build(cfg).init_params(seed=0, device=dev)
+    shape = ShapeConfig("train_4k", S, B, "train")
+    kw = dict(arch="llama2-7b", shape_name="train_4k", cfg=cfg, shape=shape,
+              microbatches=TRAIN_MICROBATCHES,
+              opt_cfg=opt.OptConfig(**TRAIN_OPT),
+              sources={"params": params, "batch": {"tokens": tokens}})
+    res["train"] = dryrun_held(torch, dev, "train step", kw, kw,
+                               (flash_attention, flash_attention_bwd))
+    del params, kw
+    torch.cuda.empty_cache()
+
+    Bd, Sd = DRYRUN_TICK
+    tok = torch.randint(0, model.cfg.vocab_size, (Bd, 1), generator=gen,
+                        device=dev, dtype=torch.int32)
+    cache = model.init_cache(Bd, Sd, dtype=torch.bfloat16, device=dev)
+    shape_d = ShapeConfig("decode_32k", Sd, Bd, "decode")
+    kw = dict(arch="llama2-7b", shape_name="decode_32k", cfg=model.cfg,
+              shape=shape_d, vq=True,
+              sources={"params": qparams, "batch": {"tokens": tok},
+                       "cache": cache})
+    res["decode"] = dryrun_held(torch, dev, "decode tick", kw, kw,
+                                (vq_dequant_matmul,))
+    del cache
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[dryrun] phase {res['seconds']:.1f}s (its host cells beside the "
+        "examples)")
+    return res
+
+
+# the torch examples at smoke size: (script, arguments); each runs on the
+# card in a process of its own, the four side by side
+EXAMPLES = (("torch_quickstart.py", ()),
+            ("torch_train_tiny.py", ()),
+            ("torch_quantize_and_serve.py", ("--steps", "30")),
+            ("torch_elastic_remesh.py", ("--ranks", "4")))
+EXAMPLES_TIMEOUT_S = 300
+
+
+def start_examples() -> tuple:
+    """Start each torch example (``examples/torch_*.py``) on the card at
+    smoke size, each in a process of its own: (start time, processes)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p]))
+    return time.perf_counter(), {name: subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "examples", name), *args],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for name, args in EXAMPLES}
+
+
+def phase_examples(started: tuple) -> dict:
+    """The examples ``start_examples`` started: each exits 0, its figures
+    (the JSON object of its last line) printed and held to what the
+    example shows: GPTVQ's layer error below RTN's, training through its
+    injected failure, the gather and fused passes' greedy tokens
+    identical, the values preserved across the re-mesh."""
+    t0, procs = started
+    res = {}
+    try:
+        for name, proc in procs.items():
+            out, _ = proc.communicate(timeout=EXAMPLES_TIMEOUT_S)
+            if proc.returncode:
+                raise AssertionError(f"[examples] {name} exited "
+                                     f"{proc.returncode}:\n{out[-4000:]}")
+            res[name] = json.loads(out.strip().splitlines()[-1])
+            log(f"[examples] {name}: {json.dumps(res[name], default=str)}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    checks = {
+        "torch_quickstart.py": res["torch_quickstart.py"]["gptvq_layer_error"]
+        < res["torch_quickstart.py"]["rtn_layer_error"],
+        "torch_train_tiny.py": res["torch_train_tiny.py"]["restarts"] == 1
+        and res["torch_train_tiny.py"]["steps_done"] == 60,
+        "torch_quantize_and_serve.py": (
+            res["torch_quantize_and_serve.py"]["serve"]["gptvq-packed"][
+                "sample"] == res["torch_quantize_and_serve.py"]["serve"][
+                "gptvq-fused"]["sample"]
+            and res["torch_quantize_and_serve.py"]["forks_identical"]),
+        "torch_elastic_remesh.py":
+            res["torch_elastic_remesh.py"]["values_preserved"]}
+    if not all(checks.values()):
+        raise AssertionError(f"[examples] checks {checks}")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[examples] all four exit 0, checks {checks}; phase "
+        f"{res['seconds']:.1f}s")
+    return res
+
+
 def kernel_line(rows: list[dict], launches: dict) -> dict:
     """One entry per kernel source, at the shape its path launches most:
     vq_dequant_matmul at the eval's M=512 on a 4096x4096 projection,
@@ -6657,7 +6928,7 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
     t_all = time.perf_counter()
-    dev, name, smi = phase_device(torch)
+    dev, name, smi, reserve = phase_device(torch)
     phase_build()
     rows, invariance = phase_kernels(torch, dev)
     small_res = phase_small(torch, dev)
@@ -6665,6 +6936,14 @@ def main() -> int:
     mesh_res = phase_mesh(torch, dev, main_res, qparams)
     budget_res = phase_budget(torch, dev, model, calib, heldout)
     serve_res = phase_serve(torch, dev, model, qparams)
+    # the examples run on the card while the dry run traces its host
+    # cells; the card-held part of the dry run runs after both
+    t0 = time.perf_counter()
+    started = start_examples()
+    cells = dryrun_cells()
+    examples_res = phase_examples(started)
+    dryrun_res = phase_dryrun(torch, dev, model, qparams, reserve, cells,
+                              t0)
     del model, qparams
     long_calib, long_heldout, long_res = phase_long(torch, dev)
     torch.cuda.empty_cache()
@@ -6691,7 +6970,9 @@ def main() -> int:
         json.dump({"device": name, "nvidia_smi": smi, "kernels": rows,
                    "bitwise": invariance,
                    "small": small_res, "main": main_res,
-                   "budget": budget_res, "serve": serve_res, "long": long_res,
+                   "budget": budget_res, "serve": serve_res,
+                   "dryrun": dryrun_res, "examples": examples_res,
+                   "long": long_res,
                    "train": train_res,
                    "train_families": train_families_res, "mesh": mesh_res,
                    "model_axis": model_axis_res,

@@ -17,6 +17,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.obs import work
+
 
 class HessianState(NamedTuple):
     H: torch.Tensor  # (c, c) running sum of X X^T
@@ -131,11 +133,13 @@ def accumulate_sharded(state, x: torch.Tensor, mesh, axis: str = "data"):
         xl, rows = _shard_rows(x, state.diag.shape[0], n_dev, index)
         part = torch.sum(xl * xl, dim=0)
         total = state.diag + part if index == 0 else part
+        work.collective("all-reduce", group, work.nbytes(total))
         dist.all_reduce(total, group=group)
         return DiagHessianState(total, state.n + rows)
     xl, rows = _shard_rows(x, state.H.shape[0], n_dev, index)
     if index != 0:
         state.H.zero_()
     state.H.addmm_(xl.T, xl)
+    work.collective("all-reduce", group, work.nbytes(state.H))
     dist.all_reduce(state.H, group=group)
     return HessianState(state.H, state.n + rows)

@@ -214,6 +214,9 @@ class FusedVQLinear:
     rows_per_band: int = 1
     scale_block: int = 0
     rule: str = ""
+    # (lo, width): a model rank's columns [lo, lo + width) of the input
+    # meet this whole leaf (``shard`` over column groups that do not split)
+    in_window: tuple | None = None
     # the kernel's inputs checked once, as the leaf is made
     prepared: vqdm.Prepared = dataclasses.field(init=False, repr=False,
                                                 compare=False)
@@ -258,11 +261,16 @@ def fused_dequantize(fvl: FusedVQLinear,
                      dtype=torch.bfloat16) -> torch.Tensor:
     """Dense W (r, c) from a prepped leaf: the folded codebooks and scale
     plane decoded as ``dequantize`` decodes the raw leaf, so the two agree
-    bit for bit."""
-    return vqdm.reconstruct(
+    bit for bit. With an ``in_window`` (lo, width), its columns [lo, lo +
+    width) only: the part a model rank's input meets."""
+    W = vqdm.reconstruct(
         fvl.words, fvl.codebooks_f, fvl.scales, d=fvl.d,
         code_bits=fvl.code_bits, rows_per_band=fvl.rows_per_band,
         group_cols=fvl.group_cols, scale_block=fvl.scale_block).to(dtype)
+    if fvl.in_window is not None:
+        lo, width = fvl.in_window
+        W = W[:, lo:lo + width]
+    return W
 
 
 def retag(tree, impl: str | None):
@@ -299,9 +307,70 @@ def fused_matmul(x: torch.Tensor, fvl: FusedVQLinear) -> torch.Tensor:
         raise ValueError("a stacked FusedVQLinear goes through "
                          "models/common.expert_matmul")
     COUNTS["fused"] += 1
+    if fvl.in_window is not None:  # the rank's columns of the whole input
+        lo, width = fvl.in_window
+        whole = x.new_zeros((*x.shape[:-1], fvl.c))
+        whole[..., lo:lo + width] = x
+        x = whole
     lead, K = x.shape[:-1], x.shape[-1]
     y = fvl.prepared(x.reshape(-1, K).contiguous())
     return y.reshape(*lead, fvl.r)
+
+
+# each array's dim (from the end) a split cuts: over the out side (rows),
+# over the in side (column groups); an expert stack's experts are dim 0
+_ROW_DIMS = {"words": -2, "codebooks": -3, "cb_scale": -1, "scale_sint": -2,
+             "codebooks_f": -3, "scales": -2}
+_COL_DIMS = {"words": -1, "codebooks": -4, "cb_scale": -2, "scale_sint": -3,
+             "scale_a": -1, "scale_z": -1, "codebooks_f": -4, "scales": -1}
+
+
+def shard(leaf, dim: int, n: int, i: int):
+    """Part ``i`` of ``n`` of a ``VQLinear`` or ``FusedVQLinear`` leaf,
+    itself such a leaf: ``dim`` is the dense (..., in, out) weight's, so
+    its out dim gives the leaf's rows (whole bands a part), its in dim
+    its column groups (whole groups, and whole words of every row, a
+    part), and a stack's leading dim its experts. Each array in storage
+    of its own. A ``FusedVQLinear`` whose column groups do not split so
+    stays whole, with the part's columns as its ``in_window``."""
+    stacked = _stacked(leaf)
+    side = dim - (3 if stacked else 2)  # -1 out, -2 in, -3 experts
+    arrays = {f.name: getattr(leaf, f.name)
+              for f in dataclasses.fields(leaf)
+              if isinstance(getattr(leaf, f.name), torch.Tensor)}
+    r, c = leaf.r, leaf.c
+    if side == -3:
+        dims = {k: 0 for k in arrays}
+    elif side == -1:
+        if (r // leaf.rows_per_band) % n or leaf.words.shape[-2] != r:
+            raise ValueError(f"vq shard: {r} rows in bands of "
+                             f"{leaf.rows_per_band} (words "
+                             f"{tuple(leaf.words.shape)}) do not split "
+                             f"{n} ways")
+        dims, r = _ROW_DIMS, r // n
+    else:
+        lanes = 32 // packing.container_bits(leaf.code_bits)
+        if ((c // leaf.group_cols) % n or leaf.words.shape[-2] != leaf.r
+                or (c // n // leaf.d) % lanes):
+            if isinstance(leaf, FusedVQLinear) and not stacked and c % n == 0:
+                # the groups do not split: the rank keeps the whole leaf and
+                # meets it with its columns of the input
+                kw = {f.name: getattr(leaf, f.name)
+                      for f in dataclasses.fields(leaf) if f.init}
+                return FusedVQLinear(**{**kw, "in_window": (i * c // n,
+                                                            c // n)})
+            raise ValueError(f"vq shard: {c // leaf.group_cols} column "
+                             f"groups (words {tuple(leaf.words.shape)}) do "
+                             f"not split {n} ways on whole words")
+        dims, c = _COL_DIMS, c // n
+    parts = {k: t.chunk(n, dims[k] if dims[k] >= 0 else t.dim() + dims[k])[
+        i].clone(memory_format=torch.contiguous_format)
+        for k, t in arrays.items() if k in dims}
+    parts.update({k: t for k, t in arrays.items() if k not in dims})
+    kw = {f.name: getattr(leaf, f.name) for f in dataclasses.fields(leaf)
+          if f.init}
+    kw.update(parts, r=r, c=c)
+    return type(leaf)(**kw)
 
 
 def expert_fused_matmul(x: torch.Tensor, fvl: FusedVQLinear) -> torch.Tensor:

@@ -11,7 +11,11 @@ aligned: both products on bf16 tensor cores, p split exactly into three
 bf16 terms) and ``fp32`` (everything else: both products on the FP32 CUDA
 cores). ``flash_attention.launches`` counts kernel launches and
 ``flash_attention.launches_by_impl`` the same by variant; CPU tensors
-touch neither.
+touch neither. Fake tensors (the dry run, ``launch/dryrun``) launch nothing: the
+variant is chosen as on the card, the kernel's outputs and scratch are
+made, the work is recorded in ``obs/work`` and the launch counters stay
+as they were; on CUDA tensors the same record is made while a count is
+on.
 
 q (B, Sq, H, hd) and k/v (B, Sk, KV, hd), f32 or bf16, give (B, Sq, H, hd)
 in q's dtype: query head h reads kv head h // (H // KV), and under
@@ -42,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.obs import work
 
 NEG_INF = -1e30
 # the reference scan's chunks: Sq must split into min(512, Sq)-row query
@@ -56,7 +61,7 @@ _IMPL_CODE = {"fp32": 0, "tc": 1}
 def select_impl(q, k, v) -> str:
     """The kernel variant for these (checked) inputs."""
     hd = q.shape[-1]
-    if (all(t.dtype == torch.bfloat16 and t.data_ptr() % 16 == 0
+    if (all(t.dtype == torch.bfloat16 and work.aligned(t, 16)
             for t in (q, k, v)) and hd % 16 == 0):
         return "tc"
     return "fp32"
@@ -68,7 +73,7 @@ def select_bwd_impl(q, k, v, dout) -> str:
     (the tc passes read q, k, v and dout with 16-byte ``cp.async``; out
     is read only by the D pre-pass, element by element, in either
     variant)."""
-    if select_impl(q, k, v) == "tc" and dout.data_ptr() % 16 == 0:
+    if select_impl(q, k, v) == "tc" and work.aligned(dout, 16):
         return "tc"
     return "fp32"
 
@@ -234,6 +239,13 @@ def _launch_forward(q, k, v, causal: bool, q_offset: int, lse=None):
     Sk, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     impl = select_impl(q, k, v)
+    fake = work.is_fake(q)
+    if fake or work.active() is not None:
+        work.kernel("flash_attention", impl, work.flash_attention_work(
+            B, Sq, Sk, H, KV, hd, q_offset, causal, q.element_size(),
+            q.dtype == k.dtype == torch.bfloat16, lse is not None))
+    if fake:  # the dry run: the kernel's outputs, nothing run
+        return out
     fn = build.load("flash_attention").flash_attention_launch
     rc = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
             v.data_ptr(), int(k.dtype == torch.bfloat16), out.data_ptr(),
@@ -271,6 +283,15 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     impl = select_bwd_impl(q, k, v, dout)
+    fake = work.is_fake(q)
+    if fake or work.active() is not None:
+        work.kernel("flash_attention_bwd", impl,
+                    work.flash_attention_bwd_work(
+                        B, Sq, Sk, H, KV, hd, q_offset, causal,
+                        q.element_size(), k.element_size(),
+                        q.dtype == k.dtype == torch.bfloat16))
+    if fake:  # the dry run: the kernel's outputs, nothing run
+        return dq, dk, dv
     fn = build.load("flash_attention").flash_attention_bwd_launch
     rc = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
             v.data_ptr(), int(k.dtype == torch.bfloat16), out.data_ptr(),

@@ -24,6 +24,13 @@ runs in order. The plan depends on the page size, the head dim, the query
 heads per kv head and the page format only, never on the batch, the table's
 width or any slot's position, so a slot's output is the same bits alone or
 in any batch. The wrapper never reads a device tensor on the host.
+
+Fake tensors (the dry run, ``launch/dryrun``) launch nothing: the plan is
+made as on the card, the output and the splits' scratch are made, and the
+work is recorded in ``obs/work`` over every slot's whole table (the
+positions are data: neither the trace nor the count reads them); the
+launch counter stays as it was. On CUDA tensors the same record is made
+while a count is on.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import kv_quant as kvq
+from repro_torch.obs import work
 
 NEG_INF = -1e30
 # the card's shared memory per block (H100: 227 KB)
@@ -267,6 +275,16 @@ def paged_attention(q, k_pool, v_pool, page_table, pos, *, k_scale=None,
         part = torch.empty((B * KV * n_splits * G * (hd + 2),),
                            dtype=torch.float32, device=q.device)
     row_bytes = cols * k_pool.element_size()
+    fake = work.is_fake(q)
+    if fake or work.active() is not None:
+        # every slot's table span: the positions are data, read by
+        # neither the trace nor the count
+        work.kernel("paged_attention", "split_kv", work.paged_attention_work(
+            B * n_pages * page_size, B, H, KV, hd,
+            row_bytes + (4 if k_scale is not None else 0), q.element_size(),
+            page_table.numel(), fmt == _FMT_VQ2))
+    if fake:  # the dry run: the kernel's outputs and scratch, nothing run
+        return out
     k_ptr, v_ptr = k_pool.data_ptr(), v_pool.data_ptr()
     cp = _copy_width(row_bytes, k_ptr, v_ptr)
     units = row_bytes // cp if cp else row_bytes

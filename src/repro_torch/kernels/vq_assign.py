@@ -16,7 +16,11 @@ Each launches its kernel for CUDA tensors and runs its plain PyTorch version
 (``vq_assign_plain``, ``vq_group_sweep_plain``, ``vq_em_plain``) only for
 CPU tensors; each counts its kernel launches in ``.launches``, and
 ``vq_group_sweep`` also by metric in ``.launches_by_impl`` (``"diag"`` /
-``"babai"``).
+``"babai"``). Fake tensors (the dry run, ``launch/dryrun``) launch nothing: the
+variant is chosen as on the card, the kernel's outputs and scratch are
+made, the work is recorded in ``obs/work`` and the launch counters stay
+as they were; on CUDA tensors the same record is made while a count is
+on.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch
 
 from repro_torch.core.solvers import span_metric
 from repro_torch.kernels import build
+from repro_torch.obs import work
 
 _THREADS = 128
 _SMEM_LIMIT = 48 * 1024
@@ -94,6 +99,12 @@ def vq_assign(x: torch.Tensor, hw: torch.Tensor,
         return vq_assign_plain(x, hw, codebooks)
     out = torch.empty((B, n), dtype=torch.int32, device=x.device)
     if B == 0 or n == 0:
+        return out
+    fake = work.is_fake(x)
+    if fake or work.active() is not None:
+        work.kernel("vq_assign", "assign",
+                    work.vq_assign_work(B, n, k, d, hw.numel()))
+    if fake:  # the dry run: the kernel's output, nothing run
         return out
     bands, rows = _launch_shape(B, n, k, d)
     fn = build.load("vq_assign").vq_assign_launch
@@ -197,6 +208,12 @@ def vq_em(X: torch.Tensor, Hw: torch.Tensor, C0: torch.Tensor,
     # is too long; then they go to this scratch
     idx = (torch.empty((B, n), dtype=torch.int32, device=X.device)
            if 4 * (k * d + n) > _SMEM_BUDGET else None)
+    fake = work.is_fake(X)
+    if fake or work.active() is not None:
+        work.kernel("vq_em", "em",
+                    work.vq_em_work(B, n, d, k, Hw.numel(), iters))
+    if fake:  # the dry run: the kernel's outputs and scratch, nothing run
+        return out
     args = array.array("q", (
         X.data_ptr(), Hw.data_ptr(), hw_stride, C0.data_ptr(),
         out.data_ptr(), 0 if idx is None else idx.data_ptr(), B, n, d, k,
@@ -342,6 +359,14 @@ def vq_group_sweep(Wg: torch.Tensor, Ug: torch.Tensor, Sg: torch.Tensor,
     out = torch.empty((2 * r * cg,), dtype=torch.float32, device=dev)
     Qg, Eg = out[:r * cg].view(r, cg), out[r * cg:].view(r, cg)
     idxg = torch.empty((r, cg // d), dtype=torch.int32, device=dev)
+    impl = "diag" if metric is None else "babai"
+    fake = work.is_fake(Wg)
+    if fake or work.active() is not None:
+        work.kernel("vq_group_sweep", impl, work.vq_group_sweep_work(
+            r, cg, d, Cg.shape[1], Cg.numel(),
+            0 if metric is None else metric.numel()))
+    if fake:  # the dry run: the kernel's outputs, nothing run
+        return Qg, idxg, Eg
     rows, threads = _sweep_plan(r, cg)
     args = array.array("q", (
         Wg.data_ptr(), Wg.stride(0), Ug.data_ptr(), Ug.stride(0),
@@ -353,7 +378,6 @@ def vq_group_sweep(Wg: torch.Tensor, Ug: torch.Tensor, Sg: torch.Tensor,
     rc = build.load("vq_assign").vq_group_sweep_launch(args.buffer_info()[0])
     build.check(rc, what)
     vq_group_sweep.launches += 1
-    impl = "diag" if metric is None else "babai"
     vq_group_sweep.launches_by_impl[impl] = (
         vq_group_sweep.launches_by_impl.get(impl, 0) + 1)
     return Qg, idxg, Eg

@@ -33,6 +33,11 @@ launches). Its plain version is the per-expert loop of
 ``launches_by_m`` the same launches by M (one expert's rows),
 ``launches_by_impl`` by variant and ``launches_by_experts`` a stack's
 launches by its expert count; CPU tensors touch none of them.
+Fake tensors (the dry run, ``launch/dryrun``) launch nothing: the
+variant is chosen as on the card, the kernel's outputs and scratch are
+made, the work is recorded in ``obs/work`` and the launch counters stay
+as they were; on CUDA tensors the same record is made while a count is
+on.
 
 Layout (core/vq_linear.FusedVQLinear): x (M, K) f32 or bf16; words: the
 N * K/d codes packed row-major into int32 words holding uint32 bit
@@ -54,6 +59,7 @@ import torch
 from repro_torch.core import packing
 from repro_torch.core.gptvq import gather_codebooks
 from repro_torch.kernels import build
+from repro_torch.obs import work
 
 IMPLS = ("splitk", "tc_int8", "tc_split3", "fp32")
 _IMPL_CODE = {"fp32": 0, "splitk": 1, "tc_int8": 2, "tc_split3": 3}
@@ -278,12 +284,14 @@ class Prepared:
         self.N = self.n_bands * rows_per_band
         self.layout = (d, k_c, code_bits, rows_per_band, group_cols,
                        scale_block)
+        self.fake = work.is_fake(words)  # the dry run: nothing launches
         if dev.type == "cuda":
-            self.ptrs = (words.data_ptr(), codebooks.data_ptr(),
-                         0 if codebooks_i8 is None
-                         else codebooks_i8.data_ptr(),
-                         0 if cb_scale is None else cb_scale.data_ptr(),
-                         scales.data_ptr() if scale_block else 0)
+            if not self.fake:
+                self.ptrs = (words.data_ptr(), codebooks.data_ptr(),
+                             0 if codebooks_i8 is None
+                             else codebooks_i8.data_ptr(),
+                             0 if cb_scale is None else cb_scale.data_ptr(),
+                             scales.data_ptr() if scale_block else 0)
             # an expert's words, codebooks, ... start where the previous
             # expert's end (elements a stride; 0 for one matrix)
             self.strides = tuple(
@@ -291,10 +299,24 @@ class Prepared:
                 for t in (words, codebooks, cb_scale, scales))
             es_words, es_cb = self.strides[:2]
             # every expert's slice keeps the alignment of the first
-            self.int8_ok = (codebooks_i8 is not None and self.ptrs[2] % 4 == 0
+            self.int8_ok = (codebooks_i8 is not None
+                            and work.aligned(codebooks_i8, 4)
                             and es_cb % 4 == 0)
-            self.words_aligned = (self.ptrs[0] % 16 == 0
+            self.words_aligned = (work.aligned(words, 16)
                                   and (es_words * 4) % 16 == 0)
+
+    def work(self, M: int, x) -> tuple:
+        """``obs.work``'s (operations, bytes, rate) of a call on x (M rows
+        an expert): the int8 codebooks and their scales where given, else
+        the f32 ones, whose values take three exact bf16 terms."""
+        i8 = self.codebooks_i8 is not None
+        cb_bytes = (self.codebooks_i8.numel() + self.cb_scale.numel() * 4
+                    if i8 else self.codebooks.numel() * 4)
+        return work.vq_dequant_matmul_work(
+            max(self.n_experts, 1), M, self.N, self.K, x.element_size(),
+            self.words.numel(), cb_bytes,
+            0 if self.scales is None else self.scales.numel(),
+            1 if i8 else 3)
 
     def __call__(self, x) -> torch.Tensor:
         """y = x @ W.T, (M, N) f32, for x (M, K) f32 or bf16 on the same
@@ -327,7 +349,7 @@ class Prepared:
             M, is_bf16, N, K, d, k_c, code_bits, rpb, gc, sb, self.int8_ok,
             self.words_aligned)
         ldx = K
-        if code >= 2 and (K % 8 or x.data_ptr() % 16):
+        if code >= 2 and (K % 8 or not work.aligned(x, 16)):
             # tensor cores copy x's rows 16 bytes at a time: pad the stride
             ldx = -(-K // 8) * 8
             xp = torch.zeros((*want[:-1], M, ldx), dtype=x.dtype, device=dev)
@@ -339,6 +361,10 @@ class Prepared:
         n_part = plan.n_splits if plan.n_splits > 1 else 0
         buf = torch.empty(((1 + n_part) * mn,), dtype=torch.float32,
                           device=dev)
+        if self.fake or work.active() is not None:
+            work.kernel("vq_dequant_matmul", impl, self.work(M, x))
+        if self.fake:  # the dry run: the kernel's outputs, nothing run
+            return buf[:mn].view(*want[:-1], M, N)
         words_p, cb_p, i8_p, scale_p, plane_p = self.ptrs
         es_words, es_cb, es_cb_scale, es_scales = self.strides
         use_i8 = code != 0 and i8_p != 0

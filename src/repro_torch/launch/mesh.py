@@ -10,6 +10,13 @@ card or run on the CPU): from ``COORDINATOR_ADDRESS`` (``host:port``, with
 ``jax.distributed.initialize()``), from ``torchrun``'s environment, or,
 for a world of one, from an in-process store. ``NamedSharding`` pairs a
 mesh with a spec (``models/common.P``), as the reference's.
+
+The dry run's meshes (``fake_production_mesh``, the reference's
+``make_production_mesh`` at its chip counts on H100 terms: data 32 x
+model 8 for 256 cards, pod 2 x data 32 x model 8 for 512) sit on a fake
+world (``init_fake_world``: PyTorch's fake process group inside one
+process, seen from rank 0; ``close_world`` ends it). ``HARDWARE`` holds
+the card's data-sheet figures and its measured HBM reserve.
 """
 from __future__ import annotations
 
@@ -24,14 +31,32 @@ from repro_torch.models import common as cm
 AXES = ("data", "model")
 
 HARDWARE = {
-    # one NVIDIA H100 SXM (NVIDIA's data sheet, dense rates), the figures
-    # PERF.md's bounds use; they assume the card's full 700 W power limit,
-    # and a card set below it runs slower under load
+    # one NVIDIA H100 SXM (NVIDIA's H100 Tensor Core GPU data sheet, dense
+    # rates), the figures PERF.md's bounds and the roofline use: data-sheet
+    # figures for the card at its full 700 W power limit, not measurements
+    # (a card set below it runs slower under load)
     "card": "NVIDIA H100 80GB HBM3, 700 W power limit",
     "peak_flops_bf16": 989e12,   # FLOP/s, tensor cores
+    "peak_flops_fp32": 67e12,    # FLOP/s, FP32 CUDA cores
     "hbm_bw": 3.35e12,           # B/s
     "hbm_bytes": 80 * 10**9,     # 80 GB
+    # the model axis: one HGX node's 8 cards on NVLink, 900 GB/s a card
+    # both directions (the H100 SXM data sheet): 450 GB/s a direction
+    "nvlink_bw": 450e9,          # B/s
+    # data and pod run across nodes: one 400 Gb/s NDR ConnectX-7 port a
+    # card (NVIDIA's DGX H100 data sheet): 50 GB/s a direction
+    "net_bw": 50e9,              # B/s
+    # device memory the CUDA context holds before any tensor: total - free
+    # of torch.cuda.mem_get_info() right after it starts, 552,402,944
+    # bytes (526.8 MiB), measured by chip_smoke.py's device phase on an
+    # NVIDIA H100 80GB HBM3, 700.00 W power limit (PERF.md, PR 27)
+    "hbm_reserve": 552_402_944,  # bytes
 }
+
+# the production meshes on H100 terms: the model axis is one node's 8
+# NVLink cards, data (and pod) run over the network between nodes
+PRODUCTION_MESHES = {False: ((32, 8), ("data", "model")),
+                     True: ((2, 32, 8), ("pod", "data", "model"))}
 
 
 def local_world(device_type: str, world_size: int) -> tuple[int, int]:
@@ -156,3 +181,41 @@ def make_production_mesh(*, model_parallel: int = 1,
     plan = elastic.plan_mesh(dist.get_world_size(),
                              model_parallel=model_parallel)
     return elastic.build_mesh(plan, device_type)
+
+
+def init_fake_world(world_size: int) -> None:
+    """Start a default process group of ``world_size`` ranks inside this
+    process as its rank 0, on PyTorch's fake backend: collectives return
+    at once and move nothing (the dry run's world). Raises if a world is
+    already running; ``close_world`` ends it."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("init_fake_world: a process group is already "
+                           "running in this process")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+
+
+def fake_mesh(shape: tuple, axes: tuple, device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``shape`` over a fake world of its size
+    (``init_fake_world``), seen from rank 0: the dry run's mesh. No card
+    is touched."""
+    import math
+
+    from torch.distributed.device_mesh import DeviceMesh
+
+    n = math.prod(shape)
+    init_fake_world(n)
+    return DeviceMesh(device_type,
+                      torch.arange(n, dtype=torch.int64).reshape(shape),
+                      mesh_dim_names=axes)
+
+
+def fake_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The reference's production mesh at its chip counts on H100 terms
+    (``PRODUCTION_MESHES``): (data 32, model 8) for 256 cards, (pod 2,
+    data 32, model 8) for 512, over a fake world (``fake_mesh``)."""
+    shape, axes = PRODUCTION_MESHES[multi_pod]
+    return fake_mesh(shape, axes, device_type)

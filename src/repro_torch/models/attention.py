@@ -17,10 +17,16 @@ into the pool (``pool[blk, off] = rows``) and ``apply`` returns the same
 cache object, so a decode tick never copies a pool.
 
 Under a model axis that splits the heads (``models/parallel``, set by the
-sharded train step) self-attention runs on the rank's own heads: q from
-its columns of wq, its KV heads (its own columns of wk/wv, or the ones its
-query heads read out of the whole projection), ``wo``'s rows for its
-heads, and the output summed over the model axis.
+sharded train and serving steps) self-attention runs on the rank's own
+heads: q from its columns of wq, its KV heads (its own columns of wk/wv,
+or the ones its query heads read out of the whole projection), ``wo``'s
+rows for its heads, and the output summed over the model axis. A serving
+step's dense cache may hold only the rank's slice of the sequence
+(``parallel.CacheSplit``): the new K/V go to the rank whose slice holds
+their positions, a decode step attends over the slice
+(``_partial_attention``) and merges over the group
+(``parallel.merge_softmax``), and a prefill attends over its own whole
+k and v.
 """
 from __future__ import annotations
 
@@ -400,20 +406,60 @@ def apply(p, cfg: ModelConfig, x: torch.Tensor, *, pos=0, cache=None,
                             impl=paged_impl)
 
     start = int(pos)
-    cache.k[:, start:start + S] = k.to(cache.k.dtype)
-    cache.v[:, start:start + S] = v.to(cache.v.dtype)
+    seq = par.cache_split()
+    if seq is not None and seq.seq_group is None:
+        seq = None
+    # the rank's slice of the sequence: [lo, lo + Sl)
+    Sl = cache.k.shape[1]
+    lo = 0 if seq is None else seq.seq_rank * Sl
+    a, b = max(start, lo), min(start + S, lo + Sl)
+    if a < b:  # the new positions this rank's slice holds
+        cache.k[:, a - lo:b - lo] = k[:, a - start:b - start].to(cache.k.dtype)
+        cache.v[:, a - lo:b - lo] = v[:, a - start:b - start].to(cache.v.dtype)
     if S == 1:
         # decode: attend over the whole cache with a length mask
-        Sk = cache.k.shape[1]
-        valid = (torch.arange(Sk, device=x.device) <= start)[
+        valid = (lo + torch.arange(Sl, device=x.device) <= start)[
             None, None, None, None, :]
-        o = _plain_attention(q, cache.k, cache.v, valid)
-    else:
+        if seq is None:
+            o = _plain_attention(q, cache.k, cache.v, valid)
+        else:  # each rank over its slice, merged over the group
+            o = par.merge_softmax(*_partial_attention(
+                q, cache.k, cache.v, valid), seq.seq_group).to(q.dtype)
+    elif seq is None:
         # prefill from position 0
         o = _self_attention(q, cache.k[:, :S], cache.v[:, :S],
                             causal=causal)
+    else:  # prefill from position 0 on the whole k, v, on every rank
+        o = _self_attention(q, k.to(cache.k.dtype), v.to(cache.v.dtype),
+                            causal=causal)
     y = cm.matmul(o.reshape(B, S, -1), p["wo"])
+    split = par.head_split(cfg)
+    if split is not None:
+        y = par.reduce(y, split.group)
     return y.to(x.dtype), cache
+
+
+def _partial_attention(q, k, v, mask):
+    """``_plain_attention``'s softmax over one part of the keys, before
+    its normalisation: (o (B, Sq, H, hd) f32, the sum of p @ v, m (B, Sq,
+    H), the rows' max score, l (B, Sq, H), the sum of p), p = exp(s - m)
+    rounded to v's dtype as ``_plain_attention`` rounds it."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qh = q.reshape(B, Sq, KV, G, hd).to(torch.float32)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qh, k.to(torch.float32))
+    s = s / math.sqrt(hd)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    e = torch.exp(s - m[..., None])
+    o = torch.einsum("bkgqs,bskh->bqkgh", e.to(v.dtype).to(torch.float32),
+                     v.to(torch.float32))
+
+    def rows(t):  # (B, KV, G, Sq) -> (B, Sq, H)
+        return t.permute(0, 3, 1, 2).reshape(B, Sq, H)
+
+    return o.reshape(B, Sq, H, hd), rows(m), rows(e.sum(-1))
 
 
 def _page_slots(cache: PagedKVCache, pos_arr: torch.Tensor):

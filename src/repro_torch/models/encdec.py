@@ -170,6 +170,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                        cross_k=zeros(), cross_v=zeros())
 
 
+def cache_specs(cfg: ModelConfig) -> EncDecCache:
+    """The reference's cache specs on the port's tree (one entry a layer;
+    its stacked layer axis, a leading None, dropped): self and cross K/V
+    batch over ``("pod", "data")`` and heads over ``model``."""
+    kv = cm.P(("pod", "data"), None, "model", None)
+    n = cfg.n_layers
+    return EncDecCache(self_kv=[attention.KVCache(kv, kv) for _ in range(n)],
+                       cross_k=[kv] * n, cross_v=[kv] * n)
+
+
 def _cross_kv(layer_p, cfg: ModelConfig, memory):
     """The cross K/V (B, S_enc, KV, hd) of ``memory``; under a head split
     the KV heads the rank's query heads read (its own columns of wk/wv, or

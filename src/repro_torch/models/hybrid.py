@@ -129,6 +129,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         attn=[attn_cache() for _ in range(n_groups)])
 
 
+def cache_specs(cfg: ModelConfig, seq_shard: bool = False) -> HybridCache:
+    """The reference's cache specs on the port's tree (its stacked group
+    and layer axes, leading Nones, dropped): the Mamba state's batch over
+    ``("pod", "data")``, its heads (h) and conv channels over ``model``;
+    the shared block's K/V heads over ``model``, batch over ``("pod",
+    "data")``, or with ``seq_shard`` over ``pod`` with the sequence over
+    ``data``."""
+    n_groups, per = _groups(cfg)
+    dp = ("pod", "data")
+    m = ssm.SSMCache(h=cm.P(dp, "model", None, None),
+                     conv=cm.P(dp, None, "model"))
+    seq_axis = "data" if seq_shard else None
+    batch_axes = "pod" if seq_shard else dp
+    kv = cm.P(batch_axes, seq_axis, "model", None)
+    return HybridCache(mamba=[[m for _ in range(per)]
+                              for _ in range(n_groups)],
+                       attn=[attention.KVCache(kv, kv)
+                             for _ in range(n_groups)])
+
+
 def lora_group(lora, g: int) -> dict:
     """Group ``g``'s slice of the stacked "lora" tree."""
     return {name: {k: v[g] for k, v in f.items()} for name, f in lora.items()}

@@ -12,7 +12,9 @@ state and cross K/V are slot-resident either way), and whose
 ``tokens`` (B, S) and, for vlm, ``patches`` (B, n_image_tokens, D), for
 audio ``frames`` (B, encoder_seq, D), and returns (logits, new_cache,
 aux_loss). ``param_specs()`` gives the reference's sharding specs
-(``common.P``) on the port's tree, ``param_modes(axis)`` how a step on a
+(``common.P``) on the port's tree, ``cache_specs(**kw)`` the reference's
+cache specs on the port's cache tree (the hybrid's take ``seq_shard``),
+``param_modes(axis)`` how a step on a
 model axis (``parallel.ModelAxis``) reads each of those leaves (each
 layer module's ``split_modes``), and ``abstract_params(model)`` the
 parameters' shapes and dtypes as ``meta`` tensors (nothing allocated).
@@ -41,6 +43,7 @@ class Model:
     init_cache: Callable[..., Any]
     param_specs: Callable[[], Any]
     param_modes: Callable[[Any], Any]
+    cache_specs: Callable[..., Any]
 
 
 def _family_module(cfg: ModelConfig):
@@ -83,9 +86,13 @@ def build(cfg: ModelConfig) -> Model:
 
     fam = {"hybrid": hybrid, "audio": encdec, "vlm": vlm}.get(cfg.family,
                                                               transformer)
+    if cfg.family == "hybrid":
+        cache_specs = lambda **kw: hybrid.cache_specs(cfg, **kw)
+    else:  # the reference's: keywords (seq_shard) are the hybrid's
+        cache_specs = lambda **kw: fam.cache_specs(cfg)
     return Model(cfg, init_params, fwd, init_cache,
                  lambda: fam.param_specs(cfg),
-                 lambda axis: fam.param_modes(cfg, axis))
+                 lambda axis: fam.param_modes(cfg, axis), cache_specs)
 
 
 def _leaves(tree):

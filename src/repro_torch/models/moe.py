@@ -23,9 +23,11 @@ so a caller can replace ``moe.route``, e.g. to replay one forward's expert
 choices in another.
 
 Expert parallelism (``_apply_ep``, the reference's shard_map path): under a
-model axis (``models/parallel``, set by the sharded train step) whose size
-tp > 1 divides n_experts, with dense expert stacks (fused VQ stacks keep
-the dispatch below), ``apply`` runs ``_apply_ep``: every model rank routes
+model axis (``models/parallel``, set by the sharded train and serving
+steps) whose size tp > 1 divides n_experts, ``apply`` runs ``_apply_ep``
+(a packed model's fused VQ stacks through ``_experts``, one grouped
+``vq_dequant_matmul`` launch a stack; dense stacks through einsums):
+every model rank routes
 its data rank's tokens (replicated over the model axis) with the whole
 router, computes the (token, k) pairs of its own E / tp experts, and the
 partial outputs are summed over the model axis. ``_apply_ep.calls``
@@ -55,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import vq_linear as vql_mod
 from repro_torch.models import common as cm
 from repro_torch.models import parallel as par
 
@@ -139,11 +142,8 @@ def dispatch(expert_ids: torch.Tensor, n_experts: int, C: int):
 def apply(p, cfg: ModelConfig, x: torch.Tensor):
     """x: (B, S, D) -> (y (B, S, D) in x's dtype, aux_loss f32 scalar).
     Under a model axis that splits the experts, ``_apply_ep``."""
-    from repro_torch.core import vq_linear as vql_mod
-
     axis = par.current()
-    if (axis is not None and axis.experts(cfg)
-            and not isinstance(p["w_in"], vql_mod.FusedVQLinear)):
+    if axis is not None and axis.experts(cfg):
         y, aux, _ = _apply_ep(p, cfg, x, axis)
         return y, aux
     B, S, D = x.shape
@@ -204,14 +204,17 @@ def _ep_shard(p, cfg: ModelConfig, x, lo: int, n_local: int, C: int,
     buf = x.new_zeros((n_local + 1, C + 1, D))
     buf[eid, sid] = enter(xf).repeat_interleave(K, dim=0)
     hbuf = buf[:n_local, :C]
-    act = cm.act_fn(cfg.activation)
-    h = torch.einsum("ecd,edf->ecf", hbuf, p["w_in"].to(x.dtype))
-    if "w_gate" in p:
-        g = torch.einsum("ecd,edf->ecf", hbuf, p["w_gate"].to(x.dtype))
-        h = act(g) * h
+    if isinstance(p["w_in"], vql_mod.FusedVQLinear):
+        out = _experts(p, cfg, hbuf)  # a packed model's stacks, served
     else:
-        h = act(h)
-    out = torch.einsum("ecf,efd->ecd", h, p["w_out"].to(x.dtype))
+        act = cm.act_fn(cfg.activation)
+        h = torch.einsum("ecd,edf->ecf", hbuf, p["w_in"].to(x.dtype))
+        if "w_gate" in p:
+            g = torch.einsum("ecd,edf->ecf", hbuf, p["w_gate"].to(x.dtype))
+            h = act(g) * h
+        else:
+            h = act(h)
+        out = torch.einsum("ecf,efd->ecd", h, p["w_out"].to(x.dtype))
     out_pad = F.pad(out, (0, 0, 0, 1, 0, 1))            # (n_local+1, C+1, D)
     y_slots = out_pad[eid, sid].reshape(Bl * S, K, D)
     w = (enter(gate) * keep.reshape(Bl * S, K)).to(x.dtype)

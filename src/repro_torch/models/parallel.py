@@ -43,7 +43,20 @@ and ``reduce_parts`` (a sum both ways: over the data axis, where each
 rank's loss is its own part of the objective). Weights cross no collective
 inside the forward: ``Layout`` gathers each step's weights from their
 shards before it and turns their gradients into gradients of the shards
-after it.
+after it. On a mesh with a pod axis the data axis is pod and data
+together (``widen_fsdp``, ``axes_group``).
+
+A serving step (``serve_step.make_prefill`` / ``make_decode(axis=)``)
+runs under ``serve_axis``: its parameters are each model rank's reads
+(``Layout.rank_params``: a SPLIT leaf's shard, ``VQLinear`` leaves cut by
+``vq_linear.shard``), whole over the data axis; its batch the data rank's
+rows (``rank_rows``); its dense caches each rank's part by the dry run's
+placements (``rank_tree``, ``CacheSplit``): the KV heads over ``model``,
+or the sequence over a group, each rank attending over its own positions
+and the softmax merged over the group (``merge_softmax``), with
+attention's projections whole. The recurrent mixers carry their state
+and run whole. Collectives are counted by ``obs.work`` when a count is
+on.
 """
 from __future__ import annotations
 
@@ -55,6 +68,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.models import common as cm
+from repro_torch.obs import work
 
 # how the forward reads a leaf: its model-axis shard (SPLIT), or the whole
 # tensor, whose gradient each model rank then holds whole (FULL) or a part
@@ -64,13 +78,16 @@ SPLIT, FULL, FULL_SUM = "split", "full", "full_sum"
 
 def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     t = t.contiguous().clone()
+    work.collective("all-reduce", group, work.nbytes(t))
     dist.all_reduce(t, op=op, group=group)
     return t
 
 
 def all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    n = dist.get_world_size(group)
+    parts = [torch.empty_like(t) for _ in range(n)]
+    work.collective("all-gather", group, n * work.nbytes(t))
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim)
 
@@ -139,6 +156,19 @@ def reduce_parts(x, group):
     return _ReduceParts.apply(x, group)
 
 
+class CacheSplit(NamedTuple):
+    """How a serving step's ranks hold the attention K/V caches (the
+    dry run's policy, ``launch/dryrun.cache_shardings``): ``heads``, each
+    model rank its own KV heads; and/or the sequence over ``seq_group``
+    (``seq_n`` ranks; this one, ``seq_rank``, holds the positions
+    [seq_rank * S_local, (seq_rank + 1) * S_local) of every row it
+    holds)."""
+    heads: bool
+    seq_group: Any = None
+    seq_n: int = 1
+    seq_rank: int = 0
+
+
 class HeadSplit(NamedTuple):
     """A rank's share of attention: ``heads`` query heads, ``kv_heads`` KV
     heads; ``kv_lo`` is None when the rank projects its own KV heads, else
@@ -149,29 +179,61 @@ class HeadSplit(NamedTuple):
     group: Any
 
 
+def axes_group(mesh, names: tuple):
+    """(process group, size, this rank's index) of the mesh axes
+    ``names`` taken together, the first outermost."""
+    if len(names) == 1:
+        return (mesh.get_group(names[0]), mesh.size(
+            mesh.mesh_dim_names.index(names[0])),
+            mesh.get_local_rank(names[0]))
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    with unset_fake_temporarily():  # the mesh's own tensors stay real
+        flat = mesh[tuple(names)]._flatten()
+    return flat.get_group(), flat.size(), flat.get_local_rank()
+
+
 @dataclasses.dataclass
 class ModelAxis:
-    """A ``("data", "model")`` ``DeviceMesh`` as the forward sees it: the
-    two axes' sizes, process groups and this rank's place on them."""
+    """A ``("data", "model")`` (or ``("pod", "data", "model")``)
+    ``DeviceMesh`` as the forward sees it: the two axes' sizes, process
+    groups and this rank's place on them; with a pod axis, the data axis
+    is pod and data together (the reference's FSDP over ``("pod",
+    "data")``). ``cache`` (a serving step's): how the ranks hold the
+    attention caches; a serving step's recurrent mixers carry their state
+    and run whole on every model rank, and where the caches split the
+    sequence, attention's projections run whole too."""
     mesh: Any
+    cache: CacheSplit | None = None
 
     def __post_init__(self):
         size = cm.axis_sizes(self.mesh)
-        self.dp, self.tp = size.get("data", 1), size.get("model", 1)
         names = self.mesh.mesh_dim_names
-        self.data_group = (self.mesh.get_group("data") if "data" in names
-                           else None)
+        self.tp = size.get("model", 1)
         self.model_group = (self.mesh.get_group("model") if "model" in names
                             else None)
-        self.data_rank = (self.mesh.get_local_rank("data") if "data" in names
-                          else 0)
         self.model_rank = (self.mesh.get_local_rank("model")
                            if "model" in names else 0)
+        dp_names = tuple(n for n in ("pod", "data") if n in names)
+        self.data_group, self.dp, self.data_rank = None, 1, 0
+        if dp_names:
+            self.data_group, self.dp, self.data_rank = axes_group(
+                self.mesh, dp_names)
+
+    def groups(self) -> dict:
+        """{process group: axis name} of this axis' groups (the pod and
+        data axes together are "data"), for ``obs.work.counting``."""
+        out = {self.data_group: "data", self.model_group: "model"}
+        if self.cache is not None and self.cache.seq_group is not None:
+            out.setdefault(self.cache.seq_group, "data_model")
+        return {g: n for g, n in out.items() if g is not None}
 
     def heads(self, cfg) -> HeadSplit | None:
         H, KV, tp = cfg.n_heads, cfg.n_kv_heads, self.tp
         if tp == 1 or H % tp:
             return None
+        if self.cache is not None and not self.cache.heads:
+            return None  # a sequence-split cache: projections whole
         hl, g = H // tp, H // KV
         if KV % tp == 0:
             return HeadSplit(hl, KV // tp, None, self.model_group)
@@ -195,9 +257,9 @@ class ModelAxis:
                 and cfg.n_experts % self.tp == 0)
 
     def units(self, n: int) -> slice | None:
-        """This rank's contiguous block of ``n`` units, or None (tp 1, or
-        tp does not divide n)."""
-        if self.tp == 1 or n % self.tp:
+        """This rank's contiguous block of ``n`` units, or None (tp 1, tp
+        does not divide n, or a serving step: its mixers run whole)."""
+        if self.tp == 1 or n % self.tp or self.cache is not None:
             return None
         k = n // self.tp
         return slice(self.model_rank * k, (self.model_rank + 1) * k)
@@ -225,6 +287,26 @@ def using(axis: ModelAxis | None):
         yield axis
     finally:
         _CURRENT[0] = prev
+
+
+def cache_split() -> CacheSplit | None:
+    """How the serving step being run holds its attention caches, or
+    None (one device, or a train step)."""
+    axis = current()
+    return None if axis is None else axis.cache
+
+
+def merge_softmax(o, m, l, group):
+    """Attention's output from each rank's part of the keys: ``o`` (B, S,
+    H, hd) the rank's sum of p @ v, ``m`` (B, S, H) its rows' max score and
+    ``l`` its sum of p (``attention._partial_attention``), rescaled to the
+    group's max and summed over the group, then normalised (the merge of
+    ``paged_attention``'s split-KV, over ranks). f32."""
+    big = all_reduce(m, group, op=dist.ReduceOp.MAX)
+    scale = torch.exp(m - big)
+    lsum = all_reduce(l * scale, group)
+    osum = all_reduce(o * scale[..., None], group)
+    return osum / lsum[..., None]
 
 
 def head_split(cfg) -> HeadSplit | None:
@@ -329,13 +411,15 @@ class Layout:
     model axis, a FULL leaf's own model part kept, then summed over the
     data axis and the own part kept."""
 
-    def __init__(self, model, mesh):
+    def __init__(self, model, mesh, axis: ModelAxis | None = None):
         cfg = model.cfg
-        self.mesh, self.axis, self.cfg = mesh, ModelAxis(mesh), cfg
+        self.mesh, self.cfg = mesh, cfg
+        self.axis = ModelAxis(mesh) if axis is None else axis
         from repro_torch.train.optimizer import tree_leaves
 
         shapes = _meta_params(model)
-        self.specs = cm.sanitize_specs(shapes, model.param_specs(), mesh)
+        self.specs = cm.sanitize_specs(
+            shapes, widen_fsdp(model.param_specs(), mesh), mesh)
         modes = model.param_modes(self.axis)
         if _paths(modes) != _paths(self.specs):
             odd = set(_paths(modes)) ^ set(_paths(self.specs))
@@ -354,6 +438,22 @@ class Layout:
             self.leaves[path] = _Leaf(cm.placements(spec, mesh),
                                       axes.get("data"), axes.get("model"),
                                       mode)
+
+    def rank_params(self, params):
+        """A serving step's parameters on this rank, from the whole
+        ``params`` (dense, ``VQLinear`` or ``FusedVQLinear`` leaves): each
+        leaf the forward reads as its model-axis shard (SPLIT) cut to it
+        (``shard``), the others whole; every leaf whole over the data
+        axis."""
+        from repro_torch.train.optimizer import tree_leaves
+
+        ax, out = self.axis, []
+        for p, leaf in zip(tree_leaves(params), self.of(params)):
+            if (leaf.mode == SPLIT and leaf.model_dim is not None
+                    and ax.tp > 1):
+                p = shard(p, leaf.model_dim, ax.tp, ax.model_rank)
+            out.append(p)
+        return self._tree(params, out)
 
     def of(self, tree) -> list:
         """Each leaf's ``_Leaf``, in ``tree``'s leaf order."""
@@ -397,6 +497,97 @@ class Layout:
             out.append(DTensor.from_local(g, self.mesh, leaf.placements,
                                           run_check=False))
         return self._tree(like, out)
+
+
+def widen_fsdp(specs, mesh):
+    """On a mesh with a pod axis, FSDP shards over ``("pod", "data")``
+    (the reference's rule: the pod axis would otherwise be pure
+    replication for parameters and optimizer state)."""
+    if "pod" not in mesh.mesh_dim_names:
+        return specs
+
+    def fix(s):
+        if isinstance(s, dict):
+            return {k: fix(v) for k, v in s.items()}
+        if isinstance(s, cm.P):
+            return cm.P(*[("pod", "data") if ax == "data" else ax
+                          for ax in s])
+        if isinstance(s, list):
+            return [fix(v) for v in s]
+        if hasattr(s, "_fields"):
+            return type(s)(*(fix(v) for v in s))
+        return s
+
+    return fix(specs)
+
+
+def shard(t, dim: int, n: int, i: int):
+    """Part ``i`` of ``n`` of a parameter along its dense dim ``dim``, in
+    storage of its own: a tensor's chunk, or a VQ leaf's
+    (``vq_linear.shard``: a dense (..., in, out) leaf's out dim is the VQ
+    rows, its in dim the column groups, a leading dim the experts)."""
+    from repro_torch.core import vq_linear as vql
+
+    if isinstance(t, (vql.VQLinear, vql.FusedVQLinear)):
+        return vql.shard(t, dim, n, i)
+    return t.chunk(n, dim)[i].clone(memory_format=torch.contiguous_format)
+
+
+def serve_axis(mesh, kv_spec) -> ModelAxis:
+    """The model axis of a serving step whose attention K/V leaves (B, S,
+    KV, hd) are placed by the sanitized spec ``kv_spec``: heads split when
+    the spec puts KV over ``model``; the sequence over the axes it puts S
+    on."""
+    kv_spec = tuple(kv_spec) + (None,) * (4 - len(kv_spec))
+    heads = "model" in cm._axes(kv_spec[2])
+    seq = cm._axes(kv_spec[1])
+    if not seq:
+        return ModelAxis(mesh, CacheSplit(heads))
+    group, n, r = axes_group(mesh, seq)
+    return ModelAxis(mesh, CacheSplit(heads, group, n, r))
+
+
+def local_part(t, spec, mesh):
+    """This rank's part of ``t`` (the whole tensor) by the sanitized
+    ``spec`` on ``mesh``, in storage of its own: each dim cut over the
+    axes the spec names there, the first outermost (DTensor's order of
+    ``common.placements``)."""
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    size = cm.axis_sizes(mesh)
+    for d, entry in enumerate(spec or ()):
+        names = cm._axes(entry)
+        if not names:
+            continue
+        n, r = 1, 0
+        for name in names:
+            n, r = n * size[name], r * size[name] + coord[name]
+        t = t.chunk(n, d)[r]
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def rank_tree(tree, specs, mesh):
+    """``local_part`` of every leaf of ``tree`` (dicts, lists and
+    NamedTuples, as a cache) by its spec in ``specs``; None stays None."""
+    if isinstance(tree, dict):
+        return {k: rank_tree(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return type(tree)(rank_tree(a, b, mesh) for a, b in zip(tree, specs))
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(rank_tree(a, b, mesh)
+                            for a, b in zip(tree, specs)))
+    return None if tree is None else local_part(tree, specs, mesh)
+
+
+def rank_rows(batch: dict, axis: ModelAxis) -> dict:
+    """A serving step's rows of ``batch`` on a data rank: its block of the
+    rows where the data ranks divide them, else all of them (the
+    reference's ``batch_sharding``)."""
+    def rows(x):
+        if x.shape[0] % axis.dp:
+            return x
+        return x.chunk(axis.dp, 0)[axis.data_rank].contiguous()
+
+    return {k: rows(x) for k, x in batch.items()}
 
 
 def _meta_params(model):

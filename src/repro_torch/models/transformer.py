@@ -212,6 +212,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                          paged, device) for i in range(cfg.n_layers)]
 
 
+def cache_specs(cfg: ModelConfig) -> list:
+    """The reference's cache specs on the port's tree (one entry a layer;
+    the reference's stacked layer axis, a leading None, dropped): K/V
+    batch over ``("pod", "data")`` and heads over ``model``, a recurrent
+    block's state batch over ``("pod", "data")``. The dry run
+    (``launch/dryrun.cache_shardings``) picks a placement from the shape
+    cell, as the reference's does."""
+    dp = ("pod", "data")
+    kv = cm.P(dp, None, "model", None)
+    out = []
+    for i in range(cfg.n_layers):
+        kind = block_kind(cfg, i)
+        if kind in ("dense", "moe"):
+            out.append(attention.KVCache(kv, kv))
+        else:
+            one = (xlstm.MLSTMCache if kind == "mlstm" else xlstm.SLSTMCache)
+            out.append(one(*(cm.P(dp) for _ in one._fields)))
+    return out
+
+
 def embed_tokens(params, cfg: ModelConfig, tokens, extra_embeds=None):
     x = par.embed(params["embed"], tokens, cfg)
     if extra_embeds is not None:

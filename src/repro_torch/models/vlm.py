@@ -34,6 +34,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                                   device=device)
 
 
+def cache_specs(cfg: ModelConfig) -> list:
+    return transformer.cache_specs(cfg)
+
+
 def forward(params, cfg: ModelConfig, tokens, *, patches=None, pos=0,
             cache=None, **kw):
     """tokens: (B, S_text); patches: (B, n_image_tokens, D) or None (decode).

@@ -5,7 +5,8 @@ facade it owns); ``launch/serve.py`` exposes ``--events-out``,
 ``--metrics-out`` and ``--trace-dir``. The quantization pipeline's
 ``telemetry=`` (core/pipeline.quantize_model) adds its stage spans and
 ``quant_stage`` / ``quant_target`` events, which the quantize launcher's
-``--events-out`` and ``--metrics-out`` write.
+``--events-out`` and ``--metrics-out`` write. ``obs/work`` is the dry
+run's count of kernel work and collective bytes (``launch/dryrun``).
 """
 from repro_torch.obs.dispatch import (
     register_dispatch,

@@ -18,10 +18,16 @@ import torch
 from repro_torch.models.model_zoo import Model
 
 
-def make_prefill(model: Model, last_only: bool = False):
-    """Whole-prompt prefill from position 0 over a dense cache."""
+def make_prefill(model: Model, last_only: bool = False, axis=None):
+    """Whole-prompt prefill from position 0 over a dense cache. ``axis``
+    (``parallel.serve_axis``): a rank of a sharded step, given its
+    parameters (``Layout.rank_params``), rows (``parallel.rank_rows``) and
+    cache (``parallel.rank_tree``); its logits are its vocabulary
+    columns."""
+    from repro_torch.models import parallel as par
+
     def prefill(params, batch, cache):
-        with torch.no_grad():
+        with torch.no_grad(), par.using(axis):
             logits, cache, _ = model.forward(params, batch, cache=cache,
                                              pos=0, last_only=last_only)
         return logits, cache
@@ -29,11 +35,14 @@ def make_prefill(model: Model, last_only: bool = False):
     return prefill
 
 
-def make_decode(model: Model):
+def make_decode(model: Model, axis=None):
+    """One decode step; ``axis`` as ``make_prefill``'s."""
+    from repro_torch.models import parallel as par
+
     def decode(params, tokens, cache, pos):
         """tokens (B, S); pos: scalar start position, or a per-slot (B,)
         vector over a paged cache."""
-        with torch.no_grad():
+        with torch.no_grad(), par.using(axis):
             logits, cache, _ = model.forward(params, {"tokens": tokens},
                                              cache=cache, pos=pos)
         return logits, cache

@@ -33,6 +33,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.models import common as cm
+from repro_torch.obs import work
 
 
 class AdamWState(NamedTuple):
@@ -136,6 +137,7 @@ def _sharded_squares(leaves) -> torch.Tensor:
             total = total + torch.sum(torch.square(
                 g.to_local().to(torch.float32)))
     for dim in range(mesh.ndim):
+        work.collective("all-reduce", mesh.get_group(dim), 4)
         dist.all_reduce(total, group=mesh.get_group(dim))
     return total
 

@@ -64,7 +64,12 @@ def data_rows(batch: dict, mesh, microbatches: int = 1) -> dict:
     """A data rank's rows of a global batch on ``mesh``: its block of each
     of the ``microbatches`` microbatches, in order."""
     sizes = cm.axis_sizes(mesh)
-    dp, r = sizes.get("data", 1), mesh.get_local_rank("data")
+    # the data ranks: pod and data together, pod outermost
+    dp, r = 1, 0
+    for name in ("pod", "data"):
+        if name in sizes:
+            dp, r = dp * sizes[name], r * sizes[name] + mesh.get_local_rank(
+                name)
 
     def rows(x):
         if x.shape[0] % (microbatches * dp):
