@@ -470,6 +470,38 @@ def bound_ms(nbytes: float, flops: float,
     return t_ops * 1e3, "operations"
 
 
+def flash_bounds(work, flops: float, nbytes: float, rate: str) -> tuple:
+    """A flash row's bounds: (ms, by) at the rate of the units that do its
+    products exactly (obs/work: the bf16 tensor cores, or for an f32 side
+    the split's six or three bf16 products a product), the FP32-core
+    bound for a row with an f32 side (the yardstick before the split, for
+    reading old rows; else None), and for an all-bf16 row the time of the
+    tc design's issued units, twice the products (else None)."""
+    b_ms, b_by = bound_ms(nbytes, flops, work.FLOP_PER_S[rate])
+    if rate == work.RATE_BF16_TC:
+        return b_ms, b_by, None, bound_ms(nbytes, 2 * flops,
+                                          BF16_TC_FLOP_PER_S)[0]
+    return b_ms, b_by, bound_ms(nbytes, flops)[0], None
+
+
+# a split row's error against the f32 plain version, at most this share of
+# the one-term TF32 plain version's (each operand of every product cut to
+# TF32's 11 bits): a split that dropped a needed term would sit near 1
+TF32_TERM_SHARE = 0.1
+
+
+def tf32_one_term(torch, fn):
+    """``fn()`` with float32 matmuls in TF32, one term of each operand;
+    the flag is restored after (the quantizer's Hessian factorisations
+    need it off)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def impl_delta(before: dict, after: dict) -> dict:
     """Launches by variant between two snapshots of a launches_by_impl."""
     return {k: v - before.get(k, 0) for k, v in after.items()
@@ -537,6 +569,10 @@ def kernel_device_ms(torch, fn, iters: int = 2) -> dict:
             name = re.sub(r"^void ", "", name).split("(")[0]
             out[name] = e.device_time_total / iters / 1000
     return out
+
+
+def _fmt_err(e) -> str:
+    return "none" if e is None else f"{e:.2e}"
 
 
 def _fmt_ms(t) -> str:
@@ -1310,10 +1346,11 @@ FLASH_SHAPES = {
                       causal=True, q_offset=0),
 }
 # shapes whose forward also runs with its log-sum-exp output (the launch a
-# train step makes under autograd), bf16: check_flash_lse; the last, a
+# train step makes under autograd): check_flash_lse; the last, a
 # model_axis rank's heads of the train phase's microbatch (Llama-2-7B's 32
 # heads on a model axis of 2)
 FLASH_LSE_SHAPES = {
+    "llama B=2": FLASH_SHAPES["llama B=2"],
     "zamba B=2": FLASH_SHAPES["zamba B=2"],
     "llama tp B=2": dict(B=2, Sq=4096, Sk=4096, H=16, KV=16, hd=128,
                          causal=True, q_offset=0),
@@ -1324,6 +1361,12 @@ FLASH_LSE_SHAPES = {
     "zamba tp B=2": dict(B=2, Sq=4096, Sk=4096, H=16, KV=16, hd=112,
                          causal=True, q_offset=0),
 }
+
+# (shape, dtype) rows of check_flash_lse: bf16 where a train step runs
+# it, f32 at the train and train_families phases' f32 gradient checks
+FLASH_LSE_ROWS = (("zamba B=2", "bfloat16"), ("llama tp B=2", "bfloat16"),
+                  ("phi3 tp B=2", "bfloat16"), ("zamba tp B=2", "bfloat16"),
+                  ("llama B=2", "float32"), ("zamba B=2", "float32"))
 
 # flash attention's backward: the train phase's microbatch (bf16 and f32),
 # GQA with Qwen2-72B's heads, a q_offset, non-causal at hd 64, f32 queries
@@ -1424,7 +1467,6 @@ def check_flash_bwd(torch, dev, shape: str, q_name: str,
     want = flash_attention_bwd_plain(
         q.float(), k.float(), v.float(), out.float(), dout.float(), ref_lse,
         causal=causal, q_offset=off)
-    del ref_lse
     # f32: rtol 1e-4, atol 1e-5 * max|g| (the kernel sums rows in 64-row
     # tiles, the plain version in 512 x 1024 chunks); bf16: one bf16
     # rounding of the f32 result plus 1e-3 * max|g|
@@ -1438,7 +1480,19 @@ def check_flash_bwd(torch, dev, shape: str, q_name: str,
         else:
             ok = ok and bool((d <= 2.0**-8 * w.abs() + 1e-3 * scale).all())
         ok = ok and bool(torch.isfinite(a).all())
-    del want
+    # rows with an f32 side: each f32 gradient's error at most a tenth of
+    # the one-term TF32 plain version's on the same inputs
+    tf32_err = None
+    if impl == "fp32" and torch.float32 in (q_dt, kv_dt):
+        tf = tf32_one_term(torch, lambda: flash_attention_bwd_plain(
+            q.float(), k.float(), v.float(), out.float(), dout.float(),
+            ref_lse, causal=causal, q_offset=off))
+        tf32_err = [float((t - w).abs().max()) for t, w in zip(tf, want)]
+        del tf
+        for a, w, t in zip(got, want, tf32_err):
+            if a.dtype == torch.float32:
+                ok = ok and float((a - w).abs().max()) <= TF32_TERM_SHARE * t
+    del want, ref_lse
     # the train row: the lo terms of P and dS show (the fp32 launch here
     # comes after the launch count above)
     terms = None
@@ -1477,22 +1531,17 @@ def check_flash_bwd(torch, dev, shape: str, q_name: str,
     del o_lib
     # bound: the five products the function needs (S, dP, dV, dK, dQ:
     # 2.5 times the forward's two), bf16 q, k, v at the tensor-core peak,
-    # f32 or mixed at the FP32 peak; bytes: q, k, v, out, dout, lse read
-    # once, dq, dk, dv written once. bf16 rows also give the time of the
-    # ten product-units the tc design issues (P and dS in two terms, S and
-    # dP again in the dq pass) at the same peak
+    # an f32 side at the split's rate (obs/work), beside the FP32-core
+    # bound; bytes: q, k, v, out, dout, lse read once, dq, dk, dv written
+    # once. bf16 rows also give the time of the ten product-units the tc
+    # design issues (P and dS in two terms, S and dP again in the dq pass)
     from repro_torch.obs import work
 
     flops, nbytes, rate = work.flash_attention_bwd_work(
         B, Sq, Sk, H, KV, hd, sh["q_offset"], sh["causal"],
         q.element_size(), k.element_size(),
-        q_dt == torch.bfloat16 and kv_dt == torch.bfloat16)
-    issued_ms = None
-    if rate == work.RATE_BF16_TC:
-        b_ms, b_by = bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
-        issued_ms = bound_ms(nbytes, 2 * flops, BF16_TC_FLOP_PER_S)[0]
-    else:
-        b_ms, b_by = bound_ms(nbytes, flops)
+        work.flash_rate(q_dt == torch.bfloat16, kv_dt == torch.bfloat16))
+    b_ms, b_by, fp32_ms, issued_ms = flash_bounds(work, flops, nbytes, rate)
     row = {"name": "flash_attention_bwd", "shape": shape, **sh,
            "dtype": q_name, "kv_dtype": kv_name, "impl": impl,
            "max_abs_err": err, "lse_max_abs_err": lse_err,
@@ -1501,21 +1550,24 @@ def check_flash_bwd(torch, dev, shape: str, q_name: str,
            "ms": ms, "device_ms": dev_ms, "passes_ms": passes,
            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
            "bound_by": b_by, "bound_issued_ms": issued_ms,
-           "flops": 2.5 * flops, "off_plain": terms}
+           "bound_fp32_ms": fp32_ms, "rate": rate, "flops": 2.5 * flops,
+           "off_plain": terms, "tf32_max_abs_err": tf32_err}
     log(f"[kernels] flash_attention_bwd {shape} q {q_name} kv {kv_name} "
         f"({impl}) B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} causal={causal} "
         f"q_offset={off}: lse max abs err {lse_err:.2e}, max abs err "
-        f"{err:.2e}, same bits {same_bits}, "
+        f"{err:.2e}, one-term TF32 dq, dk, dv "
+        f"{'none' if tf32_err is None else [f'{e:.2e}' for e in tf32_err]}, "
+        f"same bits {same_bits}, "
         f"out bitwise with lse {out_bitwise} | kernel {ms:.4f} ms (device "
         f"{_fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, sdpa backward "
-        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), issued units "
-        f"{_fmt_ms(issued_ms)}; passes "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {rate}), FP32 cores "
+        f"{_fmt_ms(fp32_ms)}, issued units {_fmt_ms(issued_ms)}; passes "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in passes.items()))
     if not (ok and lse_ok and same_bits and out_bitwise and launched == 2
             and impl_ok and terms_ok):
         raise Failed(f"flash_attention_bwd {shape} {q_name}/{kv_name}: ok "
-                     f"{ok} (err {err}), lse ok {lse_ok} (err {lse_err}), "
-                     f"terms {terms}, "
+                     f"{ok} (err {err}, one-term TF32 {tf32_err}), lse ok "
+                     f"{lse_ok} (err {lse_err}), terms {terms}, "
                      f"same bits {same_bits}, out bitwise {out_bitwise}, "
                      f"launches {launched} by variant {by_impl} (the rule: "
                      f"{flash_bwd_rule(q_name, kv_name, hd)})")
@@ -1676,7 +1728,11 @@ def check_flash(torch, dev, shape: str, dtype) -> dict:
     # they differ by at most one bf16 ulp, 2^-7 of the value
     rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (2.0**-7, 1e-5)
     ok = bool(torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol))
-    terms = None
+    terms = tf32_err = None
+    if dtype == torch.float32:  # at most a tenth of one-term TF32's error
+        tf32_err = float((tf32_one_term(torch, lambda: flash_attention_plain(
+            q, k, v, **kw)) - ref).abs().max())
+        ok = ok and err <= TF32_TERM_SHARE * tf32_err
     if impl == "tc":
         terms = flash_term_counts(torch, q, k, v, out, ref, **kw)
         log(f"[kernels] flash_attention {shape}: outputs off bf16(plain) "
@@ -1701,63 +1757,71 @@ def check_flash(torch, dev, shape: str, dtype) -> dict:
     # the work these inputs need: every unmasked (row, column) pair costs
     # 2 * hd FLOPs of q.k and 2 * hd of p.v per head; each input read once,
     # the output written once. bf16 q, k, v bound at the bf16 tensor-core
-    # peak, f32 at the FP32 peak. bf16 rows also give the time of what the
-    # tc design issues: p.v with the f32 p split into three bf16 terms
-    # (flops/2 + 3 flops/2) at the same peak
+    # peak, f32 at the split's rate (989/6 TFLOP/s) beside the FP32-core
+    # bound. bf16 rows also give the time of what the tc design issues:
+    # p.v with the f32 p split into three bf16 terms (flops/2 + 3 flops/2)
     from repro_torch.obs import work
 
-    flops, nbytes, _ = work.flash_attention_work(
+    flops, nbytes, rate = work.flash_attention_work(
         B, Sq, Sk, H, KV, hd, off, causal, q.element_size(),
-        dtype == torch.bfloat16)
-    issued_ms = None
-    if dtype == torch.bfloat16:
-        b_ms, b_by = bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
-        issued_ms = bound_ms(nbytes, 2 * flops, BF16_TC_FLOP_PER_S)[0]
-    else:
-        b_ms, b_by = bound_ms(nbytes, flops)
+        work.flash_rate(dtype == torch.bfloat16, dtype == torch.bfloat16))
+    b_ms, b_by, fp32_ms, issued_ms = flash_bounds(work, flops, nbytes, rate)
     row = {"name": "flash_attention", "shape": shape, **sh,
            "dtype": str(dtype).replace("torch.", ""), "impl": impl,
-           "max_abs_err": err, "rtol": rtol, "atol": atol, "ms": ms,
-           "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
-           "bound_by": b_by, "bound_issued_ms": issued_ms, "flops": flops,
+           "max_abs_err": err, "tf32_max_abs_err": tf32_err, "rtol": rtol,
+           "atol": atol, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "bound_issued_ms": issued_ms,
+           "bound_fp32_ms": fp32_ms, "rate": rate, "flops": flops,
            "off_plain": terms}
     log(f"[kernels] flash_attention {shape} {row['dtype']} ({impl}) B={B} "
         f"Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} causal={causal} "
         f"q_offset={off}: max abs err {err:.2e} (rtol {rtol:.1e}, atol "
-        f"{atol:.0e}) | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), issued units "
-        f"{_fmt_ms(issued_ms)}")
+        f"{atol:.0e}; one-term TF32 {_fmt_err(tf32_err)}) | kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}, {rate}), FP32 cores {_fmt_ms(fp32_ms)}, "
+        f"issued units {_fmt_ms(issued_ms)}")
     if not ok:
         raise Failed(f"flash_attention {shape} {dtype}: error {err} outside "
-                     f"rtol {rtol}, atol {atol}")
+                     f"rtol {rtol}, atol {atol}, or above {TF32_TERM_SHARE} "
+                     f"of one-term TF32's {tf32_err}")
     return row
 
 
-def check_flash_lse(torch, dev, shape: str) -> dict:
+def check_flash_lse(torch, dev, shape: str, dtype) -> dict:
     """The forward kernel with its log-sum-exp output, as a train step
-    launches it under autograd, in bf16: out bitwise the launch without
-    the lse and within one bf16 ulp of flash_attention_plain's, the lse at
-    rtol 1e-5 plus 1e-5 * max|lse| of the plain forward's; timed beside
-    the plain forward with its lse and SDPA's forward."""
+    launches it under autograd: out bitwise the launch without the lse
+    and, against flash_attention_plain's, within one bf16 ulp (bf16) or at
+    rtol 1e-5, atol 1e-5 and a tenth of the one-term TF32 plain version's
+    error (f32: the train phases' f32 gradient checks), the lse at rtol
+    1e-5 plus 1e-5 * max|lse| of the plain forward's; timed beside the
+    plain forward with its lse and SDPA's forward."""
     from repro_torch.kernels.flash_attention import (
-        _launch_forward, flash_attention_plain)
+        _launch_forward, flash_attention, flash_attention_plain)
 
     sh = FLASH_LSE_SHAPES[shape]
     B, Sq, Sk, H, KV, hd = (sh[n] for n in ("B", "Sq", "Sk", "H", "KV", "hd"))
     causal, off = sh["causal"], sh["q_offset"]
     g = torch.Generator(device=dev).manual_seed(Sq + Sk + H + hd)
-    q, k, v = (torch.randn(shp, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = (torch.randn(shp, generator=g, device=dev).to(dtype)
                for shp in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd)))
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    before = dict(flash_attention.launches_by_impl)
     out = _launch_forward(q, k, v, causal, off, lse)
+    (impl,) = impl_delta(before, flash_attention.launches_by_impl)
     out_bitwise = bool(torch.equal(out, _launch_forward(q, k, v, causal,
                                                         off)))
     ref, ref_lse = flash_attention_plain(q, k, v, causal=causal,
                                          q_offset=off, with_lse=True)
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
-    out_ok = bool(torch.allclose(out.float(), ref.float(), rtol=2.0**-7,
+    rtol = 1e-5 if dtype == torch.float32 else 2.0**-7
+    out_ok = bool(torch.allclose(out.float(), ref.float(), rtol=rtol,
                                  atol=1e-5))
+    tf32_err = None
+    if dtype == torch.float32:
+        tf32_err = float((tf32_one_term(torch, lambda: flash_attention_plain(
+            q, k, v, causal=causal, q_offset=off)) - ref).abs().max())
+        out_ok = out_ok and err <= TF32_TERM_SHARE * tf32_err
     lse_d = (lse - ref_lse).abs()
     lse_err = float(lse_d.max())
     lse_ok = bool((lse_d <= 1e-5 * ref_lse.abs()
@@ -1771,30 +1835,34 @@ def check_flash_lse(torch, dev, shape: str) -> dict:
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal,
                                          enable_gqa=KV != H), 5, 1)
-    # bound as check_flash's bf16 rows, the lse written too
+    # bound as check_flash's rows, the lse written too
     from repro_torch.obs import work
 
-    flops, nbytes, _ = work.flash_attention_work(
+    flops, nbytes, rate = work.flash_attention_work(
         B, Sq, Sk, H, KV, hd, sh["q_offset"], sh["causal"],
-        q.element_size(), True, lse=True)
-    b_ms, b_by = bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
-    issued_ms = bound_ms(nbytes, 2 * flops, BF16_TC_FLOP_PER_S)[0]
+        q.element_size(),
+        work.flash_rate(dtype == torch.bfloat16, dtype == torch.bfloat16),
+        lse=True)
+    b_ms, b_by, fp32_ms, issued_ms = flash_bounds(work, flops, nbytes, rate)
+    name = str(dtype).replace("torch.", "")
     row = {"name": "flash_attention_lse", "shape": shape, **sh,
-           "dtype": "bfloat16", "impl": "tc", "max_abs_err": err,
-           "lse_max_abs_err": lse_err, "out_bitwise_with_lse": out_bitwise,
-           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-           "bound_ms": b_ms, "bound_by": b_by, "bound_issued_ms": issued_ms,
-           "flops": flops}
-    log(f"[kernels] flash_attention with lse {shape} bfloat16 B={B} Sq={Sq} "
-        f"Sk={Sk} H={H} KV={KV} hd={hd}: max abs err {err:.2e}, lse max "
-        f"abs err {lse_err:.2e}, out bitwise without lse {out_bitwise} | "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
-        f"ms, bound {b_ms:.4f} ms ({b_by}), issued units "
-        f"{_fmt_ms(issued_ms)}")
+           "dtype": name, "impl": impl, "max_abs_err": err,
+           "tf32_max_abs_err": tf32_err, "lse_max_abs_err": lse_err,
+           "out_bitwise_with_lse": out_bitwise, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "bound_issued_ms": issued_ms,
+           "bound_fp32_ms": fp32_ms, "rate": rate, "flops": flops}
+    log(f"[kernels] flash_attention with lse {shape} {name} ({impl}) B={B} "
+        f"Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd}: max abs err {err:.2e} "
+        f"(one-term TF32 {_fmt_err(tf32_err)}), lse max abs err "
+        f"{lse_err:.2e}, out bitwise without lse {out_bitwise} | kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}, {rate}), FP32 cores {_fmt_ms(fp32_ms)}, "
+        f"issued units {_fmt_ms(issued_ms)}")
     if not (out_ok and lse_ok and out_bitwise):
-        raise Failed(f"flash_attention with lse {shape}: out ok {out_ok} "
-                     f"(err {err}), lse ok {lse_ok} (err {lse_err}), out "
-                     f"bitwise {out_bitwise}")
+        raise Failed(f"flash_attention with lse {shape} {name}: out ok "
+                     f"{out_ok} (err {err}, one-term TF32 {tf32_err}), lse ok "
+                     f"{lse_ok} (err {lse_err}), out bitwise {out_bitwise}")
     return row
 
 
@@ -1871,8 +1939,8 @@ def phase_kernels(torch, dev) -> list[dict]:
     for shape in FLASH_SHAPES:
         for dt in (torch.bfloat16, torch.float32):
             rows.append(check_flash(torch, dev, shape, dt))
-    for shape in FLASH_LSE_SHAPES:
-        rows.append(check_flash_lse(torch, dev, shape))
+    for shape, dt in FLASH_LSE_ROWS:
+        rows.append(check_flash_lse(torch, dev, shape, getattr(torch, dt)))
     for shape, q_name, kv_name in FLASH_BWD_ROWS:
         rows.append(check_flash_bwd(torch, dev, shape, q_name, kv_name))
     log(f"[kernels] {len(rows)} checks passed in "
@@ -6756,8 +6824,12 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
     of the train microbatch on a model axis of 2 (B=2, 16 heads of 128,
     4096 tokens, bf16; launches rank 0's in its 4 bf16 steps), and at
     one rank's heads of the vlm's (16 of 96) and the hybrid's (16 of 112)
-    microbatches (launches rank 0's in their 4 bf16 steps).
-    library_ms
+    microbatches (launches rank 0's in their 4 bf16 steps). The fp32
+    forward (the exact split on the tensor cores) at the long phase's
+    calibration batch (B=4, 32 heads of 128, 4096 tokens, f32: the
+    quantizer's advance pass; launches the long phase's fp32 ones). Rows
+    with an f32 side also carry their FP32-core bound and the one-term
+    TF32 plain version's error. library_ms
     is each row's own: for vq_dequant_matmul at int8 codebooks a bf16
     torch.matmul."""
     pick = {
@@ -6812,6 +6884,11 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
             and r["M"] == AUDIO_ENC_ROWS,
             "src/repro_torch/kernels/csrc/vq_dequant_matmul.cu",
             "src/repro/kernels/vq_dequant_matmul.py:137"),
+        "flash_attention_fp32": (
+            "flash_attention",
+            lambda r: r["shape"] == "llama B=4" and r["dtype"] == "float32",
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:68"),
         "flash_attention_train": (
             "flash_attention",
             lambda r: r["shape"] == "llama B=2" and r["dtype"] == "bfloat16",
@@ -6829,7 +6906,7 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
             "src/repro/kernels/flash_attention.py:68"),
         "flash_attention_train_hd112": (
             "flash_attention_lse",
-            lambda r: r["shape"] == "zamba B=2",
+            lambda r: r["shape"] == "zamba B=2" and r["dtype"] == "bfloat16",
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:68"),
         "flash_attention_bwd_hd112": (
@@ -6839,7 +6916,7 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
             "src/repro/kernels/flash_attention.py:68"),
         "flash_attention_train_tp": (
             "flash_attention_lse",
-            lambda r: r["shape"] == "llama tp B=2",
+            lambda r: r["shape"] == "llama tp B=2" and r["dtype"] == "bfloat16",
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:68"),
         "flash_attention_bwd_tp": (
@@ -6849,7 +6926,7 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
             "src/repro/kernels/flash_attention.py:68"),
         "flash_attention_train_hd96_tp": (
             "flash_attention_lse",
-            lambda r: r["shape"] == "phi3 tp B=2",
+            lambda r: r["shape"] == "phi3 tp B=2" and r["dtype"] == "bfloat16",
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:68"),
         "flash_attention_bwd_hd96_tp": (
@@ -6859,7 +6936,7 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
             "src/repro/kernels/flash_attention.py:68"),
         "flash_attention_train_hd112_tp": (
             "flash_attention_lse",
-            lambda r: r["shape"] == "zamba tp B=2",
+            lambda r: r["shape"] == "zamba tp B=2" and r["dtype"] == "bfloat16",
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:68"),
         "flash_attention_bwd_hd112_tp": (
@@ -6877,8 +6954,9 @@ def kernel_line(rows: list[dict], launches: dict) -> dict:
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"]})
-        if r.get("bound_issued_ms") is not None:
-            out[-1]["bound_issued_ms"] = r["bound_issued_ms"]
+        for key in ("bound_issued_ms", "bound_fp32_ms", "tf32_max_abs_err"):
+            if r.get(key) is not None:
+                out[-1][key] = r[key]
     return {"kernels": out}
 
 
@@ -6995,6 +7073,8 @@ def main() -> int:
     launches["vq_group_sweep_babai"] = budget_res["babai_launches"]
     launches["vq_dequant_matmul_experts"] = moe_res["serve"][
         "vq_experts_counts"].get(MOE_EXPERTS, 0)
+    launches["flash_attention_fp32"] = long_res["launches_by_impl"][
+        "flash_attention"]["fp32"]
     launches["flash_attention_train"] = train_res["launches"][
         "flash_attention"]
     launches["flash_attention_bwd"] = train_res["launches"][

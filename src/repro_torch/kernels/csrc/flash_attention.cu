@@ -18,7 +18,9 @@
 // exactly on bf16 tensor cores with f32 sums: q.k directly, and p.v with
 // the f32 p split into three bf16 terms (p = p1 + p2 + p3 exactly), so
 // the bound is (FLOPs/2 + 3 * FLOPs/2) / 989 TFLOP/s = 2 * FLOPs / 989 T.
-// With an f32 operand every FLOP is bound at the FP32 rate.
+// An f32 operand is split the same way, so f32 work also runs exactly on
+// the tensor cores: a product of two f32 operands costs six bf16 products
+// (989/6 TFLOP/s), one with a bf16 side three (989/3).
 //
 // Two variants; the wrapper (kernels/flash_attention.py) picks one from the
 // dtypes and the head dim, never from a failure:
@@ -35,18 +37,11 @@
 //   product, so P never leaves registers: each tile's p1.V + p2.V + p3.V
 //   is summed on the tensor cores, then added to O in f32 (their
 //   accumulator truncates, which would lose p3 against a long running O).
-// fp32 (everything else: f32 q or cache, mixed dtypes, other head dims;
-//   PR 13's kernel): one CTA of 128 threads per (batch x head, 64-row
-//   query block); the CTA keeps its query block transposed in shared
-//   memory as f32 and walks the kv range in 64-row tiles (K transposed, V
-//   as is, both converted to f32 on load). Each thread owns 8 query rows:
-//   for the scores it computes an 8 x 4 register tile (float4
-//   shared-memory reads, 32 FMAs per 3 loads), for the output an 8 x 8
-//   tile of the accumulator (hd <= 128). The 16 threads of a row group sit
-//   in one half-warp, so the row max and sum of the online softmax are
-//   shuffles. P goes through shared memory (reusing K's buffer) to the P.V
-//   product. Shared memory ~100 KB, so two CTAs share an SM.
-//
+// fp32 (everything else: f32 q or cache, mixed dtypes, other head dims,
+//   any alignment; see "fp32" below): the same FlashAttention-2 walk with
+//   every operand split into exact bf16 terms in shared memory and each
+//   product issued as the bf16 products that reach f32's accuracy (six for
+//   f32 x f32, three with a bf16 side), on the same mma.sync m16n8k16.
 // Either variant also writes, when given a pointer, each row's log-sum-exp
 // lse = m + log(max(l, 1e-30)) as f32 (B, H, Sq), for the backward; without
 // one the launch and its output bits are unchanged.
@@ -55,8 +50,9 @@
 // Pallas kernel has no VJP and the reference differentiates its XLA scan,
 // models/attention.py::flash_attention, so this is the card's counterpart
 // of that autodiff): dq, dk, dv from q, k, v, out, dout and lse, in three
-// launches (D, a dk/dv pass, a dq pass), each output element summed by one
-// thread in a fixed order: no atomics, the same bits on every call. Two
+// launches (D, a dk/dv pass, a dq pass), each output element summed in a
+// fixed order (by one thread; in fp32 by two, whose sums are added in a
+// fixed order): no atomics, the same bits on every call. Two
 // variants, picked by the wrapper under the forward's rule (dout 16-byte
 // aligned as well; out is read only by the D pre-pass, element by element):
 // tc (see "backward, tc"): every product on bf16 tensor cores with f32
@@ -72,10 +68,11 @@
 //   tensor-core work than a fused dq) so that no CTA shares an output: a
 //   per-CTA partial dq summed by a second pass would write and read back
 //   ~4.3 GB at that shape.
-// fp32 (see "backward"): f32 scores and sums on the FP32 CUDA cores, for
-//   f32 or mixed inputs and head dims not a multiple of 16. Bound:
-//   operations, 2.5 times the forward's (five products against two) at the
-//   FP32 peak; it computes seven (the scores in both passes).
+// fp32 (see "fp32" below): the same three launches with every product on
+//   the tensor cores through the exact split, for f32 or mixed inputs,
+//   head dims not a multiple of 16 and any alignment. Bound: the five
+//   products at 989/6 TFLOP/s (f32 x f32); the design issues seven (S and
+//   dP again in the dq pass).
 //
 // Both: query head h reads kv head h/G, so GQA needs no head expansion.
 // Causal: kv tiles wholly above the diagonal (first column > q_offset +
@@ -89,228 +86,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "mma_sm90.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;          // query rows per CTA
-constexpr int kBK = 64;          // kv rows per tile
-constexpr int kThreads = 128;    // 8 row groups x 16 column lanes
-constexpr int kRows = 8;         // query rows per thread
-constexpr int kSCols = 4;        // score columns per thread (kBK / 16)
 constexpr int kHdMax = 128;
-constexpr int kOCols = 8;        // output columns per thread (kHdMax / 16)
-constexpr int kStride = kBQ + 4; // row stride of the transposed tiles
 constexpr float kNegInf = -1e30f;
-constexpr size_t kSmemFloats =
-    (size_t)2 * kHdMax * kStride + (size_t)kBK * kHdMax;
-
-static_assert(kBQ == kBK, "P^T reuses the K^T buffer");
-static_assert(kRows * (kThreads / 16) == kBQ, "row groups cover the block");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-template <typename QT, typename KT>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
-                       const KT* __restrict__ v, QT* __restrict__ out,
-                       float* __restrict__ lse, int Sq, int Sk, int H,
-                       int KV, int hd, int causal, int q_offset,
-                       float scale) {
-  extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);  // [kHdMax][kStride]: Q^T
-  float* kt = qt + kHdMax * kStride;            // [kHdMax][kStride]: K^T,
-                                                // then [kBK][kStride]: P^T
-  float* vs = kt + kHdMax * kStride;            // [kBK][kHdMax]: V
-
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;  // row group: rows ty*8 .. ty*8+7
-  const int tx = tid & 15;  // score columns tx*4 .. +3; output columns
-                            // tx*4 .. +3 and 64 + tx*4 .. +3
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int kh = h / (H / KV);  // the query head's kv head
-  // heavy (late) query blocks first: causal work grows with the block index
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
-  const int q_rows = min(kBQ, Sq - q0);
-
-  // query block, transposed, f32; rows past Sq are zero
-  for (int e = tid; e < kBQ * hd; e += kThreads) {
-    const int r = e / hd, d = e - r * hd;
-    float val = 0.f;
-    if (r < q_rows)
-      val = to_f32(q[(((size_t)b * Sq + q0 + r) * H + h) * hd + d]);
-    qt[d * kStride + r] = val;
-  }
-
-  float o[kRows][kOCols];
-  float m[kRows], l[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kOCols; ++j) o[i][j] = 0.f;
-  }
-
-  int n_tiles = (Sk + kBK - 1) / kBK;
-  if (causal) {
-    const int last = q_offset + q0 + q_rows - 1;  // last row's position
-    n_tiles = min(n_tiles, last / kBK + 1);
-  }
-  const size_t kv_row = (size_t)KV * hd;  // elements between kv rows
-  const KT* kb = k + (size_t)b * Sk * kv_row + (size_t)kh * hd;
-  const KT* vb = v + (size_t)b * Sk * kv_row + (size_t)kh * hd;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBK;
-    const int k_rows = min(kBK, Sk - k0);
-    __syncthreads();  // previous tile's P^T and V reads are done
-    for (int e = tid; e < kBK * hd; e += kThreads) {
-      const int r = e / hd, d = e - r * hd;
-      float kv_k = 0.f, kv_v = 0.f;
-      if (r < k_rows) {
-        const size_t off = (size_t)(k0 + r) * kv_row + d;
-        kv_k = to_f32(kb[off]);
-        kv_v = to_f32(vb[off]);
-      }
-      kt[d * kStride + r] = kv_k;
-      vs[r * kHdMax + d] = kv_v;
-    }
-    __syncthreads();
-
-    // scores: rows ty*8+i, columns tx*4+j
-    float s[kRows][kSCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kSCols; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < hd; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(
-          &qt[d * kStride + ty * kRows]);
-      const float4 qb = *reinterpret_cast<const float4*>(
-          &qt[d * kStride + ty * kRows + 4]);
-      const float4 kk = *reinterpret_cast<const float4*>(
-          &kt[d * kStride + tx * kSCols]);
-      const float qv[kRows] = {qa.x, qa.y, qa.z, qa.w,
-                               qb.x, qb.y, qb.z, qb.w};
-      const float kv[kSCols] = {kk.x, kk.y, kk.z, kk.w};
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kSCols; ++j)
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-    // mask, then the online softmax per row (the 16 lanes of a row group
-    // are one half-warp: xor shuffles below 16 stay inside it)
-    float p[kRows][kSCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row_pos = q_offset + q0 + ty * kRows + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kSCols; ++j) {
-        const int col = k0 + tx * kSCols + j;
-        float sv = s[i][j] * scale;
-        if (col >= Sk || (causal && col > row_pos)) sv = kNegInf;
-        s[i][j] = sv;
-        mx = fmaxf(mx, sv);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kSCols; ++j) {
-        p[i][j] = expf(s[i][j] - m_new);
-        sum += p[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kOCols; ++j) o[i][j] *= alpha;
-    }
-    __syncthreads();  // every thread is done reading K^T
-    float* pt = kt;   // [kBK][kStride]: P^T
-#pragma unroll
-    for (int j = 0; j < kSCols; ++j) {
-      float* dst = &pt[(tx * kSCols + j) * kStride + ty * kRows];
-      *reinterpret_cast<float4*>(dst) =
-          make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
-      *reinterpret_cast<float4*>(dst + 4) =
-          make_float4(p[4][j], p[5][j], p[6][j], p[7][j]);
-    }
-    __syncthreads();
-
-    // o += P V over the tile's live rows (P is 0 on masked columns and V
-    // is 0 past Sk, so the tail adds nothing)
-#pragma unroll 4
-    for (int c = 0; c < k_rows; ++c) {
-      const float4 pa = *reinterpret_cast<const float4*>(
-          &pt[c * kStride + ty * kRows]);
-      const float4 pb = *reinterpret_cast<const float4*>(
-          &pt[c * kStride + ty * kRows + 4]);
-      const float4 va = *reinterpret_cast<const float4*>(
-          &vs[c * kHdMax + tx * 4]);
-      const float4 vb4 = *reinterpret_cast<const float4*>(
-          &vs[c * kHdMax + 64 + tx * 4]);
-      const float pv[kRows] = {pa.x, pa.y, pa.z, pa.w,
-                               pb.x, pb.y, pb.z, pb.w};
-      const float vv[kOCols] = {va.x, va.y, va.z, va.w,
-                                vb4.x, vb4.y, vb4.z, vb4.w};
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kOCols; ++j)
-          o[i][j] = fmaf(pv[i], vv[j], o[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = ty * kRows + i;
-    if (r >= q_rows) continue;
-    const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
-    QT* dst = out + (((size_t)b * Sq + q0 + r) * H + h) * hd;
-#pragma unroll
-    for (int j = 0; j < kOCols; ++j) {
-      const int col = (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
-      if (col < hd) store(dst + col, o[i][j] * inv_l);
-    }
-    if (lse != nullptr && tx == 0)
-      lse[(size_t)bh * Sq + q0 + r] = m[i] + logf(fmaxf(l[i], 1e-30f));
-  }
-}
-
-template <typename QT, typename KT>
-int launch(const void* q, const void* k, const void* v, void* out,
-           float* lse, int B, int Sq, int Sk, int H, int KV, int hd,
-           int causal, int q_offset, cudaStream_t stream) {
-  auto kern = flash_attention_kernel<QT, KT>;
-  const size_t smem = kSmemFloats * sizeof(float);
-  static int granted[64];
-  cudaError_t e = mma::allow_smem(kern, smem, granted);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  flash_attention_kernel<QT, KT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KT*>(k),
-      static_cast<const KT*>(v), static_cast<QT*>(out), lse, Sq, Sk, H, KV,
-      hd, causal, q_offset, 1.0f / sqrtf((float)hd));
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -561,33 +348,15 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// backward, fp32 (FP32 CUDA cores, any dtype pair): three launches a call
+// backward, the D pre-pass (both variants)
 // ---------------------------------------------------------------------------
 //
 // With P = exp(scale * Q K^T - lse) (masked entries 0) and
 // D = rowsum(dO o O):  dV = P^T dO,  dS = P o (dO V^T - D),
-// dK = scale * dS^T Q,  dQ = scale * dS K.
-//   1. delta: D per (b, h, row) from the saved output, a warp a row.
-//   2. dkdv:  one CTA per (b, kv head, 64 kv rows) keeps K^T and V^T in
-//             shared memory and walks the G query heads of its kv head and
-//             every query tile that can see its rows, in order, summing
-//             dK and dV in registers (an 8 x 8 tile each a thread).
-//   3. dq:    one CTA per (b, head, 64 query rows) keeps Q^T and dO^T and
-//             walks the kv tiles its rows can see, summing dQ.
-// Each output element is summed by one thread in a fixed order: no atomics,
-// the same bits on every call. Tiles are the forward fp32 kernel's (64
-// rows, 128 threads as 8 row groups x 16 column lanes); the products over
-// the head dim read transposed f32 tiles ([d][row], row stride kStride),
-// the products over tile rows a [row][d] copy and the P^T / dS^T buffer.
+// dK = scale * dS^T Q,  dQ = scale * dS K. D per (b, h, row) from the
+// saved output, a warp a row, element by element (any alignment).
 
 constexpr int kDeltaRows = 4;  // rows of the delta pass a CTA (a warp each)
-constexpr size_t kTileT = (size_t)kHdMax * kStride;  // a transposed tile
-constexpr size_t kTileR = (size_t)kBQ * kHdMax;      // a row-major tile
-constexpr size_t kBufP = (size_t)kBQ * kStride;      // P^T / dS^T
-// dkdv: K^T, V^T, Q^T, dO^T, Q, dO, P^T, lse, D;  dq: Q^T, dO^T, K^T, V^T,
-// K, dS^T, lse, D
-constexpr size_t kDkdvSmemFloats = 4 * kTileT + 2 * kTileR + kBufP + 2 * kBQ;
-constexpr size_t kDqSmemFloats = 4 * kTileT + kTileR + kBufP + 2 * kBQ;
 
 template <typename QT>
 __global__ void __launch_bounds__(32 * kDeltaRows)
@@ -611,262 +380,6 @@ flash_bwd_delta_kernel(const QT* __restrict__ out,
   }
 }
 
-// the first n rows (row stride `stride` elements) of src into dst_t[d][r]
-// as f32 (rows n..kBQ-1 zero) and, with dst_r, into dst_r[r][d] as well
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst_t, float* dst_r,
-                                          const T* src, size_t stride, int n,
-                                          int hd) {
-  for (int e = threadIdx.x; e < kBQ * hd; e += kThreads) {
-    const int r = e / hd, d = e - r * hd;
-    const float val = r < n ? to_f32(src[(size_t)r * stride + d]) : 0.f;
-    dst_t[d * kStride + r] = val;
-    if (dst_r != nullptr) dst_r[r * kHdMax + d] = val;
-  }
-}
-
-// s[i][j] = sum_{d < hd} xt[d][ty*8 + i] * yt[d][tx*4 + j]
-__device__ __forceinline__ void dot_tile(const float* xt, const float* yt,
-                                         int hd, int ty, int tx,
-                                         float (&s)[kRows][kSCols]) {
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kSCols; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < hd; ++d) {
-    const float4 xa = *reinterpret_cast<const float4*>(
-        &xt[d * kStride + ty * kRows]);
-    const float4 xb = *reinterpret_cast<const float4*>(
-        &xt[d * kStride + ty * kRows + 4]);
-    const float4 yy = *reinterpret_cast<const float4*>(
-        &yt[d * kStride + tx * kSCols]);
-    const float xv[kRows] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
-    const float yv[kSCols] = {yy.x, yy.y, yy.z, yy.w};
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kSCols; ++j) s[i][j] = fmaf(xv[i], yv[j], s[i][j]);
-  }
-}
-
-// o[i][j] += sum_{c < n} pt[c][ty*8 + i] * m[c][col j], col j = tx*4 + j
-// (j < 4) or 64 + tx*4 + j - 4
-__device__ __forceinline__ void acc_tile(const float* pt, const float* m,
-                                         int n, int ty, int tx,
-                                         float (&o)[kRows][kOCols]) {
-#pragma unroll 4
-  for (int c = 0; c < n; ++c) {
-    const float4 pa = *reinterpret_cast<const float4*>(
-        &pt[c * kStride + ty * kRows]);
-    const float4 pb = *reinterpret_cast<const float4*>(
-        &pt[c * kStride + ty * kRows + 4]);
-    const float4 ma = *reinterpret_cast<const float4*>(
-        &m[c * kHdMax + tx * 4]);
-    const float4 mb = *reinterpret_cast<const float4*>(
-        &m[c * kHdMax + 64 + tx * 4]);
-    const float pv[kRows] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
-    const float mv[kOCols] = {ma.x, ma.y, ma.z, ma.w, mb.x, mb.y, mb.z, mb.w};
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kOCols; ++j) o[i][j] = fmaf(pv[i], mv[j], o[i][j]);
-  }
-}
-
-// s[i][j] (rows ty*8 + i, columns tx*4 + j) into buf[column][row]
-__device__ __forceinline__ void store_t(float* buf, int ty, int tx,
-                                        const float (&s)[kRows][kSCols]) {
-#pragma unroll
-  for (int j = 0; j < kSCols; ++j) {
-    float* dst = &buf[(tx * kSCols + j) * kStride + ty * kRows];
-    *reinterpret_cast<float4*>(dst) =
-        make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    *reinterpret_cast<float4*>(dst + 4) =
-        make_float4(s[4][j], s[5][j], s[6][j], s[7][j]);
-  }
-}
-
-// rows ty*8 + i < n of o (times `mul`) into dst + row * stride, columns < hd
-template <typename T>
-__device__ __forceinline__ void store_rows(T* dst, size_t stride, int n,
-                                           int hd, int ty, int tx, float mul,
-                                           const float (&o)[kRows][kOCols]) {
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = ty * kRows + i;
-    if (r >= n) continue;
-#pragma unroll
-    for (int j = 0; j < kOCols; ++j) {
-      const int col = (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
-      if (col < hd) store(dst + (size_t)r * stride + col, o[i][j] * mul);
-    }
-  }
-}
-
-template <typename QT, typename KT>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkdv_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
-                      const KT* __restrict__ v, const QT* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, KT* __restrict__ dk,
-                      KT* __restrict__ dv, int Sq, int Sk, int H, int KV,
-                      int hd, int causal, int q_offset, float scale) {
-  extern __shared__ float4 bwd_smem4[];
-  float* kt = reinterpret_cast<float*>(bwd_smem4);  // K^T
-  float* vt = kt + kTileT;                           // V^T
-  float* qt = vt + kTileT;                           // Q^T (query tile)
-  float* ot = qt + kTileT;                           // dO^T
-  float* qr = ot + kTileT;                           // Q [row][d]
-  float* orow = qr + kTileR;                         // dO [row][d]
-  float* pt = orow + kTileR;                         // P^T, then dS^T
-  float* ls = pt + kBufP;                            // lse of the tile
-  float* dl = ls + kBQ;                              // D of the tile
-
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int b = blockIdx.x / KV, kh = blockIdx.x % KV, G = H / KV;
-  // causal: the first kv blocks see the most query tiles; they go first
-  const int k0 = blockIdx.y * kBK;
-  const int k_rows = min(kBK, Sk - k0);
-  const size_t kv_off = ((size_t)b * Sk + k0) * KV * hd + (size_t)kh * hd;
-  load_tile<KT>(kt, nullptr, k + kv_off, (size_t)KV * hd, k_rows, hd);
-  load_tile<KT>(vt, nullptr, v + kv_off, (size_t)KV * hd, k_rows, hd);
-
-  float dk_acc[kRows][kOCols], dv_acc[kRows][kOCols];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kOCols; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
-  // causal: query tiles wholly before k0 (every row's last visible column
-  // < k0) contribute nothing
-  const int t0 = causal ? max(0, k0 - q_offset) / kBQ : 0;
-  const int n_qt = (Sq + kBQ - 1) / kBQ;
-  for (int g = 0; g < G; ++g) {
-    const int h = kh * G + g;
-    const float* lse_h = lse + ((size_t)b * H + h) * Sq;
-    const float* d_h = delta + ((size_t)b * H + h) * Sq;
-    for (int t = t0; t < n_qt; ++t) {
-      const int q0 = t * kBQ;
-      const int q_rows = min(kBQ, Sq - q0);
-      const size_t q_off = (((size_t)b * Sq + q0) * H + h) * hd;
-      __syncthreads();  // the previous tile's reads are done
-      load_tile<QT>(qt, qr, q + q_off, (size_t)H * hd, q_rows, hd);
-      load_tile<QT>(ot, orow, dout + q_off, (size_t)H * hd, q_rows, hd);
-      if (tid < kBQ) {
-        ls[tid] = tid < q_rows ? lse_h[q0 + tid] : 0.f;
-        dl[tid] = tid < q_rows ? d_h[q0 + tid] : 0.f;
-      }
-      __syncthreads();
-
-      // P^T: kv rows ty*8 + i, query columns tx*4 + j
-      float s[kRows][kSCols];
-      dot_tile(kt, qt, hd, ty, tx, s);
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kSCols; ++j) {
-          const int r = ty * kRows + i, c = tx * kSCols + j;
-          const bool live = r < k_rows && c < q_rows &&
-                            (!causal || k0 + r <= q_offset + q0 + c);
-          s[i][j] = live ? expf(s[i][j] * scale - ls[c]) : 0.f;
-        }
-      store_t(pt, ty, tx, s);
-      __syncthreads();
-      acc_tile(pt, orow, q_rows, ty, tx, dv_acc);  // dV += P^T dO
-      float dp[kRows][kSCols];
-      dot_tile(vt, ot, hd, ty, tx, dp);            // (dO V^T)^T
-      __syncthreads();  // every thread is done reading P^T
-#pragma unroll
-      for (int j = 0; j < kSCols; ++j) {
-        const int c = tx * kSCols + j;
-        float* col = &pt[c * kStride + ty * kRows];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) col[i] = col[i] * (dp[i][j] - dl[c]);
-      }
-      __syncthreads();
-      acc_tile(pt, qr, q_rows, ty, tx, dk_acc);    // dK += dS^T Q
-    }
-  }
-  store_rows<KT>(dk + kv_off, (size_t)KV * hd, k_rows, hd, ty, tx, scale,
-                 dk_acc);
-  store_rows<KT>(dv + kv_off, (size_t)KV * hd, k_rows, hd, ty, tx, 1.f,
-                 dv_acc);
-}
-
-template <typename QT, typename KT>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
-                    const KT* __restrict__ v, const QT* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, QT* __restrict__ dq,
-                    int Sq, int Sk, int H, int KV, int hd, int causal,
-                    int q_offset, float scale) {
-  extern __shared__ float4 bwd_smem4[];
-  float* qt = reinterpret_cast<float*>(bwd_smem4);  // Q^T
-  float* ot = qt + kTileT;                           // dO^T
-  float* kt = ot + kTileT;                           // K^T (kv tile)
-  float* vt = kt + kTileT;                           // V^T
-  float* kr = vt + kTileT;                           // K [row][d]
-  float* pt = kr + kTileR;                           // dS^T
-  float* ls = pt + kBufP;
-  float* dl = ls + kBQ;
-
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H, kh = h / (H / KV);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heavy blocks first
-  const int q_rows = min(kBQ, Sq - q0);
-  const size_t q_off = (((size_t)b * Sq + q0) * H + h) * hd;
-  load_tile<QT>(qt, nullptr, q + q_off, (size_t)H * hd, q_rows, hd);
-  load_tile<QT>(ot, nullptr, dout + q_off, (size_t)H * hd, q_rows, hd);
-  if (tid < kBQ) {
-    ls[tid] = tid < q_rows ? lse[(size_t)bh * Sq + q0 + tid] : 0.f;
-    dl[tid] = tid < q_rows ? delta[(size_t)bh * Sq + q0 + tid] : 0.f;
-  }
-
-  float dq_acc[kRows][kOCols];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kOCols; ++j) dq_acc[i][j] = 0.f;
-
-  int n_tiles = (Sk + kBK - 1) / kBK;
-  if (causal) n_tiles = min(n_tiles, (q_offset + q0 + q_rows - 1) / kBK + 1);
-  const KT* kb = k + (size_t)b * Sk * KV * hd + (size_t)kh * hd;
-  const KT* vb = v + (size_t)b * Sk * KV * hd + (size_t)kh * hd;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBK;
-    const int k_rows = min(kBK, Sk - k0);
-    __syncthreads();  // the previous tile's reads are done
-    load_tile<KT>(kt, kr, kb + (size_t)k0 * KV * hd, (size_t)KV * hd,
-                  k_rows, hd);
-    load_tile<KT>(vt, nullptr, vb + (size_t)k0 * KV * hd, (size_t)KV * hd,
-                  k_rows, hd);
-    __syncthreads();
-
-    // query rows ty*8 + i, kv columns tx*4 + j
-    float s[kRows][kSCols], dp[kRows][kSCols];
-    dot_tile(qt, kt, hd, ty, tx, s);
-    dot_tile(ot, vt, hd, ty, tx, dp);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kSCols; ++j) {
-        const int r = ty * kRows + i, c = tx * kSCols + j;
-        const bool live = r < q_rows && c < k_rows &&
-                          (!causal || k0 + c <= q_offset + q0 + r);
-        const float p = live ? expf(s[i][j] * scale - ls[r]) : 0.f;
-        s[i][j] = p * (dp[i][j] - dl[r]);
-      }
-    store_t(pt, ty, tx, s);
-    __syncthreads();
-    acc_tile(pt, kr, k_rows, ty, tx, dq_acc);  // dQ += dS K
-  }
-  store_rows<QT>(dq + q_off, (size_t)H * hd, q_rows, hd, ty, tx, scale,
-                 dq_acc);
-}
-
 template <typename QT>
 cudaError_t launch_delta(const void* out, const void* dout, float* delta,
                          int B, int Sq, int H, int hd, cudaStream_t stream) {
@@ -876,40 +389,6 @@ cudaError_t launch_delta(const void* out, const void* dout, float* delta,
       static_cast<const QT*>(out), static_cast<const QT*>(dout), delta, rows,
       Sq, H, hd);
   return cudaGetLastError();
-}
-
-template <typename QT, typename KT>
-int launch_bwd(const void* q, const void* k, const void* v, const void* out,
-               const void* dout, const float* lse, float* delta, void* dq,
-               void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
-               int hd, int causal, int q_offset, cudaStream_t stream) {
-  const float scale = 1.0f / sqrtf((float)hd);
-  cudaError_t e = launch_delta<QT>(out, dout, delta, B, Sq, H, hd, stream);
-  if (e != cudaSuccess) return (int)e;
-
-  auto dkdv = flash_bwd_dkdv_kernel<QT, KT>;
-  const size_t smem_kv = kDkdvSmemFloats * sizeof(float);
-  static int granted_kv[64];
-  e = mma::allow_smem(dkdv, smem_kv, granted_kv);
-  if (e != cudaSuccess) return (int)e;
-  dkdv<<<dim3(B * KV, (Sk + kBK - 1) / kBK), kThreads, smem_kv, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KT*>(k),
-      static_cast<const KT*>(v), static_cast<const QT*>(dout), lse, delta,
-      static_cast<KT*>(dk), static_cast<KT*>(dv), Sq, Sk, H, KV, hd, causal,
-      q_offset, scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-
-  auto dqk = flash_bwd_dq_kernel<QT, KT>;
-  const size_t smem_q = kDqSmemFloats * sizeof(float);
-  static int granted_q[64];
-  e = mma::allow_smem(dqk, smem_q, granted_q);
-  if (e != cudaSuccess) return (int)e;
-  dqk<<<dim3(B * H, (Sq + kBQ - 1) / kBQ), kThreads, smem_q, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KT*>(k),
-      static_cast<const KT*>(v), static_cast<const QT*>(dout), lse, delta,
-      static_cast<QT*>(dq), Sq, Sk, H, KV, hd, causal, q_offset, scale);
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1348,10 +827,996 @@ int launch_bwd_tc(const void* q, const void* k, const void* v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// fp32: f32 or mixed inputs on bf16 tensor cores through an exact split
+// ---------------------------------------------------------------------------
+//
+// An f32 value is exactly x1 + x2 + x3, three bf16 terms of 8 significand
+// bits each (mma::split3; |x2| <= 2^-8 |x|, |x3| <= 2^-16 |x|); a bf16
+// value is its own one term. A product of two split operands keeps the
+// bf16 products x_i y_j with i + j <= 2 (0-based): six for f32 x f32,
+// three when one side is bf16, one for bf16 x bf16. The three it drops
+// (x2 y3, x3 y2, x3 y3) come to at most 2^-23 |x y|, about one f32
+// rounding of the product, so a dot product keeps f32's accuracy. Each
+// bf16 product is exact in the tensor cores' f32 sum, but that sum
+// truncates: x1 y1 is summed in a fragment of its own and the smaller
+// products in another (their sum is ~2^-8 of x1 y1's, so its truncation
+// is too), and the two are added in f32 round-to-nearest; a tile's
+// P V (and dV, dK, dQ) is summed in fresh fragments and added to the
+// running sum in f32, as the tc kernels do.
+//
+// Why this route and not 3xTF32 (hi = tf32(x), lo = tf32(x - hi), three
+// m16n8k8 TF32 products at half the bf16 rate: the same tensor-core time
+// as six bf16 ones): it reuses the tc kernels' fragments, ldmatrix loads
+// (there is no 32-bit ldmatrix.trans for V) and the accumulator-to-A
+// register reuse of P and dS, whose m16n8k8 TF32 layouts differ; and a
+// bf16 operand needs one term instead of two, so mixed dtypes issue half.
+//
+// Tiles live in shared memory as the operand's terms, bf16 planes
+// [terms][rows][HDP + 8] (ldmatrix without bank conflicts), HDP the head
+// dim rounded up to 64, 96, 112 or 128 with zero columns (any hd % 4 == 0
+// up to 128). A CTA of 8 warps keeps one side resident (split once) and
+// walks 32-row tiles of the other: each tile arrives raw in a staging
+// buffer by cp.async (16, 8 or 4 bytes a copy, as the tensor's alignment
+// allows; element by element for a bf16 tensor off 4 bytes) while the
+// previous tile is computed, then the CTA splits it into the planes
+// between two barriers. One CTA an SM (185 KB of shared memory at HDP
+// 128, all f32), up to 255 registers a thread. A warp skips a tile that
+// its rows cannot see under the causal mask. Products issue in
+// product-major order over four n-tiles (S and P V; S beside dP in the
+// backward), so that no accumulator waits on the one issued just before
+// (issued n-tile by n-tile, the lo chains stalled the tensor cores: the
+// SASS held NOPs between dependent HMMAs).
+//   forward: a CTA per (batch x head, 128 query rows), heavy blocks first;
+//     Q's planes resident, K and V in 32-row tiles; each warp 16 query
+//     rows: S = Q K^T, the tc kernel's online softmax, P split into three
+//     terms in registers (its C layout is the A layout), O += P V.
+//   dk/dv: a CTA per (b, kv head, 64 kv rows) keeps K's and V's planes and
+//     walks its G query heads and every 32-row query tile that sees its
+//     rows (with their lse and D); warp w takes kv rows 16 (w / 2) and
+//     query columns 16 (w % 2) of each tile: S^T = K Q^T, P^T, dV +=
+//     P^T dO, dP^T = V dO^T, dS^T, dK += dS^T Q.
+//   dq: a CTA per (b, head, 64 query rows), heavy blocks first, keeps Q's
+//     and dO's planes and walks 32-row kv tiles; warp w takes query rows
+//     16 (w / 2) and kv columns 16 (w % 2): S, dP, dS, dQ += dS K.
+// In both backward passes the two warps of a row block sum alternate
+// column halves of every tile, each in a fixed order, and the even warp
+// adds the odd one's sum to its own through shared memory at the end: no
+// atomics, the same bits on every call.
+// Bound: the same products as the tc pair at the bf16 peak divided by the
+// products a split product issues (989/6 TFLOP/s for f32 x f32,
+// 989/3 with a bf16 side; obs/work.py).
+
+constexpr int kSpT = 32;         // rows of a walked tile
+constexpr int kSpBQ = 128;       // query rows a forward CTA
+constexpr int kSpRes = 64;       // resident rows a backward CTA
+constexpr int kSpThreads = 256;  // 8 warps
+
+// flags of a split launch: the dtypes, and the byte alignment (2, 4, 8 or
+// 16) that every row of q, k, v and dout keeps, 2 bits each (code
+// log2(align) - 1): the staged tiles' copy size, and whether a resident
+// tile loads 4 elements at once (16 bytes of f32, 8 of bf16)
+enum : int { kQBf16 = 1, kKvBf16 = 2 };
+enum : int { kQAlign = 8, kKAlign = 10, kVAlign = 12, kOAlign = 14 };
+
+__device__ __forceinline__ int align_of(int flags, int shift) {
+  return 2 << ((flags >> shift) & 3);
+}
+
+__device__ __forceinline__ bool vec_of(int flags, int shift, bool bf16) {
+  return align_of(flags, shift) >= (bf16 ? 8 : 16);
+}
+
+// v0, v1 as their three split3 terms, each a bf16x2 word (t[0] highest):
+// one rounding a term for both values
+__device__ __forceinline__ void split3x2(float v0, float v1, uint32_t (&t)[3]) {
+  const __nv_bfloat162 h0 = __floats2bfloat162_rn(v0, v1);
+  const float2 f0 = __bfloat1622float2(h0);
+  const float r0 = v0 - f0.x, r1 = v1 - f0.y;
+  const __nv_bfloat162 h1 = __floats2bfloat162_rn(r0, r1);
+  const float2 f1 = __bfloat1622float2(h1);
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(r0 - f1.x, r1 - f1.y);
+  t[0] = *reinterpret_cast<const uint32_t*>(&h0);
+  t[1] = *reinterpret_cast<const uint32_t*>(&h1);
+  t[2] = *reinterpret_cast<const uint32_t*>(&h2);
+}
+
+template <int N>  // N = 4, 8 or 16 bytes, `bytes` of them read, rest zero
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src,
+                                           int bytes) {
+  if (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     mma::smem_addr(dst)), "l"(src), "r"(bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                     mma::smem_addr(dst)), "l"(src), "n"(N), "r"(bytes));
+}
+
+// rows [0, n) and columns [0, hd) of src (row stride `stride` elements)
+// into the raw tile stg [ROWS][HDP] by cp.async of CB bytes a copy (not
+// committed), the rest zero; CB 2: element by element
+template <int HDP, int ROWS, int CB, typename T>
+__device__ __forceinline__ void stage_cb(T* stg, const T* src, size_t stride,
+                                         int n, int hd) {
+  constexpr int E = sizeof(T);
+  if constexpr (CB >= 4) {
+    constexpr int CE = CB / E, CPR = HDP / CE;  // elements a copy, a row
+    for (int i = threadIdx.x; i < ROWS * CPR; i += kSpThreads) {
+      const int r = i / CPR, c = (i % CPR) * CE;
+      const int valid = r < n ? max(0, min(CE, hd - c)) : 0;
+      cp_async_n<CB>(stg + r * HDP + c,
+                     valid ? src + (size_t)r * stride + c : src, valid * E);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * HDP; i += kSpThreads) {
+      const int r = i / HDP, c = i % HDP;
+      stg[i] = r < n && c < hd ? src[(size_t)r * stride + c] : T();
+    }
+  }
+}
+
+template <int HDP, int ROWS, typename T>
+__device__ __forceinline__ void stage_tile_t(T* stg, const T* src,
+                                             size_t stride, int n, int hd,
+                                             int align) {
+  if (align == 16) stage_cb<HDP, ROWS, 16>(stg, src, stride, n, hd);
+  else if (align == 8) stage_cb<HDP, ROWS, 8>(stg, src, stride, n, hd);
+  else if (align == 4) stage_cb<HDP, ROWS, 4>(stg, src, stride, n, hd);
+  else stage_cb<HDP, ROWS, 2>(stg, src, stride, n, hd);
+}
+
+template <int HDP, int ROWS>
+__device__ __forceinline__ void stage_tile(void* stg, const void* src,
+                                           bool bf16, size_t off,
+                                           size_t stride, int n, int hd,
+                                           int align) {
+  if (bf16)
+    stage_tile_t<HDP, ROWS>(static_cast<__nv_bfloat16*>(stg),
+                            static_cast<const __nv_bfloat16*>(src) + off,
+                            stride, n, hd, align);
+  else
+    stage_tile_t<HDP, ROWS>(static_cast<float*>(stg),
+                            static_cast<const float*>(src) + off, stride, n,
+                            hd, align);
+}
+
+// 4 consecutive elements (32-bit words w, f32: 4 words, bf16: 2) into
+// the planes at d (plane stride `plane`): split3 for f32, a copy for bf16
+template <bool F32>
+__device__ __forceinline__ void put_terms(__nv_bfloat16* d, size_t plane,
+                                          const uint32_t* w) {
+  if (F32) {
+    uint32_t lo[3], hi[3];
+    split3x2(__uint_as_float(w[0]), __uint_as_float(w[1]), lo);
+    split3x2(__uint_as_float(w[2]), __uint_as_float(w[3]), hi);
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+      *reinterpret_cast<uint2*>(d + p * plane) = make_uint2(lo[p], hi[p]);
+  } else {
+    *reinterpret_cast<uint2*>(d) = make_uint2(w[0], w[1]);
+  }
+}
+
+// the staged raw tile [ROWS][HDP] of T as its planes [terms][ROWS][HDP + 8]
+template <int HDP, int ROWS, typename T>
+__device__ __forceinline__ void split_stage_t(__nv_bfloat16* dst,
+                                              const T* stg) {
+  constexpr int CPR = HDP / 4, N = ROWS * CPR, F32 = sizeof(T) == 4;
+#pragma unroll
+  for (int i0 = 0; i0 < N; i0 += kSpThreads) {
+    const int i = i0 + threadIdx.x;
+    if (N % kSpThreads != 0 && i >= N) break;
+    const int r = i / CPR, c = (i % CPR) * 4;
+    uint32_t w[4];
+    if (F32) {
+      const uint4 u = *reinterpret_cast<const uint4*>(stg + r * HDP + c);
+      w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
+    } else {
+      const uint2 u = *reinterpret_cast<const uint2*>(stg + r * HDP + c);
+      w[0] = u.x, w[1] = u.y;
+    }
+    put_terms<F32>(dst + r * (HDP + 8) + c, (size_t)ROWS * (HDP + 8), w);
+  }
+}
+
+template <int HDP, int ROWS>
+__device__ __forceinline__ void split_stage(__nv_bfloat16* dst,
+                                            const void* stg, bool bf16) {
+  if (bf16)
+    split_stage_t<HDP, ROWS>(dst, static_cast<const __nv_bfloat16*>(stg));
+  else
+    split_stage_t<HDP, ROWS>(dst, static_cast<const float*>(stg));
+}
+
+// a resident tile, loaded once: rows [0, n) and columns [0, hd) of src
+// straight into its planes through registers (4 elements a load when
+// `vec`, else one at a time), the rest zero
+template <int HDP, int ROWS, typename T>
+__device__ __forceinline__ void split_tile_t(__nv_bfloat16* dst, const T* src,
+                                             size_t stride, int n, int hd,
+                                             bool vec) {
+  constexpr int CPR = HDP / 4, N = ROWS * CPR;
+  constexpr int PER = (N + kSpThreads - 1) / kSpThreads;
+  constexpr bool F32 = sizeof(T) == 4;
+  uint32_t w[PER][4];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {  // every load first, then every store
+    const int i = threadIdx.x + k * kSpThreads;
+    const int r = i / CPR, c = (i % CPR) * 4;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) w[k][j] = 0u;
+    if (i < N && r < n && c < hd) {
+      const T* p = src + (size_t)r * stride + c;
+      if (F32 && vec) {
+        const uint4 u = *reinterpret_cast<const uint4*>(p);
+        w[k][0] = u.x, w[k][1] = u.y, w[k][2] = u.z, w[k][3] = u.w;
+      } else if (vec) {
+        const uint2 u = *reinterpret_cast<const uint2*>(p);
+        w[k][0] = u.x, w[k][1] = u.y;
+      } else if (F32) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          w[k][j] = reinterpret_cast<const uint32_t*>(p)[j];
+      } else {
+        const uint16_t* h = reinterpret_cast<const uint16_t*>(p);
+        w[k][0] = (uint32_t)h[0] | ((uint32_t)h[1] << 16);
+        w[k][1] = (uint32_t)h[2] | ((uint32_t)h[3] << 16);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = threadIdx.x + k * kSpThreads;
+    if (i < N)
+      put_terms<F32>(dst + (i / CPR) * (HDP + 8) + (i % CPR) * 4,
+                     (size_t)ROWS * (HDP + 8), w[k]);
+  }
+}
+
+template <int HDP, int ROWS>
+__device__ __forceinline__ void split_tile(__nv_bfloat16* dst, const void* src,
+                                           bool bf16, size_t off,
+                                           size_t stride, int n, int hd,
+                                           bool vec) {
+  if (bf16)
+    split_tile_t<HDP, ROWS>(dst, static_cast<const __nv_bfloat16*>(src) + off,
+                            stride, n, hd, vec);
+  else
+    split_tile_t<HDP, ROWS>(dst, static_cast<const float*>(src) + off, stride,
+                            n, hd, vec);
+}
+
+// the split product of A (G groups of terms a[g], na of them) and B (nb
+// terms; b[j][m] one ldmatrix.x4: n-tiles 2m and 2m + 1) into NT n-tiles,
+// n-tile n reading A group n * G / NT: hi[n] += a_0 b_0 and lo[n] += every
+// other a_i b_j with i + j <= 2. Product-major: the products on one
+// accumulator lie NT issues apart, past the tensor cores' latency
+template <int NT, int G>
+__device__ __forceinline__ void mma_split(float (&hi)[NT][4],
+                                          float (&lo)[NT][4],
+                                          const uint32_t (&a)[G][3][4], int na,
+                                          const uint32_t (&b)[3][NT / 2][4],
+                                          int nb) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    mma::mma_bf16(hi[n], a[n * G / NT][0], b[0][n >> 1][(n & 1) * 2],
+                  b[0][n >> 1][(n & 1) * 2 + 1]);
+#pragma unroll
+  for (int p = 0; p < 5; ++p) {  // (i, j): (0,1) (1,0) (0,2) (1,1) (2,0)
+    const int i = p < 2 ? p : p - 2, j = p < 2 ? 1 - p : 4 - p;
+    if (i >= na || j >= nb) continue;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      mma::mma_bf16(lo[n], a[n * G / NT][i], b[j][n >> 1][(n & 1) * 2],
+                    b[j][n >> 1][(n & 1) * 2 + 1]);
+  }
+}
+
+// the f32 C-layout values of a 16 x 16 block (x0: columns 0-7, x1: 8-15)
+// as the three split3 terms of one A fragment
+__device__ __forceinline__ void split_a(const float (&x0)[4],
+                                        const float (&x1)[4],
+                                        uint32_t (&a)[3][4]) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const float* x = half ? x1 : x0;
+      uint32_t t[3];
+      split3x2(x[rr * 2], x[rr * 2 + 1], t);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) a[i][half * 2 + rr] = t[i];
+    }
+}
+
+// the planes of a 16-row A operand at row `row` (ldmatrix, one x4 a term)
+template <int LD>
+__device__ __forceinline__ void ld_a(uint32_t (&a)[3][4],
+                                     const __nv_bfloat16* planes,
+                                     size_t plane, int n, int row, int kk,
+                                     int lane) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    if (i < n)
+      mma::ldsm_x4(a[i], planes + i * plane + (row + (lane & 15)) * LD +
+                             kk * 16 + (lane >> 4) * 8);
+}
+
+// B for two n-tiles, into b[j][m], from 16 rows (from `row`) of [n][k]
+// planes: k-step kk
+template <int LD, int M>
+__device__ __forceinline__ void ld_b(uint32_t (&b)[3][M][4], int m,
+                                     const __nv_bfloat16* planes,
+                                     size_t plane, int n, int row, int kk,
+                                     int lane) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    if (j < n)
+      mma::ldsm_x4(b[j][m], planes + j * plane +
+                                (row + (lane >> 4) * 8 + (lane & 7)) * LD +
+                                kk * 16 + ((lane >> 3) & 1) * 8);
+}
+
+// B for n-tiles 2hp, 2hp + 1 (columns 16 hp ..), into b[j][m], from 16 rows
+// (from `row`, the k dimension) of [k][n] planes, read transposed
+template <int LD, int M>
+__device__ __forceinline__ void ld_bt(uint32_t (&b)[3][M][4], int m,
+                                      const __nv_bfloat16* planes,
+                                      size_t plane, int n, int row, int hp,
+                                      int lane) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    if (j < n)
+      mma::ldsm_x4_t(b[j][m], planes + j * plane +
+                                  (row + ((lane >> 3) & 1) * 8 + (lane & 7)) *
+                                      LD + (2 * hp + (lane >> 4)) * 8);
+}
+
+// acc[2 hp ..] += X M over NT n-tiles from pair hp: X the warp's 16 rows
+// of KS 16-column k-steps as split terms (xa[kk]), M [16 KS rows from
+// `row`][HDP] planes read transposed, summed in fresh hi / lo fragments,
+// then added in f32
+template <int HDP, int NT, int KS>
+__device__ __forceinline__ void acc_xm_n(float (&acc)[HDP / 8][4], int hp,
+                                         const uint32_t (&xa)[KS][1][3][4],
+                                         const __nv_bfloat16* m, size_t plane,
+                                         int nm, int row, int lane) {
+  float hi[NT][4] = {}, lo[NT][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t b[3][NT / 2][4];
+#pragma unroll
+    for (int t = 0; t < NT / 2; ++t)
+      ld_bt<HDP + 8>(b, t, m, plane, nm, row + kk * 16, hp + t, lane);
+    mma_split<NT, 1>(hi, lo, xa[kk], 3, b, nm);
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[2 * hp + j][e] += hi[j][e] + lo[j][e];
+}
+
+// acc += X M over every n-tile: four at a time, then the last two
+template <int HDP, int KS>
+__device__ __forceinline__ void acc_xm(float (&acc)[HDP / 8][4],
+                                       const uint32_t (&xa)[KS][1][3][4],
+                                       const __nv_bfloat16* m, size_t plane,
+                                       int nm, int row, int lane) {
+  constexpr int NP = HDP / 16;  // n-tile pairs
+#pragma unroll
+  for (int hp = 0; hp + 1 < NP; hp += 2)
+    acc_xm_n<HDP, 4, KS>(acc, hp, xa, m, plane, nm, row, lane);
+  if constexpr (NP % 2 != 0)
+    acc_xm_n<HDP, 2, KS>(acc, NP - 1, xa, m, plane, nm, row, lane);
+}
+
+// two of the warp's 16 x 16 blocks over HDP, interleaved: s[0..1] = A0 .
+// B0^T, s[2..3] = A1 . B1^T (A rows from ra of their planes, na terms; B
+// rows from rb, nb terms), hi and lo added in f32
+template <int HDP>
+__device__ __forceinline__ void dot2_ab(float (&s)[4][4],
+                                        const __nv_bfloat16* a0,
+                                        const __nv_bfloat16* a1, size_t pa,
+                                        int na, int ra,
+                                        const __nv_bfloat16* b0,
+                                        const __nv_bfloat16* b1, size_t pb,
+                                        int nb, int rb, int lane) {
+  constexpr int LD = HDP + 8;
+  float hi[4][4] = {}, lo[4][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < HDP / 16; ++kk) {
+    uint32_t af[2][3][4], bf[3][2][4];
+    ld_a<LD>(af[0], a0, pa, na, ra, kk, lane);
+    ld_a<LD>(af[1], a1, pa, na, ra, kk, lane);
+    ld_b<LD>(bf, 0, b0, pb, nb, rb, kk, lane);
+    ld_b<LD>(bf, 1, b1, pb, nb, rb, kk, lane);
+    mma_split<4, 2>(hi, lo, af, na, bf, nb);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = hi[j][e] + lo[j][e];
+}
+
+// rows row0 + g4 and + 8 of acc (times `mul`) into dst + row * stride,
+// rows below n and columns below hd, as T
+template <int HDP, typename T>
+__device__ __forceinline__ void store_acc_t(T* dst, size_t stride, int row0,
+                                            int n, int hd, float mul,
+                                            const float (&acc)[HDP / 8][4],
+                                            int lane) {
+  const int g4 = lane >> 2, q4 = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g4 + r * 8;
+    if (row >= n) continue;
+    T* p = dst + (size_t)row * stride + 2 * q4;
+#pragma unroll
+    for (int j = 0; j < HDP / 8; ++j) {
+      if (j * 8 + 2 * q4 >= hd) continue;  // hd is even: pairs stay whole
+      const float a = acc[j][2 * r] * mul, b = acc[j][2 * r + 1] * mul;
+      if (sizeof(T) == 4)
+        *reinterpret_cast<float2*>(p + j * 8) = make_float2(a, b);
+      else
+        *reinterpret_cast<uint32_t*>(p + j * 8) = mma::pack_bf16(a, b);
+    }
+  }
+}
+
+template <int HDP>
+__device__ __forceinline__ void store_acc(void* dst, bool bf16, size_t off,
+                                          size_t stride, int row0, int n,
+                                          int hd, float mul,
+                                          const float (&acc)[HDP / 8][4],
+                                          int lane) {
+  if (bf16)
+    store_acc_t<HDP>(static_cast<__nv_bfloat16*>(dst) + off, stride, row0, n,
+                     hd, mul, acc, lane);
+  else
+    store_acc_t<HDP>(static_cast<float*>(dst) + off, stride, row0, n, hd,
+                     mul, acc, lane);
+}
+
+// the two warps of a row block (w, w ^ 1) sum alternate column halves:
+// the odd one leaves its accumulator in slot (w / 2, a) of shared memory
+// (pair_put), the even one adds it to its own (pair_add), between
+// barriers once every tile read is done
+template <int HDP>
+__device__ __forceinline__ void pair_put(float* scratch, int slot,
+                                         const float (&acc)[HDP / 8][4],
+                                         int lane) {
+  float* p = scratch + (size_t)slot * (HDP / 8) * 4 * 32;
+#pragma unroll
+  for (int j = 0; j < HDP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[(j * 4 + e) * 32 + lane] = acc[j][e];
+}
+
+template <int HDP>
+__device__ __forceinline__ void pair_add(const float* scratch, int slot,
+                                         float (&acc)[HDP / 8][4], int lane) {
+  const float* p = scratch + (size_t)slot * (HDP / 8) * 4 * 32;
+#pragma unroll
+  for (int j = 0; j < HDP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += p[(j * 4 + e) * 32 + lane];
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(kSpThreads, 1)
+flash_split_kernel(const void* __restrict__ q, const void* __restrict__ k,
+                   const void* __restrict__ v, void* __restrict__ out,
+                   float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+                   int hd, int causal, int q_offset, float scale, int flags) {
+  constexpr int LD = HDP + 8, NKS = HDP / 16, NHT = HDP / 8;
+  constexpr int NST = kSpT / 8;  // score n-tiles a tile
+  const bool q_bf = flags & kQBf16, kv_bf = flags & kKvBf16;
+  const int nq = q_bf ? 1 : 3, nk = kv_bf ? 1 : 3;
+  const size_t pq = (size_t)kSpBQ * LD, pk = (size_t)kSpT * LD;
+  extern __shared__ float4 sp_smem4[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(sp_smem4);
+  __nv_bfloat16* ks = qs + nq * pq;  // [nk][32][LD]
+  __nv_bfloat16* vs = ks + nk * pk;  // [nk][32][LD]
+  char* stg_k = reinterpret_cast<char*>(vs + nk * pk);  // [32][HDP] raw
+  char* stg_v = stg_k + kSpT * HDP * (kv_bf ? 2 : 4);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g4 = lane >> 2, q4 = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int kh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kSpBQ;  // heavy blocks first
+  const int q_rows = min(kSpBQ, Sq - q0);
+  const size_t q_stride = (size_t)H * hd, kv_stride = (size_t)KV * hd;
+  const size_t q_off = (((size_t)b * Sq + q0) * H + h) * hd;
+  const size_t kv_base = (size_t)b * Sk * kv_stride + (size_t)kh * hd;
+  auto stage = [&](int t) {
+    const size_t off = kv_base + (size_t)t * kSpT * kv_stride;
+    stage_tile<HDP, kSpT>(stg_k, k, kv_bf, off, kv_stride, Sk - t * kSpT,
+                          hd, align_of(flags, kKAlign));
+    stage_tile<HDP, kSpT>(stg_v, v, kv_bf, off, kv_stride, Sk - t * kSpT,
+                          hd, align_of(flags, kVAlign));
+    mma::cp_async_commit();
+  };
+  stage(0);
+  split_tile<HDP, kSpBQ>(qs, q, q_bf, q_off, q_stride, q_rows, hd,
+                         vec_of(flags, kQAlign, q_bf));
+
+  int n_tiles = (Sk + kSpT - 1) / kSpT;
+  if (causal)
+    n_tiles = min(n_tiles, (q_offset + q0 + q_rows - 1) / kSpT + 1);
+  float o[NHT][4];
+#pragma unroll
+  for (int j = 0; j < NHT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+  const int row_a = q_offset + q0 + warp * 16 + g4;  // absolute position
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kSpT;
+    mma::cp_async_wait<0>();
+    __syncthreads();  // tile t staged; every warp is done with tile t - 1
+    split_stage<HDP, kSpT>(ks, stg_k, kv_bf);
+    split_stage<HDP, kSpT>(vs, stg_v, kv_bf);
+    __syncthreads();  // tile t (and Q) split; the staging buffer is free
+    if (t + 1 < n_tiles) stage(t + 1);
+    // causal: a tile past every row of this warp adds nothing
+    if (causal && k0 > row_a - g4 + 15) continue;
+
+    // S = Q K^T for the warp's 16 rows x 32 columns
+    float sh[NST][4] = {}, sl[NST][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < NKS; ++kk) {
+      uint32_t qa[1][3][4], kb[3][NST / 2][4];
+      ld_a<LD>(qa[0], qs, pq, nq, warp * 16, kk, lane);
+#pragma unroll
+      for (int np = 0; np < NST / 2; ++np)
+        ld_b<LD>(kb, np, ks, pk, nk, np * 16, kk, lane);
+      mma_split<NST, 1>(sh, sl, qa, nq, kb, nk);
+    }
+
+    // scale, mask, online softmax (rows g4 and g4 + 8; a quad holds a row)
+    const bool need_mask =
+        k0 + kSpT > Sk || (causal && k0 + kSpT - 1 > q_offset + q0);
+    float s[NST][4], mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < NST; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float sv = (sh[j][e] + sl[j][e]) * scale;
+        if (need_mask) {
+          const int col = k0 + j * 8 + 2 * q4 + (e & 1);
+          if (col >= Sk || (causal && col > row_a + (e >> 1) * 8))
+            sv = kNegInf;
+        }
+        s[j][e] = sv;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sv);
+      }
+    float alpha[2], m_new[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      m_new[r] = fmaxf(m_r[r], mx[r]);
+      alpha[r] = expf(m_r[r] - m_new[r]);
+    }
+#pragma unroll
+    for (int j = 0; j < NST; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - m_new[e >> 1]);
+        s[j][e] = p;
+        sum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      l_r[r] = l_r[r] * alpha[r] + sum[r];
+      m_r[r] = m_new[r];
+    }
+    // P as three exact bf16 terms a 16-column k-step, in the A layout
+    uint32_t pa[NST / 2][1][3][4];
+#pragma unroll
+    for (int kk = 0; kk < NST / 2; ++kk)
+      split_a(s[2 * kk], s[2 * kk + 1], pa[kk][0]);
+    // O = alpha O + P V, the tile's P V summed in fresh fragments, four
+    // n-tiles at a time
+#pragma unroll
+    for (int j = 0; j < NHT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+    acc_xm<HDP, NST / 2>(o, pa, vs, pk, nk, 0, lane);
+  }
+
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    den[r] = fmaxf(l_r[r], 1e-30f);
+    const int row = warp * 16 + g4 + r * 8;
+    if (lse != nullptr && q4 == 0 && row < q_rows)
+      lse[(size_t)bh * Sq + q0 + row] = m_r[r] + logf(den[r]);
+  }
+#pragma unroll
+  for (int j = 0; j < NHT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] /= den[e >> 1];
+  store_acc<HDP>(out, q_bf, q_off, q_stride, warp * 16, q_rows, hd, 1.f, o,
+                 lane);
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(kSpThreads, 1)
+flash_bwd_dkdv_split_kernel(const void* __restrict__ q,
+                            const void* __restrict__ k,
+                            const void* __restrict__ v,
+                            const void* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            void* __restrict__ dk, void* __restrict__ dv,
+                            int Sq, int Sk, int H, int KV, int hd, int causal,
+                            int q_offset, float scale, int flags) {
+  constexpr int LD = HDP + 8, NHT = HDP / 8;
+  const bool q_bf = flags & kQBf16, kv_bf = flags & kKvBf16;
+  const int nq = q_bf ? 1 : 3, nk = kv_bf ? 1 : 3;
+  const size_t pr = (size_t)kSpRes * LD, pt = (size_t)kSpT * LD;
+  extern __shared__ float4 sp_smem4[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(sp_smem4);
+  __nv_bfloat16* vs = ks + nk * pr;
+  __nv_bfloat16* qs = vs + nk * pr;  // the query tile's planes
+  __nv_bfloat16* os = qs + nq * pt;  // dO's
+  float* ls = reinterpret_cast<float*>(os + nq * pt);  // [2][32] lse
+  float* dls = ls + 2 * kSpT;                          // [2][32] D
+  char* stg_q = reinterpret_cast<char*>(dls + 2 * kSpT);  // [32][HDP] raw
+  char* stg_o = stg_q + kSpT * HDP * (q_bf ? 2 : 4);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g4 = lane >> 2, q4 = lane & 3;
+  const int rw = (warp >> 1) * 16, cw = (warp & 1) * 16;  // kv rows, q cols
+  const int b = blockIdx.x / KV, kh = blockIdx.x % KV, G = H / KV;
+  // causal: the first kv blocks see the most query tiles; they go first
+  const int k0 = blockIdx.y * kSpRes;
+  const int k_rows = min(kSpRes, Sk - k0);
+  const size_t kv_stride = (size_t)KV * hd, q_stride = (size_t)H * hd;
+  const size_t kv_off = ((size_t)b * Sk + k0) * kv_stride + (size_t)kh * hd;
+
+  // causal: query tiles wholly before k0 contribute nothing
+  const int t0 = causal ? max(0, k0 - q_offset) / kSpT : 0;
+  const int per_head = max(0, (Sq + kSpT - 1) / kSpT - t0);
+  const int n_it = G * per_head;
+  auto stage = [&](int it) {
+    const int h = kh * G + it / per_head;
+    const int q0 = (t0 + it % per_head) * kSpT;
+    const int rows = min(kSpT, Sq - q0);
+    const size_t off = (((size_t)b * Sq + q0) * H + h) * hd;
+    stage_tile<HDP, kSpT>(stg_q, q, q_bf, off, q_stride, rows, hd,
+                          align_of(flags, kQAlign));
+    stage_tile<HDP, kSpT>(stg_o, dout, q_bf, off, q_stride, rows, hd,
+                          align_of(flags, kOAlign));
+    if (tid < kSpT) {
+      const bool ok = tid < rows;
+      const size_t r = ((size_t)b * H + h) * Sq + q0 + (ok ? tid : 0);
+      const int buf = (it & 1) * kSpT + tid;
+      mma::cp_async4(ls + buf, lse + r, ok ? 4 : 0);
+      mma::cp_async4(dls + buf, delta + r, ok ? 4 : 0);
+    }
+    mma::cp_async_commit();
+  };
+  if (n_it > 0) stage(0);
+  split_tile<HDP, kSpRes>(ks, k, kv_bf, kv_off, kv_stride, k_rows, hd,
+                          vec_of(flags, kKAlign, kv_bf));
+  split_tile<HDP, kSpRes>(vs, v, kv_bf, kv_off, kv_stride, k_rows, hd,
+                          vec_of(flags, kVAlign, kv_bf));
+
+  float dka[NHT][4], dva[NHT][4];
+#pragma unroll
+  for (int j = 0; j < NHT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+  const int row_a = k0 + rw + g4;  // this thread's first kv row
+
+  for (int it = 0; it < n_it; ++it) {
+    const int q0 = (t0 + it % per_head) * kSpT;
+    mma::cp_async_wait<0>();
+    __syncthreads();  // tile it staged; every warp is done with it - 1
+    split_stage<HDP, kSpT>(qs, stg_q, q_bf);
+    split_stage<HDP, kSpT>(os, stg_o, q_bf);
+    __syncthreads();  // tile it split (and K, V); the staging is free
+    if (it + 1 < n_it) stage(it + 1);
+    // causal: every column of the warp's half before its first kv row
+    if (causal && k0 + rw > q_offset + q0 + cw + 15) continue;
+    const float* lt = ls + (it & 1) * kSpT;
+    const float* dt = dls + (it & 1) * kSpT;
+    const bool need_mask = k0 + kSpRes > Sk || q0 + kSpT > Sq ||
+                           (causal && k0 + kSpRes - 1 > q_offset + q0);
+
+    // S^T (p[0..1]), then P^T, and dP^T (p[2..3]), then dS^T: 16 kv rows
+    // x 16 query columns each
+    float p[4][4];
+    dot2_ab<HDP>(p, ks, vs, pr, nk, rw, qs, os, pt, nq, cw, lane);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int cl = cw + j * 8 + 2 * q4 + (e & 1);  // column in the tile
+        float x = expf(p[j][e] * scale - lt[cl]);
+        if (need_mask) {
+          const int c = q0 + cl, r = row_a + (e >> 1) * 8;
+          if (r >= Sk || c >= Sq || (causal && r > q_offset + c)) x = 0.f;
+        }
+        p[j][e] = x;
+        p[2 + j][e] = x * (p[2 + j][e] - dt[cl]);
+      }
+    uint32_t xa[1][1][3][4];
+    split_a(p[0], p[1], xa[0][0]);
+    acc_xm<HDP, 1>(dva, xa, os, pt, nq, cw, lane);  // dV += P^T dO
+    split_a(p[2], p[3], xa[0][0]);
+    acc_xm<HDP, 1>(dka, xa, qs, pt, nq, cw, lane);  // dK += dS^T Q
+  }
+  mma::cp_async_wait<0>();
+
+  float* scratch = reinterpret_cast<float*>(sp_smem4);
+  __syncthreads();  // every tile read is done
+  if (warp & 1) {
+    pair_put<HDP>(scratch, warp - 1, dka, lane);
+    pair_put<HDP>(scratch, warp, dva, lane);
+  }
+  __syncthreads();
+  if (!(warp & 1)) {
+    pair_add<HDP>(scratch, warp, dka, lane);
+    pair_add<HDP>(scratch, warp + 1, dva, lane);
+    store_acc<HDP>(dk, kv_bf, kv_off, kv_stride, rw, k_rows, hd, scale, dka,
+                   lane);
+    store_acc<HDP>(dv, kv_bf, kv_off, kv_stride, rw, k_rows, hd, 1.f, dva,
+                   lane);
+  }
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(kSpThreads, 1)
+flash_bwd_dq_split_kernel(const void* __restrict__ q,
+                          const void* __restrict__ k,
+                          const void* __restrict__ v,
+                          const void* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          void* __restrict__ dq, int Sq, int Sk, int H, int KV,
+                          int hd, int causal, int q_offset, float scale,
+                          int flags) {
+  constexpr int NHT = HDP / 8;
+  const bool q_bf = flags & kQBf16, kv_bf = flags & kKvBf16;
+  const int nq = q_bf ? 1 : 3, nk = kv_bf ? 1 : 3;
+  const size_t pr = (size_t)kSpRes * (HDP + 8), pt = (size_t)kSpT * (HDP + 8);
+  extern __shared__ float4 sp_smem4[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(sp_smem4);
+  __nv_bfloat16* os = qs + nq * pr;
+  __nv_bfloat16* ks = os + nq * pr;  // the kv tile's planes
+  __nv_bfloat16* vs = ks + nk * pt;
+  char* stg_k = reinterpret_cast<char*>(vs + nk * pt);  // [32][HDP] raw
+  char* stg_v = stg_k + kSpT * HDP * (kv_bf ? 2 : 4);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g4 = lane >> 2, q4 = lane & 3;
+  const int rw = (warp >> 1) * 16, cw = (warp & 1) * 16;  // q rows, kv cols
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H, kh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kSpRes;  // heavy first
+  const int q_rows = min(kSpRes, Sq - q0);
+  const size_t kv_stride = (size_t)KV * hd, q_stride = (size_t)H * hd;
+  const size_t q_off = (((size_t)b * Sq + q0) * H + h) * hd;
+  const size_t kv_base = (size_t)b * Sk * kv_stride + (size_t)kh * hd;
+  auto stage = [&](int t) {
+    const size_t off = kv_base + (size_t)t * kSpT * kv_stride;
+    stage_tile<HDP, kSpT>(stg_k, k, kv_bf, off, kv_stride, Sk - t * kSpT,
+                          hd, align_of(flags, kKAlign));
+    stage_tile<HDP, kSpT>(stg_v, v, kv_bf, off, kv_stride, Sk - t * kSpT,
+                          hd, align_of(flags, kVAlign));
+    mma::cp_async_commit();
+  };
+  stage(0);
+  split_tile<HDP, kSpRes>(qs, q, q_bf, q_off, q_stride, q_rows, hd,
+                          vec_of(flags, kQAlign, q_bf));
+  split_tile<HDP, kSpRes>(os, dout, q_bf, q_off, q_stride, q_rows, hd,
+                          vec_of(flags, kOAlign, q_bf));
+  int n_tiles = (Sk + kSpT - 1) / kSpT;
+  if (causal)
+    n_tiles = min(n_tiles, (q_offset + q0 + q_rows - 1) / kSpT + 1);
+
+  // lse and D of this thread's rows g4 and g4 + 8 (0 past Sq)
+  float l_r[2], d_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = rw + g4 + r * 8;
+    const bool ok = row < q_rows;
+    l_r[r] = ok ? lse[(size_t)bh * Sq + q0 + row] : 0.f;
+    d_r[r] = ok ? delta[(size_t)bh * Sq + q0 + row] : 0.f;
+  }
+  float dqa[NHT][4];
+#pragma unroll
+  for (int j = 0; j < NHT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[j][e] = 0.f;
+  const int row_a = q_offset + q0 + rw + g4;  // absolute position
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kSpT;
+    mma::cp_async_wait<0>();
+    __syncthreads();  // tile t staged; every warp is done with tile t - 1
+    split_stage<HDP, kSpT>(ks, stg_k, kv_bf);
+    split_stage<HDP, kSpT>(vs, stg_v, kv_bf);
+    __syncthreads();  // tile t (and Q, dO) split; the staging is free
+    if (t + 1 < n_tiles) stage(t + 1);
+    // causal: every column of the warp's half past its last row
+    if (causal && k0 + cw > row_a - g4 + 15) continue;
+    const bool need_mask =
+        k0 + kSpT > Sk || (causal && k0 + kSpT - 1 > q_offset + q0);
+
+    // S (p[0..1]), then P, and dP (p[2..3]), then dS: 16 query rows x 16
+    // kv columns each
+    float p[4][4];
+    dot2_ab<HDP>(p, qs, os, pr, nq, rw, ks, vs, pt, nk, cw, lane);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = expf(p[j][e] * scale - l_r[e >> 1]);
+        if (need_mask) {
+          const int col = k0 + cw + j * 8 + 2 * q4 + (e & 1);
+          if (col >= Sk || (causal && col > row_a + (e >> 1) * 8)) x = 0.f;
+        }
+        p[2 + j][e] = x * (p[2 + j][e] - d_r[e >> 1]);
+      }
+    uint32_t xa[1][1][3][4];
+    split_a(p[2], p[3], xa[0][0]);
+    acc_xm<HDP, 1>(dqa, xa, ks, pt, nk, cw, lane);  // dQ += dS K
+  }
+
+  float* scratch = reinterpret_cast<float*>(sp_smem4);
+  __syncthreads();  // every tile read is done
+  if (warp & 1) pair_put<HDP>(scratch, warp >> 1, dqa, lane);
+  __syncthreads();
+  if (!(warp & 1)) {
+    pair_add<HDP>(scratch, warp >> 1, dqa, lane);
+    store_acc<HDP>(dq, q_bf, q_off, q_stride, rw, q_rows, hd, scale, dqa,
+                   lane);
+  }
+}
+
+// the head dim the split kernels are built for: hd rounded up to 64, 96,
+// 112 or 128 (the zoo's head dims; smaller ones pad to 64)
+int split_hdp(int hd) {
+  return hd <= 64 ? 64 : hd <= 96 ? 96 : hd <= 112 ? 112 : 128;
+}
+
+// the flags of a split launch (dout may be null)
+int split_flags(const void* q, int q_bf16, const void* k, const void* v,
+                int kv_bf16, const void* dout, int hd) {
+  // the largest copy that every row of the tensor allows: base address
+  // and head-dim offsets both on it
+  auto align = [hd](const void* p, int bf16, int shift) {
+    const int row_bytes = hd * (bf16 ? 2 : 4);
+    int a = 16;
+    while (a > 2 && ((uintptr_t)p % a != 0 || row_bytes % a != 0)) a >>= 1;
+    int code = 0;
+    while ((2 << code) < a) ++code;
+    return code << shift;
+  };
+  int f = (q_bf16 ? kQBf16 : 0) | (kv_bf16 ? kKvBf16 : 0) |
+          align(q, q_bf16, kQAlign) | align(k, kv_bf16, kKAlign) |
+          align(v, kv_bf16, kVAlign);
+  if (dout != nullptr) f |= align(dout, q_bf16, kOAlign);
+  return f;
+}
+
+template <int HDP>
+int launch_split_hd(const void* q, int q_bf16, const void* k, const void* v,
+                    int kv_bf16, void* out, float* lse, int B, int Sq, int Sk,
+                    int H, int KV, int hd, int causal, int q_offset,
+                    cudaStream_t stream) {
+  auto kern = flash_split_kernel<HDP>;
+  const int nq = q_bf16 ? 1 : 3, nk = kv_bf16 ? 1 : 3;
+  const size_t smem =
+      (size_t)(nq * kSpBQ + 2 * nk * kSpT) * (HDP + 8) *
+          sizeof(__nv_bfloat16) +
+      (size_t)2 * kSpT * HDP * (kv_bf16 ? 2 : 4);
+  static int granted[64];
+  cudaError_t e = mma::allow_smem(kern, smem, granted);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(B * H, (Sq + kSpBQ - 1) / kSpBQ);
+  kern<<<grid, kSpThreads, smem, stream>>>(
+      q, k, v, out, lse, Sq, Sk, H, KV, hd, causal, q_offset,
+      1.0f / sqrtf((float)hd),
+      split_flags(q, q_bf16, k, v, kv_bf16, nullptr, hd));
+  return (int)cudaGetLastError();
+}
+
+int launch_split(const void* q, int q_bf16, const void* k, const void* v,
+                 int kv_bf16, void* out, float* lse, int B, int Sq, int Sk,
+                 int H, int KV, int hd, int causal, int q_offset,
+                 cudaStream_t s) {
+  switch (split_hdp(hd)) {
+#define FLASH_SPLIT_HD(n)                                                \
+  case n:                                                                \
+    return launch_split_hd<n>(q, q_bf16, k, v, kv_bf16, out, lse, B, Sq, \
+                              Sk, H, KV, hd, causal, q_offset, s);
+    FLASH_SPLIT_HD(64) FLASH_SPLIT_HD(96) FLASH_SPLIT_HD(112)
+    FLASH_SPLIT_HD(128)
+#undef FLASH_SPLIT_HD
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int HDP>
+int launch_bwd_split_hd(const void* q, int q_bf16, const void* k,
+                        const void* v, int kv_bf16, const void* out,
+                        const void* dout, const float* lse, float* delta,
+                        void* dq, void* dk, void* dv, int B, int Sq, int Sk,
+                        int H, int KV, int hd, int causal, int q_offset,
+                        cudaStream_t stream) {
+  const float scale = 1.0f / sqrtf((float)hd);
+  cudaError_t e =
+      q_bf16 ? launch_delta<__nv_bfloat16>(out, dout, delta, B, Sq, H, hd,
+                                           stream)
+             : launch_delta<float>(out, dout, delta, B, Sq, H, hd, stream);
+  if (e != cudaSuccess) return (int)e;
+  const int nq = q_bf16 ? 1 : 3, nk = kv_bf16 ? 1 : 3;
+  const int flags = split_flags(q, q_bf16, k, v, kv_bf16, dout, hd);
+  const size_t LDB = (HDP + 8) * sizeof(__nv_bfloat16);
+  const size_t slot = (size_t)(HDP / 8) * 4 * 32 * sizeof(float);
+
+  auto dkdv = flash_bwd_dkdv_split_kernel<HDP>;
+  const size_t smem_kv = std::max(
+      (size_t)(2 * nk * kSpRes + 2 * nq * kSpT) * LDB +
+          4 * kSpT * sizeof(float) + (size_t)2 * kSpT * HDP * (q_bf16 ? 2 : 4),
+      8 * slot);
+  static int granted_kv[64];
+  e = mma::allow_smem(dkdv, smem_kv, granted_kv);
+  if (e != cudaSuccess) return (int)e;
+  dkdv<<<dim3(B * KV, (Sk + kSpRes - 1) / kSpRes), kSpThreads, smem_kv,
+         stream>>>(q, k, v, dout, lse, delta, dk, dv, Sq, Sk, H, KV, hd,
+                   causal, q_offset, scale, flags);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  auto dqk = flash_bwd_dq_split_kernel<HDP>;
+  const size_t smem_q = std::max(
+      (size_t)(2 * nq * kSpRes + 2 * nk * kSpT) * LDB +
+          (size_t)2 * kSpT * HDP * (kv_bf16 ? 2 : 4),
+      4 * slot);
+  static int granted_q[64];
+  e = mma::allow_smem(dqk, smem_q, granted_q);
+  if (e != cudaSuccess) return (int)e;
+  dqk<<<dim3(B * H, (Sq + kSpRes - 1) / kSpRes), kSpThreads, smem_q,
+        stream>>>(q, k, v, dout, lse, delta, dq, Sq, Sk, H, KV, hd, causal,
+                  q_offset, scale, flags);
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd_split(const void* q, int q_bf16, const void* k, const void* v,
+                     int kv_bf16, const void* out, const void* dout,
+                     const float* lse, float* delta, void* dq, void* dk,
+                     void* dv, int B, int Sq, int Sk, int H, int KV, int hd,
+                     int causal, int q_offset, cudaStream_t s) {
+  switch (split_hdp(hd)) {
+#define FLASH_BWD_SPLIT_HD(n)                                               \
+  case n:                                                                   \
+    return launch_bwd_split_hd<n>(q, q_bf16, k, v, kv_bf16, out, dout, lse, \
+                                  delta, dq, dk, dv, B, Sq, Sk, H, KV, hd,  \
+                                  causal, q_offset, s);
+    FLASH_BWD_SPLIT_HD(64) FLASH_BWD_SPLIT_HD(96) FLASH_BWD_SPLIT_HD(112)
+    FLASH_BWD_SPLIT_HD(128)
+#undef FLASH_BWD_SPLIT_HD
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 bool bad_shape(int B, int Sq, int Sk, int H, int KV, int hd, int q_offset) {
   return B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0 || hd < 4 ||
          hd > kHdMax || hd % 4 != 0 || q_offset < 0 ||
-         (Sq + kBQ - 1) / kBQ > 65535 || (Sk + kBK - 1) / kBK > 65535;
+         (Sq + kSpT - 1) / kSpT > 65535 || (Sk + kSpT - 1) / kSpT > 65535;
 }
 
 }  // namespace
@@ -1378,18 +1843,8 @@ extern "C" int flash_attention_launch(const void* q, int q_is_bf16,
     return launch_tc(q, k, v, out, lse, B, Sq, Sk, H, KV, hd, causal,
                      q_offset, s);
   }
-  if (q_is_bf16 && kv_is_bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, out, lse, B, Sq, Sk,
-                                                H, KV, hd, causal, q_offset,
-                                                s);
-  if (q_is_bf16)
-    return launch<__nv_bfloat16, float>(q, k, v, out, lse, B, Sq, Sk, H, KV,
-                                        hd, causal, q_offset, s);
-  if (kv_is_bf16)
-    return launch<float, __nv_bfloat16>(q, k, v, out, lse, B, Sq, Sk, H, KV,
-                                        hd, causal, q_offset, s);
-  return launch<float, float>(q, k, v, out, lse, B, Sq, Sk, H, KV, hd,
-                              causal, q_offset, s);
+  return launch_split(q, q_is_bf16, k, v, kv_is_bf16, out, lse, B, Sq, Sk,
+                      H, KV, hd, causal, q_offset, s);
 }
 
 // The backward: q, out, dout and dq in q's type; k, v, dk and dv in k's;
@@ -1412,18 +1867,7 @@ extern "C" int flash_attention_bwd_launch(
     return launch_bwd_tc(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq,
                          Sk, H, KV, hd, causal, q_offset, s);
   }
-  if (q_is_bf16 && kv_is_bf16)
-    return launch_bwd<__nv_bfloat16, __nv_bfloat16>(
-        q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, hd,
-        causal, q_offset, s);
-  if (q_is_bf16)
-    return launch_bwd<__nv_bfloat16, float>(q, k, v, out, dout, lse, delta,
-                                            dq, dk, dv, B, Sq, Sk, H, KV, hd,
-                                            causal, q_offset, s);
-  if (kv_is_bf16)
-    return launch_bwd<float, __nv_bfloat16>(q, k, v, out, dout, lse, delta,
-                                            dq, dk, dv, B, Sq, Sk, H, KV, hd,
-                                            causal, q_offset, s);
-  return launch_bwd<float, float>(q, k, v, out, dout, lse, delta, dq, dk, dv,
-                                  B, Sq, Sk, H, KV, hd, causal, q_offset, s);
+  return launch_bwd_split(q, q_is_bf16, k, v, kv_is_bf16, out, dout, lse,
+                          delta, dq, dk, dv, B, Sq, Sk, H, KV, hd, causal,
+                          q_offset, s);
 }

@@ -8,8 +8,11 @@ version ``flash_attention_plain``. The kernel has two variants, picked by
 ``select_impl`` from the dtypes and the head dim (never by a failure):
 ``tc`` (q, k and v bf16, head_dim a multiple of 16 up to 128, 16-byte
 aligned: both products on bf16 tensor cores, p split exactly into three
-bf16 terms) and ``fp32`` (everything else: both products on the FP32 CUDA
-cores). ``flash_attention.launches`` counts kernel launches and
+bf16 terms) and ``fp32`` (everything else: f32 or mixed dtypes, other head
+dims, any alignment; both products on the same tensor cores with every f32
+operand split exactly into three bf16 terms, so each product issues the
+bf16 products that keep f32's accuracy: six for f32 x f32, three with a
+bf16 side). ``flash_attention.launches`` counts kernel launches and
 ``flash_attention.launches_by_impl`` the same by variant; CPU tensors
 touch neither. Fake tensors (the dry run, ``launch/dryrun``) launch nothing: the
 variant is chosen as on the card, the kernel's outputs and scratch are
@@ -34,7 +37,8 @@ once under the variant in ``flash_attention_bwd.launches_by_impl``). Its
 variants follow the forward's rule (``select_bwd_impl``; dout 16-byte
 aligned as well): ``tc`` runs every product on bf16 tensor cores
 with f32 sums, p and dS split into two bf16 terms; ``fp32`` (f32 or mixed
-dtypes, other head dims) runs on the FP32 CUDA cores. On CPU tensors the
+dtypes, other head dims, any alignment) runs every product on the tensor
+cores through the forward's exact three-term split. On CPU tensors the
 same Function runs ``flash_attention_plain`` and
 ``flash_attention_bwd_plain``. The reference has no backward kernel: it
 differentiates its XLA scan, and the backward is held against ``jax.grad``
@@ -76,6 +80,12 @@ def select_bwd_impl(q, k, v, dout) -> str:
     if select_impl(q, k, v) == "tc" and work.aligned(dout, 16):
         return "tc"
     return "fp32"
+
+
+def _rate(q, k) -> str:
+    """The rate of the products on q's and k's dtypes (``obs/work``)."""
+    return work.flash_rate(q.dtype == torch.bfloat16,
+                           k.dtype == torch.bfloat16)
 
 
 def _scale(hd: int) -> float:
@@ -243,7 +253,7 @@ def _launch_forward(q, k, v, causal: bool, q_offset: int, lse=None):
     if fake or work.active() is not None:
         work.kernel("flash_attention", impl, work.flash_attention_work(
             B, Sq, Sk, H, KV, hd, q_offset, causal, q.element_size(),
-            q.dtype == k.dtype == torch.bfloat16, lse is not None))
+            _rate(q, k), lse is not None))
     if fake:  # the dry run: the kernel's outputs, nothing run
         return out
     fn = build.load("flash_attention").flash_attention_launch
@@ -288,8 +298,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool,
         work.kernel("flash_attention_bwd", impl,
                     work.flash_attention_bwd_work(
                         B, Sq, Sk, H, KV, hd, q_offset, causal,
-                        q.element_size(), k.element_size(),
-                        q.dtype == k.dtype == torch.bfloat16))
+                        q.element_size(), k.element_size(), _rate(q, k)))
     if fake:  # the dry run: the kernel's outputs, nothing run
         return dq, dk, dv
     fn = build.load("flash_attention").flash_attention_bwd_launch

@@ -20,7 +20,11 @@ by ``chip_smoke.py`` too): each input read once and each output written
 once, and the operations the function needs on these inputs, at the
 rate of the units that can do them exactly (``RATE_BF16_TC``: bf16
 products with an f32 sum on the tensor cores; ``RATE_FP32``: the FP32
-CUDA cores).
+CUDA cores; ``RATE_SPLIT6`` / ``RATE_SPLIT3``: f32 operands on the
+tensor cores through the exact bf16 split, which issues six bf16
+products for a product of two f32 operands and three for one with a
+bf16 side, so the bf16 peak over six or three). ``FLOP_PER_S`` gives
+each rate on the H100 (data sheet, dense).
 """
 from __future__ import annotations
 
@@ -30,6 +34,9 @@ import dataclasses
 from torch._subclasses.fake_tensor import FakeTensor
 
 RATE_BF16_TC, RATE_FP32 = "bf16_tc", "fp32"
+RATE_SPLIT6, RATE_SPLIT3 = "bf16_tc/6", "bf16_tc/3"
+FLOP_PER_S = {RATE_BF16_TC: 989e12, RATE_SPLIT6: 989e12 / 6,
+              RATE_SPLIT3: 989e12 / 3, RATE_FP32: 67e12}
 
 
 def is_fake(t) -> bool:
@@ -200,31 +207,38 @@ def flash_pairs(Sq: int, Sk: int, q_offset: int, causal: bool) -> int:
     return n1 * (q_offset + 1) + n1 * (n1 - 1) // 2 + (Sq - n1) * Sk
 
 
+def flash_rate(q_bf16: bool, kv_bf16: bool) -> str:
+    """The rate of the flash pair's products on these dtypes: bf16 q and
+    k/v at the tensor-core peak; an f32 side through the exact split, six
+    bf16 products a product when both sides are f32, three when one is
+    bf16 (the scores' and P's f32 stay inside the kernel, as for bf16)."""
+    if q_bf16 and kv_bf16:
+        return RATE_BF16_TC
+    return RATE_SPLIT3 if q_bf16 or kv_bf16 else RATE_SPLIT6
+
+
 def flash_attention_work(B: int, Sq: int, Sk: int, H: int, KV: int,
                          hd: int, q_offset: int, causal: bool,
-                         itemsize: int, bf16: bool,
+                         itemsize: int, rate: str,
                          lse: bool = False) -> tuple:
     """Every unmasked pair costs 2 hd of q.k and 2 hd of p.v a head; q, k,
-    v read and out (and the lse) written; bf16 at the tensor-core peak,
-    f32 at the FP32 one."""
+    v read and out (and the lse) written; at ``rate`` (``flash_rate``)."""
     pairs = flash_pairs(Sq, Sk, q_offset, causal)
     nbytes_ = (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd) * itemsize
     if lse:
         nbytes_ += B * H * Sq * 4
-    return (4.0 * hd * pairs * B * H, float(nbytes_),
-            RATE_BF16_TC if bf16 else RATE_FP32)
+    return 4.0 * hd * pairs * B * H, float(nbytes_), rate
 
 
 def flash_attention_bwd_work(B: int, Sq: int, Sk: int, H: int, KV: int,
                              hd: int, q_offset: int, causal: bool,
                              q_itemsize: int, kv_itemsize: int,
-                             bf16: bool) -> tuple:
+                             rate: str) -> tuple:
     """The five products the backward needs (S, dP, dV, dK, dQ: 2.5 times
     the forward's two); q, k, v, out, dout, lse read once and dq, dk, dv
-    written once."""
+    written once; at ``rate`` (``flash_rate``)."""
     pairs = flash_pairs(Sq, Sk, q_offset, causal)
     q_b = B * Sq * H * hd * q_itemsize
     kv_b = B * Sk * KV * hd * kv_itemsize
     nbytes_ = 4 * q_b + 4 * kv_b + B * H * Sq * 4
-    return (2.5 * 4.0 * hd * pairs * B * H, float(nbytes_),
-            RATE_BF16_TC if bf16 else RATE_FP32)
+    return 2.5 * 4.0 * hd * pairs * B * H, float(nbytes_), rate

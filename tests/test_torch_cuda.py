@@ -966,6 +966,65 @@ def test_flash_attention_variant_by_dtype_and_head_dim(dev, q_dt, kv_dt, hd,
         q, k, v, causal=True).float(), rtol=rtol, atol=1e-5)
 
 
+# the fp32 variant: every f32 operand split into three exact bf16 terms on
+# the tensor cores. Each case at the zoo's head dims, a head dim that is
+# not a multiple of 16 (72) and both mixed dtype pairs; held to the f32
+# bars, the same bits twice, and each f32 output's error at most a tenth
+# of the one-term TF32 plain version's (a split that dropped a needed term
+# would sit near it)
+SPLIT_CASES = [
+    pytest.param(hd, q_dt, kv_dt, id=f"hd{hd}-{n}")
+    for hd, q_dt, kv_dt, n in (
+        (64, torch.float32, torch.float32, "f32"),
+        (96, torch.float32, torch.float32, "f32"),
+        (112, torch.float32, torch.float32, "f32"),
+        (128, torch.float32, torch.float32, "f32"),
+        (72, torch.float32, torch.float32, "f32"),
+        (128, torch.float32, torch.bfloat16, "q_f32-kv_bf16"),
+        (128, torch.bfloat16, torch.float32, "q_bf16-kv_f32"),
+        (72, torch.float32, torch.bfloat16, "q_f32-kv_bf16"),
+        (72, torch.bfloat16, torch.float32, "q_bf16-kv_f32"))]
+
+
+def _one_term_tf32(fn):
+    """``fn()`` with float32 matmuls in TF32 (one term of each operand),
+    the flag restored after."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("hd,q_dt,kv_dt", SPLIT_CASES)
+def test_flash_attention_fp32_split(dev, hd, q_dt, kv_dt):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(hd + 5)
+    q = torch.randn((2, 384, 4, hd), generator=g, device=dev).to(q_dt)
+    k = torch.randn((2, 384, 2, hd), generator=g, device=dev).to(kv_dt)
+    v = torch.randn((2, 384, 2, hd), generator=g, device=dev).to(kv_dt)
+    before = dict(flash_attention.launches_by_impl)
+    got = flash_attention(q, k, v, causal=True)
+    again = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert {n: c - before.get(n, 0) for n, c in
+            flash_attention.launches_by_impl.items()
+            if c != before.get(n, 0)} == {"fp32": 2}
+    assert torch.equal(got, again)
+    want = flash_attention_plain(q, k, v, causal=True)
+    rtol = 1e-5 if q_dt == torch.float32 else 2.0**-7
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-5)
+    if got.dtype == torch.float32:
+        one_term = _one_term_tf32(lambda: flash_attention_plain(
+            q, k, v, causal=True))
+        err = float((got - want).abs().max())
+        assert err <= 0.1 * float((one_term - want).abs().max()), err
+
+
 def test_flash_attention_rejects_what_the_kernel_does_not_take(dev):
     from repro_torch.kernels.flash_attention import flash_attention
 
@@ -1475,6 +1534,33 @@ def test_flash_bwd_forward_lse_keeps_out_bits(dev, dt, hd, impl):
     assert torch.equal(with_lse, without)
     _, want = flash_attention_plain(q, k, v, causal=True, with_lse=True)
     torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hd,q_dt,kv_dt", SPLIT_CASES)
+def test_flash_bwd_fp32_split(dev, hd, q_dt, kv_dt):
+    """The fp32 backward on the split: the f32 bars (bf16 outputs one bf16
+    rounding), the same bits twice, each f32 gradient's error at most a
+    tenth of the one-term TF32 plain version's."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+
+    q, k, v, out, dout, lse = _flash_bwd_inputs(
+        dev, 2, 320, 320, 4, 2, hd, True, 0, q_dt, kv_dt)
+    by_impl = dict(flash_attention_bwd.launches_by_impl)
+    got = flash_attention_bwd(q, k, v, out, dout, lse, causal=True)
+    again = flash_attention_bwd(q, k, v, out, dout, lse, causal=True)
+    torch.cuda.synchronize()
+    assert _bwd_impl_delta(by_impl) == {"fp32": 2}
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    args = (q.float(), k.float(), v.float(), out.float(), dout.float(), lse)
+    want = flash_attention_bwd_plain(*args, causal=True)
+    one_term = _one_term_tf32(lambda: flash_attention_bwd_plain(
+        *args, causal=True))
+    for g_, w, t in zip(got, want, one_term):
+        _within_bwd_bars(g_, w)
+        if g_.dtype == torch.float32:
+            err = float((g_ - w).abs().max())
+            assert err <= 0.1 * float((t - w).abs().max()), err
 
 
 def test_flash_bwd_function_gradients_f32(dev):
