@@ -17,6 +17,7 @@ from repro_torch.obs.events import (
     EVENT_FIELDS,
     EventLog,
     RequestRecord,
+    TickRecord,
     read_jsonl,
     validate_event,
 )
@@ -44,6 +45,7 @@ __all__ = [
     "RequestRecord",
     "SpanTimer",
     "Telemetry",
+    "TickRecord",
     "read_jsonl",
     "register_dispatch",
     "reset_dispatch_counters",

@@ -154,3 +154,18 @@ class RequestRecord:
         d["ttft_s"] = self.ttft_s
         d["itl_mean_s"] = self.itl_mean_s
         return d
+
+
+@dataclasses.dataclass
+class TickRecord:
+    """One serving-engine tick (``Engine.step``): ``t`` the host
+    ``perf_counter`` at its end, ``wall_s`` its wall time, ``chunks`` its
+    prefill chunk forwards, ``device_s`` the device seconds of its
+    device-clocked spans by path, added as ``SpanTimer.collect`` reads
+    them, and ``pending`` those not read yet."""
+
+    t: float = 0.0
+    wall_s: float = 0.0
+    chunks: int = 0
+    device_s: dict = dataclasses.field(default_factory=dict)
+    pending: int = 0

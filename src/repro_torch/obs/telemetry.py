@@ -20,25 +20,37 @@ Preemption is recompute-style (discard + replay), so a preempt resets
 the victim's token count and first-token time; the invariant
 ``sum(record.tokens) == engine token counter`` holds at every tick and
 is fuzz-tested.
+
+Ticks
+-----
+``on_tick`` keeps the engine's record of each tick (``TickRecord``) in
+``RECENT_TICKS``, the process's most recent ticks, which outlive the
+engine: a reader picks the ticks of a time window on the host's
+``perf_counter`` clock (the benchmark's window, say) and reads their wall
+and device times as they were, once their device spans have been read.
 """
 from __future__ import annotations
 
+import collections
 import json
 
 from repro_torch.obs.dispatch import snapshot_dispatch_counters
-from repro_torch.obs.events import EventLog, RequestRecord
+from repro_torch.obs.events import EventLog, RequestRecord, TickRecord
 from repro_torch.obs.metrics import LATENCY_BUCKETS_S, MetricsRegistry
 from repro_torch.obs.spans import SpanTimer
+
+# the process's most recent engine ticks, oldest first: 32,768 of them
+# cover a 50 s window down to 1.5 ms ticks
+RECENT_TICKS: collections.deque = collections.deque(maxlen=1 << 15)
 
 
 class Telemetry:
     def __init__(self, *, enabled: bool = True,
                  events_out: str | None = None,
-                 trace_dir: str | None = None,
-                 step_ref=None):
+                 trace_dir: str | None = None):
         self.enabled = enabled
         self.registry = MetricsRegistry(enabled=enabled)
-        self.spans = SpanTimer(self.registry, step_ref=step_ref)
+        self.spans = SpanTimer(self.registry)
         self.events = EventLog(events_out, enabled=enabled)
         self.trace_dir = trace_dir
         self.records: dict[int, RequestRecord] = {}
@@ -82,9 +94,6 @@ class Telemetry:
         rec.finish_reason = "rejected"
         self._finished.append(rec)
         self.registry.counter("serve.requests_rejected").inc()
-        # short alias kept alongside the legacy name: dashboards/CI key on
-        # serve.rejected; serve.requests_rejected predates it
-        self.registry.counter("serve.rejected").inc()
         self.events.emit("reject", rid=rid, error=error)
 
     def on_prefix_hit(self, rid: int, pages: int, tokens: int):
@@ -153,6 +162,12 @@ class Telemetry:
             "finish", rid=rid, tokens=rec.tokens, reason=reason,
             ttft_s=rec.ttft_s, itl_mean_s=rec.itl_mean_s,
             preemptions=rec.preemptions)
+
+    def on_tick(self, rec: TickRecord):
+        """A tick ended: keep its record in ``RECENT_TICKS`` (its device
+        spans may still be pending)."""
+        if self.enabled:
+            RECENT_TICKS.append(rec)
 
     # -- drain / export ------------------------------------------------------
 

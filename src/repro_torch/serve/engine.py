@@ -38,7 +38,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import (
     KVQuantSpec, PagedLayout, check_paged_impl)
 from repro_torch.models.model_zoo import Model
-from repro_torch.obs import COUNT_BUCKETS, Telemetry
+from repro_torch.obs import COUNT_BUCKETS, Telemetry, TickRecord
 from repro_torch.serve import paged_cache as pc
 from repro_torch.serve import sampling
 from repro_torch.serve.scheduler import CapacityError, Scheduler, Sequence
@@ -191,8 +191,6 @@ class Engine:
             device=self.device)
 
         self.telemetry = telemetry if telemetry is not None else Telemetry()
-        if self.telemetry.spans._step_ref is None:
-            self.telemetry.spans._step_ref = lambda: self.ticks
         self._spans = self.telemetry.spans
         reg = self.telemetry.registry
         self._m_queue = reg.gauge("serve.queue_depth")
@@ -204,6 +202,7 @@ class Engine:
                                           COUNT_BUCKETS)
         self._m_chunk = reg.histogram("serve.prefill_chunk_tokens",
                                       COUNT_BUCKETS)
+        self._m_tick = reg.histogram("serve.tick_s")
         self._m_dev_hit = reg.counter("serve.dev_cache_hits")
         self._m_dev_miss = reg.counter("serve.dev_cache_misses")
         self._m_shared = reg.gauge("serve.shared_blocks")
@@ -350,23 +349,35 @@ class Engine:
     # -- one tick ----------------------------------------------------------
 
     def step(self):
+        """One tick. Its device-clocked spans (``admit``, ``prefill``,
+        ``prompt_sample``, ``decode_tick/device``) run one after another on
+        the stream, so their ``span_device.*`` times tile the device's part
+        of the tick; ``serve.tick_s`` holds each tick's wall time. A span
+        is read once its end event has completed, by the next decode tick
+        (``SpanTimer.collect``). The tick's record (``TickRecord``, with
+        these spans' device times) goes to ``Telemetry.on_tick``."""
         t0 = time.perf_counter()
-        for seq in self.scheduler.admit_from_queue():
-            self._admit_seq(seq)
+        tick = TickRecord()
+        if self.scheduler.queue:
+            with self._spans.span("admit", device=self.device, into=tick):
+                for seq in self.scheduler.admit_from_queue():
+                    self._admit_seq(seq)
         prefilling = sorted(
             (s for s in self.scheduler.active() if s.phase == "prefill"),
             key=lambda s: s.order)
         done = []
         if prefilling:
             table = self._page_table(("prefill", "decode"))
-            with self._spans.span("prefill"):
+            tick.chunks = len(prefilling)
+            with self._spans.span("prefill", device=self.device, into=tick):
                 for seq in prefilling:
                     last_logits = self._prefill_chunk(seq, table)
                     if last_logits is not None:
                         done.append((seq, last_logits))
         if done:
             # one batched draw for every prompt completed this tick
-            with self._spans.span("prompt_sample"):
+            with self._spans.span("prompt_sample", device=self.device,
+                                  into=tick):
                 temps = torch.tensor([s.req.temperature for s, _ in done],
                                      dtype=torch.float32, device=self.device)
                 toks = sampling.sample(
@@ -376,7 +387,7 @@ class Engine:
                 seq.phase = "decode"
                 self._on_prompt_done(seq)
                 self._emit(seq, int(t))
-        self._decode_tick()
+        self._decode_tick(tick)
         self.ticks += 1
         alloc = self.scheduler.allocator
         used = alloc.used_blocks
@@ -388,7 +399,12 @@ class Engine:
         self._m_shared.set(alloc.shared_blocks)
         if self.prefix_cache is not None:
             self._m_cached.set(self.prefix_cache.cached_blocks)
-        self._wall_s += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        dt = t1 - t0
+        self._wall_s += dt
+        self._m_tick.observe(dt)
+        tick.t, tick.wall_s = t1, dt
+        self.telemetry.on_tick(tick)
 
     def _on_prompt_done(self, seq: Sequence):
         """Prefill completed: register the prompt's full pages in the prefix
@@ -430,7 +446,7 @@ class Engine:
             self.scheduler.finish(seq)
             self.telemetry.on_finish(req.rid, "eos" if eos else "length")
 
-    def _decode_tick(self):
+    def _decode_tick(self, tick: TickRecord):
         decoding = [s for s in self.scheduler.active()
                     if s.phase == "decode"]
         # a block for every decoding slot's write position, preempting
@@ -465,10 +481,15 @@ class Engine:
                         self._dev("table_dec", self._page_table(("decode",))),
                         self._dev("keep", keep), self.gen,
                         self._dev("temps", temps))
-            with self._spans.span("device"):
+            with self._spans.span("device", device=self.device,
+                                  into=tick):
                 # closes after the (B,) token download, the one sync point
                 # of the tick, so this span accounts device time
                 nxt, self.cache = self._decode_fn(*args)
+                # the host would wait for the forward here anyway: read the
+                # device spans that have completed (this tick's and the
+                # last one's) off the tick's critical path
+                self._spans.collect()
                 nxt = nxt.cpu().numpy()
         for s in decoding:
             s.pos += 1
@@ -506,6 +527,7 @@ class Engine:
             while self.scheduler.has_work() and self.ticks < max_ticks:
                 self.step()
         finally:
+            self._spans.collect()
             self.telemetry.stop_trace()
             self.telemetry.events.flush()
         return requests

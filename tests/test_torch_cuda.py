@@ -1718,3 +1718,35 @@ def test_apply_ep_shards_on_the_card_match_plain(dev):
     torch.testing.assert_close(y.cpu(), y_cpu, **tol)
     torch.testing.assert_close(parts[0][0] + parts[1][0], y, **tol)
     torch.testing.assert_close(aux.cpu(), aux_cpu, rtol=1e-5, atol=1e-7)
+
+
+def test_device_span_reads_the_launch_time(dev, monkeypatch):
+    """A device-clocked span (``obs.SpanTimer.span(device=)``) around a
+    known launch reads within 10% of CUDA events placed around the same
+    launch, and the timer never calls ``torch.cuda.synchronize``."""
+    from repro_torch.obs import MetricsRegistry, SpanTimer
+
+    x = torch.randn((4096, 4096), device=dev)
+    for _ in range(3):
+        x @ x
+    torch.cuda.synchronize()
+
+    def no_sync(*a, **k):
+        raise AssertionError("the span timer synchronised the device")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", no_sync)
+    reg = MetricsRegistry()
+    spans = SpanTimer(reg)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    with spans.span("launch", device=dev):
+        a.record()
+        for _ in range(20):
+            x @ x
+        b.record()
+    b.synchronize()
+    spans.collect()
+    assert spans.pending == 0
+    got = reg.snapshot()["span_device.launch"]["sum"]
+    want = a.elapsed_time(b) * 1e-3
+    assert want > 1e-3 and abs(got - want) <= 0.1 * want, (got, want)

@@ -3,8 +3,11 @@ streams pass the reference's own schema validators
 (``validate_metrics_snapshot``, ``read_jsonl``/``validate_event``); the
 instruments behave as the reference's on the same observations; an engine
 run keeps ``sum(record.tokens)`` equal to its token counter, through
-preemption; spans nest, and become profiler ranges under ``--trace-dir``.
+preemption; spans nest, and become profiler ranges under ``--trace-dir``
+or any other profiler; the engine's device-clocked spans, tick histogram
+and tick records add up as the benchmark reads them.
 """
+import collections
 import json
 
 import numpy as np
@@ -23,7 +26,8 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.models import model_zoo
 from repro_torch.obs import (
     EVENT_FIELDS, Histogram, MetricsRegistry, RequestRecord, SpanTimer,
-    Telemetry, dispatch, read_jsonl, validate_metrics_snapshot)
+    Telemetry, TickRecord, dispatch, read_jsonl, validate_metrics_snapshot)
+from repro_torch.obs import telemetry as telemetry_mod
 from repro_torch.serve.engine import Engine, Request
 
 SMOKE_KW = dict(dtype="float32", n_layers=2, d_model=64, vocab_size=256,
@@ -109,7 +113,7 @@ def test_request_record_lifecycle_and_preempt_reset():
 
 def test_spans_nest_and_trace_with_the_profiler(tmp_path):
     reg = MetricsRegistry()
-    spans = SpanTimer(reg, step_ref=lambda: 7)
+    spans = SpanTimer(reg)
     spans.start_trace(str(tmp_path))
     with spans.span("tick"):
         with spans.span("device"):
@@ -121,6 +125,175 @@ def test_spans_nest_and_trace_with_the_profiler(tmp_path):
         with spans.span("a/b"):
             pass
     assert spans.current_path == ""
+
+
+def _serve(model, params, telemetry):
+    """Four requests through a two-slot engine: admissions, multi-chunk
+    prefills, prompt samples and decode ticks all happen."""
+    eng = Engine(model, params, max_batch=2, max_len=64, page_size=4,
+                 prefill_chunk=8, telemetry=telemetry, device="cpu")
+    rng = np.random.RandomState(1)
+    reqs = [Request(rid=i, prompt=rng.randint(0, 255, size=s),
+                    max_new_tokens=5) for i, s in enumerate((19, 6, 11, 3))]
+    eng.run(reqs)
+    return eng
+
+
+def test_engine_device_spans_and_tick_histogram(dense, monkeypatch):
+    """Each device-clocked span is counted once a tick that ran its phase,
+    ``serve.tick_s`` once a tick, its sum the engine's ``wall_s``, and the
+    snapshot passes both validators."""
+    model, params = dense
+    admit_ticks, chunk_ticks, sample_ticks = set(), set(), set()
+    real_step = Engine.step
+    real_chunk, real_done = Engine._prefill_chunk, Engine._on_prompt_done
+
+    def step(self):
+        if self.scheduler.queue:
+            admit_ticks.add(self.ticks)
+        return real_step(self)
+
+    def chunk(self, *a):
+        chunk_ticks.add(self.ticks)
+        return real_chunk(self, *a)
+
+    def prompt_done(self, *a):
+        sample_ticks.add(self.ticks)
+        return real_done(self, *a)
+
+    monkeypatch.setattr(Engine, "step", step)
+    monkeypatch.setattr(Engine, "_prefill_chunk", chunk)
+    monkeypatch.setattr(Engine, "_on_prompt_done", prompt_done)
+    tel = Telemetry()
+    eng = _serve(model, params, tel)
+    snap = json.loads(json.dumps(tel.metrics_snapshot()["metrics"]))
+    validate_metrics_snapshot(snap)
+    j_validate_snapshot(snap)
+    st = eng.stats
+    counts = {k[len("span_device."):]: v["count"] for k, v in snap.items()
+              if k.startswith("span_device.")}
+    assert counts == {"admit": len(admit_ticks), "prefill": len(chunk_ticks),
+                      "prompt_sample": len(sample_ticks),
+                      "decode_tick/device": st["decode_ticks"]}
+    assert len(sample_ticks) == 4 and st["prefill_chunks"] > len(chunk_ticks)
+    assert 0 < len(admit_ticks) < st["ticks"]
+    assert snap["serve.tick_s"]["count"] == eng.ticks
+    assert snap["serve.tick_s"]["sum"] == st["wall_s"]
+    assert tel.spans.pending == 0
+
+
+def test_engine_tick_records_match_the_registry(dense, monkeypatch):
+    """``Telemetry.on_tick`` keeps one record a tick in ``RECENT_TICKS``:
+    their wall times are ``serve.tick_s``'s, their device times each
+    ``span_device.*`` histogram's, their chunks the engine's, in tick
+    order and none pending; a disabled telemetry keeps none."""
+    model, params = dense
+    monkeypatch.setattr(telemetry_mod, "RECENT_TICKS",
+                        collections.deque())
+    tel = Telemetry()
+    eng = _serve(model, params, tel)
+    recs = list(telemetry_mod.RECENT_TICKS)
+    snap = tel.registry.snapshot()
+    assert len(recs) == eng.ticks == snap["serve.tick_s"]["count"]
+    assert sum(r.wall_s for r in recs) == pytest.approx(
+        snap["serve.tick_s"]["sum"], rel=1e-12)
+    assert all(a.t < b.t for a, b in zip(recs, recs[1:]))
+    assert sum(r.chunks for r in recs) == eng.stats["prefill_chunks"]
+    assert not any(r.pending for r in recs)
+    for name, h in snap.items():
+        if name.startswith("span_device."):
+            path = name[len("span_device."):]
+            assert sum(r.device_s.get(path, 0.0) for r in recs) == (
+                pytest.approx(h["sum"], rel=1e-12))
+            assert sum(path in r.device_s for r in recs) == h["count"]
+    assert all(r.wall_s >= sum(r.device_s.values()) for r in recs)
+    telemetry_mod.RECENT_TICKS.clear()
+    _serve(model, params, Telemetry(enabled=False))
+    assert not telemetry_mod.RECENT_TICKS
+
+
+def test_spans_name_ranges_in_an_outside_profiler(dense, tmp_path):
+    """Under a profiler the engine did not start, its spans are
+    ``user_annotation`` ranges named by the span path alone."""
+    model, params = dense
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _serve(model, params, Telemetry())
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    names = {e["name"] for e in json.loads(path.read_text())["traceEvents"]
+             if e.get("cat") == "user_annotation"}
+    assert {"admit", "prefill", "prompt_sample", "decode_tick/host_prep",
+            "decode_tick/device"} <= names
+    assert not any("#" in n for n in names)
+
+
+def test_disabled_telemetry_makes_no_events(dense, monkeypatch):
+    model, params = dense
+
+    def no_event(*a, **k):
+        raise AssertionError("a disabled registry made a CUDA event")
+
+    monkeypatch.setattr(torch.cuda, "Event", no_event)
+    tel = Telemetry(enabled=False)
+    _serve(model, params, tel)
+    assert tel.metrics_snapshot()["metrics"] == {}
+    assert tel.spans.pending == 0
+    with tel.spans.span("tick", device=torch.device("cuda")):
+        pass
+    assert tel.spans.pending == 0 and tel.registry.snapshot() == {}
+
+
+class _FakeEvent:
+    """Stands in for ``torch.cuda.Event``: completes when ``done`` is set;
+    its time is ``clock`` (ms) at ``record``."""
+    clock, made = 0, []
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        self.made.append(self)
+        self.done, self.t = False, None
+
+    def record(self, stream=None):
+        self.done, self.t = False, self.clock
+
+    def query(self):
+        return self.done
+
+    def elapsed_time(self, end):
+        return float(end.t - self.t)
+
+
+def test_device_spans_collect_without_waiting(monkeypatch):
+    """The CUDA path with events that complete when told: a pair whose end
+    has not completed stays pending, a completed one is read in seconds,
+    and its events are reused; nothing synchronises."""
+    def no_sync(*a, **k):
+        raise AssertionError("the span timer synchronised the device")
+
+    monkeypatch.setattr(_FakeEvent, "made", [])
+    monkeypatch.setattr(_FakeEvent, "clock", 0)
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", no_sync)
+    reg = MetricsRegistry()
+    spans = SpanTimer(reg)
+    cuda = torch.device("cuda")
+    rec = TickRecord()
+    with spans.span("tick", device=cuda, into=rec):
+        _FakeEvent.clock += 3
+    spans.collect()
+    assert spans.pending == 1 and "span_device.tick" not in reg.snapshot()
+    assert rec.pending == 1 and rec.device_s == {}
+    for ev in _FakeEvent.made:
+        ev.done = True
+    spans.collect()
+    assert spans.pending == 0 and rec.pending == 0
+    assert reg.snapshot()["span_device.tick"]["sum"] == pytest.approx(3e-3)
+    assert rec.device_s == {"tick": pytest.approx(3e-3)}
+    with spans.span("tick", device=cuda):
+        pass
+    assert len(_FakeEvent.made) == 2 and spans.pending == 1
 
 
 def test_dispatch_registry_is_live_and_resets_in_place():
